@@ -1,0 +1,111 @@
+"""Build the package's CUDA sources into one shared library, at first use.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface, which the kernel wrappers
+load with ``ctypes``.  No PyTorch headers are included, so a build takes
+seconds.  The library goes into ``_build/`` inside the package (listed in
+``.gitignore``), named by a hash of the sources and the compiler flags: a
+changed source builds anew, an unchanged one is loaded as it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_LIB: Optional[ctypes.CDLL] = None
+# Seconds the last build took (0.0 when the library was already built) and
+# what nvcc printed, register and shared-memory use included.
+BUILD_SECONDS = 0.0
+BUILD_LOG = ""
+
+
+def find_nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def sources() -> list[Path]:
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libipe_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library for them exists; return its
+    path.  Raises with nvcc's output if the compiler fails."""
+    global BUILD_SECONDS, BUILD_LOG
+    out = library_path()
+    if out.is_file():
+        BUILD_SECONDS = 0.0
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Compile to a private name and rename, so a concurrent process never
+    # loads a half-written library.
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}")
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the library and declare its C interface."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ipe_window_msa_fwd.argtypes = [p, p, p, i, i, i, i,
+                                           ctypes.c_float, i, p]
+        lib.ipe_window_msa_fwd.restype = i
+        lib.ipe_cuda_error_string.argtypes = [i]
+        lib.ipe_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = lib.ipe_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")

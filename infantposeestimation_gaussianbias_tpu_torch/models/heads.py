@@ -1,0 +1,70 @@
+"""Prediction head on NHWC features: the 3-branch fusion head.
+
+Port of FusionHead in
+infantposeestimation_gaussianbias_tpu/models/heads.py, named as the
+reference's ``HeatmapRegressionHead`` state dict (``shared_layers``,
+``heatmap_branch``, ``offset_branch``, ``variance_branch``,
+``fusion_weight``, ``subpixel_refine.alpha``).
+
+Outputs are float32 and NHWC: heatmaps (B, H, W, K), offsets
+(B, H, W, K, 2), variances (B, H, W, K).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .layers import BatchNorm, Conv2d
+
+
+class _SubpixelRefine(nn.Module):
+    """Holds the learnable sub-pixel blend logit (decode reads it)."""
+
+    def __init__(self):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.tensor(0.5))
+
+
+class FusionHead(nn.Module):
+    """Shared trunk (2 x 3x3 conv-BN-ReLU) + heatmap / offset / variance
+    branches (3x3 conv-BN-ReLU -> 1x1), variance through softplus, plus the
+    two decode logits."""
+
+    def __init__(self, in_channels: int, num_keypoints: int,
+                 hidden_dim: int = 256,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        h, K = hidden_dim, num_keypoints
+        kw = dict(compute_dtype=compute_dtype)
+        self.num_keypoints = K
+        self.shared_layers = nn.Sequential(
+            Conv2d(in_channels, h, 3, **kw), BatchNorm(h), nn.ReLU(),
+            Conv2d(h, h, 3, **kw), BatchNorm(h), nn.ReLU())
+
+        def branch(width: int, out: int) -> nn.Sequential:
+            return nn.Sequential(Conv2d(h, width, 3, **kw), BatchNorm(width),
+                                 nn.ReLU(), Conv2d(width, out, 1, bias=True,
+                                                   **kw))
+
+        self.heatmap_branch = branch(h, K)
+        self.offset_branch = branch(h, 2 * K)
+        self.variance_branch = branch(h // 2, K)
+        self.subpixel_refine = _SubpixelRefine()
+        self.fusion_weight = nn.Parameter(torch.tensor(0.5))
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        f = self.shared_layers(x)
+        heatmaps = self.heatmap_branch(f)
+        offsets = self.offset_branch(f)
+        B, H, W, _ = offsets.shape
+        return {
+            "heatmaps": heatmaps.float(),
+            "offsets": offsets.reshape(B, H, W, self.num_keypoints, 2).float(),
+            "variances": F.softplus(self.variance_branch(f).float()),
+            "fusion_weight_logit": self.fusion_weight,
+            "subpixel_alpha_logit": self.subpixel_refine.alpha,
+        }

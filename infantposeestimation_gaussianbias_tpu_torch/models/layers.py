@@ -1,0 +1,121 @@
+"""Shared building blocks: compute-dtype Linear and Conv2d, inference
+BatchNorm, ConvNorm, Bottleneck and bilinear resize.
+
+Port of infantposeestimation_gaussianbias_tpu/models/layers.py.  Feature
+maps are NHWC, as in the JAX package: a convolution hands PyTorch the
+NCHW view of its NHWC input (``permute``, no copy), so the convolution
+sees a ``channels_last`` tensor and returns one whose NHWC view is
+contiguous again.
+
+Precision is set by explicit casts, not autocast: parameters stay
+float32, and each Linear and Conv2d casts its input, weight and bias to
+the module's ``compute_dtype`` before the product, as a flax
+``nn.Dense(dtype=...)`` does.  BatchNorm folds its statistics in float32
+and applies the affine in the activation dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Linear(nn.Linear):
+    """nn.Linear that computes in ``compute_dtype`` (float32 parameters)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv2d(nn.Conv2d):
+    """NHWC-in, NHWC-out nn.Conv2d computing in ``compute_dtype``, with the
+    symmetric ``kernel_size // 2`` padding of the JAX ConvNorm."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, bias: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=kernel_size // 2, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b,
+                     self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d over the last (channel) axis of an NHWC map.
+
+    Inference folds (weight, bias, running_mean, running_var) into one
+    per-channel (a, b) in float32 and applies ``x * a + b`` in the
+    activation dtype (models/layers.py:124-165 of the JAX package).  eps is
+    1e-5.  Training mode uses torch's batch statistics.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        a = self.weight * torch.rsqrt(self.running_var + self.eps)
+        b = self.bias - self.running_mean * a
+        return x * a.to(x.dtype) + b.to(x.dtype)
+
+
+def conv_norm(in_channels: int, out_channels: int, kernel_size: int = 3,
+              stride: int = 1, relu: bool = True,
+              compute_dtype: torch.dtype = torch.float32) -> nn.Sequential:
+    """Conv (bias-free) -> BatchNorm (-> ReLU), named 0/1(/2) as the
+    reference's ``Sequential`` blocks."""
+    mods = [Conv2d(in_channels, out_channels, kernel_size, stride,
+                   compute_dtype=compute_dtype),
+            BatchNorm(out_channels)]
+    if relu:
+        mods.append(nn.ReLU())
+    return nn.Sequential(*mods)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 (x4) residual block with an optional 1x1
+    ``downsample`` on the skip when the channel count changes."""
+
+    expansion = 4
+
+    def __init__(self, in_channels: int, features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out = features * self.expansion
+        kw = dict(compute_dtype=compute_dtype)
+        self.conv1 = Conv2d(in_channels, features, 1, **kw)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = Conv2d(features, features, 3, **kw)
+        self.bn2 = BatchNorm(features)
+        self.conv3 = Conv2d(features, out, 1, **kw)
+        self.bn3 = BatchNorm(out)
+        self.downsample = (conv_norm(in_channels, out, 1, relu=False, **kw)
+                           if in_channels != out else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.downsample is None else self.downsample(x)
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return F.relu(y + residual)
+
+
+def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Bilinear NHWC resize with half-pixel centres and edge clamp, which is
+    ``F.interpolate(mode="bilinear", align_corners=False)``."""
+    if x.shape[1] == height and x.shape[2] == width:
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(height, width),
+                      mode="bilinear", align_corners=False)
+    return y.permute(0, 2, 3, 1)

@@ -1,0 +1,130 @@
+"""Keypoint decoding for the fusion head, batched on the device.
+
+Port of the fusion-path functions of
+infantposeestimation_gaussianbias_tpu/ops/decode.py.  Heatmaps are
+(B, H, W, K) and all maths runs in float32.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def soft_argmax(heatmaps: torch.Tensor, beta: float = 1.0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax over the H*W grid of beta-scaled logits; coords (B, K, 2)
+    are the expected pixel position, scores (B, K) the raw heatmap max."""
+    B, H, W, K = heatmaps.shape
+    logits = (heatmaps * beta).float().reshape(B, H * W, K)
+    probs = torch.softmax(logits, dim=1).reshape(B, H, W, K)
+    dev = heatmaps.device
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :, None]
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None, None]
+    x = (probs * xs).sum(dim=(1, 2))
+    y = (probs * ys).sum(dim=(1, 2))
+    scores = heatmaps.amax(dim=(1, 2))
+    return torch.stack([x, y], dim=-1), scores
+
+
+def local_gaussian_refine(heatmaps: torch.Tensor, coarse: torch.Tensor,
+                          radius: int = 2) -> torch.Tensor:
+    """Softmax-weighted centroid over the (2r+1)^2 patch around the rounded
+    coarse coordinate; taps outside the map carry zero weight."""
+    B, H, W, K = heatmaps.shape
+    r = radius
+    dev = heatmaps.device
+    # torch.round rounds half to even, as jnp.round does.
+    px = torch.round(coarse[..., 0]).clamp(0, W - 1).long()  # (B, K)
+    py = torch.round(coarse[..., 1]).clamp(0, H - 1).long()
+
+    offs = torch.arange(-r, r + 1, device=dev)
+    win_x = px[..., None] + offs                               # (B, K, w)
+    win_y = py[..., None] + offs
+    valid_x = (win_x >= 0) & (win_x < W)
+    valid_y = (win_y >= 0) & (win_y < H)
+    gx = win_x.clamp(0, W - 1)
+    gy = win_y.clamp(0, H - 1)
+
+    flat = heatmaps.permute(0, 3, 1, 2).reshape(B, K, H * W)
+    lin = gy[..., :, None] * W + gx[..., None, :]              # (B, K, w, w)
+    patches = torch.take_along_dim(flat, lin.reshape(B, K, -1), dim=-1)
+    patches = patches.reshape(B, K, 2 * r + 1, 2 * r + 1)
+
+    valid = valid_y[..., :, None] & valid_x[..., None, :]
+    logits = torch.where(valid, patches.float(),
+                         torch.tensor(float("-inf"), device=dev))
+    w = torch.softmax(logits.reshape(B, K, -1), dim=-1)
+    w = w.reshape(B, K, 2 * r + 1, 2 * r + 1)
+    rx = (w * gx[..., None, :].float()).sum(dim=(-1, -2))
+    ry = (w * gy[..., :, None].float()).sum(dim=(-1, -2))
+    return torch.stack([rx, ry], dim=-1)
+
+
+def subpixel_refine(heatmaps: torch.Tensor, alpha_logit: torch.Tensor,
+                    beta: float = 1.0, radius: int = 2
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Soft-argmax and local Gaussian refinement blended by
+    sigmoid(alpha)."""
+    g_coords, scores = soft_argmax(heatmaps, beta=beta)
+    l_coords = local_gaussian_refine(heatmaps, g_coords, radius=radius)
+    a = torch.sigmoid(alpha_logit)
+    return a * g_coords + (1.0 - a) * l_coords, scores
+
+
+def sample_at_coords(maps: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear point-sample (B, H, W, K, C) per-keypoint maps at (B, K, 2)
+    pixel coordinates, clamped to the map (grid_sample with border padding
+    and align_corners=True).  Returns (B, K, C)."""
+    B, H, W, K, C = maps.shape
+    x = coords[..., 0].clamp(0.0, W - 1.0)
+    y = coords[..., 1].clamp(0.0, H - 1.0)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = x0.long()
+    y0i = y0.long()
+    x1i = (x0i + 1).clamp(0, W - 1)
+    y1i = (y0i + 1).clamp(0, H - 1)
+
+    flat = maps.permute(0, 3, 1, 2, 4).reshape(B, K, H * W, C)
+
+    def tap(yi, xi):
+        lin = (yi * W + xi)[..., None, None].expand(B, K, 1, C)
+        return torch.gather(flat, 2, lin)[:, :, 0, :]
+
+    return (tap(y0i, x0i) * (1 - fx) * (1 - fy) + tap(y0i, x1i) * fx * (1 - fy)
+            + tap(y1i, x0i) * (1 - fx) * fy + tap(y1i, x1i) * fx * fy)
+
+
+def fusion_decode(heatmaps: torch.Tensor, offsets: torch.Tensor,
+                  alpha_logit: torch.Tensor, fusion_weight_logit: torch.Tensor,
+                  beta: float = 1.0, radius: int = 2
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sub-pixel refinement, then coords += sigmoid(fusion_weight) times
+    the offsets sampled at the coords."""
+    coords, scores = subpixel_refine(heatmaps, alpha_logit, beta=beta,
+                                     radius=radius)
+    sampled = sample_at_coords(offsets, coords)
+    return coords + torch.sigmoid(fusion_weight_logit) * sampled, scores
+
+
+def flip_heatmaps(heatmaps: torch.Tensor, flip_index: torch.Tensor,
+                  shift: bool = False) -> torch.Tensor:
+    """Mirror (B, H, W, K) heatmaps horizontally and swap the mirrored
+    keypoint channels; ``shift`` applies the 1 px SHIFT_HEATMAP correction."""
+    out = torch.flip(heatmaps, dims=[2])[..., flip_index]
+    if shift:
+        out = torch.cat([out[:, :, :1, :], out[:, :, :-1, :]], dim=2)
+    return out
+
+
+def transform_preds(coords: torch.Tensor, centers: torch.Tensor,
+                    scales: torch.Tensor, output_size) -> torch.Tensor:
+    """Back-project (B, K, 2) crop-space coords to the source image:
+    coord / output_size * scale + center - scale / 2."""
+    osz = torch.tensor(output_size, dtype=torch.float32, device=coords.device)
+    return (coords / osz * scales[:, None, :] + centers[:, None, :]
+            - scales[:, None, :] / 2.0)
