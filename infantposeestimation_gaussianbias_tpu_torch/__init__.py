@@ -1,18 +1,24 @@
 """PyTorch + CUDA port of the pose estimation framework, for NVIDIA Hopper.
 
-The serving path of HRFormer + fusion head: ``PoseInference.predict_batch``
-crops, runs the flip-tested forward and decodes on one CUDA device, with
-the window attention core in a hand-written CUDA kernel
-(``kernels/window_msa.py``, ``csrc/window_msa.cu``).  On the CPU every
-kernel wrapper takes its plain PyTorch version.
+HRFormer + fusion head, on one CUDA device:
+* serving: ``PoseInference.predict_batch`` crops, runs the flip-tested
+  forward and decodes;
+* training: ``make_train_step(cfg)`` on ``create_train_state(cfg)``
+  generates Gaussian targets, runs the forward, the six-term loss, the
+  backward and the AdamW update.
+The window attention core is a pair of hand-written CUDA kernels
+(``kernels/window_msa.py``: K1 forward in ``csrc/window_msa.cu``, K2
+backward in ``csrc/window_msa_bwd.cu``).  Entry points run on the card
+unless the caller passes ``device="cpu"``; on the CPU every kernel wrapper
+takes its plain PyTorch version.
 
-The package imports torch and numpy, never jax.  It reuses the JAX
-package's framework-neutral ``config`` (dataclasses) and ``schemas``.
+The package imports torch and numpy, never jax, and nothing of the JAX
+package: ``config`` and ``schemas`` are its own copies.
 """
 
-from infantposeestimation_gaussianbias_tpu.config import (Config, get_config,
-                                                          get_variant)
-
+from .config import Config, get_config, get_variant
 from .inference import PoseInference
+from .train import create_train_state, make_train_step
 
-__all__ = ["Config", "PoseInference", "get_config", "get_variant"]
+__all__ = ["Config", "PoseInference", "create_train_state", "get_config",
+           "get_variant", "make_train_step"]

@@ -33,27 +33,19 @@
 // N <= 64 and hd <= 64 are runtime values (hd = 39 for HRFormer-Base is
 // ragged); the Python wrapper rejects anything larger.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math_constants.h>
 
+#include "ipe_common.cuh"
+
 namespace {
+
+using ipe::from_f32;
+using ipe::odd_stride;
+using ipe::to_f32;
 
 constexpr int kThreads = 128;
 constexpr int kMaxN = 64;
 constexpr int kMaxHd = 64;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-// Odd row strides keep a warp's column reads across 32 rows bank-conflict free.
-__host__ __device__ __forceinline__ int odd_stride(int n) { return n | 1; }
 
 __host__ __forceinline__ size_t smem_bytes(int N, int hd) {
   return sizeof(float) * (3 * (size_t)N * odd_stride(hd) + (size_t)N * odd_stride(N) + N);
@@ -111,14 +103,14 @@ window_msa_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
     float* si = s + i * lds;
     float m = -CUDART_INF_F;
     for (int j = lane; j < N; j += 32) m = fmaxf(m, si[j]);
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    m = ipe::warp_max(m);
     float sum = 0.f;
     for (int j = lane; j < N; j += 32) {
       const float e = expf(si[j] - m);
       si[j] = e;
       sum += e;
     }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    sum = ipe::warp_sum(sum);
     if (lane == 0) inv_sum[i] = 1.f / sum;
   }
   __syncthreads();

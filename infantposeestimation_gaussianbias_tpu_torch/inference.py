@@ -14,7 +14,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .models import build_model, flip_inference
+from .models import build_model, flip_inference, resolve_device
 from .ops import affine
 from .ops import decode as decode_ops
 
@@ -26,16 +26,17 @@ def detect_persons(image: np.ndarray) -> list:
 
 
 class PoseInference:
-    """Pose predictor on ``device``.  Weights come from ``state_dict`` (the
-    reference checkpoint's naming) or, when it is None, from the seeded
+    """Pose predictor on ``device`` (the CUDA card unless the caller asks
+    for ``"cpu"``).  Weights come from ``state_dict`` (the reference
+    checkpoint's naming) or, when it is None, from the seeded
     initialisation of ``build_model`` (``cfg.train.seed``)."""
 
     def __init__(self, cfg,
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.cfg = cfg
         self.schema = cfg.data.keypoint_schema
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)

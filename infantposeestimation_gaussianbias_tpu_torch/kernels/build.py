@@ -1,11 +1,13 @@
 """Build the package's CUDA sources into one shared library, at first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into a shared library with a plain C interface, which the kernel wrappers
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+Hopper (``sm_90a``), all started together, and the objects are linked into
+one shared library with a plain C interface, which the kernel wrappers
 load with ``ctypes``.  No PyTorch headers are included, so a build takes
 seconds.  The library goes into ``_build/`` inside the package (listed in
-``.gitignore``), named by a hash of the sources and the compiler flags: a
-changed source builds anew, an unchanged one is loaded as it is.
+``.gitignore``), named by a hash of the sources (``*.cu`` and ``*.cuh``)
+and the compiler flags: a changed source builds anew, an unchanged one is
+loaded as it is.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -58,10 +60,25 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libipe_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; return their output, or raise with
+    it if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return log
 
 
 def build() -> Path:
@@ -73,19 +90,23 @@ def build() -> Path:
         BUILD_SECONDS = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile to a private name and rename, so a concurrent process never
-    # loads a half-written library.
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    # Compile and link under private names and rename, so a concurrent
+    # process never loads a half-written library.
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = find_nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}")
-    os.replace(tmp, out)
+    try:
+        BUILD_LOG = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                          for src, obj in zip(sources(), objs)])
+        BUILD_LOG += _run([[nvcc, "-shared", "-o", str(tmp),
+                            *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        BUILD_SECONDS = time.perf_counter() - t0
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 
@@ -98,6 +119,9 @@ def load() -> ctypes.CDLL:
         lib.ipe_window_msa_fwd.argtypes = [p, p, p, i, i, i, i,
                                            ctypes.c_float, i, p]
         lib.ipe_window_msa_fwd.restype = i
+        lib.ipe_window_msa_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                           ctypes.c_float, i, i, p]
+        lib.ipe_window_msa_bwd.restype = i
         lib.ipe_cuda_error_string.argtypes = [i]
         lib.ipe_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -1,46 +1,81 @@
-"""K1: fused window multi-head self-attention on the flat qkv layout.
+"""K1 and K2: fused window multi-head self-attention on the flat qkv layout.
 
-Port of ``window_attention_pallas_qkv``
-(infantposeestimation_gaussianbias_tpu/ops/pallas/window_msa.py:221-289).
-``window_attention_qkv`` runs the CUDA kernel of ``csrc/window_msa.cu``
-for a tensor on the card and the plain PyTorch version
-``window_attention_qkv_reference`` for a tensor on the CPU; on any other
-device, or for a CUDA tensor the kernel does not take, it raises.
+K1, the forward, ports ``window_attention_pallas_qkv``
+(infantposeestimation_gaussianbias_tpu/ops/pallas/window_msa.py:221-289);
+K2, the backward, ports ``_qkv_vjp_bwd`` of
+``window_attention_pallas_qkv_vjp`` (:399-480).  ``window_attention_qkv``
+and ``window_attention_qkv_bwd`` run the CUDA kernels of
+``csrc/window_msa.cu`` and ``csrc/window_msa_bwd.cu`` for tensors on the
+card and the plain PyTorch versions ``*_reference`` for tensors on the
+CPU; on any other device, or for a CUDA tensor the kernel does not take,
+they raise.  ``window_attention`` joins the two in a
+``torch.autograd.Function``: K1 forward, K2 backward.
 
 Contract, as ops/msa.py ``window_attention`` on the flat layout:
   qkv  (nW, N, 3C), columns [q heads | k heads | v heads], float32 or bf16;
-  bias (num_heads, N, N) float32, or None;
-  returns (nW, N, C) in qkv's dtype, maths in float32.
+  bias (num_heads, N, N) float32 (None only for the forward);
+  out  (nW, N, C) in qkv's dtype; dout likewise;
+  dqkv (nW, N, 3C) in qkv's dtype, dbias (num_heads, N, N) float32;
+  maths in float32.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..ops import msa
 from . import build
 
-# Kernel launches since the last reset; one per launch, nowhere else.
+# Kernel launches since the last reset, K1 and K2; one per launch, nowhere
+# else (K2's launch counts its dbias reduction pass with it).
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 MAX_TOKENS = 64
 MAX_HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# K2 blocks per SM that the windows-per-block choice aims at: a few blocks
+# in flight per SM, and a dbias scratch of that many N x N partials.
+_BWD_BLOCKS_PER_SM = 4
 
 
 def window_attention_qkv_reference(qkv: torch.Tensor,
                                    bias: Optional[torch.Tensor],
                                    num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (the einsum path of ops/msa.py
-    fed from the flat qkv tensor)."""
+    """Plain PyTorch version of K1 (the einsum path of ops/msa.py fed from
+    the flat qkv tensor)."""
+    nW, N, C3 = qkv.shape
+    split = qkv.reshape(nW, N, 3, num_heads, C3 // 3 // num_heads)
+    split = split.permute(2, 0, 3, 1, 4)
+    out = msa.window_attention(split[0], split[1], split[2], bias)
+    return out.permute(0, 2, 1, 3).reshape(nW, N, C3 // 3)
+
+
+def window_attention_qkv_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor,
+                                       dout: torch.Tensor, num_heads: int
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2, the maths of the TPU kernel
+    (``_attn_qkv_bwd_kernel``): recompute P, then dV, dP, dS, dQ, dK and
+    dbias, in float32 (float64 for float64 inputs)."""
     nW, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // num_heads
-    split = qkv.reshape(nW, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    out = msa.window_attention(split[0], split[1], split[2], bias)
-    return out.permute(0, 2, 1, 3).reshape(nW, N, C)
+    acc = torch.promote_types(qkv.dtype, torch.float32)
+    scale = hd ** -0.5
+    split = qkv.to(acc).reshape(nW, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = split[0], split[1], split[2]
+    do = dout.to(acc).reshape(nW, N, num_heads, hd).permute(0, 2, 1, 3)
+    s = scale * (q @ k.transpose(-2, -1)) + bias.to(acc)[None]
+    p = torch.softmax(s, dim=-1)
+    dv = p.transpose(-2, -1) @ do
+    dp = do @ v.transpose(-2, -1)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = scale * (ds @ k)
+    dk = scale * (ds.transpose(-2, -1) @ q)
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(nW, N, C3)
+    return dqkv.to(qkv.dtype), ds.sum(dim=0).to(bias.dtype)
 
 
 def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor],
@@ -68,14 +103,21 @@ def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     return nW, N, hd, _DTYPE_CODES[qkv.dtype]
 
 
-def window_attention_qkv(qkv: torch.Tensor, bias: Optional[torch.Tensor],
-                         num_heads: int) -> torch.Tensor:
-    """Fused W-MSA: (nW, N, 3C) qkv -> (nW, N, C), see the module doc."""
-    global LAUNCHES
+def _kernel_device(qkv: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if qkv.device.type == "cpu":
-        return window_attention_qkv_reference(qkv, bias, num_heads)
+        return False
     if qkv.device.type != "cuda":
         raise RuntimeError(f"no W-MSA kernel for device {qkv.device}")
+    return True
+
+
+def window_attention_qkv(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                         num_heads: int) -> torch.Tensor:
+    """K1, fused W-MSA: (nW, N, 3C) qkv -> (nW, N, C), see the module doc."""
+    global LAUNCHES
+    if not _kernel_device(qkv):
+        return window_attention_qkv_reference(qkv, bias, num_heads)
     nW, N, hd, code = _check(qkv, bias, num_heads)
     out = torch.empty((nW, N, num_heads * hd), dtype=qkv.dtype,
                       device=qkv.device)
@@ -89,3 +131,76 @@ def window_attention_qkv(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     build.check(lib, err, "window_msa_fwd launch")
     LAUNCHES += 1
     return out
+
+
+def bwd_windows_per_block(nW: int, num_heads: int, sm_count: int) -> int:
+    """K2's windows per block: enough that the grid holds about
+    ``_BWD_BLOCKS_PER_SM`` blocks per SM, which also bounds the dbias
+    scratch to that many (N, N) partials."""
+    target = _BWD_BLOCKS_PER_SM * sm_count
+    return max(1, -(-nW * num_heads // target))
+
+
+def window_attention_qkv_bwd(qkv: torch.Tensor, bias: torch.Tensor,
+                             dout: torch.Tensor, num_heads: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2, the W-MSA backward: (qkv, bias, dout) -> (dqkv, dbias), see the
+    module doc."""
+    global BWD_LAUNCHES
+    if not _kernel_device(qkv):
+        return window_attention_qkv_bwd_reference(qkv, bias, dout, num_heads)
+    if bias is None:
+        raise ValueError("the W-MSA backward kernel needs the bias")
+    nW, N, hd, code = _check(qkv, bias, num_heads)
+    C = num_heads * hd
+    if (dout.dtype != qkv.dtype or tuple(dout.shape) != (nW, N, C)
+            or not dout.is_contiguous() or dout.device != qkv.device):
+        raise ValueError(
+            f"dout must be a contiguous {qkv.dtype} ({nW}, {N}, {C}) tensor "
+            f"on {qkv.device}, got {dout.dtype} {tuple(dout.shape)} on "
+            f"{dout.device}")
+    sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
+    wpb = bwd_windows_per_block(nW, num_heads, sms)
+    chunks = -(-nW // wpb)
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty_like(bias)
+    partial = torch.empty((chunks, num_heads, N, N), dtype=torch.float32,
+                          device=qkv.device)
+    lib = build.load()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ipe_window_msa_bwd(
+            qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+            dbias.data_ptr(), partial.data_ptr(), nW, N, num_heads, hd,
+            float(hd ** -0.5), wpb, code, stream)
+    build.check(lib, err, "window_msa_bwd launch")
+    BWD_LAUNCHES += 1
+    return dqkv, dbias
+
+
+class _WindowAttention(torch.autograd.Function):
+    """K1 forward, K2 backward; qkv is kept for the backward, which
+    recomputes the attention probabilities from it."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, bias: torch.Tensor,
+                num_heads: int) -> torch.Tensor:
+        ctx.save_for_backward(qkv, bias)
+        ctx.num_heads = num_heads
+        return window_attention_qkv(qkv, bias, num_heads)
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        qkv, bias = ctx.saved_tensors
+        dqkv, dbias = window_attention_qkv_bwd(qkv, bias, dout.contiguous(),
+                                               ctx.num_heads)
+        return dqkv, dbias, None
+
+
+def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
+                     num_heads: int) -> torch.Tensor:
+    """Differentiable fused W-MSA (K1 forward, K2 backward): the port of
+    ``window_attention_pallas_qkv_vjp``.  bias is required, as there."""
+    if bias is None:
+        raise ValueError("window_attention needs the relative position bias")
+    return _WindowAttention.apply(qkv, bias, num_heads)

@@ -1,0 +1,35 @@
+"""Losses: the six-term fusion loss and the weighted heatmap MSE."""
+
+from typing import Optional
+
+import torch
+
+from .fusion import (distribution_shape_loss, fusion_pose_loss, heatmap_mse,
+                     heatmap_variance, smooth_l1, spatial_overlap_loss,
+                     variance_alignment_loss)
+
+
+def keypoint_mse_loss(pred: torch.Tensor, target: torch.Tensor,
+                      weight: Optional[torch.Tensor] = None,
+                      use_target_weight: bool = True) -> torch.Tensor:
+    """Weight-multiplied mean MSE, mean((pred*w - target*w)^2) over all
+    elements, in float32; pred and target (B, H, W, K), weight (B, K)."""
+    p = pred.float()
+    t = target.float()
+    if use_target_weight and weight is not None:
+        w = weight[:, None, None, :]
+        p = p * w
+        t = t * w
+    return ((p - t) ** 2).mean()
+
+
+__all__ = [
+    "distribution_shape_loss",
+    "fusion_pose_loss",
+    "heatmap_mse",
+    "heatmap_variance",
+    "keypoint_mse_loss",
+    "smooth_l1",
+    "spatial_overlap_loss",
+    "variance_alignment_loss",
+]

@@ -1,32 +1,41 @@
 """HRFormer backbone: multi-resolution transformer on NHWC feature maps.
 
 Port of infantposeestimation_gaussianbias_tpu/models/hrformer.py (the
-unfused path, eval mode).  Module and parameter names follow the
-reference's state dict (``conv1``/``bn1``, ``layer1.{b}``,
-``transition{t}.{i}``, ``stage{s}.{m}.branches.{br}.{blk}.attn.qkv``,
+unfused path).  Module and parameter names follow the reference's state
+dict (``conv1``/``bn1``, ``layer1.{b}``, ``transition{t}.{i}``,
+``stage{s}.{m}.branches.{br}.{blk}.attn.qkv``,
 ``...attn.relative_position_bias_table``, ``stage{s}.{m}.fuse_layers.{i}.{j}``)
 so that a reference checkpoint loads with ``load_state_dict``.
 
-DropPath is the identity at inference and holds no parameters, so the
-serving port leaves it out.
+Training: every block applies DropPath after its attention and its MLP,
+at one rate for the whole backbone, as the JAX package does.  DropPath
+holds no parameters and draws nothing itself: the caller passes the keep
+masks of all blocks as one (num_drop_paths, B) bool tensor
+(train/step.py ``draw_drop_masks``), so that a checkpointed module
+recomputes with the same masks and tests can give both frameworks the
+same ones.  ``remat`` wraps each HRFormerModule in
+``torch.utils.checkpoint``; its recomputation leaves the BatchNorm running
+statistics alone (layers.frozen_batch_stats).
 
 Base:  channels (78, 156, 312, 624), heads (2, 4, 8, 16), window 7,
-       modules per stage (1, 4, 2), 2 blocks per branch.
-Small: channels (32, 64, 128, 256), heads (1, 2, 4, 8).
+       modules per stage (1, 4, 2), 2 blocks per branch, drop-path 0.2.
+Small: channels (32, 64, 128, 256), heads (1, 2, 4, 8), drop-path 0.1.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import contextlib
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..kernels.window_msa import window_attention_qkv
+from ..kernels.window_msa import window_attention
 from ..ops import msa
 from .layers import (BatchNorm, Bottleneck, Conv2d, Linear, conv_norm,
-                     resize_bilinear)
+                     drop_path, frozen_batch_stats, resize_bilinear)
 
 BLOCKS_PER_BRANCH = 2
 MLP_RATIO = 4
@@ -34,8 +43,8 @@ MLP_RATIO = 4
 
 class WindowAttention(nn.Module):
     """W-MSA with relative position bias over (nW, N, C) windows; the
-    attention core is the fused kernel (kernels/window_msa.py), which takes
-    its plain version for CPU tensors."""
+    attention core is the fused kernel pair (kernels/window_msa.py: K1
+    forward, K2 backward), which takes its plain version for CPU tensors."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
                  compute_dtype: torch.dtype = torch.float32):
@@ -58,7 +67,7 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         qkv = self.qkv(x).contiguous()
-        out = window_attention_qkv(qkv, self.rpe_bias(), self.num_heads)
+        out = window_attention(qkv, self.rpe_bias(), self.num_heads)
         return self.proj(out)
 
 
@@ -76,32 +85,40 @@ class Mlp(nn.Module):
 
 
 class HRFormerBlock(nn.Module):
-    """LN -> window MSA -> residual -> LN -> MLP -> residual on an NHWC map.
+    """LN -> window MSA -> DropPath residual -> LN -> MLP -> DropPath
+    residual on an NHWC map.
 
     LayerNorm statistics are float32 with eps 1e-5; the normalised map
     drops to the compute dtype before the window partition, as in the JAX
-    block (hrformer.py:205-227)."""
+    block (hrformer.py:188-227)."""
+
+    DROP_PATHS = 2  # keep masks per block: after attention, after the MLP
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.window_size = window_size
         self.compute_dtype = compute_dtype
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, window_size, num_heads, compute_dtype)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, MLP_RATIO * dim, compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: (2, B) bool DropPath masks, or None for none."""
         B, H, W, C = x.shape
-        ws, dt = self.window_size, self.compute_dtype
+        ws, dt, rate = self.window_size, self.compute_dtype, self.drop_path_rate
         y = self.norm1(x.float()).to(dt)
         wins, (Hp, Wp) = msa.window_partition(y, ws)
         wins = self.attn(wins)
-        x = x + msa.window_reverse(wins.reshape(-1, ws, ws, C), ws, H, W,
-                                   Hp, Wp)
+        y = msa.window_reverse(wins.reshape(-1, ws, ws, C), ws, H, W, Hp, Wp)
+        x = x + drop_path(y, None if keep is None else keep[0], rate)
         y = self.norm2(x.float()).to(dt)
-        return x + self.mlp(y)
+        return x + drop_path(self.mlp(y), None if keep is None else keep[1],
+                             rate)
 
 
 class HRFormerModule(nn.Module):
@@ -113,14 +130,18 @@ class HRFormerModule(nn.Module):
 
     def __init__(self, channels: Sequence[int], heads: Sequence[int],
                  window_size: int = 7,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         n = len(channels)
         kw = dict(compute_dtype=compute_dtype)
         self.branches = nn.ModuleList([
-            nn.Sequential(*[HRFormerBlock(c, h, window_size, **kw)
+            nn.Sequential(*[HRFormerBlock(c, h, window_size,
+                                          drop_path_rate=drop_path_rate, **kw)
                             for _ in range(BLOCKS_PER_BRANCH)])
             for c, h in zip(channels, heads)])
+        self.num_drop_paths = (len(channels) * BLOCKS_PER_BRANCH
+                               * HRFormerBlock.DROP_PATHS)
         self.fuse_layers = nn.ModuleList()
         for i in range(n):
             row = nn.ModuleList()
@@ -139,8 +160,17 @@ class HRFormerModule(nn.Module):
                         for k in range(i - j)]))
             self.fuse_layers.append(row)
 
-    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        ys = [branch(x) for branch, x in zip(self.branches, xs)]
+    def forward(self, xs: List[torch.Tensor],
+                keep: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """``keep``: (num_drop_paths, B) bool DropPath masks, block by
+        block in branch order, or None for none."""
+        ys = []
+        n = HRFormerBlock.DROP_PATHS
+        for i, (branch, x) in enumerate(zip(self.branches, xs)):
+            for b, block in enumerate(branch):
+                k = i * BLOCKS_PER_BRANCH + b
+                x = block(x, None if keep is None else keep[n * k:n * k + n])
+            ys.append(x)
         out = []
         for i, row in enumerate(self.fuse_layers):
             acc = None
@@ -161,9 +191,12 @@ class HRFormer(nn.Module):
                  num_heads: Tuple[int, ...] = (2, 4, 8, 16),
                  stage_modules: Tuple[int, ...] = (1, 4, 2),
                  window_size: int = 7,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 drop_path_rate: float = 0.2, remat: bool = False):
         super().__init__()
         self.channels = tuple(channels)
+        self.drop_path_rate = drop_path_rate
+        self.remat = remat
         kw = dict(compute_dtype=compute_dtype)
         self.conv1 = Conv2d(3, 64, 3, stride=2, **kw)
         self.bn1 = BatchNorm(64)
@@ -184,31 +217,60 @@ class HRFormer(nn.Module):
                         conv_norm(prev[-1], ch, 3, stride=2, **kw)))
             setattr(self, f"transition{s + 1}", trans)
             setattr(self, f"stage{s + 2}", nn.ModuleList([
-                HRFormerModule(cur, num_heads[: s + 2], window_size, **kw)
+                HRFormerModule(cur, num_heads[: s + 2], window_size,
+                               drop_path_rate=drop_path_rate, **kw)
                 for _ in range(modules)]))
             prev = cur
         self.num_stages = len(stage_modules)
+        self.num_drop_paths = sum(m.num_drop_paths for m in self.modules()
+                                  if isinstance(m, HRFormerModule))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                drop_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``drop_masks``: (num_drop_paths, B) bool DropPath keep masks,
+        module by module, or None; required in training at a non-zero
+        drop-path rate."""
+        if (self.training and self.drop_path_rate > 0
+                and drop_masks is None):
+            raise ValueError("training at a non-zero drop-path rate needs "
+                             "drop_masks (see train.step.draw_drop_masks)")
+        remat = self.remat and torch.is_grad_enabled()
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
         xs = [self.layer1(x)]
+        at = 0
         for t in range(1, self.num_stages + 1):
             trans = getattr(self, f"transition{t}")
             xs = [tr(xs[i] if i < len(xs) else xs[-1])
                   for i, tr in enumerate(trans)]
             for module in getattr(self, f"stage{t + 1}"):
-                xs = module(xs)
+                keep = (None if drop_masks is None
+                        else drop_masks[at:at + module.num_drop_paths])
+                at += module.num_drop_paths
+                if remat:
+                    xs = checkpoint(module, xs, keep, use_reentrant=False,
+                                    context_fn=_remat_contexts)
+                else:
+                    xs = module(xs, keep)
         return xs[0]
 
 
+def _remat_contexts():
+    """(forward context, recomputation context) for checkpoint: the
+    recomputed forward must not move the BatchNorm running statistics a
+    second time (flax's remat returns them from the first pass only)."""
+    return contextlib.nullcontext(), frozen_batch_stats()
+
+
 def hrformer_base(compute_dtype: torch.dtype = torch.float32,
-                  window_size: int = 7) -> HRFormer:
+                  window_size: int = 7, remat: bool = False) -> HRFormer:
     return HRFormer(channels=(78, 156, 312, 624), num_heads=(2, 4, 8, 16),
-                    compute_dtype=compute_dtype, window_size=window_size)
+                    compute_dtype=compute_dtype, window_size=window_size,
+                    drop_path_rate=0.2, remat=remat)
 
 
 def hrformer_small(compute_dtype: torch.dtype = torch.float32,
-                   window_size: int = 7) -> HRFormer:
+                   window_size: int = 7, remat: bool = False) -> HRFormer:
     return HRFormer(channels=(32, 64, 128, 256), num_heads=(1, 2, 4, 8),
-                    compute_dtype=compute_dtype, window_size=window_size)
+                    compute_dtype=compute_dtype, window_size=window_size,
+                    drop_path_rate=0.1, remat=remat)

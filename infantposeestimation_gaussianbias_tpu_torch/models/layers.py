@@ -1,5 +1,5 @@
-"""Shared building blocks: compute-dtype Linear and Conv2d, inference
-BatchNorm, ConvNorm, Bottleneck and bilinear resize.
+"""Shared building blocks: compute-dtype Linear and Conv2d, BatchNorm,
+ConvNorm, Bottleneck, bilinear resize and DropPath.
 
 Port of infantposeestimation_gaussianbias_tpu/models/layers.py.  Feature
 maps are NHWC, as in the JAX package: a convolution hands PyTorch the
@@ -16,9 +16,28 @@ and applies the affine in the activation dtype.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from typing import Iterator, Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+# True while a checkpointed forward is recomputed in the backward: the
+# recomputation must not update the running statistics a second time.
+_STATS_FROZEN = contextvars.ContextVar("ipe_bn_stats_frozen", default=False)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats() -> Iterator[None]:
+    """Within this context train-mode BatchNorm normalises with batch
+    statistics but leaves its running statistics as they are."""
+    token = _STATS_FROZEN.set(True)
+    try:
+        yield
+    finally:
+        _STATS_FROZEN.reset(token)
 
 
 class Linear(nn.Linear):
@@ -54,20 +73,37 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d over the last (channel) axis of an NHWC map.
+    """BatchNorm2d over the last (channel) axis of an NHWC map, with the
+    JAX package's arithmetic (models/layers.py:124-165 there); eps 1e-5.
 
     Inference folds (weight, bias, running_mean, running_var) into one
     per-channel (a, b) in float32 and applies ``x * a + b`` in the
-    activation dtype (models/layers.py:124-165 of the JAX package).  eps is
-    1e-5.  Training mode uses torch's batch statistics.
+    activation dtype.  Training takes the batch mean and the biased
+    variance E[x^2] - E[x]^2 in float32, moves the running statistics to
+    ``0.9 * running + 0.1 * batch`` with that biased variance (torch's own
+    BatchNorm2d would use the unbiased one), and returns
+    ``(x.float() * a + b)`` cast back to x's dtype.
     """
 
+    MOMENTUM = 0.9  # flax's convention: the weight of the running value
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        a = self.weight * torch.rsqrt(self.running_var + self.eps)
-        b = self.bias - self.running_mean * a
-        return x * a.to(x.dtype) + b.to(x.dtype)
+        if not self.training:
+            a = self.weight * torch.rsqrt(self.running_var + self.eps)
+            b = self.bias - self.running_mean * a
+            return x * a.to(x.dtype) + b.to(x.dtype)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1, 2))
+        var = (xf * xf).mean(dim=(0, 1, 2)) - mean * mean
+        if not _STATS_FROZEN.get():
+            m = self.MOMENTUM
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        a = self.weight * torch.rsqrt(var + self.eps)
+        b = self.bias - mean * a
+        return (xf * a + b).to(x.dtype)
 
 
 def conv_norm(in_channels: int, out_channels: int, kernel_size: int = 3,
@@ -119,3 +155,15 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(height, width),
                       mode="bilinear", align_corners=False)
     return y.permute(0, 2, 3, 1)
+
+
+def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor],
+              rate: float) -> torch.Tensor:
+    """Per-sample stochastic depth (models/layers.py:299-312 of the JAX
+    package): samples whose ``keep`` flag is False are zeroed, the others
+    scaled by 1 / (1 - rate).  ``keep`` is a (B,) bool tensor drawn by the
+    caller (train/step.py ``draw_drop_masks``), or None for the identity."""
+    if keep is None or rate == 0.0:
+        return x
+    mask = keep.reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(mask, x / (1.0 - rate), 0.0).to(x.dtype)

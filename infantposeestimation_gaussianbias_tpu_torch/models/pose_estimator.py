@@ -8,7 +8,7 @@ pass, while offsets and the decode logits come from the unflipped pass.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -31,26 +31,45 @@ class PoseEstimator(nn.Module):
     def __init__(self, backbone_name: str = "hrformer_base",
                  num_keypoints: int = 17, hidden_dim: int = 256,
                  window_size: int = 7,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         if backbone_name not in BACKBONES:
             raise ValueError(f"Unknown backbone {backbone_name!r}; "
                              f"known: {sorted(BACKBONES)}")
         self.compute_dtype = compute_dtype
         self.backbone = BACKBONES[backbone_name](
-            compute_dtype=compute_dtype, window_size=window_size)
+            compute_dtype=compute_dtype, window_size=window_size,
+            remat=remat)
         self.head = FusionHead(self.backbone.channels[0], num_keypoints,
                                hidden_dim, compute_dtype=compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.head(self.backbone(x.to(self.compute_dtype)))
+    def forward(self, x: torch.Tensor,
+                drop_masks: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """``drop_masks``: the backbone's DropPath keep masks, for
+        training (see HRFormer.forward)."""
+        return self.head(self.backbone(x.to(self.compute_dtype), drop_masks))
 
 
-def build_model(cfg, device="cpu") -> PoseEstimator:
+def resolve_device(device) -> torch.device:
+    """The torch.device an entry point runs on.  Asking for CUDA where
+    there is none raises: the port never carries on on the CPU unless the
+    caller passes ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but CUDA is not available; "
+            f"pass device='cpu' to run on the CPU")
+    return dev
+
+
+def build_model(cfg, device="cuda") -> PoseEstimator:
     """PoseEstimator from a Config, with seeded weights (``cfg.train.seed``,
     see weights.init_weights), in eval mode on ``device``."""
     from ..weights import init_weights
 
+    device = resolve_device(device)
     if cfg.model.head_type != "fusion":
         raise ValueError(f"the port has the fusion head only, not "
                          f"{cfg.model.head_type!r}")
@@ -59,7 +78,8 @@ def build_model(cfg, device="cpu") -> PoseEstimator:
         num_keypoints=cfg.data.num_keypoints,
         hidden_dim=cfg.model.hidden_dim,
         window_size=cfg.model.hrformer_window_size,
-        compute_dtype=COMPUTE_DTYPES[cfg.model.compute_dtype])
+        compute_dtype=COMPUTE_DTYPES[cfg.model.compute_dtype],
+        remat=cfg.model.remat)
     init_weights(model, cfg.train.seed)
     return model.to(device).eval()
 

@@ -61,12 +61,14 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, k, v: (nW, num_heads, N, head_dim); bias: optional (num_heads, N, N).
     Returns (nW, num_heads, N, head_dim) in v's dtype.  q is pre-scaled by
-    head_dim^-0.5 and every step runs in float32.
+    head_dim^-0.5 and every step runs in float32 (float64 for float64
+    inputs, which gradcheck uses).
     """
     head_dim = q.shape[-1]
-    qf = q.float() * head_dim ** -0.5
-    attn = qf @ k.float().transpose(-2, -1)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(acc) * head_dim ** -0.5
+    attn = qf @ k.to(acc).transpose(-2, -1)
     if bias is not None:
-        attn = attn + bias.float()[None]
+        attn = attn + bias.to(acc)[None]
     attn = torch.softmax(attn, dim=-1)
-    return (attn @ v.float()).to(v.dtype)
+    return (attn @ v.to(acc)).to(v.dtype)

@@ -1,0 +1,202 @@
+"""Training and evaluation steps.
+
+Port of infantposeestimation_gaussianbias_tpu/train/step.py.  One call of
+the train step does, on the model's device: Gaussian targets -> forward in
+train mode (W-MSA through K1) -> every loss term in float32 -> backward
+(W-MSA through K2) -> optimizer update, and returns the per-term losses
+and ``grad_norm`` as 0-d device tensors (no host sync).
+
+Batch contract (tensors, moved to the model's device):
+  image:     (B, H, W, 3) float32, normalised crops
+  keypoints: (B, K, 2) in input-image pixels
+  visible:   (B, K) raw COCO visibility (0/1/2)
+Optional 'target' (B, h, w, K) and 'target_weight' (B, K) replace the
+on-device targets.
+
+DropPath: the step draws the keep masks of all blocks for the whole batch
+from the ``torch.Generator`` it is given, before the forward (see
+``draw_drop_masks``), or takes them from the caller (``drop_masks``);
+microbatch i uses the masks of its samples.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from .. import losses as L
+from ..models import build_model
+from ..ops import heatmap as heatmap_ops
+from .optim import build_optimizer
+from .state import TrainState, optax_global_norm
+
+Batch = Dict[str, torch.Tensor]
+Metrics = Dict[str, torch.Tensor]
+
+
+def _targets(batch: Batch, heatmap_size, input_size, sigma
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if "target" in batch:
+        return batch["target"], batch["target_weight"]
+    return heatmap_ops.generate_targets(
+        batch["keypoints"], batch["visible"], heatmap_size, input_size,
+        sigma, "msra")
+
+
+def make_loss_fn(cfg) -> Callable:
+    """Loss: (outputs, batch, target, weight) -> (loss, terms dict), for
+    the fusion and heatmap heads."""
+    head = cfg.model.head_type
+    if head not in ("fusion", "heatmap"):
+        raise NotImplementedError(f"no loss for the {head!r} head in the "
+                                  f"port yet")
+    m = cfg.model
+    input_size = tuple(cfg.data.input_size)
+    skeleton_np = cfg.data.keypoint_schema.skeleton_array()
+    skeletons: Dict[torch.device, torch.Tensor] = {}
+    fusion_weights = (m.heatmap_loss_weight, m.offset_loss_weight,
+                      m.peak_loss_weight, m.variance_loss_weight,
+                      m.overlap_loss_weight, m.shape_loss_weight)
+
+    def loss_fn(outputs, batch, target, weight):
+        if head == "heatmap":
+            loss = L.keypoint_mse_loss(outputs["heatmaps"], target, weight,
+                                       m.use_target_weight)
+            return loss, {"total_loss": loss, "heatmap_loss": loss}
+        dev = target.device
+        if dev not in skeletons:
+            skeletons[dev] = torch.as_tensor(skeleton_np, dtype=torch.long,
+                                             device=dev)
+        terms = L.fusion_pose_loss(
+            outputs, target, weight, batch["keypoints"], skeletons[dev],
+            input_size=input_size, weights=fusion_weights,
+            target_sigma=cfg.data.sigma,
+            use_target_weight=m.use_target_weight)
+        return terms["total_loss"], terms
+
+    return loss_fn
+
+
+def draw_drop_masks(model: nn.Module, batch_size: int,
+                    generator: torch.Generator,
+                    device=None) -> Optional[torch.Tensor]:
+    """(num_drop_paths, batch_size) bool DropPath keep masks for every
+    block of ``model``'s backbone, each True with probability
+    1 - drop_path_rate; None at rate 0.  Drawn on the generator's device,
+    returned on ``device``."""
+    backbone = model.backbone
+    rate = backbone.drop_path_rate
+    if rate == 0:
+        return None
+    u = torch.rand((backbone.num_drop_paths, batch_size),
+                   generator=generator, device=generator.device)
+    return (u < 1.0 - rate).to(device)
+
+
+def _on(batch: Batch, device) -> Batch:
+    return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def make_train_step(cfg) -> Callable:
+    """The train step ``(state, batch, generator, drop_masks=None) ->
+    (state, metrics)``.  The state is updated in place and returned."""
+    if any(float(j) != 0.0 for j in cfg.data.color_jitter):
+        raise NotImplementedError(
+            "photometric jitter is not ported yet: set data.color_jitter to "
+            "(0, 0, 0)")
+    heatmap_size = tuple(cfg.data.heatmap_size)
+    input_size = tuple(cfg.data.input_size)
+    sigma = cfg.data.sigma
+    loss_fn = make_loss_fn(cfg)
+    accum = max(1, int(cfg.train.grad_accum_steps))
+
+    def micro_grads(model, batch, keep) -> Metrics:
+        """Targets -> forward -> loss -> backward for one (micro)batch; the
+        gradients add into the parameters' ``.grad``."""
+        target, weight = _targets(batch, heatmap_size, input_size, sigma)
+        outputs = model(batch["image"], keep)
+        loss, terms = loss_fn(outputs, batch, target, weight)
+        loss.backward()
+        return {k: v.detach() for k, v in terms.items()}
+
+    def train_step(state: TrainState, batch: Batch,
+                   generator: torch.Generator,
+                   drop_masks: Optional[torch.Tensor] = None
+                   ) -> Tuple[TrainState, Metrics]:
+        model = state.model
+        device = next(model.parameters()).device
+        batch = _on(batch, device)
+        b = batch["image"].shape[0]
+        if b % accum:
+            raise ValueError(f"global batch {b} not divisible by "
+                             f"grad_accum_steps={accum}")
+        model.train()
+        if drop_masks is None:
+            drop_masks = draw_drop_masks(model, b, generator, device)
+        state.optimizer.zero_grad(set_to_none=True)
+        mb = b // accum
+        sums: Optional[Metrics] = None
+        for i in range(accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            keep = None if drop_masks is None else drop_masks[:, rows]
+            terms = micro_grads(model, {k: v[rows] for k, v in batch.items()},
+                                keep)
+            sums = terms if sums is None else {
+                k: sums[k] + terms[k] for k in terms}
+        params = state.params
+        for p in params:  # optax sees a zero gradient for an unused leaf
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if accum > 1:  # gradients were summed in float32; average them
+            torch._foreach_mul_(grads, 1.0 / accum)
+            sums = {k: v * (1.0 / accum) for k, v in sums.items()}
+        metrics = dict(sums)
+        metrics["grad_norm"] = optax_global_norm(grads)
+        state.apply_gradients()
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg) -> Callable:
+    """Eval forward and loss, no update: ``(state, batch) -> (outputs,
+    terms)``.  The model's train/eval mode is restored afterwards."""
+    heatmap_size = tuple(cfg.data.heatmap_size)
+    input_size = tuple(cfg.data.input_size)
+    sigma = cfg.data.sigma
+    loss_fn = make_loss_fn(cfg)
+
+    def eval_step(state: TrainState, batch: Batch):
+        model = state.model
+        batch = _on(batch, next(model.parameters()).device)
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                target, weight = _targets(batch, heatmap_size, input_size,
+                                          sigma)
+                outputs = model(batch["image"])
+                _, terms = loss_fn(outputs, batch, target, weight)
+        finally:
+            model.train(was_training)
+        return outputs, terms
+
+    return eval_step
+
+
+def create_train_state(cfg, device="cuda", state_dict=None) -> TrainState:
+    """Model (seeded weights from ``cfg.train.seed``, or ``state_dict`` in
+    the reference checkpoint's naming) in train mode on ``device`` (the
+    CUDA card unless the caller asks for ``"cpu"``), with its optimizer and
+    schedule."""
+    model = build_model(cfg, device)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    model.train()
+    optimizer, schedule = build_optimizer(
+        cfg, model, cfg.train.steps_per_epoch or 1000)
+    return TrainState(model=model, optimizer=optimizer, schedule=schedule,
+                      grad_clip_norm=cfg.train.grad_clip_norm)

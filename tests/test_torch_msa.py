@@ -1,15 +1,17 @@
-"""PyTorch port, window attention: the K1 wrapper's plain path and the
-window primitives against the JAX package, on the same numpy inputs.
+"""PyTorch port, window attention: the K1 and K2 wrappers' plain paths and
+the window primitives against the JAX package, on the same numpy inputs.
 
-On the CPU ``window_attention_qkv`` takes its plain PyTorch version, which
-is what the CUDA kernel is held against on the card (chip_smoke.py).
-Here it is held against the JAX Pallas kernel in TPU interpret mode and
-against the JAX einsum path.
+On the CPU ``window_attention_qkv`` (K1) and ``window_attention_qkv_bwd``
+(K2) take their plain PyTorch versions, which are what the CUDA kernels
+are held against on the card (chip_smoke.py).  Here they are held against
+the JAX Pallas kernels in TPU interpret mode and against the JAX einsum
+path or torch autograd.
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -19,6 +21,7 @@ from infantposeestimation_gaussianbias_tpu.models import layers as jlayers
 from infantposeestimation_gaussianbias_tpu.ops import msa as jmsa
 from infantposeestimation_gaussianbias_tpu.ops.pallas.window_msa import (
     window_attention_pallas_qkv,
+    window_attention_pallas_qkv_vjp,
 )
 from infantposeestimation_gaussianbias_tpu_torch.kernels import window_msa
 from infantposeestimation_gaussianbias_tpu_torch.models import layers
@@ -26,11 +29,11 @@ from infantposeestimation_gaussianbias_tpu_torch.ops import msa
 
 # Both sides are exact float32 CPU maths; only the summation order differs.
 ATOL = RTOL = 1e-4
+SHAPES = [(70, 49, 2, 39), (12, 49, 4, 32), (5, 64, 2, 39), (6, 49, 16, 39)]
 
 
 @pytest.mark.parametrize("with_bias", [True, False])
-@pytest.mark.parametrize("nW,N,H,hd", [(70, 49, 2, 39), (12, 49, 4, 32),
-                                       (5, 64, 2, 39), (6, 49, 16, 39)])
+@pytest.mark.parametrize("nW,N,H,hd", SHAPES)
 def test_window_attention_qkv_matches_jax(nW, N, H, hd, with_bias):
     rng = np.random.RandomState(nW + N + H + hd)
     C = H * hd
@@ -73,6 +76,81 @@ def test_window_attention_qkv_rejects_other_devices():
     qkv = torch.zeros(2, 49, 3 * 8, device="meta")
     with pytest.raises(RuntimeError, match="no W-MSA kernel"):
         window_msa.window_attention_qkv(qkv, None, 2)
+    bias = torch.zeros(2, 49, 49, device="meta")
+    dout = torch.zeros(2, 49, 8, device="meta")
+    with pytest.raises(RuntimeError, match="no W-MSA kernel"):
+        window_msa.window_attention_qkv_bwd(qkv, bias, dout, 2)
+
+
+@pytest.mark.parametrize("nW,N,H,hd", SHAPES)
+def test_window_attention_qkv_bwd_matches_jax(nW, N, H, hd):
+    """K2's plain version against the JAX custom VJP (Pallas backward
+    kernel, interpret mode) and against torch autograd through K1's plain
+    version: dqkv and dbias, float32."""
+    rng = np.random.RandomState(nW * N + H * hd)
+    C = H * hd
+    qkv = rng.randn(nW, N, 3 * C).astype(np.float32)
+    bias = rng.randn(H, N, N).astype(np.float32)
+    dout = rng.randn(nW, N, C).astype(np.float32)
+
+    launches = window_msa.BWD_LAUNCHES
+    dqkv, dbias = window_msa.window_attention_qkv_bwd(
+        torch.from_numpy(qkv), torch.from_numpy(bias), torch.from_numpy(dout),
+        H)
+    assert window_msa.BWD_LAUNCHES == launches  # the CPU path launches nothing
+    assert dqkv.shape == (nW, N, 3 * C) and dqkv.dtype == torch.float32
+    assert dbias.shape == (H, N, N) and dbias.dtype == torch.float32
+
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda q, b: window_attention_pallas_qkv_vjp(q, b, H),
+                         jnp.asarray(qkv), jnp.asarray(bias))
+        j_dqkv, j_dbias = (np.asarray(g) for g in vjp(jnp.asarray(dout)))
+    np.testing.assert_allclose(dqkv.numpy(), j_dqkv, atol=ATOL, rtol=RTOL)
+    # dbias sums dS over all windows: float32 sums of up to 70 terms
+    np.testing.assert_allclose(dbias.numpy(), j_dbias, atol=ATOL, rtol=RTOL)
+
+    tq = torch.from_numpy(qkv).requires_grad_()
+    tb = torch.from_numpy(bias).requires_grad_()
+    out = window_msa.window_attention_qkv_reference(tq, tb, H)
+    a_dqkv, a_dbias = torch.autograd.grad(out, (tq, tb),
+                                          torch.from_numpy(dout))
+    torch.testing.assert_close(dqkv, a_dqkv, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(dbias, a_dbias, atol=ATOL, rtol=RTOL)
+
+
+def test_window_attention_autograd_function_gradcheck():
+    """The autograd Function (K1 forward, K2 backward; their plain versions
+    on the CPU) against finite differences, in float64."""
+    rng = np.random.RandomState(3)
+    qkv = torch.from_numpy(rng.randn(3, 9, 3 * 2 * 4)).requires_grad_()
+    bias = torch.from_numpy(rng.randn(2, 9, 9)).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda q, b: window_msa.window_attention(q, b, 2), (qkv, bias))
+
+
+def test_window_attention_qkv_bwd_keeps_bf16():
+    """bf16 qkv and dout in, bf16 dqkv and float32 dbias out."""
+    rng = np.random.RandomState(4)
+    qkv = torch.from_numpy(rng.randn(4, 49, 3 * 78).astype(np.float32))
+    dout = torch.from_numpy(rng.randn(4, 49, 78).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(2, 49, 49).astype(np.float32))
+    dqkv, dbias = window_msa.window_attention_qkv_bwd(
+        qkv.bfloat16(), bias, dout.bfloat16(), 2)
+    assert dqkv.dtype == torch.bfloat16 and dbias.dtype == torch.float32
+    ref_q, ref_b = window_msa.window_attention_qkv_bwd_reference(
+        qkv.bfloat16().float(), bias, dout.bfloat16().float(), 2)
+    torch.testing.assert_close(dqkv.float(), ref_q, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(dbias, ref_b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("nW,H,sms,want", [(2240, 2, 132, 9), (64, 16, 132, 2),
+                                            (5, 2, 132, 1)])
+def test_bwd_windows_per_block(nW, H, sms, want):
+    """K2's grid holds about 4 blocks per SM and never fewer windows than
+    one per block."""
+    wpb = window_msa.bwd_windows_per_block(nW, H, sms)
+    assert wpb == want
+    assert -(-nW // wpb) * H <= max(4 * sms, H)
 
 
 @pytest.mark.parametrize("ws", [7, 8])

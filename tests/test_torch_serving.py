@@ -213,7 +213,7 @@ def test_weights_round_trip_is_exact(jax_slice):
 def test_state_dict_loads_strict(jax_slice):
     cfg, _, variables = jax_slice
     sd = state_dict_from_jax(variables["params"], variables["batch_stats"])
-    model = pose_estimator.build_model(cfg)
+    model = pose_estimator.build_model(cfg, device="cpu")
     assert set(sd) == set(model.state_dict())
     model.load_state_dict(sd, strict=True)
 
@@ -225,7 +225,7 @@ def test_model_outputs_match_jax(jax_slice):
     crops = np.random.RandomState(8).randn(2, 64, 48, 3).astype(np.float32)
     ref = jax.jit(lambda v, x: model.apply(v, x, False))(
         variables, jnp.asarray(crops))
-    port = pose_estimator.build_model(cfg)
+    port = pose_estimator.build_model(cfg, device="cpu")
     port.load_state_dict(state_dict_from_jax(variables["params"],
                                              variables["batch_stats"]))
     with torch.no_grad():
@@ -278,7 +278,7 @@ def test_predict_single_image(jax_slice):
     cfg, _, variables = jax_slice
     frames, bboxes = _frames_and_boxes()
     port = PoseInference(cfg, state_dict=state_dict_from_jax(
-        variables["params"], variables["batch_stats"]))
+        variables["params"], variables["batch_stats"]), device="cpu")
     k1, s1 = port.predict(frames[1], bboxes[1])
     kb, sb = port.predict_batch(frames[1:2], bboxes[1:2])
     np.testing.assert_array_equal(k1, kb[0])
@@ -292,7 +292,7 @@ def test_hrformer_base_state_dict_matches_jax_shapes():
     """At full width the port's hrformer_base + fusion state dict converts
     to the JAX init tree's shapes, with the same parameter count."""
     cfg = get_variant("hrformer_base")
-    port = pose_estimator.build_model(cfg)
+    port = pose_estimator.build_model(cfg, device="cpu")
     sd = {k: v.numpy() for k, v in port.state_dict().items()}
     params, stats = convert_checkpoint(sd, head_type="fusion")
     model = jpe.PoseEstimator(backbone_name="hrformer_base",
@@ -313,14 +313,16 @@ def test_hrformer_base_state_dict_matches_jax_shapes():
 # -- no jax at run time -------------------------------------------------------
 
 def test_port_runs_without_jax():
-    """With jax and flax unimportable, the port imports and serves a batch
-    on the CPU."""
+    """With jax, flax and the JAX package unimportable, the port imports,
+    serves a batch and takes a training step (DropPath on), on the CPU."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = sys.modules["flax"] = None
+        sys.modules["infantposeestimation_gaussianbias_tpu"] = None
         import numpy as np
+        import torch
         from infantposeestimation_gaussianbias_tpu_torch import (
-            PoseInference, get_variant)
+            PoseInference, create_train_state, get_variant, make_train_step)
         from infantposeestimation_gaussianbias_tpu_torch.models import (
             hrformer, pose_estimator)
         pose_estimator.BACKBONES["tiny"] = lambda **kw: hrformer.HRFormer(
@@ -331,10 +333,22 @@ def test_port_runs_without_jax():
         cfg.data.input_size, cfg.data.heatmap_size = (48, 64), (12, 16)
         frames = np.zeros((2, 40, 30, 3), np.uint8)
         boxes = np.array([[0, 0, 30, 40]] * 2, np.float32)
-        k, s = PoseInference(cfg).predict_batch(frames, boxes)
+        k, s = PoseInference(cfg, device="cpu").predict_batch(frames, boxes)
         assert k.shape == (2, 17, 2) and np.isfinite(k).all()
-        assert not any(m.split(".")[0] in ("jax", "flax")
-                       for m, v in sys.modules.items() if v is not None)
+        state = create_train_state(cfg, device="cpu")
+        rng = np.random.RandomState(0)
+        batch = {"image": torch.from_numpy(
+                     rng.randn(2, 64, 48, 3).astype(np.float32)),
+                 "keypoints": torch.from_numpy(
+                     rng.uniform(0, 48, (2, 17, 2)).astype(np.float32)),
+                 "visible": torch.full((2, 17), 2.0)}
+        _, metrics = make_train_step(cfg)(
+            state, batch, torch.Generator().manual_seed(0))
+        assert state.step == 1
+        assert all(np.isfinite(v.item()) for v in metrics.values())
+        assert not any(m.split(".")[0] in (
+            "jax", "flax", "infantposeestimation_gaussianbias_tpu")
+            for m, v in sys.modules.items() if v is not None)
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))
