@@ -26,14 +26,31 @@ Phases, in order; any failure exits non-zero:
      DropPath masks; then bf16 steps at b=32 on one seeded batch: finite
      terms, K1 and K2 44 launches each per step, a falling loss, step time,
      images/s and peak memory, and a profile of two steps by kernel; then
-     one bf16 step with model.remat against one without.
-The last two lines are the kernels' JSON record and
+     one bf16 step with model.remat against one without;
+  7. K4 and K5 (CUDA fused attention and MLP half-blocks, forward and
+     backward) against their plain versions at every hrformer_base branch
+     shape: forward at the serving batch 64, forward and backward at the
+     training batch 32, float32 and bf16, every output (dx, dgamma, dbeta,
+     each weight and bias gradient, drpe); kernel, plain and stock-PyTorch
+     chain (LayerNorm, F.linear, SDPA or tanh GELU) times and the bound;
+  8. fused serving (IPE_FUSED_BLOCK=1): batches of 1, 3 and 8 frames, 88
+     K4 and 88 K5 launches per flip-tested batch and no K1; under "auto"
+     28 K1, 60 K4 and 60 K5; float32 card against the CPU; fused against
+     unfused outputs from the same weights; bf16 crops/s at b=32;
+  9. fused training (IPE_FUSED_BLOCK=1): a float32 step at b=2, card
+     against CPU; bf16 steps at b=32 with 44 launches of each of K4 and
+     K5 forward and backward per step, no K1 or K2, a falling loss, step
+     time, images/s, peak memory and the profile by kernel.
+Each fused phase sets IPE_FUSED_BLOCK itself and restores it after.  The
+last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -62,12 +79,60 @@ STEP_STAT_TOL = 1e-4      # BN running mean/var, atol and rtol
 # W-MSA calls per hrformer_base forward: (1*2 + 4*3 + 2*4) branches x 2 blocks
 K1_CALLS_PER_FORWARD = 44
 TRAIN_BATCH = 32
+SERVE_BATCH = 64  # crops through the model per served batch of 32: flip test
+FUSED_ENV = "IPE_FUSED_BLOCK"
+# Fused blocks per hrformer_base forward under IPE_FUSED_BLOCK=auto: the
+# blocks of width >= 128 (branches 1-3: 14 + 12 + 4), the rest unfused.
+AUTO_FUSED_PER_FORWARD = 30
+# K4/K5 against their plain versions on the card: both round the same
+# activations to bf16 and accumulate in float32, in other orders, and a
+# sum on the other side of a bf16 rounding boundary moves that operand by
+# 2^-8.  Per output tensor, the relative norm of the difference: float32
+# inputs, such flips only (measured <= 1.2e-4); bf16, plus one bf16 ulp on
+# the output cast (2^-8 = 3.9e-3 of an element).  And no element further
+# off than FUSED_LOCAL_TOL of the tensor's largest magnitude (a few bf16
+# ulps of it).
+FUSED_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 4e-3}
+FUSED_LOCAL_TOL = 2.0 ** -4
+# Fused float32 model, card against CPU: the same bf16 roundings flip in
+# other places through 44 blocks (each flip 2^-8 of one operand), so the
+# card-vs-CPU bounds of the unfused path do not apply.  Measured on the
+# H100 (PERF.md): heatmaps 4.9e-4, keypoints 2.6e-3 px, loss terms <= 6.6e-6
+# and grad_norm 2.9e-4 relative, BN running stats 2.4e-3; bounds ~4x that.
+# The per-block RPE-table and qkv-weight gradients differ by 2.4-7.1e-2:
+# the unfused path already turns a forward agreement of ~1e-6 into 1-5e-3
+# there (ReLU ties, above); the fused path's forward agrees to ~5e-4, and
+# a backward from the CPU's own head-output gradients differs as much
+# (1.5-4e-2), so it is the forward's roundings, not the backward kernels
+# (held to <= 6e-4 against their plain twins, phase 7).  Bound 2x that.
+FUSED_HEATMAP_ATOL = 2e-3
+FUSED_KEYPOINT_ATOL_PX = 1e-2
+FUSED_STEP_LOSS_RTOL = 1e-3
+FUSED_STEP_GRAD_RTOL = 0.15
+FUSED_STEP_STAT_TOL = 1e-2
+# Fused against unfused bf16 outputs from the same weights: the JAX
+# package's tolerance for the same comparison (tests/test_fused_block.py,
+# a bf16 block with tanh GELU against exact GELU), relative to the
+# heatmaps' largest magnitude here, since 44 blocks add up.
+FUSED_VS_UNFUSED_TOL = 4e-2
 # Least time of a kernel: its bytes (each input read once, each output
-# written once) at the H100 SXM's 3.35 TB/s, or its float32 FLOPs at the
-# 67 TFLOP/s of the CUDA cores (both kernels do all their maths in
-# float32), whichever is longer (NVIDIA's H100 SXM data sheet).
+# written once) at the H100 SXM's 3.35 TB/s, or its FLOPs at the peak rate
+# for their type, whichever is longer (NVIDIA's H100 SXM data sheet).  K1
+# and K2 do all their maths in float32: 67 TFLOP/s of the CUDA cores.  K4
+# and K5's products are bf16 x bf16 -> f32 in the TPU kernels: the 989
+# TFLOP/s dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
+
+# hrformer_base's branches at 256x192: (label, map H, map W, C, heads);
+# window 7, so 70 / 20 / 6 / 2 windows per image.
+BASE_MAPS = [
+    ("base b0", 64, 48, 78, 2),
+    ("base b1", 32, 24, 156, 4),
+    ("base b2", 16, 12, 312, 8),
+    ("base b3", 8, 6, 624, 16),
+]
 
 # (label, nW, N, H, hd): hrformer_base's branches at 256x192 (windows per
 # image 70/20/6/2), hrformer_small's branch 0, hrformer_base branch 0 at
@@ -86,6 +151,40 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
+@contextlib.contextmanager
+def fused_blocks(flag: str):
+    """IPE_FUSED_BLOCK=flag inside the block, its old value after."""
+    old = os.environ.get(FUSED_ENV)
+    os.environ[FUSED_ENV] = flag
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(FUSED_ENV, None)
+        else:
+            os.environ[FUSED_ENV] = old
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        fused_block, window_msa)
+
+    window_msa.LAUNCHES = window_msa.BWD_LAUNCHES = 0
+    fused_block.ATTN_LAUNCHES = fused_block.ATTN_BWD_LAUNCHES = 0
+    fused_block.MLP_LAUNCHES = fused_block.MLP_BWD_LAUNCHES = 0
+
+
+def launches() -> dict:
+    """Launches since the last reset: K1, K2, K4 (fwd, bwd), K5 (fwd, bwd)."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        fused_block as fb, window_msa as wm)
+
+    return dict(k1=wm.LAUNCHES, k2=wm.BWD_LAUNCHES, k4=fb.ATTN_LAUNCHES,
+                k4b=fb.ATTN_BWD_LAUNCHES, k5=fb.MLP_LAUNCHES,
+                k5b=fb.MLP_BWD_LAUNCHES)
+
+
 def cuda_median_ms(fn, warmup: int = 3, runs: int = 25) -> float:
     """Median of per-call CUDA-event times."""
     for _ in range(warmup):
@@ -102,10 +201,11 @@ def cuda_median_ms(fn, warmup: int = 3, runs: int = 25) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             flop_rate: float = F32_FLOP_PER_S) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") for the work of one call."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -278,14 +378,13 @@ def phase_slice() -> tuple:
     from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
                                                               get_variant)
     from infantposeestimation_gaussianbias_tpu_torch.kernels import window_msa
-    from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
 
     cfg = get_variant("hrformer_base")
     assert cfg.model.compute_dtype == "bfloat16" and cfg.eval.flip_test
     inf = PoseInference(cfg, device="cuda")
     frames, bboxes = make_requests(8, seed=1)
 
-    window_msa.LAUNCHES = 0
+    reset_launches()
     for n in (1, 3, 8):
         before = window_msa.LAUNCHES
         t0 = time.perf_counter()
@@ -296,12 +395,25 @@ def phase_slice() -> tuple:
         assert kpts.shape == (n, 17, 2) and scores.shape == (n, 17)
         assert np.isfinite(kpts).all() and np.isfinite(scores).all()
         assert grew == 2 * K1_CALLS_PER_FORWARD, grew
-    launches = window_msa.LAUNCHES
+    count = window_msa.LAUNCHES
+    fused = launches()
+    assert fused["k4"] == fused["k5"] == fused["k2"] == 0, fused
+    compare_f32_serving(inf.model.state_dict(), frames, bboxes, "slice",
+                        HEATMAP_ATOL, KEYPOINT_ATOL_PX)
+    return inf, count
 
-    # float32 on the card against the port's plain path on the CPU
+
+def compare_f32_serving(sd, frames, bboxes, tag: str, hm_tol: float,
+                        kp_tol: float) -> None:
+    """float32 hrformer_base from the state dict ``sd`` on the card against
+    the port's plain path on the CPU: 3 frames' heatmaps (flip-averaged)
+    and keypoints."""
+    from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
+                                                              get_variant)
+    from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
+
     cfg32 = get_variant("hrformer_base")
     cfg32.model.compute_dtype = "float32"
-    sd = inf.model.state_dict()
     gpu = PoseInference(cfg32, state_dict=sd, device="cuda")
     cpu = PoseInference(cfg32, state_dict={k: v.cpu() for k, v in sd.items()},
                         device="cpu")
@@ -323,22 +435,21 @@ def phase_slice() -> tuple:
             g, _ = decode.soft_argmax((hm + hm_f) * 0.5)
         hms[name] = (hm.cpu(), g.cpu().numpy())
     hm_err = (hms["cuda"][0] - hms["cpu"][0]).abs().max().item()
-    log(f"[slice] f32 heatmaps card vs CPU: max_abs_err={hm_err:.3e} "
+    log(f"[{tag}] f32 heatmaps card vs CPU: max_abs_err={hm_err:.3e} "
         f"(|hm| max {hms['cpu'][0].abs().max().item():.3e})")
-    assert hm_err <= HEATMAP_ATOL, hm_err
+    assert hm_err <= hm_tol, hm_err
     keep = ~(near_half_integer(hms["cuda"][1])
              | near_half_integer(hms["cpu"][1]))
     kp_err = float(np.abs(k_gpu - k_cpu)[keep].max())
-    log(f"[slice] f32 keypoints card vs CPU: max_abs_err={kp_err:.3e} px, "
+    log(f"[{tag}] f32 keypoints card vs CPU: max_abs_err={kp_err:.3e} px, "
         f"left out {int((~keep).sum())} of {keep.size} near a half-integer "
         f"soft-argmax; scores max_abs_err="
         f"{float(np.abs(s_gpu - s_cpu).max()):.3e}")
     assert keep.any()
-    assert kp_err <= KEYPOINT_ATOL_PX, kp_err
-    return inf, launches
+    assert kp_err <= kp_tol, kp_err
 
 
-def phase_throughput(inf, smi: str) -> dict:
+def phase_throughput(inf, smi: str, tag: str = "throughput") -> dict:
     frames, bboxes = make_requests(32, seed=2)
     for _ in range(3):
         inf.predict_batch(frames, bboxes)
@@ -356,10 +467,253 @@ def phase_throughput(inf, smi: str) -> dict:
     med = float(np.median(times))
     result = dict(crops_per_s=32 / med, batch32_ms=med * 1e3,
                   batch1_ms=float(np.median(b1[2:])) * 1e3, card=smi)
-    log(f"[throughput] bf16 predict_batch b=32 flip: "
+    log(f"[{tag}] bf16 predict_batch b=32 flip: "
         f"{result['crops_per_s']:.1f} crops/s (median {med * 1e3:.1f} ms over "
         f"{len(times)} batches); b=1: {result['batch1_ms']:.1f} ms; on {smi}")
     return result
+
+
+# -- K4 and K5, the fused half-blocks -------------------------------------------
+
+def _half_inputs(Hm: int, Wm: int, C: int, heads: int, B: int, dt, g) -> dict:
+    """Seeded inputs of both halves of one hrformer_base block on an
+    (Hm, Wm) map at batch B, windows of 7, a DropPath vector that drops
+    about a fifth of the samples."""
+    ws, N = 7, 49
+    nwin = -(-Hm // ws) * -(-Wm // ws)
+    nW, Hd = B * nwin, 4 * C
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=g) * scale
+
+    return dict(
+        xw=rn(nW, N, C).to(dt), gamma=1 + 0.2 * rn(C), beta=0.1 * rn(C),
+        wqkv=rn(C, 3 * C, scale=C ** -0.5).to(dt), bqkv=0.1 * rn(3 * C),
+        rpe=rn(heads, N, N), wproj=rn(C, C, scale=C ** -0.5).to(dt),
+        bproj=0.1 * rn(C), w1=rn(C, Hd, scale=C ** -0.5).to(dt),
+        b1=0.1 * rn(Hd), w2=rn(Hd, C, scale=Hd ** -0.5).to(dt),
+        b2=0.1 * rn(C),
+        dp=(torch.rand(B, device="cuda", generator=g) > 0.2).float() / 0.8,
+        dy=rn(nW, N, C).to(dt), heads=heads, geom=(Hm, Wm, ws),
+        tps=nwin * N, nW=nW, C=C, Hd=Hd)
+
+
+def _attn_args(a: dict) -> tuple:
+    return (a["xw"], a["gamma"], a["beta"], a["wqkv"], a["bqkv"], a["rpe"],
+            a["wproj"], a["bproj"], a["dp"])
+
+
+def _mlp_args(a: dict) -> tuple:
+    return (a["xw"].reshape(-1, a["C"]), a["gamma"], a["beta"], a["w1"],
+            a["b1"], a["w2"], a["b2"], a["dp"])
+
+
+def mlp_chain(x2, gamma, beta, w1, b1, w2, b2, dp, tps):
+    """K5's function as stock PyTorch ops in x's dtype (the yardstick):
+    LayerNorm, F.linear, tanh GELU, F.linear, DropPath residual."""
+    dt, C = x2.dtype, x2.shape[1]
+    rows = dp[torch.arange(x2.shape[0], device=x2.device) // tps][:, None]
+    h = F.linear(F.layer_norm(x2, (C,), gamma.to(dt), beta.to(dt), 1e-5),
+                 w1.t(), b1.to(dt))
+    o = F.linear(F.gelu(h, approximate="tanh"), w2.t(), b2.to(dt))
+    return x2 + rows.to(dt) * o
+
+
+def attn_chain(xw, gamma, beta, wqkv, bqkv, rpe, wproj, bproj, dp, heads,
+               geom):
+    """K4's function as stock PyTorch ops in x's dtype (the yardstick):
+    LayerNorm, F.linear, the pad tokens' bias rows, SDPA with the relative
+    position bias as its mask, F.linear, DropPath residual."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        fused_block as fb)
+
+    nW, N, C = xw.shape
+    dt = xw.dtype
+    nwin = fb.window_geometry(geom)[0]
+    valid = fb.valid_tokens(nW, N, geom, xw.device)
+    qkv = torch.where(valid, F.linear(
+        F.layer_norm(xw, (C,), gamma.to(dt), beta.to(dt), 1e-5), wqkv.t(),
+        bqkv.to(dt)), bqkv.to(dt))
+    q, k, v = qkv.reshape(nW, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=rpe.to(dt)[None].expand(nW, heads, N, N))
+    po = F.linear(o.transpose(1, 2).reshape(nW, N, C), wproj.t(),
+                  bproj.to(dt))
+    rows = dp[torch.arange(nW, device=xw.device) // nwin][:, None, None]
+    return xw + rows.to(dt) * po
+
+
+def _grad_fn(fn, args, n_leaves, extra, dy):
+    """A call of autograd's backward through ``fn`` (graph built once)."""
+    leaves = [t.detach().clone().requires_grad_() if i < n_leaves else t
+              for i, t in enumerate(args)]
+    out = fn(*leaves, *extra)
+    return lambda: torch.autograd.grad(out, leaves[:n_leaves], dy,
+                                       retain_graph=True)
+
+
+def _compare(tag: str, names, outs, refs, dt) -> tuple[float, float]:
+    """Each output against the plain version's (FUSED_REL_TOL,
+    FUSED_LOCAL_TOL); returns the worst (max abs, relative norm) error."""
+    worst_abs = worst_rel = 0.0
+    for name, a, b in zip(names, outs, refs):
+        a, b = a.float(), b.float()
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), (tag,
+                                                                       name)
+        err = (a - b).abs().max().item()
+        rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        big = b.abs().max().item()
+        assert rel <= FUSED_REL_TOL[dt] and err <= FUSED_LOCAL_TOL * big, (
+            tag, name, rel, err, big)
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    return worst_abs, worst_rel
+
+
+def phase_fused_kernels() -> dict:
+    """K4 and K5, forward and backward, against their plain versions at
+    every hrformer_base branch shape: forward at the serving batch, forward
+    and backward at the training batch, float32 and bf16; kernel, plain
+    and stock-chain times and the bound (bf16 tensor-core rate)."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        fused_block as fb)
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rec = {k: dict(max_abs_err=0.0, max_rel_err=0.0)
+           for k in ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")}
+    fwd_names = ["y"]
+    attn_names = ["dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "drpe",
+                  "dwproj", "dbproj"]
+    mlp_names = ["dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"]
+
+    def measure(key, label, what, fn, plain, chain, names, nbytes, flops, dt,
+                record):
+        outs = fn()
+        torch.cuda.synchronize()
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        refs = plain()
+        refs = refs if isinstance(refs, tuple) else (refs,)
+        err, rel = _compare(f"{key} {label}", names, outs, refs, dt)
+        ms = cuda_median_ms(fn, warmup=2, runs=10)
+        plain_ms = cuda_median_ms(plain, warmup=2, runs=10)
+        lib_ms = cuda_median_ms(chain, warmup=2, runs=10)
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+        log(f"[{key}] {label} {what}: max_abs_err={err:.3e} rel={rel:.2e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        r = rec[key]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_rel_err"] = max(r["max_rel_err"], rel)
+        if record:
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=b_ms, bound_by=b_by, shape=label)
+
+    for label, Hm, Wm, C, heads in BASE_MAPS:
+        for B, train in ((SERVE_BATCH, False), (TRAIN_BATCH, True)):
+            for dt in (torch.float32, torch.bfloat16):
+                a = _half_inputs(Hm, Wm, C, heads, B, dt, g)
+                nW, Hd, geom = a["nW"], a["Hd"], a["geom"]
+                M, es = nW * 49, a["xw"].element_size()
+                nm = "f32" if dt == torch.float32 else "bf16"
+                shape = f"{label} b={B} nW={nW} M={M} C={C} H={heads} {nm}"
+                b0_bf16 = label == "base b0" and dt == torch.bfloat16
+                aa, ma = _attn_args(a), _mlp_args(a)
+                vec = 4 * (heads * 49 * 49 + 6 * C)
+                measure("attn_fwd", shape, "y",
+                        lambda: fb.fused_attn_half_fwd(*aa, heads, geom),
+                        lambda: fb.fused_attn_half_reference(*aa, heads,
+                                                             geom),
+                        lambda: attn_chain(*aa, heads, geom), fwd_names,
+                        2 * M * C * es + 4 * C * C * es + vec,
+                        8 * M * C * C + 4 * nW * 49 * 49 * C, dt,
+                        b0_bf16 and not train)
+                measure("mlp_fwd", shape, "y",
+                        lambda: fb.fused_mlp_half_fwd(*ma, a["tps"]),
+                        lambda: fb.fused_mlp_half_reference(*ma, a["tps"]),
+                        lambda: mlp_chain(*ma, a["tps"]), fwd_names,
+                        2 * M * C * es + 2 * C * Hd * es + 4 * (Hd + 3 * C),
+                        4 * M * C * Hd, dt, b0_bf16 and not train)
+                if train:
+                    dy, dy2 = a["dy"], a["dy"].reshape(-1, C)
+                    measure("attn_bwd", shape, "all gradients",
+                            lambda: fb.fused_attn_half_bwd(*aa, dy, heads,
+                                                           geom),
+                            lambda: fb.fused_attn_half_bwd_reference(
+                                *aa, dy, heads, geom),
+                            _grad_fn(attn_chain, aa, 8, (heads, geom), dy),
+                            attn_names,
+                            3 * M * C * es + 8 * C * C * es + 2 * vec,
+                            22 * M * C * C + 12 * nW * 49 * 49 * C, dt,
+                            b0_bf16)
+                    measure("mlp_bwd", shape, "all gradients",
+                            lambda: fb.fused_mlp_half_bwd(*ma, dy2, a["tps"]),
+                            lambda: fb.fused_mlp_half_bwd_reference(
+                                *ma, dy2, a["tps"]),
+                            _grad_fn(mlp_chain, ma, 7, (a["tps"],), dy2),
+                            mlp_names,
+                            3 * M * C * es + 4 * C * Hd * es
+                            + 8 * (Hd + 3 * C),
+                            10 * M * C * Hd, dt, b0_bf16)
+                del a, aa, ma
+    return rec
+
+
+def phase_fused_serving(inf, smi: str) -> tuple:
+    """The served model with IPE_FUSED_BLOCK=1 and =auto: launches per
+    flip-tested batch, float32 card vs CPU, fused vs unfused outputs from
+    the same weights, and bf16 crops/s."""
+    from infantposeestimation_gaussianbias_tpu_torch.ops import affine
+
+    frames, bboxes = make_requests(8, seed=1)
+    per_forward = {"1": dict(k1=0, k4=K1_CALLS_PER_FORWARD,
+                             k5=K1_CALLS_PER_FORWARD),
+                   "auto": dict(k1=K1_CALLS_PER_FORWARD
+                                - AUTO_FUSED_PER_FORWARD,
+                                k4=AUTO_FUSED_PER_FORWARD,
+                                k5=AUTO_FUSED_PER_FORWARD)}
+    total = dict(k1=0, k4=0, k5=0)
+    for flag, want in per_forward.items():
+        with fused_blocks(flag):
+            for n in (1, 3, 8):
+                reset_launches()
+                t0 = time.perf_counter()
+                kpts, scores = inf.predict_batch(frames[:n], bboxes[:n])
+                dt = time.perf_counter() - t0
+                got = launches()
+                log(f"[fused-serve] IPE_FUSED_BLOCK={flag} bf16 batch {n}: "
+                    f"{dt * 1e3:.1f} ms, launches K1 {got['k1']} K4 "
+                    f"{got['k4']} K5 {got['k5']}")
+                assert kpts.shape == (n, 17, 2) and scores.shape == (n, 17)
+                assert np.isfinite(kpts).all() and np.isfinite(scores).all()
+                assert all(got[k] == 2 * v for k, v in want.items()), got
+                assert got["k2"] == got["k4b"] == got["k5b"] == 0, got
+                for k in total:
+                    total[k] += got[k]
+    with fused_blocks("1"):
+        compare_f32_serving(inf.model.state_dict(), frames, bboxes,
+                            "fused-serve", FUSED_HEATMAP_ATOL,
+                            FUSED_KEYPOINT_ATOL_PX)
+    # fused against unfused bf16 heatmaps, same weights and crops
+    n = 8
+    centers = (bboxes[:n, :2] + bboxes[:n, 2:]) / 2
+    scales = (bboxes[:n, 2:] - bboxes[:n, :2]) * inf.cfg.data.bbox_padding
+    with torch.inference_mode():
+        crops = affine.crop_and_normalize(
+            torch.from_numpy(frames[:n]).cuda(),
+            torch.from_numpy(centers).cuda(), torch.from_numpy(scales).cuda(),
+            inf.cfg.data.input_size)
+        hms = {}
+        for flag in ("0", "1"):
+            with fused_blocks(flag):
+                hms[flag] = inf.model(crops)["heatmaps"].float()
+    diff = (hms["1"] - hms["0"]).abs().max().item()
+    big = hms["0"].abs().max().item()
+    log(f"[fused-serve] bf16 heatmaps fused vs unfused, same weights: "
+        f"max_abs_diff={diff:.3e} (|hm| max {big:.3e}, relative "
+        f"{diff / big:.3e})")
+    assert diff <= FUSED_VS_UNFUSED_TOL * big, (diff, big)
+    with fused_blocks("1"):
+        thr = phase_throughput(inf, smi, "fused-throughput")
+    return thr, total
 
 
 def make_train_batch(cfg, n: int, seed: int) -> dict:
@@ -401,7 +755,9 @@ def _output_grads(state, cfg, batch, masks) -> dict:
     return {k: g.cpu() for k, g in zip(keys, grads)}
 
 
-def train_agreement_f32() -> None:
+def train_agreement_f32(tag: str = "train", loss_rtol: float = STEP_LOSS_RTOL,
+                        grad_rtol: float = STEP_GRAD_RTOL,
+                        stat_tol: float = STEP_STAT_TOL) -> None:
     """One float32 hrformer_base step at b=2, card against CPU."""
     from infantposeestimation_gaussianbias_tpu_torch import (
         create_train_state, get_variant, make_train_step)
@@ -421,7 +777,7 @@ def train_agreement_f32() -> None:
     # Where the gradients part: at the loss's inputs already?  (This extra
     # forward moves the running statistics once more on both sides.)
     g_out, c_out = (_output_grads(st, cfg, batch, masks) for st in (gpu, cpu))
-    log("[train] f32 dloss/d(head outputs) card vs CPU, rel err: " + ", ".join(
+    log(f"[{tag}] f32 dloss/d(head outputs) card vs CPU, rel err: " + ", ".join(
         f"{k} {_rel(g_out[k], c_out[k]):.1e}" for k in g_out))
     step = make_train_step(cfg)
     t0 = time.perf_counter()
@@ -430,14 +786,14 @@ def train_agreement_f32() -> None:
     t1 = time.perf_counter()
     _, m_cpu = step(cpu, batch, None, drop_masks=masks)
     t2 = time.perf_counter()
-    log(f"[train] f32 b=2 step: card {(t1 - t0) * 1e3:.1f} ms (first call), "
+    log(f"[{tag}] f32 b=2 step: card {(t1 - t0) * 1e3:.1f} ms (first call), "
         f"CPU {(t2 - t1) * 1e3:.1f} ms; DropPath kept "
         f"{int(masks.sum())} of {masks.numel()}")
     for k in m_cpu:
         a, b = m_gpu[k].item(), m_cpu[k].item()
         rel = abs(a - b) / max(abs(b), 1e-12)
-        log(f"[train] f32 {k:14s} card {a:.7e} cpu {b:.7e} rel {rel:.2e}")
-        assert np.isfinite(a) and rel <= STEP_LOSS_RTOL, (k, a, b)
+        log(f"[{tag}] f32 {k:14s} card {a:.7e} cpu {b:.7e} rel {rel:.2e}")
+        assert np.isfinite(a) and rel <= loss_rtol, (k, a, b)
     g_params = dict(gpu.model.named_parameters())
     errs = {"rpe_table": [], "qkv_weight": []}
     for name, p in cpu.model.named_parameters():
@@ -446,10 +802,10 @@ def train_agreement_f32() -> None:
         elif name.endswith("attn.qkv.weight"):
             errs["qkv_weight"].append(_rel(g_params[name].grad.cpu(), p.grad))
     for kind in ("rpe_table", "qkv_weight"):
-        log(f"[train] f32 {kind} gradient rel err, block by block: "
+        log(f"[{tag}] f32 {kind} gradient rel err, block by block: "
             + " ".join(f"{e:.1e}" for e in errs[kind]))
     assert len(errs["rpe_table"]) == len(errs["qkv_weight"]) == 44
-    assert max(errs["rpe_table"] + errs["qkv_weight"]) <= STEP_GRAD_RTOL
+    assert max(errs["rpe_table"] + errs["qkv_weight"]) <= grad_rtol
     g_mods = dict(gpu.model.named_modules())
     stat_err = 0.0
     for name, mod in cpu.model.named_modules():
@@ -457,18 +813,18 @@ def train_agreement_f32() -> None:
             for buf in ("running_mean", "running_var"):
                 a = getattr(g_mods[name], buf).cpu()
                 b = getattr(mod, buf)
-                torch.testing.assert_close(a, b, atol=STEP_STAT_TOL,
-                                           rtol=STEP_STAT_TOL)
+                torch.testing.assert_close(a, b, atol=stat_tol, rtol=stat_tol)
                 stat_err = max(stat_err, (a - b).abs().max().item())
-    log(f"[train] f32 BN running stats max_abs_err={stat_err:.3e}")
+    log(f"[{tag}] f32 BN running stats max_abs_err={stat_err:.3e}")
 
 
-def train_bf16(smi: str) -> dict:
-    """bf16 hrformer_base steps at b=32 on one seeded batch."""
+def train_bf16(smi: str, fused: bool = False) -> dict:
+    """bf16 hrformer_base steps at b=32 on one seeded batch: through K1/K2
+    (the default), or through K4/K5 in every block (``fused``, under
+    IPE_FUSED_BLOCK=1, which the caller sets)."""
     from infantposeestimation_gaussianbias_tpu_torch import (
         create_train_state, get_variant, make_train_step)
-    from infantposeestimation_gaussianbias_tpu_torch.kernels import window_msa
-
+    tag = "fused-train" if fused else "train"
     cfg = get_variant("hrformer_base")
     assert cfg.model.compute_dtype == "bfloat16"
     assert cfg.train.global_batch_size == TRAIN_BATCH
@@ -480,41 +836,43 @@ def train_bf16(smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(6)
     warmup, timed = 3, 10
     losses, times = [], []
-    fwd = bwd = 0
+    total = dict(k1=0, k2=0, k4=0, k4b=0, k5=0, k5b=0)
+    n = K1_CALLS_PER_FORWARD
+    want = (dict(k1=0, k2=0, k4=n, k4b=n, k5=n, k5b=n) if fused else
+            dict(k1=n, k2=n, k4=0, k4b=0, k5=0, k5b=0))
     torch.cuda.synchronize()
     for i in range(warmup + timed):
         if i == warmup:
             torch.cuda.reset_peak_memory_stats()
-        window_msa.LAUNCHES = window_msa.BWD_LAUNCHES = 0
+        reset_launches()
         t0 = time.perf_counter()
         _, metrics = step(state, batch, gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        assert window_msa.LAUNCHES == K1_CALLS_PER_FORWARD, window_msa.LAUNCHES
-        assert window_msa.BWD_LAUNCHES == K1_CALLS_PER_FORWARD, (
-            window_msa.BWD_LAUNCHES)
-        fwd += window_msa.LAUNCHES
-        bwd += window_msa.BWD_LAUNCHES
+        got = launches()
+        assert got == want, got
+        for k in total:
+            total[k] += got[k]
         values = {k: v.item() for k, v in metrics.items()}
         assert all(np.isfinite(v) for v in values.values()), values
         losses.append(values["total_loss"])
-        log(f"[train] bf16 b={TRAIN_BATCH} step {i}: "
-            f"{times[-1] * 1e3:.1f} ms, K1 {window_msa.LAUNCHES} "
-            f"K2 {window_msa.BWD_LAUNCHES} launches, "
-            + " ".join(f"{k}={v:.4f}" for k, v in values.items()))
+        log(f"[{tag}] bf16 b={TRAIN_BATCH} step {i}: "
+            f"{times[-1] * 1e3:.1f} ms, launches "
+            + " ".join(f"{k.upper()} {v}" for k, v in got.items() if v)
+            + ", " + " ".join(f"{k}={v:.4f}" for k, v in values.items()))
     peak = torch.cuda.max_memory_allocated()
     assert losses[-1] < losses[0], losses
     med = float(np.median(times[warmup:]))
     result = dict(step_ms=med * 1e3, images_per_s=TRAIN_BATCH / med,
                   peak_gib=peak / 2 ** 30, loss_first=losses[0],
-                  loss_last=losses[-1], k1_launches=fwd, k2_launches=bwd,
-                  card=smi)
-    log(f"[train] bf16 b={TRAIN_BATCH}: median step {med * 1e3:.1f} ms over "
+                  loss_last=losses[-1], launches=total, card=smi)
+    log(f"[{tag}] bf16 b={TRAIN_BATCH}: median step {med * 1e3:.1f} ms over "
         f"{timed} steps after {warmup} warm-up, {result['images_per_s']:.1f} "
         f"images/s, peak memory {result['peak_gib']:.2f} GiB; total loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps; "
         f"on {smi}")
-    result.update(profile_steps(step, state, batch, gen, result["step_ms"]))
+    result.update(profile_steps(step, state, batch, gen, result["step_ms"],
+                                tag=tag))
     return result
 
 
@@ -577,7 +935,7 @@ def train_remat() -> dict:
 
 
 def profile_steps(step, state, batch, gen, step_ms: float,
-                  n: int = 2) -> dict:
+                  n: int = 2, tag: str = "train") -> dict:
     """Device kernel time of ``n`` train steps, by kernel (torch.profiler),
     against the unprofiled median step time."""
     from torch.autograd import DeviceType
@@ -604,11 +962,11 @@ def profile_steps(step, state, batch, gen, step_ms: float,
                   reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3 / n
     kernels = sum(r[1] for r in rows) // n
-    log(f"[profile] bf16 train step: {device_ms:.1f} ms of device kernels "
+    log(f"[profile] bf16 {tag} step: {device_ms:.1f} ms of device kernels "
         f"({kernels} kernels) per step against the {step_ms:.1f} ms median "
         f"step: idle share {max(0.0, 1 - device_ms / step_ms):.1%}")
     for us, count, key in rows[:25]:
-        log(f"[profile] {us / 1e3 / n:8.3f} ms/step "
+        log(f"[profile] {tag} {us / 1e3 / n:8.3f} ms/step "
             f"{us / 1e3 / n / device_ms:6.1%} x{count // n:5d}/step  "
             f"{key[:100]}")
     return dict(device_ms=device_ms, kernels_per_step=kernels)
@@ -619,33 +977,61 @@ def main() -> int:
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
-    inf, serve_launches = phase_slice()
-    thr = phase_throughput(inf, smi)
+    with fused_blocks("0"):  # the default path: K1 and K2, no fused block
+        inf, serve_launches = phase_slice()
+        thr = phase_throughput(inf, smi)
+    k45 = phase_fused_kernels()
+    fused_thr, fused_serve = phase_fused_serving(inf, smi)
     del inf
-    train_agreement_f32()
-    train = train_bf16(smi)
-    train.update(train_remat())
+    with fused_blocks("0"):
+        train_agreement_f32()
+        train = train_bf16(smi)
+        train.update(train_remat())
+    with fused_blocks("1"):
+        train_agreement_f32("fused-train", FUSED_STEP_LOSS_RTOL,
+                            FUSED_STEP_GRAD_RTOL, FUSED_STEP_STAT_TOL)
+        fused_train = train_bf16(smi, fused=True)
+    log(f"[fused] bf16 b=32 serving {fused_thr['crops_per_s']:.1f} crops/s "
+        f"fused vs {thr['crops_per_s']:.1f} unfused; training "
+        f"{fused_train['step_ms']:.1f} ms/step fused vs "
+        f"{train['step_ms']:.1f} unfused, peak memory "
+        f"{fused_train['peak_gib']:.2f} vs {train['peak_gib']:.2f} GiB")
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "flax",
                                       "infantposeestimation_gaussianbias_tpu")]
     assert not loaded, loaded
-    log(json.dumps({"slice": thr, "train": train}))
+    log(json.dumps({"slice": thr, "train": train, "fused_slice": fused_thr,
+                    "fused_train": fused_train}))
     source = "infantposeestimation_gaussianbias_tpu_torch/csrc/"
-    replaces = "infantposeestimation_gaussianbias_tpu/ops/pallas/window_msa.py"
+    pallas = "infantposeestimation_gaussianbias_tpu/ops/pallas/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
+    t, ft = train["launches"], fused_train["launches"]
+
+    def entry(name, src, replaces, by_path, rec):
+        return {"name": name, "route": "cuda", "source": source + src,
+                "replaces": pallas + replaces,
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path, **{k: rec[k] for k in keys},
+                **({"max_rel_err": rec["max_rel_err"]}
+                   if "max_rel_err" in rec else {})}
+
     log(json.dumps({"kernels": [
-        {"name": "window_msa_fwd", "route": "cuda",
-         "source": source + "window_msa.cu", "replaces": replaces + ":222",
-         "launches": serve_launches + train["k1_launches"],
-         "launches_by_path": {"serve": serve_launches,
-                              "train": train["k1_launches"]},
-         **{k: k1[k] for k in keys}},
-        {"name": "window_msa_bwd", "route": "cuda",
-         "source": source + "window_msa_bwd.cu", "replaces": replaces + ":422",
-         "launches": train["k2_launches"],
-         "launches_by_path": {"train": train["k2_launches"]},
-         **{k: k2[k] for k in keys}},
+        entry("window_msa_fwd", "window_msa.cu", "window_msa.py:222",
+              {"serve": serve_launches, "serve_auto": fused_serve["k1"],
+               "train": t["k1"]}, k1),
+        entry("window_msa_bwd", "window_msa_bwd.cu", "window_msa.py:422",
+              {"train": t["k2"]}, k2),
+        entry("fused_attn_half_fwd", "fused_attn.cu", "fused_block.py:562",
+              {"serve_fused": fused_serve["k4"], "train_fused": ft["k4"]},
+              k45["attn_fwd"]),
+        entry("fused_attn_half_bwd", "fused_attn.cu", "fused_block.py:608",
+              {"train_fused": ft["k4b"]}, k45["attn_bwd"]),
+        entry("fused_mlp_half_fwd", "fused_mlp.cu", "fused_block.py:220",
+              {"serve_fused": fused_serve["k5"], "train_fused": ft["k5"]},
+              k45["mlp_fwd"]),
+        entry("fused_mlp_half_bwd", "fused_mlp.cu", "fused_block.py:260",
+              {"train_fused": ft["k5b"]}, k45["mlp_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,8 +100,10 @@ class ModelConfig:
     hrnet_stage_modules: Tuple[int, ...] = ()
     # Parameter / activation dtype policy: "float32" or "bfloat16".
     compute_dtype: str = "bfloat16"
-    # The JAX package's switch for its fused Pallas window-MSA kernels;
-    # the port always runs its CUDA W-MSA kernels on the card.
+    # The JAX package's switch for its Pallas kernels.  In the port the
+    # W-MSA kernels (K1/K2) run on the card either way; use_pallas gates
+    # the fused half-block kernels (K4/K5), which also need the
+    # IPE_FUSED_BLOCK environment variable (models/hrformer.py).
     use_pallas: bool = True
     # HRFormer attention window size.  7 is the reference's value (and
     # the checkpoint-parity default); 8 gives 64-token windows that tile a

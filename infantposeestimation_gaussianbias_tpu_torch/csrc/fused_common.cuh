@@ -1,0 +1,345 @@
+// Device pieces shared by the fused half-block kernels (csrc/fused_mlp.cu,
+// csrc/fused_attn.cu): a block-level tile product on the tensor cores,
+// LayerNorm forward and backward over a block's rows, the tanh GELU, and
+// the two deterministic reductions of the backward (weight gradients as
+// A^T B over the rows, and fixed-order sums of per-block partial vectors).
+//
+// Numerics, as the TPU kernels (ops/pallas/fused_block.py): every product
+// takes its activation operand rounded to bf16 (the callers store those
+// operands as bf16) and its weight as it is, and accumulates in float32.
+// The products run as bf16 x bf16 -> f32 `mma.sync` on the tensor cores:
+// exactly the TPU kernel's products for bf16 weights.  A float32 weight is
+// split into three bf16 terms whose sum is the weight exactly (8 + 8 + 8
+// significant bits), and the product takes one mma per term: each partial
+// product is exact in float32, so this too is the TPU kernel's
+// bf16 x f32 -> f32 product up to summation order.
+//
+// Everything here lives in an anonymous namespace: each .cu file that
+// includes it gets its own copy, so the objects link side by side.
+#pragma once
+
+#include <cstdint>
+
+#include "ipe_common.cuh"
+
+namespace {
+
+using ipe::from_f32;
+using ipe::to_f32;
+using ipe::warp_sum;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;        // every fused kernel runs 256 threads: 8 warps
+constexpr int kBN = 64;              // columns of one output tile
+constexpr int kTN = 4;               // accumulators per thread and row pair
+constexpr int kMaxSmem = 232448;     // bytes of shared memory a block may opt in to
+constexpr float kLnEps = 1e-5f;
+constexpr float kSqrt2OverPi = 0.7978845608028654f;
+constexpr float kGeluC = 0.044715f;
+constexpr float kGeluC3 = 0.134145f;  // 3 * 0.044715, rounded to float as in the JAX kernel
+
+// bf16 terms per weight element in the tensor-core products.
+template <typename T> struct Terms { static constexpr int n = 1; };
+template <> struct Terms<float> { static constexpr int n = 3; };
+
+__device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float round_bf16(float x) { return bf(__float2bfloat16(x)); }
+
+__device__ __forceinline__ float gelu_tanh(float h) {
+  const float u = kSqrt2OverPi * (h + kGeluC * h * h * h);
+  return 0.5f * h * (1.f + tanhf(u));
+}
+
+__device__ __forceinline__ float gelu_tanh_grad(float h) {
+  const float u = kSqrt2OverPi * (h + kGeluC * h * h * h);
+  const float t = tanhf(u);
+  const float du = kSqrt2OverPi * (1.f + kGeluC3 * h * h);
+  return 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * du;
+}
+
+// Two bf16 values (lo at the lower address / smaller k) in one register.
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bits(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Operand pairs for the tile product: the elements (k, k + 1) of one row
+// of A or one column of B, as bf16 pairs; zero outside (row < 0, k >= K).
+// A row-major bf16 matrix read along its rows (k even, row stride even):
+// one 32-bit load.
+__device__ __forceinline__ uint32_t pair_row(const bf16* p, int row, int ld, int k, int K) {
+  return (row >= 0 && k < K) ? *reinterpret_cast<const uint32_t*>(p + (size_t)row * ld + k)
+                             : 0u;
+}
+
+// The same for a weight, in terms: a bf16 weight is one pair, a float one
+// three (hi, mid, lo bf16 parts, exact in sum).
+__device__ __forceinline__ void split(float lo, float hi, uint32_t (&o)[3]) {
+  const float l1 = round_bf16(lo), h1 = round_bf16(hi);
+  const float l2 = round_bf16(lo - l1), h2 = round_bf16(hi - h1);
+  o[0] = pack(l1, h1);
+  o[1] = pack(l2, h2);
+  o[2] = pack(lo - l1 - l2, hi - h1 - h2);
+}
+
+__device__ __forceinline__ void wpair_row(const bf16* p, int row, int ld, int k, int K,
+                                          uint32_t (&o)[1]) {
+  o[0] = pair_row(p, row, ld, k, K);
+}
+
+__device__ __forceinline__ void wpair_row(const float* p, int row, int ld, int k, int K,
+                                          uint32_t (&o)[3]) {
+  const float2 v = (row >= 0 && k < K)
+                       ? *reinterpret_cast<const float2*>(p + (size_t)row * ld + k)
+                       : make_float2(0.f, 0.f);
+  split(v.x, v.y, o);
+}
+
+__device__ __forceinline__ void mma_16816(float& d0, float& d1, float& d2, float& d3,
+                                          const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Where accumulator acc[i][j] of the tile product below lies in its tile.
+template <int BM>
+__device__ __forceinline__ int tile_row(int i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return (warp & 1) * (BM / 2) + (i >> 1) * 16 + (i & 1) * 8 + (lane >> 2);
+}
+
+__device__ __forceinline__ int tile_col(int j) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return (warp >> 1) * 16 + (j >> 1) * 8 + 2 * (lane & 3) + (j & 1);
+}
+
+// One BM x kBN output tile on the tensor cores: acc = A B over k < K
+// (acc += with kAccumulate), with the 8 warps as 2 (rows) x 4 (columns),
+// each warp BM/2 rows x 16 columns in m16n8k16 products.  pa(m, k) returns
+// the bf16 pair A(m, k), A(m, k+1) (0 outside the caller's range);
+// pb(n, k, o) fills o[NW] with the bf16 pair(s) of B(k, n), B(k+1, n).
+// acc[i][j] holds the output at (tile_row<BM>(i), tile_col(j)).  Ends with
+// the whole block past a barrier; the caller synchronises before it if A
+// was written by other threads.
+template <int BM, int NW, bool kAccumulate = false, class PA, class PB>
+__device__ __forceinline__ void mma_tile(float (&acc)[BM / 16][kTN], int K, PA pa, PB pb) {
+  constexpr int MT = BM / 32;  // m16 tiles per warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * (BM / 2) + g;
+  const int n0 = (warp >> 1) * 16 + g;
+  if (!kAccumulate) {
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  }
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const int ka = k0 + 2 * t;
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const int m = m0 + mi * 16;
+      a[mi][0] = pa(m, ka);
+      a[mi][1] = pa(m + 8, ka);
+      a[mi][2] = pa(m, ka + 8);
+      a[mi][3] = pa(m + 8, ka + 8);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      uint32_t b0[NW], b1[NW];
+      pb(n0 + ni * 8, ka, b0);
+      pb(n0 + ni * 8, ka + 8, b1);
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+          mma_16816(acc[2 * mi][2 * ni], acc[2 * mi][2 * ni + 1], acc[2 * mi + 1][2 * ni],
+                    acc[2 * mi + 1][2 * ni + 1], a[mi], b0[w], b1[w]);
+    }
+  }
+  __syncthreads();
+}
+
+// LayerNorm of `rows` rows of x (row stride C), one warp per row, float32
+// statistics: ln = bf16((x - mu) * rstd * gamma + beta) into ln_s (row
+// stride C) and, where not null, ln_g; the row's mu and rstd into mean and
+// rstd where not null.
+template <typename T>
+__device__ void layernorm_rows(const T* x, int rows, int C, const float* gamma,
+                               const float* beta, bf16* ln_s, bf16* ln_g, float* mean,
+                               float* rstd) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += kThreads / 32) {
+    const T* xr = x + (size_t)r * C;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += to_f32(xr[c]);
+    const float mu = warp_sum(s) / C;
+    float v = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = to_f32(xr[c]) - mu;
+      v = fmaf(d, d, v);
+    }
+    const float rs = rsqrtf(warp_sum(v) / C + kLnEps);
+    for (int c = lane; c < C; c += 32) {
+      const float xhat = (to_f32(xr[c]) - mu) * rs;
+      const bf16 l = __float2bfloat16(xhat * gamma[c] + beta[c]);
+      ln_s[r * C + c] = l;
+      if (ln_g) ln_g[(size_t)r * C + c] = l;
+    }
+    if (lane == 0 && mean) {
+      mean[r] = mu;
+      rstd[r] = rs;
+    }
+  }
+}
+
+// LayerNorm backward over `rows` rows (pointers at the block's first row):
+// dx = dy + (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) * rstd with
+// dxhat = dln * gamma, one warp per row; then this block's partial sums
+// over its rows, in row order, of dln * xhat (dgamma) and dln (dbeta).
+// dln is float32 that this kernel wrote earlier (not read-only).
+template <typename T>
+__device__ void layernorm_bwd_rows(const T* x, const T* dy, const float* dln,
+                                   const float* mean, const float* rstd, const float* gamma,
+                                   int rows, int C, T* dx, float* dgamma_part,
+                                   float* dbeta_part) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += kThreads / 32) {
+    const size_t o = (size_t)r * C;
+    const float mu = mean[r], rs = rstd[r];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float xhat = (to_f32(x[o + c]) - mu) * rs;
+      const float dxhat = dln[o + c] * gamma[c];
+      s1 += dxhat;
+      s2 = fmaf(dxhat, xhat, s2);
+    }
+    const float m1 = warp_sum(s1) / C;
+    const float m2 = warp_sum(s2) / C;
+    for (int c = lane; c < C; c += 32) {
+      const float xhat = (to_f32(x[o + c]) - mu) * rs;
+      const float dxhat = dln[o + c] * gamma[c];
+      dx[o + c] = from_f32<T>(to_f32(dy[o + c]) + (dxhat - m1 - xhat * m2) * rs);
+    }
+  }
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float sg = 0.f, sb = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const size_t o = (size_t)r * C + c;
+      const float d = dln[o];
+      sg = fmaf(d, (to_f32(x[o]) - mean[r]) * rstd[r], sg);
+      sb += d;
+    }
+    dgamma_part[c] = sg;
+    dbeta_part[c] = sb;
+  }
+}
+
+// out[e] = sum over r < rows of part[r * width + e], for e < width, in a
+// fixed order: thread (ry, cx) of a block sums rows ry, ry + 8, ... of
+// column 32 * blockIdx.x + cx, then the 8 sums are added in ry order.
+__global__ void __launch_bounds__(kThreads)
+colsum_kernel(const float* part, float* out, int rows, int width) {
+  __shared__ float red[8][33];
+  const int cx = threadIdx.x & 31;
+  const int ry = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + cx;
+  float s = 0.f;
+  if (e < width)
+    for (int r = ry; r < rows; r += 8) s += part[(size_t)r * width + e];
+  red[ry][cx] = s;
+  __syncthreads();
+  if (ry == 0 && e < width) {
+    float t = 0.f;
+    for (int i = 0; i < 8; ++i) t += red[i][cx];
+    out[e] = t;
+  }
+}
+
+cudaError_t launch_colsum(const float* part, float* out, int rows, int width,
+                          cudaStream_t stream) {
+  colsum_kernel<<<(width + 31) / 32, kThreads, 0, stream>>>(part, out, rows, width);
+  return cudaGetLastError();
+}
+
+// partial[z][p][q] = sum over rows m of chunk z of A[m][p] * B[m][q]
+// (A: M x P, row stride lda; B: M x Q, row stride ldb; both bf16, P, Q,
+// lda and ldb even): one 64 x 64 output tile and one chunk of rows per
+// block, on the tensor cores, the rows being the products' k.  Slices of
+// kAtbRows rows of A and B are staged in shared memory as they lie in
+// device memory (coalesced 32-bit loads and stores); the operand pairs
+// (m, m + 1) of one column are then two 16-bit shared-memory loads.
+constexpr int kAtbRows = 32;
+constexpr int kAtbLd = 64 + 8;  // bf16 row stride of the staged slices
+
+__global__ void __launch_bounds__(kThreads)
+atb_kernel(const bf16* A, int lda, const bf16* B, int ldb, float* partial, int M, int P,
+           int Q, int chunk) {
+  __shared__ __align__(16) bf16 sa[kAtbRows][kAtbLd];
+  __shared__ __align__(16) bf16 sb[kAtbRows][kAtbLd];
+  const int p0 = blockIdx.x * 64;
+  const int q0 = blockIdx.y * kBN;
+  const int m0 = blockIdx.z * chunk;
+  const int mlen = max(0, min(chunk, M - m0));
+  float acc[4][kTN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < mlen; k0 += kAtbRows) {
+    for (int e = threadIdx.x; e < kAtbRows * 32; e += kThreads) {
+      const int r = e >> 5, c = (e & 31) * 2;  // row of the slice, column pair
+      const size_t m = (size_t)m0 + k0 + r;
+      const bool in = k0 + r < mlen;
+      *reinterpret_cast<uint32_t*>(&sa[r][c]) =
+          in && p0 + c < P ? *reinterpret_cast<const uint32_t*>(A + m * lda + p0 + c) : 0u;
+      *reinterpret_cast<uint32_t*>(&sb[r][c]) =
+          in && q0 + c < Q ? *reinterpret_cast<const uint32_t*>(B + m * ldb + q0 + c) : 0u;
+    }
+    __syncthreads();
+    mma_tile<64, 1, true>(
+        acc, kAtbRows, [&](int p, int k) { return pack_bits(sa[k][p], sa[k + 1][p]); },
+        [&](int q, int k, uint32_t (&o)[1]) { o[0] = pack_bits(sb[k][q], sb[k + 1][q]); });
+  }
+  float* out = partial + (size_t)blockIdx.z * P * Q;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = p0 + tile_row<64>(i);
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int q = q0 + tile_col(j);
+      if (p < P && q < Q) out[(size_t)p * Q + q] = acc[i][j];
+    }
+  }
+}
+
+// out (P x Q) = A^T B over all M rows: `splits` chunks of rows summed by
+// atb_kernel into `partial` (splits * P * Q floats), then added in chunk
+// order.  Deterministic: no sum depends on the order blocks run in.
+cudaError_t launch_atb(const bf16* A, int lda, const bf16* B, int ldb, float* out,
+                       float* partial, int M, int P, int Q, int splits, cudaStream_t stream) {
+  int chunk = (M + splits - 1) / splits;
+  chunk = (chunk + kAtbRows - 1) / kAtbRows * kAtbRows;
+  dim3 grid((P + 63) / 64, (Q + kBN - 1) / kBN, splits);
+  atb_kernel<<<grid, kThreads, 0, stream>>>(A, lda, B, ldb, partial, M, P, Q, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_colsum(partial, out, splits, P * Q, stream);
+}
+
+// Opt a kernel in to `bytes` of dynamic shared memory (needed above 48 KB).
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace

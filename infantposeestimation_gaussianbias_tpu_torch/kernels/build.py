@@ -122,10 +122,33 @@ def load() -> ctypes.CDLL:
         lib.ipe_window_msa_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                            ctypes.c_float, i, i, p]
         lib.ipe_window_msa_bwd.restype = i
+        f = ctypes.c_float
+        lib.ipe_fused_mlp_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
+        lib.ipe_fused_mlp_fwd.restype = i
+        lib.ipe_fused_mlp_bwd_rows_per_block.argtypes = [i, i]
+        lib.ipe_fused_mlp_bwd_rows_per_block.restype = i
+        lib.ipe_fused_mlp_bwd.argtypes = [p] * 20 + [i] * 7 + [p]
+        lib.ipe_fused_mlp_bwd.restype = i
+        lib.ipe_fused_attn_fwd.argtypes = [p] * 10 + [i] * 7 + [f, i, p]
+        lib.ipe_fused_attn_fwd.restype = i
+        lib.ipe_fused_attn_bwd.argtypes = ([p] * 21 + [i] * 7 + [f]
+                                           + [i] * 3 + [p])
+        lib.ipe_fused_attn_bwd.restype = i
         lib.ipe_cuda_error_string.argtypes = [i]
         lib.ipe_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def on_card(x, kernel: str) -> bool:
+    """Whether a kernel wrapper launches its kernel for tensor ``x``: True
+    on a CUDA device, False on the CPU (the wrapper takes its plain
+    PyTorch version); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no {kernel} kernel for device {x.device}")
+    return True
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

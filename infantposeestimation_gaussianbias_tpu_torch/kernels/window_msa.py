@@ -103,20 +103,11 @@ def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     return nW, N, hd, _DTYPE_CODES[qkv.dtype]
 
 
-def _kernel_device(qkv: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if qkv.device.type == "cpu":
-        return False
-    if qkv.device.type != "cuda":
-        raise RuntimeError(f"no W-MSA kernel for device {qkv.device}")
-    return True
-
-
 def window_attention_qkv(qkv: torch.Tensor, bias: Optional[torch.Tensor],
                          num_heads: int) -> torch.Tensor:
     """K1, fused W-MSA: (nW, N, 3C) qkv -> (nW, N, C), see the module doc."""
     global LAUNCHES
-    if not _kernel_device(qkv):
+    if not build.on_card(qkv, "W-MSA"):
         return window_attention_qkv_reference(qkv, bias, num_heads)
     nW, N, hd, code = _check(qkv, bias, num_heads)
     out = torch.empty((nW, N, num_heads * hd), dtype=qkv.dtype,
@@ -147,7 +138,7 @@ def window_attention_qkv_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     """K2, the W-MSA backward: (qkv, bias, dout) -> (dqkv, dbias), see the
     module doc."""
     global BWD_LAUNCHES
-    if not _kernel_device(qkv):
+    if not build.on_card(qkv, "W-MSA"):
         return window_attention_qkv_bwd_reference(qkv, bias, dout, num_heads)
     if bias is None:
         raise ValueError("the W-MSA backward kernel needs the bias")

@@ -17,6 +17,11 @@ same ones.  ``remat`` wraps each HRFormerModule in
 ``torch.utils.checkpoint``; its recomputation leaves the BatchNorm running
 statistics alone (layers.frozen_batch_stats).
 
+Fused half-blocks: with ``use_pallas`` (``cfg.model.use_pallas``) and the
+``IPE_FUSED_BLOCK`` environment variable on (``_fused_blocks_enabled``,
+read when a block runs, as in the JAX package), a block runs as K4 then K5
+(kernels/fused_block.py) on one window layout, from the same parameters.
+
 Base:  channels (78, 156, 312, 624), heads (2, 4, 8, 16), window 7,
        modules per stage (1, 4, 2), 2 blocks per branch, drop-path 0.2.
 Small: channels (32, 64, 128, 256), heads (1, 2, 4, 8), drop-path 0.1.
@@ -25,6 +30,7 @@ Small: channels (32, 64, 128, 256), heads (1, 2, 4, 8), drop-path 0.1.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -32,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.fused_block import fused_attn_half, fused_mlp_half
 from ..kernels.window_msa import window_attention
 from ..ops import msa
 from .layers import (BatchNorm, Bottleneck, Conv2d, Linear, conv_norm,
@@ -39,6 +46,20 @@ from .layers import (BatchNorm, Bottleneck, Conv2d, Linear, conv_norm,
 
 BLOCKS_PER_BRANCH = 2
 MLP_RATIO = 4
+
+
+def _fused_blocks_enabled(dim: int) -> bool:
+    """The fused half-block gate of the JAX package (its
+    ``models/hrformer.py`` ``_fused_blocks_enabled``), read when a block
+    runs: ``IPE_FUSED_BLOCK=0`` (the default) never fuses, ``=1`` fuses
+    every block, any other value fuses the blocks of width
+    ``dim >= IPE_FUSED_BLOCK_MIN_C`` (default 128)."""
+    flag = os.environ.get("IPE_FUSED_BLOCK", "0")
+    if flag == "0":
+        return False
+    if flag == "1":
+        return True
+    return dim >= int(os.environ.get("IPE_FUSED_BLOCK_MIN_C", "128"))
 
 
 class WindowAttention(nn.Module):
@@ -90,17 +111,20 @@ class HRFormerBlock(nn.Module):
 
     LayerNorm statistics are float32 with eps 1e-5; the normalised map
     drops to the compute dtype before the window partition, as in the JAX
-    block (hrformer.py:188-227)."""
+    block (hrformer.py:188-227).  With ``use_pallas`` and the fused gate
+    on, the block runs ``_fused`` instead."""
 
     DROP_PATHS = 2  # keep masks per block: after attention, after the MLP
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, use_pallas: bool = False):
         super().__init__()
+        self.dim = dim
         self.window_size = window_size
         self.compute_dtype = compute_dtype
         self.drop_path_rate = drop_path_rate
+        self.use_pallas = use_pallas
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, window_size, num_heads, compute_dtype)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -109,6 +133,8 @@ class HRFormerBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``keep``: (2, B) bool DropPath masks, or None for none."""
+        if self.use_pallas and _fused_blocks_enabled(self.dim):
+            return self._fused(x, keep)
         B, H, W, C = x.shape
         ws, dt, rate = self.window_size, self.compute_dtype, self.drop_path_rate
         y = self.norm1(x.float()).to(dt)
@@ -119,6 +145,38 @@ class HRFormerBlock(nn.Module):
         y = self.norm2(x.float()).to(dt)
         return x + drop_path(self.mlp(y), None if keep is None else keep[1],
                              rate)
+
+    def _scales(self, keep: Optional[torch.Tensor], B: int,
+                device) -> tuple:
+        """The two (B,) float32 DropPath scales, mask / (1 - rate)."""
+        if keep is None or self.drop_path_rate == 0.0:
+            ones = torch.ones(B, dtype=torch.float32, device=device)
+            return ones, ones
+        k = keep.to(torch.float32) / (1.0 - self.drop_path_rate)
+        return k[0], k[1]
+
+    def _fused(self, x: torch.Tensor,
+               keep: Optional[torch.Tensor]) -> torch.Tensor:
+        """The JAX block's ``_fused``: K4 then K5 on one window layout (one
+        partition, one reverse), from the parameters of the unfused path.
+        The MLP is per token, so it runs on the windowed rows: pad tokens
+        compute values that ``window_reverse`` crops off."""
+        B, H, W, C = x.shape
+        ws, dt = self.window_size, self.compute_dtype
+        attn, mlp = self.attn, self.mlp
+        xw, (Hp, Wp) = msa.window_partition(x.to(dt), ws)
+        nW, N = xw.shape[0], ws * ws
+        dp1, dp2 = self._scales(keep, B, x.device)
+        xw = fused_attn_half(
+            xw.contiguous(), self.norm1.weight, self.norm1.bias,
+            attn.qkv.weight.to(dt).t(), attn.qkv.bias, attn.rpe_bias(),
+            attn.proj.weight.to(dt).t(), attn.proj.bias, dp1,
+            attn.num_heads, (H, W, ws))
+        y = fused_mlp_half(
+            xw.reshape(nW * N, C), self.norm2.weight, self.norm2.bias,
+            mlp.fc1.weight.to(dt).t(), mlp.fc1.bias,
+            mlp.fc2.weight.to(dt).t(), mlp.fc2.bias, dp2, (nW // B) * N)
+        return msa.window_reverse(y.reshape(nW, ws, ws, C), ws, H, W, Hp, Wp)
 
 
 class HRFormerModule(nn.Module):
@@ -131,13 +189,14 @@ class HRFormerModule(nn.Module):
     def __init__(self, channels: Sequence[int], heads: Sequence[int],
                  window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, use_pallas: bool = False):
         super().__init__()
         n = len(channels)
         kw = dict(compute_dtype=compute_dtype)
         self.branches = nn.ModuleList([
             nn.Sequential(*[HRFormerBlock(c, h, window_size,
-                                          drop_path_rate=drop_path_rate, **kw)
+                                          drop_path_rate=drop_path_rate,
+                                          use_pallas=use_pallas, **kw)
                             for _ in range(BLOCKS_PER_BRANCH)])
             for c, h in zip(channels, heads)])
         self.num_drop_paths = (len(channels) * BLOCKS_PER_BRANCH
@@ -192,7 +251,8 @@ class HRFormer(nn.Module):
                  stage_modules: Tuple[int, ...] = (1, 4, 2),
                  window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
-                 drop_path_rate: float = 0.2, remat: bool = False):
+                 drop_path_rate: float = 0.2, remat: bool = False,
+                 use_pallas: bool = False):
         super().__init__()
         self.channels = tuple(channels)
         self.drop_path_rate = drop_path_rate
@@ -218,7 +278,8 @@ class HRFormer(nn.Module):
             setattr(self, f"transition{s + 1}", trans)
             setattr(self, f"stage{s + 2}", nn.ModuleList([
                 HRFormerModule(cur, num_heads[: s + 2], window_size,
-                               drop_path_rate=drop_path_rate, **kw)
+                               drop_path_rate=drop_path_rate,
+                               use_pallas=use_pallas, **kw)
                 for _ in range(modules)]))
             prev = cur
         self.num_stages = len(stage_modules)
@@ -263,14 +324,16 @@ def _remat_contexts():
 
 
 def hrformer_base(compute_dtype: torch.dtype = torch.float32,
-                  window_size: int = 7, remat: bool = False) -> HRFormer:
+                  window_size: int = 7, remat: bool = False,
+                  use_pallas: bool = False) -> HRFormer:
     return HRFormer(channels=(78, 156, 312, 624), num_heads=(2, 4, 8, 16),
                     compute_dtype=compute_dtype, window_size=window_size,
-                    drop_path_rate=0.2, remat=remat)
+                    drop_path_rate=0.2, remat=remat, use_pallas=use_pallas)
 
 
 def hrformer_small(compute_dtype: torch.dtype = torch.float32,
-                   window_size: int = 7, remat: bool = False) -> HRFormer:
+                   window_size: int = 7, remat: bool = False,
+                   use_pallas: bool = False) -> HRFormer:
     return HRFormer(channels=(32, 64, 128, 256), num_heads=(1, 2, 4, 8),
                     compute_dtype=compute_dtype, window_size=window_size,
-                    drop_path_rate=0.1, remat=remat)
+                    drop_path_rate=0.1, remat=remat, use_pallas=use_pallas)

@@ -32,7 +32,7 @@ class PoseEstimator(nn.Module):
                  num_keypoints: int = 17, hidden_dim: int = 256,
                  window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, use_pallas: bool = False):
         super().__init__()
         if backbone_name not in BACKBONES:
             raise ValueError(f"Unknown backbone {backbone_name!r}; "
@@ -40,7 +40,7 @@ class PoseEstimator(nn.Module):
         self.compute_dtype = compute_dtype
         self.backbone = BACKBONES[backbone_name](
             compute_dtype=compute_dtype, window_size=window_size,
-            remat=remat)
+            remat=remat, use_pallas=use_pallas)
         self.head = FusionHead(self.backbone.channels[0], num_keypoints,
                                hidden_dim, compute_dtype=compute_dtype)
 
@@ -79,7 +79,8 @@ def build_model(cfg, device="cuda") -> PoseEstimator:
         hidden_dim=cfg.model.hidden_dim,
         window_size=cfg.model.hrformer_window_size,
         compute_dtype=COMPUTE_DTYPES[cfg.model.compute_dtype],
-        remat=cfg.model.remat)
+        remat=cfg.model.remat,
+        use_pallas=cfg.model.use_pallas)
     init_weights(model, cfg.train.seed)
     return model.to(device).eval()
 
