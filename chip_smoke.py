@@ -40,7 +40,29 @@ Phases, in order; any failure exits non-zero:
   9. fused training (IPE_FUSED_BLOCK=1): a float32 step at b=2, card
      against CPU; bf16 steps at b=32 with 44 launches of each of K4 and
      K5 forward and backward per step, no K1 or K2, a falling loss, step
-     time, images/s, peak memory and the profile by kernel.
+     time, images/s, peak memory and the profile by kernel;
+ 10. K7 (CUDA fused residual chain) against its plain version at every
+     hrnet_w32 branch shape at the served batch 32, float32 (TF32 off) and
+     bf16; kernel, plain and stock-chain (four eval BasicBlocks: cuDNN
+     convs and BatchNorm) times and the bound;
+ 11. K6 (CUDA 3x3 weight gradient) against its plain version at every
+     stride-1 3x3 conv shape of hrnet_w32 + fusion (found with hooks) at
+     b=32, float32 and bf16; kernel, plain and cuDNN
+     (torch.nn.grad.conv2d_weight) times and the bound;
+ 12. HRNet-W32 serving: PoseInference(Config()) (heatmap head, quarter
+     decode) and the fusion head, their BatchNorm statistics calibrated
+     by train-mode forwards on seeded crops, serve batches of 1, 3 and 8
+     frames through no kernel of the HRFormer path; float32 card against
+     CPU;
+     bf16 crops/s at b=32 for each head; then a served bf16 batch of 32
+     with hooks on every BasicBlock chain: K7 on the packed model
+     parameters against the model's own chain, 26 launches per forward;
+ 13. HRNet-W32 training: a float32 step at b=2, card against CPU; bf16
+     steps of Config() (heatmap head) at b=32 on one seeded batch: finite
+     terms, a falling loss, step time, images/s, peak memory and the
+     profile by kernel; one bf16 fusion-head step with finite terms and
+     hooks on every stride-1 3x3 conv: K6 on each captured (x, dy)
+     against that conv's weight.grad, one launch per conv.
 Each fused phase sets IPE_FUSED_BLOCK itself and restores it after.  The
 last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
@@ -125,6 +147,51 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
 
+# hrnet_w32's branches at 256x192: (label, map H, map W, C); the served
+# forward runs b = 32 (a batch of 32 crops, twice for the flip test).
+HRNET_MAPS = [
+    ("w32 b0", 64, 48, 32),
+    ("w32 b1", 32, 24, 64),
+    ("w32 b2", 16, 12, 128),
+    ("w32 b3", 8, 6, 256),
+]
+HRNET_SERVE_BATCH = 32
+# BasicBlock chains per hrnet_w32 forward: 1*2 + 4*3 + 3*4 branches.
+K7_CHAINS_PER_FORWARD = 26
+# K7 against its plain version on the card, per output, relative norm of
+# the difference and largest element error over the largest magnitude.
+# Float32: the same float32 maths in another summation order through 8
+# convs (measured <= 1.6e-6).  bf16: both round every conv input to bf16
+# from float32 values that agree to ~1e-6, a value on the other side of a
+# rounding boundary moves by 2^-8, and the output is bf16: elements differ
+# by up to one bf16 ulp, 2^-7 of their magnitude at most (measured: one
+# ulp at the largest element, relative norm <= 3.4e-3).
+K7_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -4)}
+# K7 against the model's own bf16 chain: the eval BasicBlocks round to
+# bf16 after each conv, BatchNorm affine and residual add (about six
+# roundings of 2^-9 per block, compounding through 8 convs), where K7
+# carries float32; relative norm of the difference per chain.
+K7_MODEL_REL_TOL = 3e-2
+# K6 against its plain version: relative norm and largest element error
+# over the largest.  Float32: FMAs in another order over B*H*W rows
+# (measured <= 4e-6).  bf16: the products are exact in both, but the
+# tensor cores' float32 accumulation truncates where an FMA rounds, a bias
+# of up to 2^-23 per k16 step that grows with a chunk's rows (24,576 at
+# 64x48 256->256, where 4 chunks fill the card: <= 1.8e-4): measured
+# 2.8e-5 there on random data, 1.05e-4 on a train step's own tensors.
+K6_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.5e-4, 1e-3)}
+# K6 against a bf16 conv's weight.grad: cuDNN's weight gradient is rounded
+# to bf16 once (2^-9 of each element at most; 2^-8 in norm covers it).
+K6_GRAD_REL_TOL = 2.0 ** -8
+# HRNet-W32 float32 step, card against CPU: the loss and the BatchNorm
+# statistics are forward quantities; the gradients are not smooth in the
+# forward's roundings: a ReLU input on the other side of 0 on the card
+# (the CPU tests find one per step against JAX at the tiny size) moves
+# every gradient below it, by more on the small branch-3 maps (8x6 at
+# b=2).  Whole gradient vector relative norm and grad_norm.
+HRNET_STEP_GRAD_RTOL = 2e-2
+HRNET_STEP_NORM_RTOL = 1e-3
+
 # hrformer_base's branches at 256x192: (label, map H, map W, C, heads);
 # window 7, so 70 / 20 / 6 / 2 windows per image.
 BASE_MAPS = [
@@ -168,21 +235,24 @@ def fused_blocks(flag: str):
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
-        fused_block, window_msa)
+        conv_wgrad, fused_block, residual_block, window_msa)
 
     window_msa.LAUNCHES = window_msa.BWD_LAUNCHES = 0
     fused_block.ATTN_LAUNCHES = fused_block.ATTN_BWD_LAUNCHES = 0
     fused_block.MLP_LAUNCHES = fused_block.MLP_BWD_LAUNCHES = 0
+    conv_wgrad.LAUNCHES = residual_block.LAUNCHES = 0
 
 
 def launches() -> dict:
-    """Launches since the last reset: K1, K2, K4 (fwd, bwd), K5 (fwd, bwd)."""
+    """Launches since the last reset: K1, K2, K4 (fwd, bwd), K5 (fwd, bwd),
+    K6, K7."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
-        fused_block as fb, window_msa as wm)
+        conv_wgrad as cw, fused_block as fb, residual_block as rb,
+        window_msa as wm)
 
     return dict(k1=wm.LAUNCHES, k2=wm.BWD_LAUNCHES, k4=fb.ATTN_LAUNCHES,
                 k4b=fb.ATTN_BWD_LAUNCHES, k5=fb.MLP_LAUNCHES,
-                k5b=fb.MLP_BWD_LAUNCHES)
+                k5b=fb.MLP_BWD_LAUNCHES, k6=cw.LAUNCHES, k7=rb.LAUNCHES)
 
 
 def cuda_median_ms(fn, warmup: int = 3, runs: int = 25) -> float:
@@ -403,17 +473,43 @@ def phase_slice() -> tuple:
     return inf, count
 
 
+def _unsure_keypoints(hm: torch.Tensor, head: str) -> np.ndarray:
+    """(B, K) keypoints whose decode of the flip-averaged heatmaps ``hm``
+    sits on a tie that a 1e-6 difference may break either way: for the
+    fusion head a soft-argmax within 1e-3 of a half-integer (round() moves
+    the refine window); for the heatmap head's quarter decode a runner-up
+    within 1e-5 of the peak's magnitude, or a neighbour difference within
+    that of 0 (the sign of the 0.25 px shift)."""
+    from infantposeestimation_gaussianbias_tpu_torch.ops import decode
+
+    if head == "fusion":
+        g, _ = decode.soft_argmax(hm)
+        return near_half_integer(g.cpu().numpy())
+    B, H, W, K = hm.shape
+    tol = 1e-5 * hm.abs().amax(dim=(1, 2))
+    top2 = hm.permute(0, 3, 1, 2).reshape(B, K, H * W).topk(2, dim=-1).values
+    coords, _ = decode.argmax_decode(hm)
+    xi, yi = coords[..., 0].long(), coords[..., 1].long()
+    g = decode._gather_hm
+    dx = g(hm, xi + 1, yi) - g(hm, xi - 1, yi)
+    dy = g(hm, xi, yi + 1) - g(hm, xi, yi - 1)
+    return ((top2[..., 0] - top2[..., 1] < tol) | (dx.abs() < tol)
+            | (dy.abs() < tol)).cpu().numpy()
+
+
 def compare_f32_serving(sd, frames, bboxes, tag: str, hm_tol: float,
-                        kp_tol: float) -> None:
-    """float32 hrformer_base from the state dict ``sd`` on the card against
-    the port's plain path on the CPU: 3 frames' heatmaps (flip-averaged)
-    and keypoints."""
+                        kp_tol: float, cfg32=None) -> None:
+    """float32 serving (hrformer_base unless ``cfg32`` says otherwise) from
+    the state dict ``sd`` on the card against the port's plain path on the
+    CPU: 3 frames' heatmaps (flip-averaged) and keypoints."""
     from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
                                                               get_variant)
     from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
 
-    cfg32 = get_variant("hrformer_base")
-    cfg32.model.compute_dtype = "float32"
+    if cfg32 is None:
+        cfg32 = get_variant("hrformer_base")
+        cfg32.model.compute_dtype = "float32"
+    assert cfg32.model.compute_dtype == "float32"
     gpu = PoseInference(cfg32, state_dict=sd, device="cuda")
     cpu = PoseInference(cfg32, state_dict={k: v.cpu() for k, v in sd.items()},
                         device="cpu")
@@ -432,19 +528,18 @@ def compare_f32_serving(sd, frames, bboxes, tag: str, hm_tol: float,
             hm = p.model(crops)["heatmaps"]
             hm_f = decode.flip_heatmaps(
                 p.model(torch.flip(crops, [2]))["heatmaps"], p._flip_index)
-            g, _ = decode.soft_argmax((hm + hm_f) * 0.5)
-        hms[name] = (hm.cpu(), g.cpu().numpy())
+            unsure = _unsure_keypoints((hm + hm_f) * 0.5,
+                                       cfg32.model.head_type)
+        hms[name] = (hm.cpu(), unsure)
     hm_err = (hms["cuda"][0] - hms["cpu"][0]).abs().max().item()
     log(f"[{tag}] f32 heatmaps card vs CPU: max_abs_err={hm_err:.3e} "
         f"(|hm| max {hms['cpu'][0].abs().max().item():.3e})")
     assert hm_err <= hm_tol, hm_err
-    keep = ~(near_half_integer(hms["cuda"][1])
-             | near_half_integer(hms["cpu"][1]))
+    keep = ~(hms["cuda"][1] | hms["cpu"][1])
     kp_err = float(np.abs(k_gpu - k_cpu)[keep].max())
     log(f"[{tag}] f32 keypoints card vs CPU: max_abs_err={kp_err:.3e} px, "
-        f"left out {int((~keep).sum())} of {keep.size} near a half-integer "
-        f"soft-argmax; scores max_abs_err="
-        f"{float(np.abs(s_gpu - s_cpu).max()):.3e}")
+        f"left out {int((~keep).sum())} of {keep.size} on a decode tie; "
+        f"scores max_abs_err={float(np.abs(s_gpu - s_cpu).max()):.3e}")
     assert keep.any()
     assert kp_err <= kp_tol, kp_err
 
@@ -552,17 +647,22 @@ def _grad_fn(fn, args, n_leaves, extra, dy):
                                        retain_graph=True)
 
 
+def _err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float, float]:
+    """(max abs error, relative norm of the difference, largest |ref|)."""
+    a, b = out.float(), ref.float()
+    assert a.shape == b.shape and bool(torch.isfinite(a).all())
+    d = a - b
+    return (d.abs().max().item(),
+            (d.norm() / b.norm().clamp_min(1e-30)).item(),
+            b.abs().max().item())
+
+
 def _compare(tag: str, names, outs, refs, dt) -> tuple[float, float]:
     """Each output against the plain version's (FUSED_REL_TOL,
     FUSED_LOCAL_TOL); returns the worst (max abs, relative norm) error."""
     worst_abs = worst_rel = 0.0
     for name, a, b in zip(names, outs, refs):
-        a, b = a.float(), b.float()
-        assert a.shape == b.shape and bool(torch.isfinite(a).all()), (tag,
-                                                                       name)
-        err = (a - b).abs().max().item()
-        rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-        big = b.abs().max().item()
+        err, rel, big = _err(a, b)
         assert rel <= FUSED_REL_TOL[dt] and err <= FUSED_LOCAL_TOL * big, (
             tag, name, rel, err, big)
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
@@ -761,8 +861,6 @@ def train_agreement_f32(tag: str = "train", loss_rtol: float = STEP_LOSS_RTOL,
     """One float32 hrformer_base step at b=2, card against CPU."""
     from infantposeestimation_gaussianbias_tpu_torch import (
         create_train_state, get_variant, make_train_step)
-    from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
-        BatchNorm)
     from infantposeestimation_gaussianbias_tpu_torch.train import (
         draw_drop_masks)
 
@@ -806,29 +904,49 @@ def train_agreement_f32(tag: str = "train", loss_rtol: float = STEP_LOSS_RTOL,
             + " ".join(f"{e:.1e}" for e in errs[kind]))
     assert len(errs["rpe_table"]) == len(errs["qkv_weight"]) == 44
     assert max(errs["rpe_table"] + errs["qkv_weight"]) <= grad_rtol
-    g_mods = dict(gpu.model.named_modules())
+    compare_bn_stats(gpu.model, cpu.model, stat_tol, tag)
+
+
+def compare_bn_stats(gpu, cpu, tol: float, tag: str) -> None:
+    """Every BatchNorm's running statistics, card model against CPU model,
+    atol and rtol ``tol``."""
+    from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
+        BatchNorm)
+
+    g_mods = dict(gpu.named_modules())
     stat_err = 0.0
-    for name, mod in cpu.model.named_modules():
+    for name, mod in cpu.named_modules():
         if isinstance(mod, BatchNorm):
             for buf in ("running_mean", "running_var"):
                 a = getattr(g_mods[name], buf).cpu()
                 b = getattr(mod, buf)
-                torch.testing.assert_close(a, b, atol=stat_tol, rtol=stat_tol)
+                torch.testing.assert_close(a, b, atol=tol, rtol=tol)
                 stat_err = max(stat_err, (a - b).abs().max().item())
     log(f"[{tag}] f32 BN running stats max_abs_err={stat_err:.3e}")
 
 
-def train_bf16(smi: str, fused: bool = False) -> dict:
-    """bf16 hrformer_base steps at b=32 on one seeded batch: through K1/K2
-    (the default), or through K4/K5 in every block (``fused``, under
-    IPE_FUSED_BLOCK=1, which the caller sets)."""
-    from infantposeestimation_gaussianbias_tpu_torch import (
-        create_train_state, get_variant, make_train_step)
-    tag = "fused-train" if fused else "train"
+def hrformer_cfg():
+    from infantposeestimation_gaussianbias_tpu_torch import get_variant
+
     cfg = get_variant("hrformer_base")
+    cfg.train.warmup_epochs = 0  # else the lr stays near warmup_lr = 5e-7
+    return cfg
+
+
+def no_launches() -> dict:
+    return dict(k1=0, k2=0, k4=0, k4b=0, k5=0, k5b=0, k6=0, k7=0)
+
+
+def train_bf16(smi: str, cfg, tag: str, want: dict) -> dict:
+    """bf16 steps of ``cfg`` at b=32 on one seeded batch: finite terms,
+    exactly the kernel launches ``want`` in every step, a falling loss,
+    step time, images/s, peak memory and the profile by kernel.  HRFormer
+    runs through K1/K2, or K4/K5 in every block under IPE_FUSED_BLOCK=1
+    (which the caller sets); HRNet through no kernel of the port."""
+    from infantposeestimation_gaussianbias_tpu_torch import (
+        create_train_state, make_train_step)
     assert cfg.model.compute_dtype == "bfloat16"
     assert cfg.train.global_batch_size == TRAIN_BATCH
-    cfg.train.warmup_epochs = 0  # else the lr stays near warmup_lr = 5e-7
     state = create_train_state(cfg, device="cuda")
     step = make_train_step(cfg)
     batch = {k: v.cuda() for k, v in
@@ -836,10 +954,7 @@ def train_bf16(smi: str, fused: bool = False) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(6)
     warmup, timed = 3, 10
     losses, times = [], []
-    total = dict(k1=0, k2=0, k4=0, k4b=0, k5=0, k5b=0)
-    n = K1_CALLS_PER_FORWARD
-    want = (dict(k1=0, k2=0, k4=n, k4b=n, k5=n, k5b=n) if fused else
-            dict(k1=n, k2=n, k4=0, k4b=0, k5=0, k5b=0))
+    total = no_launches()
     torch.cuda.synchronize()
     for i in range(warmup + timed):
         if i == warmup:
@@ -859,7 +974,7 @@ def train_bf16(smi: str, fused: bool = False) -> dict:
         log(f"[{tag}] bf16 b={TRAIN_BATCH} step {i}: "
             f"{times[-1] * 1e3:.1f} ms, launches "
             + " ".join(f"{k.upper()} {v}" for k, v in got.items() if v)
-            + ", " + " ".join(f"{k}={v:.4f}" for k, v in values.items()))
+            + ", " + " ".join(f"{k}={v:.6g}" for k, v in values.items()))
     peak = torch.cuda.max_memory_allocated()
     assert losses[-1] < losses[0], losses
     med = float(np.median(times[warmup:]))
@@ -869,10 +984,10 @@ def train_bf16(smi: str, fused: bool = False) -> dict:
     log(f"[{tag}] bf16 b={TRAIN_BATCH}: median step {med * 1e3:.1f} ms over "
         f"{timed} steps after {warmup} warm-up, {result['images_per_s']:.1f} "
         f"images/s, peak memory {result['peak_gib']:.2f} GiB; total loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps; "
+        f"{losses[0]:.6g} -> {losses[-1]:.6g} over {len(losses)} steps; "
         f"on {smi}")
-    result.update(profile_steps(step, state, batch, gen, result["step_ms"],
-                                tag=tag))
+    result.update(profile_steps(lambda: step(state, batch, gen),
+                                result["step_ms"], tag=tag))
     return result
 
 
@@ -934,10 +1049,11 @@ def train_remat() -> dict:
     return {"peak_gib_remat": on["peak_gib"]}
 
 
-def profile_steps(step, state, batch, gen, step_ms: float,
-                  n: int = 2, tag: str = "train") -> dict:
-    """Device kernel time of ``n`` train steps, by kernel (torch.profiler),
-    against the unprofiled median step time."""
+def profile_steps(run, step_ms: float, n: int = 2, tag: str = "train",
+                  what: str = "step") -> dict:
+    """Device kernel time of ``n`` calls of ``run`` (a train step or a
+    served batch), by kernel (torch.profiler), against the unprofiled
+    median time of one call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -945,7 +1061,7 @@ def profile_steps(step, state, batch, gen, step_ms: float,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            step(state, batch, gen)
+            run()
         torch.cuda.synchronize()
 
     def dev_us(e) -> float:
@@ -962,14 +1078,409 @@ def profile_steps(step, state, batch, gen, step_ms: float,
                   reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3 / n
     kernels = sum(r[1] for r in rows) // n
-    log(f"[profile] bf16 {tag} step: {device_ms:.1f} ms of device kernels "
-        f"({kernels} kernels) per step against the {step_ms:.1f} ms median "
-        f"step: idle share {max(0.0, 1 - device_ms / step_ms):.1%}")
+    log(f"[profile] bf16 {tag} {what}: {device_ms:.1f} ms of device kernels "
+        f"({kernels} kernels) per {what} against the {step_ms:.1f} ms median "
+        f"{what}: idle share {max(0.0, 1 - device_ms / step_ms):.1%}")
     for us, count, key in rows[:25]:
-        log(f"[profile] {tag} {us / 1e3 / n:8.3f} ms/step "
-            f"{us / 1e3 / n / device_ms:6.1%} x{count // n:5d}/step  "
+        log(f"[profile] {tag} {us / 1e3 / n:8.3f} ms/{what} "
+            f"{us / 1e3 / n / device_ms:6.1%} x{count // n:5d}/{what}  "
             f"{key[:100]}")
     return dict(device_ms=device_ms, kernels_per_step=kernels)
+
+
+# -- K7 and K6, the HRNet kernels, and HRNet-W32 ------------------------------
+
+def _random_blocks(C: int, dt, g, n: int = 4) -> list:
+    """``n`` eval BasicBlocks of width C in compute dtype ``dt`` on the
+    card, kaiming-scaled seeded weights and non-trivial BatchNorms."""
+    from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
+        BasicBlock)
+
+    def rn(shape):
+        return torch.randn(shape, device="cuda", generator=g)
+
+    blocks = [BasicBlock(C, compute_dtype=dt).cuda().eval() for _ in range(n)]
+    with torch.no_grad():
+        for blk in blocks:
+            for conv, bn in ((blk.conv1, blk.bn1), (blk.conv2, blk.bn2)):
+                conv.weight.copy_(rn(conv.weight.shape) * (2 / (9 * C)) ** 0.5)
+                bn.weight.copy_(1 + 0.2 * rn((C,)))
+                bn.bias.copy_(0.1 * rn((C,)))
+                bn.running_mean.copy_(0.1 * rn((C,)))
+                bn.running_var.copy_(
+                    torch.rand((C,), device="cuda", generator=g) + 0.5)
+    return blocks
+
+
+def _chain_bound(x: torch.Tensor, w: torch.Tensor, n: int):
+    """K7's least time: x read and the output written once, the weights
+    and affines read once; 2n convs of 2 * pixels * 9C * C FLOPs at the
+    weights' rate (bf16 tensor cores or float32 CUDA cores)."""
+    B, H, W, C = x.shape
+    nbytes = (2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+              + 2 * n * 2 * C * 4)
+    rate = BF16_TC_FLOP_PER_S if w.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    return bound_ms(nbytes, 2 * n * 2 * B * H * W * 9 * C * C, rate)
+
+
+def phase_k7() -> dict:
+    """K7 against its plain version at every hrnet_w32 branch shape at the
+    served batch, float32 and bf16; kernel, plain and stock-chain times
+    (four eval BasicBlocks) and the bound."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        residual_block as rb)
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    record, worst, worst_rel = None, 0.0, 0.0
+    for label, H, W, C in HRNET_MAPS:
+        x32 = torch.randn(HRNET_SERVE_BATCH, H, W, C, device="cuda",
+                          generator=g)
+        for dt in (torch.float32, torch.bfloat16):
+            blocks = _random_blocks(C, dt, g)
+            w, ab = rb.pack_basic_block_params(blocks, dtype=dt)
+            x = x32.to(dt)
+            out = rb.fused_residual_chain(x, w, ab, 4)
+            torch.cuda.synchronize()
+            ref = rb.fused_residual_chain_reference(x, w, ab, 4)
+            err, rel, big = _err(out, ref)
+            rel_tol, local_tol = K7_TOL[dt]
+            assert rel <= rel_tol and err <= local_tol * big, (
+                label, dt, rel, err, big)
+
+            def stock():
+                with torch.no_grad():
+                    y = x
+                    for blk in blocks:
+                        y = blk(y)
+                return y
+
+            _, rel_stock, _ = _err(out, stock())
+            if dt == torch.float32:  # the same function, no roundings
+                assert rel_stock <= rel_tol, (label, rel_stock)
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+            ms = cuda_median_ms(lambda: rb.fused_residual_chain(x, w, ab, 4))
+            plain_ms = cuda_median_ms(
+                lambda: rb.fused_residual_chain_reference(x, w, ab, 4))
+            lib_ms = cuda_median_ms(stock)
+            b_ms, b_by = _chain_bound(x, w, 4)
+            name = "f32" if dt == torch.float32 else "bf16"
+            shape = f"{label} b={HRNET_SERVE_BATCH} {H}x{W}x{C} {name}"
+            log(f"[k7] {shape}: max_abs_err={err:.3e} rel={rel:.2e} "
+                f"(vs stock chain rel {rel_stock:.2e}) kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by})")
+            if label == "w32 b0" and dt == torch.bfloat16:
+                record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=b_ms, bound_by=b_by, shape=shape)
+    record.update(max_abs_err=worst, max_rel_err=worst_rel)
+    return record
+
+
+def hrnet_conv3x3_shapes(head: str = "fusion") -> list:
+    """(H, W, Ci, Co) of every distinct stride-1 3x3 conv of hrnet_w32 +
+    ``head`` at 256x192, in the order the forward meets them (hooks on a
+    forward at b=1)."""
+    from infantposeestimation_gaussianbias_tpu_torch import Config
+    from infantposeestimation_gaussianbias_tpu_torch.models import (
+        build_model)
+    from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
+        Conv2d)
+
+    cfg = Config()
+    cfg.model.head_type = head
+    model = build_model(cfg, "cuda")
+    shapes = []
+
+    def hook(mod, inp, out):
+        shape = (*inp[0].shape[1:], mod.out_channels)
+        if shape not in shapes:
+            shapes.append(shape)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, Conv2d) and m.kernel_size == (3, 3)
+               and m.stride == (1, 1)]
+    W, H = cfg.data.input_size
+    with torch.no_grad():
+        model(torch.zeros((1, H, W, 3), device="cuda"))
+    for h in handles:
+        h.remove()
+    return shapes
+
+
+def _wgrad_bound(x: torch.Tensor, dy: torch.Tensor):
+    """K6's least time: x and dy read once, dW written once (float32);
+    2 * pixels * 9 Ci * Co FLOPs at the inputs' rate."""
+    B, H, W, Ci = x.shape
+    Co = dy.shape[-1]
+    nbytes = (x.numel() + dy.numel()) * x.element_size() + 9 * Ci * Co * 4
+    rate = BF16_TC_FLOP_PER_S if x.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    return bound_ms(nbytes, 2 * B * H * W * 9 * Ci * Co, rate)
+
+
+def phase_k6() -> tuple:
+    """K6 against its plain version at every stride-1 3x3 conv shape of
+    hrnet_w32 + fusion at b=32, float32 and bf16; kernel, plain and cuDNN
+    (conv2d_weight) times and the bound.  Returns (record, shapes)."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        conv_wgrad as cw)
+
+    shapes = hrnet_conv3x3_shapes()
+    log(f"[k6] {len(shapes)} stride-1 3x3 conv shapes (H, W, Ci, Co): "
+        f"{shapes}")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    record, worst, worst_rel = None, 0.0, 0.0
+    B = TRAIN_BATCH
+    for H, W, Ci, Co in shapes:
+        x32 = torch.randn(B, H, W, Ci, device="cuda", generator=g)
+        dy32 = torch.randn(B, H, W, Co, device="cuda", generator=g)
+        for dt in (torch.float32, torch.bfloat16):
+            x, dy = x32.to(dt), dy32.to(dt)
+            out = cw.conv3x3_wgrad(x, dy)
+            torch.cuda.synchronize()
+            ref = cw.conv3x3_wgrad_reference(x, dy)
+            err, rel, big = _err(out, ref)
+            rel_tol, local_tol = K6_TOL[dt]
+            assert rel <= rel_tol and err <= local_tol * big, (
+                H, W, Ci, Co, dt, rel, err, big)
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+            xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            wshape = (Co, Ci, 3, 3)
+            runs = 25 if Ci * Co <= 64 * 64 else 7
+            ms = cuda_median_ms(lambda: cw.conv3x3_wgrad(x, dy), runs=runs)
+            plain_ms = cuda_median_ms(
+                lambda: cw.conv3x3_wgrad_reference(x, dy), runs=runs)
+            lib_ms = cuda_median_ms(lambda: torch.nn.grad.conv2d_weight(
+                xn, wshape, dyn, padding=1), runs=runs)
+            b_ms, b_by = _wgrad_bound(x, dy)
+            name = "f32" if dt == torch.float32 else "bf16"
+            shape = f"b={B} {H}x{W} {Ci}->{Co} {name}"
+            log(f"[k6] {shape}: max_abs_err={err:.3e} rel={rel:.2e} "
+                f"(|dW| max {big:.3e}) kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by})")
+            if (H, W, Ci, Co) == (64, 48, 32, 32) and dt == torch.bfloat16:
+                record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=b_ms, bound_by=b_by, shape=shape)
+    record.update(max_abs_err=worst, max_rel_err=worst_rel)
+    return record, shapes
+
+
+def hrnet_cfg(head: str, dtype: str = "bfloat16"):
+    from infantposeestimation_gaussianbias_tpu_torch import Config
+
+    cfg = Config()
+    assert cfg.model.backbone == "hrnet_w32"
+    cfg.model.head_type = head
+    cfg.model.compute_dtype = dtype
+    cfg.train.warmup_epochs = 0  # else the lr stays near warmup_lr = 5e-7
+    return cfg
+
+
+def calibrate_batch_stats(model, cfg, steps: int = 20, batch: int = 8,
+                          seed: int = 16) -> None:
+    """BatchNorm running statistics from ``steps`` train-mode forwards on
+    seeded random crops, then eval mode: with the fresh statistics (mean 0,
+    var 1) nothing normalises the eval forward of a randomly initialised
+    HRNet and its maps grow to ~1e6 through the residual chains.  Momentum
+    0.9: the statistics move 1 - 0.9^20 = 88% of the way."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    W, H = cfg.data.input_size
+    model.train()
+    with torch.no_grad():
+        for _ in range(steps):
+            model(torch.randn((batch, H, W, 3), device="cuda", generator=g))
+    model.eval()
+
+
+def phase_hrnet_serving(smi: str) -> dict:
+    """HRNet-W32 serving with each head: batches of 1, 3 and 8 through no
+    kernel of the HRFormer path, float32 card vs CPU, bf16 crops/s at
+    b=32; then K7 on every BasicBlock chain of a served batch."""
+    from infantposeestimation_gaussianbias_tpu_torch import PoseInference
+
+    frames, bboxes = make_requests(8, seed=12)
+    out = {}
+    for head in ("heatmap", "fusion"):
+        cfg = hrnet_cfg(head)
+        assert cfg.eval.flip_test and cfg.eval.decode == "quarter"
+        inf = PoseInference(cfg, device="cuda")
+        calibrate_batch_stats(inf.model, cfg)
+        reset_launches()
+        for n in (1, 3, 8):
+            t0 = time.perf_counter()
+            kpts, scores = inf.predict_batch(frames[:n], bboxes[:n])
+            dt = time.perf_counter() - t0
+            log(f"[hrnet-serve] {head} bf16 batch {n}: {dt * 1e3:.1f} ms")
+            assert kpts.shape == (n, 17, 2) and scores.shape == (n, 17)
+            assert np.isfinite(kpts).all() and np.isfinite(scores).all()
+        assert not any(launches().values()), launches()
+        cfg32 = hrnet_cfg(head, "float32")
+        compare_f32_serving(inf.model.state_dict(), frames, bboxes,
+                            f"hrnet-serve {head}", HEATMAP_ATOL,
+                            KEYPOINT_ATOL_PX, cfg32)
+        out[head] = phase_throughput(inf, smi, f"hrnet-{head}-throughput")
+        frames32, bboxes32 = make_requests(32, seed=2)
+        out[head].update(profile_steps(
+            lambda: inf.predict_batch(frames32, bboxes32),
+            out[head]["batch32_ms"], tag=f"hrnet-{head}-serve",
+            what="batch"))
+        if head == "heatmap":
+            out["k7"] = served_chains_k7(inf)
+        del inf
+    return out
+
+
+def served_chains_k7(inf) -> dict:
+    """One served bf16 batch of 32 with a hook on every BasicBlock chain
+    (each branch of each HRModule): K7 on the chain's input with the
+    model's packed parameters, against the model's own chain output and
+    against K7's plain version.  26 launches per forward, 52 per batch
+    (flip test)."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        residual_block as rb)
+    from infantposeestimation_gaussianbias_tpu_torch.models.hrnet import (
+        HRModule)
+
+    chains = [br for m in inf.model.modules() if isinstance(m, HRModule)
+              for br in m.branches]
+    assert len(chains) == K7_CHAINS_PER_FORWARD, len(chains)
+    packed = {br: rb.pack_basic_block_params(list(br), torch.bfloat16)
+              for br in chains}
+    stats = dict(model_rel=0.0, plain_rel=0.0, plain_abs=0.0)
+
+    def hook(mod, inp, out):
+        x = inp[0].contiguous()
+        y = rb.fused_residual_chain(x, *packed[mod], len(mod))
+        _, rel_model, _ = _err(y, out)
+        err, rel, big = _err(y, rb.fused_residual_chain_reference(
+            x, *packed[mod], len(mod)))
+        rel_tol, local_tol = K7_TOL[torch.bfloat16]
+        assert rel <= rel_tol and err <= local_tol * big, (rel, err, big)
+        assert rel_model <= K7_MODEL_REL_TOL, rel_model
+        stats["model_rel"] = max(stats["model_rel"], rel_model)
+        stats["plain_rel"] = max(stats["plain_rel"], rel)
+        stats["plain_abs"] = max(stats["plain_abs"], err)
+
+    handles = [br.register_forward_hook(hook) for br in chains]
+    frames, bboxes = make_requests(HRNET_SERVE_BATCH, seed=2)
+    try:
+        reset_launches()
+        kpts, _ = inf.predict_batch(frames, bboxes)
+        got = launches()
+    finally:
+        for h in handles:
+            h.remove()
+    assert np.isfinite(kpts).all()
+    log(f"[hrnet-serve] K7 on every chain of a served bf16 batch of "
+        f"{HRNET_SERVE_BATCH} (flip test): {got['k7']} launches; against "
+        f"the model's own chains rel <= {stats['model_rel']:.2e}; against "
+        f"the plain version rel <= {stats['plain_rel']:.2e}, max_abs_err "
+        f"{stats['plain_abs']:.3e}")
+    assert got == dict(dict.fromkeys(got, 0),
+                       k7=2 * K7_CHAINS_PER_FORWARD), got
+    return dict(launches=got["k7"], **stats)
+
+
+def hrnet_train_agreement_f32() -> None:
+    """One float32 hrnet_w32 + heatmap step at b=2, card against CPU."""
+    from infantposeestimation_gaussianbias_tpu_torch import (
+        create_train_state, make_train_step)
+
+    cfg = hrnet_cfg("heatmap", "float32")
+    gpu = create_train_state(cfg, device="cuda")
+    cpu = create_train_state(cfg, device="cpu", state_dict={
+        k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    batch = make_train_batch(cfg, 2, seed=13)
+    step = make_train_step(cfg)
+    t0 = time.perf_counter()
+    _, m_gpu = step(gpu, batch, None)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, m_cpu = step(cpu, batch, None)
+    t2 = time.perf_counter()
+    log(f"[hrnet-train] f32 b=2 step: card {(t1 - t0) * 1e3:.1f} ms (first "
+        f"call), CPU {(t2 - t1) * 1e3:.1f} ms")
+    for k in m_cpu:
+        a, b = m_gpu[k].item(), m_cpu[k].item()
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        log(f"[hrnet-train] f32 {k:14s} card {a:.7e} cpu {b:.7e} "
+            f"rel {rel:.2e}")
+        tol = HRNET_STEP_NORM_RTOL if k == "grad_norm" else STEP_LOSS_RTOL
+        assert np.isfinite(a) and rel <= tol, (k, a, b)
+    g_params = dict(gpu.model.named_parameters())
+    diff = ref = 0.0
+    per = []
+    for name, p in cpu.model.named_parameters():
+        d = (g_params[name].grad.cpu() - p.grad).norm().item()
+        diff, ref = diff + d * d, ref + p.grad.norm().item() ** 2
+        per.append((d / max(p.grad.norm().item(), 1e-30), name))
+    rel = (diff / ref) ** 0.5
+    per.sort()
+    log(f"[hrnet-train] f32 gradient card vs CPU: whole-vector rel {rel:.2e}; "
+        f"per tensor median {per[len(per) // 2][0]:.1e}, largest "
+        + ", ".join(f"{n} {e:.1e}" for e, n in per[-3:]))
+    assert rel <= HRNET_STEP_GRAD_RTOL, rel
+    compare_bn_stats(gpu.model, cpu.model, STEP_STAT_TOL, "hrnet-train")
+
+
+def hrnet_fusion_step_k6() -> dict:
+    """One bf16 hrnet_w32 + fusion step at b=32 with hooks on every
+    stride-1 3x3 conv: finite loss terms; then K6 on each conv's captured
+    (input, output gradient) against that conv's weight.grad and against
+    K6's plain version, one launch per conv."""
+    from infantposeestimation_gaussianbias_tpu_torch import (
+        create_train_state, make_train_step)
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        conv_wgrad as cw)
+    from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
+        Conv2d)
+
+    cfg = hrnet_cfg("fusion")
+    assert cfg.train.grad_clip_norm == 0 and cfg.train.grad_accum_steps == 1
+    state = create_train_state(cfg, device="cuda")
+    convs = [(n, m) for n, m in state.model.named_modules()
+             if isinstance(m, Conv2d) and m.kernel_size == (3, 3)
+             and m.stride == (1, 1)]
+    captured = {}
+
+    def hook(mod, inp, out):
+        x = inp[0].to(mod.compute_dtype).contiguous()
+        out.register_hook(
+            lambda g: captured.__setitem__(mod, (x, g.contiguous())))
+
+    handles = [m.register_forward_hook(hook) for _, m in convs]
+    batch = make_train_batch(cfg, TRAIN_BATCH, seed=15)
+    try:
+        _, metrics = make_train_step(cfg)(state, batch, None)
+    finally:
+        for h in handles:
+            h.remove()
+    values = {k: v.item() for k, v in metrics.items()}
+    assert all(np.isfinite(v) for v in values.values()), values
+    assert len(values) == 8, values  # six terms, total_loss, grad_norm
+    log("[hrnet-train] bf16 fusion b=32 step: "
+        + " ".join(f"{k}={v:.6f}" for k, v in values.items()))
+    assert len(captured) == len(convs), (len(captured), len(convs))
+    reset_launches()
+    outs = [cw.conv3x3_wgrad(*captured[m]) for _, m in convs]
+    got = launches()
+    assert got == dict(dict.fromkeys(got, 0), k6=len(convs)), got
+    worst_grad = worst_plain = 0.0
+    for (name, m), dw in zip(convs, outs):
+        g = m.weight.grad.permute(2, 3, 1, 0)
+        _, rel_grad, _ = _err(dw, g)
+        err, rel, big = _err(dw, cw.conv3x3_wgrad_reference(*captured[m]))
+        rel_tol, local_tol = K6_TOL[torch.bfloat16]
+        assert rel <= rel_tol and err <= local_tol * big, (name, rel, err)
+        assert rel_grad <= K6_GRAD_REL_TOL, (name, rel_grad)
+        worst_grad = max(worst_grad, rel_grad)
+        worst_plain = max(worst_plain, rel)
+    log(f"[hrnet-train] K6 on the captured (x, dy) of {len(convs)} stride-1 "
+        f"3x3 convs of a bf16 fusion step: {got['k6']} launches; against "
+        f"weight.grad rel <= {worst_grad:.2e}; against the plain version "
+        f"rel <= {worst_plain:.2e}")
+    return dict(launches=got["k6"], convs=len(convs), grad_rel=worst_grad,
+                plain_rel=worst_plain)
 
 
 def main() -> int:
@@ -985,12 +1496,22 @@ def main() -> int:
     del inf
     with fused_blocks("0"):
         train_agreement_f32()
-        train = train_bf16(smi)
+        train = train_bf16(smi, hrformer_cfg(), "train", dict(
+            no_launches(), k1=K1_CALLS_PER_FORWARD, k2=K1_CALLS_PER_FORWARD))
         train.update(train_remat())
     with fused_blocks("1"):
         train_agreement_f32("fused-train", FUSED_STEP_LOSS_RTOL,
                             FUSED_STEP_GRAD_RTOL, FUSED_STEP_STAT_TOL)
-        fused_train = train_bf16(smi, fused=True)
+        n = K1_CALLS_PER_FORWARD
+        fused_train = train_bf16(smi, hrformer_cfg(), "fused-train", dict(
+            no_launches(), k4=n, k4b=n, k5=n, k5b=n))
+    k7 = phase_k7()
+    k6, k6_shapes = phase_k6()
+    hr_serve = phase_hrnet_serving(smi)
+    hrnet_train_agreement_f32()
+    hr_train = train_bf16(smi, hrnet_cfg("heatmap"), "hrnet-train",
+                          no_launches())
+    hr_k6 = hrnet_fusion_step_k6()
     log(f"[fused] bf16 b=32 serving {fused_thr['crops_per_s']:.1f} crops/s "
         f"fused vs {thr['crops_per_s']:.1f} unfused; training "
         f"{fused_train['step_ms']:.1f} ms/step fused vs "
@@ -1001,7 +1522,12 @@ def main() -> int:
                                       "infantposeestimation_gaussianbias_tpu")]
     assert not loaded, loaded
     log(json.dumps({"slice": thr, "train": train, "fused_slice": fused_thr,
-                    "fused_train": fused_train}))
+                    "fused_train": fused_train,
+                    "hrnet_slice": {h: hr_serve[h]
+                                    for h in ("heatmap", "fusion")},
+                    "hrnet_train": hr_train, "hrnet_k7_served": hr_serve["k7"],
+                    "hrnet_k6_step": hr_k6,
+                    "hrnet_conv3x3_shapes": k6_shapes}))
     source = "infantposeestimation_gaussianbias_tpu_torch/csrc/"
     pallas = "infantposeestimation_gaussianbias_tpu/ops/pallas/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1032,6 +1558,11 @@ def main() -> int:
               k45["mlp_fwd"]),
         entry("fused_mlp_half_bwd", "fused_mlp.cu", "fused_block.py:260",
               {"train_fused": ft["k5b"]}, k45["mlp_bwd"]),
+        entry("conv3x3_wgrad", "conv_wgrad.cu", "conv_wgrad.py:106",
+              {"hrnet_train_fusion": hr_k6["launches"]}, k6),
+        entry("fused_residual_chain", "residual_block.cu",
+              "residual_block.py:87",
+              {"hrnet_serve": hr_serve["k7"]["launches"]}, k7),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
 """High-level inference API: batches of frames with boxes, or one image.
 
 Port of ``PoseInference`` in infantposeestimation_gaussianbias_tpu/
-inference.py: crop + normalise -> flip-tested forward -> fusion decode ->
-back-projection, all on ``device`` for a whole batch of crops.  Frames
+inference.py: crop + normalise -> flip-tested forward -> decode (fusion
+decode for the fusion head; ``cfg.eval.decode`` for the heatmap head) ->
+back-projection, all on ``device`` for a whole batch of crops.  Serving
+runs eval-mode BatchNorm: the JAX package's BN-fold is the same maths
+with other roundings and is not ported.  Frames
 cross to the device as uint8, and every batch is padded to a power-of-two
 bucket by repeating its last row, with results trimmed back.
 """
@@ -53,8 +56,9 @@ class PoseInference:
             frames, centers, scales, (W, H),
             mean=cfg.data.pixel_mean, std=cfg.data.pixel_std)
         coords, scores = flip_inference(
-            self.model, crops, self._flip_index,
-            shift_heatmap=cfg.eval.shift_heatmap, flip=cfg.eval.flip_test)
+            self.model, crops, self._flip_index, cfg.model.head_type,
+            cfg.eval.decode, shift_heatmap=cfg.eval.shift_heatmap,
+            flip=cfg.eval.flip_test)
         coords = coords * torch.tensor([W / hm_w, H / hm_h],
                                        dtype=torch.float32, device=self.device)
         coords = decode_ops.transform_preds(coords, centers, scales, (W, H))

@@ -134,6 +134,10 @@ def load() -> ctypes.CDLL:
         lib.ipe_fused_attn_bwd.argtypes = ([p] * 21 + [i] * 7 + [f]
                                            + [i] * 3 + [p])
         lib.ipe_fused_attn_bwd.restype = i
+        lib.ipe_residual_chain.argtypes = [p] * 6 + [i] * 7 + [p]
+        lib.ipe_residual_chain.restype = i
+        lib.ipe_conv3x3_wgrad.argtypes = [p] * 4 + [i] * 7 + [p]
+        lib.ipe_conv3x3_wgrad.restype = i
         lib.ipe_cuda_error_string.argtypes = [i]
         lib.ipe_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

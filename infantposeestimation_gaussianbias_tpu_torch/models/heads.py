@@ -1,10 +1,11 @@
-"""Prediction head on NHWC features: the 3-branch fusion head.
+"""Prediction heads on NHWC features: the plain heatmap head and the
+3-branch fusion head.
 
-Port of FusionHead in
+Ports of HeatmapHead and FusionHead in
 infantposeestimation_gaussianbias_tpu/models/heads.py, named as the
-reference's ``HeatmapRegressionHead`` state dict (``shared_layers``,
+reference's state dicts: ``final_layer`` (HeatmapHead); ``shared_layers``,
 ``heatmap_branch``, ``offset_branch``, ``variance_branch``,
-``fusion_weight``, ``subpixel_refine.alpha``).
+``fusion_weight``, ``subpixel_refine.alpha`` (``HeatmapRegressionHead``).
 
 Outputs are float32 and NHWC: heatmaps (B, H, W, K), offsets
 (B, H, W, K, 2), variances (B, H, W, K).
@@ -19,6 +20,20 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import BatchNorm, Conv2d
+
+
+class HeatmapHead(nn.Module):
+    """One 1x1 prediction conv with bias: the path ``build_model`` builds
+    (no deconv stack, ``num_deconv_layers=0``)."""
+
+    def __init__(self, in_channels: int, num_keypoints: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.final_layer = Conv2d(in_channels, num_keypoints, 1, bias=True,
+                                  compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {"heatmaps": self.final_layer(x).float()}
 
 
 class _SubpixelRefine(nn.Module):

@@ -29,7 +29,6 @@ Small: channels (32, 64, 128, 256), heads (1, 2, 4, 8), drop-path 0.1.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import List, Optional, Sequence, Tuple
 
@@ -41,8 +40,9 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.fused_block import fused_attn_half, fused_mlp_half
 from ..kernels.window_msa import window_attention
 from ..ops import msa
-from .layers import (BatchNorm, Bottleneck, Conv2d, Linear, conv_norm,
-                     drop_path, frozen_batch_stats, resize_bilinear)
+from .layers import (BatchNorm, Bottleneck, Conv2d, Linear, apply_transition,
+                     drop_path, fuse, make_fuse_layers, make_transition,
+                     remat_contexts)
 
 BLOCKS_PER_BRANCH = 2
 MLP_RATIO = 4
@@ -191,7 +191,6 @@ class HRFormerModule(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  drop_path_rate: float = 0.0, use_pallas: bool = False):
         super().__init__()
-        n = len(channels)
         kw = dict(compute_dtype=compute_dtype)
         self.branches = nn.ModuleList([
             nn.Sequential(*[HRFormerBlock(c, h, window_size,
@@ -201,23 +200,7 @@ class HRFormerModule(nn.Module):
             for c, h in zip(channels, heads)])
         self.num_drop_paths = (len(channels) * BLOCKS_PER_BRANCH
                                * HRFormerBlock.DROP_PATHS)
-        self.fuse_layers = nn.ModuleList()
-        for i in range(n):
-            row = nn.ModuleList()
-            for j in range(n):
-                if j > i:
-                    row.append(conv_norm(channels[j], channels[i], 1,
-                                         relu=False, **kw))
-                elif j == i:
-                    row.append(nn.Identity())
-                else:
-                    row.append(nn.Sequential(*[
-                        conv_norm(channels[j],
-                                  channels[i] if k == i - j - 1
-                                  else channels[j],
-                                  3, stride=2, relu=k != i - j - 1, **kw)
-                        for k in range(i - j)]))
-            self.fuse_layers.append(row)
+        self.fuse_layers = make_fuse_layers(channels, compute_dtype)
 
     def forward(self, xs: List[torch.Tensor],
                 keep: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
@@ -230,17 +213,7 @@ class HRFormerModule(nn.Module):
                 k = i * BLOCKS_PER_BRANCH + b
                 x = block(x, None if keep is None else keep[n * k:n * k + n])
             ys.append(x)
-        out = []
-        for i, row in enumerate(self.fuse_layers):
-            acc = None
-            for j, layer in enumerate(row):
-                contrib = layer(ys[j])
-                if j > i:
-                    contrib = resize_bilinear(contrib, ys[i].shape[1],
-                                              ys[i].shape[2])
-                acc = contrib if acc is None else acc + contrib
-            out.append(F.relu(acc))
-        return out
+        return fuse(self.fuse_layers, ys)
 
 
 class HRFormer(nn.Module):
@@ -267,14 +240,7 @@ class HRFormer(nn.Module):
         prev = [256]
         for s, modules in enumerate(stage_modules):
             cur = list(channels[: s + 2])
-            trans = nn.ModuleList()
-            for i, ch in enumerate(cur):
-                if i < len(prev):
-                    trans.append(conv_norm(prev[i], ch, 3, **kw)
-                                 if prev[i] != ch else nn.Identity())
-                else:  # new lowest-resolution branch
-                    trans.append(nn.Sequential(
-                        conv_norm(prev[-1], ch, 3, stride=2, **kw)))
+            trans = make_transition(prev, cur, compute_dtype)
             setattr(self, f"transition{s + 1}", trans)
             setattr(self, f"stage{s + 2}", nn.ModuleList([
                 HRFormerModule(cur, num_heads[: s + 2], window_size,
@@ -302,25 +268,17 @@ class HRFormer(nn.Module):
         at = 0
         for t in range(1, self.num_stages + 1):
             trans = getattr(self, f"transition{t}")
-            xs = [tr(xs[i] if i < len(xs) else xs[-1])
-                  for i, tr in enumerate(trans)]
+            xs = apply_transition(trans, xs)
             for module in getattr(self, f"stage{t + 1}"):
                 keep = (None if drop_masks is None
                         else drop_masks[at:at + module.num_drop_paths])
                 at += module.num_drop_paths
                 if remat:
                     xs = checkpoint(module, xs, keep, use_reentrant=False,
-                                    context_fn=_remat_contexts)
+                                    context_fn=remat_contexts)
                 else:
                     xs = module(xs, keep)
         return xs[0]
-
-
-def _remat_contexts():
-    """(forward context, recomputation context) for checkpoint: the
-    recomputed forward must not move the BatchNorm running statistics a
-    second time (flax's remat returns them from the first pass only)."""
-    return contextlib.nullcontext(), frozen_batch_stats()
 
 
 def hrformer_base(compute_dtype: torch.dtype = torch.float32,

@@ -1,5 +1,6 @@
 """Shared building blocks: compute-dtype Linear and Conv2d, BatchNorm,
-ConvNorm, Bottleneck, bilinear resize and DropPath.
+ConvNorm, BasicBlock, Bottleneck, bilinear resize, DropPath, and the
+transition and all-pairs fuse layers of the multi-resolution backbones.
 
 Port of infantposeestimation_gaussianbias_tpu/models/layers.py.  Feature
 maps are NHWC, as in the JAX package: a convolution hands PyTorch the
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -119,6 +120,25 @@ def conv_norm(in_channels: int, out_channels: int, kernel_size: int = 3,
     return nn.Sequential(*mods)
 
 
+class BasicBlock(nn.Module):
+    """Two 3x3 conv-BN units with an identity residual: relu(bn1(conv1(x)))
+    -> bn2(conv2(.)) -> relu(. + x), named as the reference's BasicBlock.
+    The float path of models/layers.py:193-222 of the JAX package."""
+
+    def __init__(self, features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        kw = dict(compute_dtype=compute_dtype)
+        self.conv1 = Conv2d(features, features, 3, **kw)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = Conv2d(features, features, 3, **kw)
+        self.bn2 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        return F.relu(self.bn2(self.conv2(y)) + x)
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 (x4) residual block with an optional 1x1
     ``downsample`` on the skip when the channel count changes."""
@@ -167,3 +187,82 @@ def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor],
         return x
     mask = keep.reshape((-1,) + (1,) * (x.dim() - 1))
     return torch.where(mask, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def make_transition(prev: Sequence[int], cur: Sequence[int],
+                    compute_dtype: torch.dtype = torch.float32
+                    ) -> nn.ModuleList:
+    """Transition into a stage of ``cur`` branches from one of ``prev``: a
+    3x3 ConvNorm where a branch's width changes (Identity where it does
+    not), and a stride-2 3x3 ConvNorm from the lowest branch for each new
+    one, wrapped in one more Sequential as in the reference."""
+    kw = dict(compute_dtype=compute_dtype)
+    trans = nn.ModuleList()
+    for i, ch in enumerate(cur):
+        if i < len(prev):
+            trans.append(conv_norm(prev[i], ch, 3, **kw)
+                         if prev[i] != ch else nn.Identity())
+        else:
+            trans.append(nn.Sequential(
+                conv_norm(prev[-1], ch, 3, stride=2, **kw)))
+    return trans
+
+
+def apply_transition(trans: nn.ModuleList,
+                     xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """A new branch takes the lowest existing one as its input."""
+    return [tr(xs[i] if i < len(xs) else xs[-1])
+            for i, tr in enumerate(trans)]
+
+
+def make_fuse_layers(channels: Sequence[int],
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> nn.ModuleList:
+    """All-pairs fuse layers of an exchange module: layer (i, j) is, for
+    j > i, a 1x1 ConvNorm (upsampled in ``fuse``); for j == i the
+    identity; for j < i a chain of stride-2 3x3 ConvNorms, ReLU on all but
+    the last, which also changes the width."""
+    kw = dict(compute_dtype=compute_dtype)
+    n = len(channels)
+    rows = nn.ModuleList()
+    for i in range(n):
+        row = nn.ModuleList()
+        for j in range(n):
+            if j > i:
+                row.append(conv_norm(channels[j], channels[i], 1,
+                                     relu=False, **kw))
+            elif j == i:
+                row.append(nn.Identity())
+            else:
+                row.append(nn.Sequential(*[
+                    conv_norm(channels[j],
+                              channels[i] if k == i - j - 1 else channels[j],
+                              3, stride=2, relu=k != i - j - 1, **kw)
+                    for k in range(i - j)]))
+        rows.append(row)
+    return rows
+
+
+def fuse(fuse_layers: nn.ModuleList,
+         ys: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Output i = relu(sum over j of layer (i, j) of branch j), the
+    higher-indexed (lower-resolution) branches resized to branch i's map."""
+    out = []
+    for i, row in enumerate(fuse_layers):
+        acc = None
+        for j, layer in enumerate(row):
+            contrib = layer(ys[j])
+            if j > i:
+                contrib = resize_bilinear(contrib, ys[i].shape[1],
+                                          ys[i].shape[2])
+            acc = contrib if acc is None else acc + contrib
+        out.append(F.relu(acc))
+    return out
+
+
+def remat_contexts():
+    """(forward context, recomputation context) for
+    ``torch.utils.checkpoint``: the recomputed forward must not move the
+    BatchNorm running statistics a second time (flax's remat returns them
+    from the first pass only)."""
+    return contextlib.nullcontext(), frozen_batch_stats()

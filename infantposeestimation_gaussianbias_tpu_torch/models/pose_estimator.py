@@ -1,9 +1,10 @@
 """PoseEstimator (backbone + head), its factory, decode and flip test.
 
 Port of infantposeestimation_gaussianbias_tpu/models/pose_estimator.py for
-the HRFormer backbones and the fusion head.  ``flip_inference`` keeps the
-reference's flip-test contract: heatmaps are averaged with the mirrored
-pass, while offsets and the decode logits come from the unflipped pass.
+the HRNet and HRFormer backbones and the heatmap and fusion heads.
+``flip_inference`` keeps the reference's flip-test contract: heatmaps are
+averaged with the mirrored pass, while the fusion head's offsets and
+decode logits come from the unflipped pass.
 """
 
 from __future__ import annotations
@@ -14,41 +15,61 @@ import torch
 import torch.nn as nn
 
 from ..ops import decode as decode_ops
-from .heads import FusionHead
+from .heads import FusionHead, HeatmapHead
 from .hrformer import hrformer_base, hrformer_small
+from .hrnet import hrnet_w32, hrnet_w48
 
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
+    "hrnet_w32": hrnet_w32,
+    "hrnet_w48": hrnet_w48,
     "hrformer_base": hrformer_base,
     "hrformer_small": hrformer_small,
 }
+HEAD_TYPES = ("heatmap", "fusion")
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class PoseEstimator(nn.Module):
-    """Backbone + fusion head.  NHWC images in, dict of NHWC maps out."""
+    """Backbone + head.  NHWC images in, dict of NHWC maps out.
 
-    def __init__(self, backbone_name: str = "hrformer_base",
-                 num_keypoints: int = 17, hidden_dim: int = 256,
-                 window_size: int = 7,
+    A backbone whose name starts with ``hrnet`` takes ``stage_modules``;
+    any other is an HRFormer and takes ``window_size`` and
+    ``use_pallas``."""
+
+    def __init__(self, backbone_name: str = "hrnet_w32",
+                 head_type: str = "heatmap", num_keypoints: int = 17,
+                 hidden_dim: int = 256, window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
-                 remat: bool = False, use_pallas: bool = False):
+                 remat: bool = False, use_pallas: bool = False,
+                 stage_modules: Optional[Tuple[int, ...]] = None):
         super().__init__()
         if backbone_name not in BACKBONES:
             raise ValueError(f"Unknown backbone {backbone_name!r}; "
                              f"known: {sorted(BACKBONES)}")
+        if head_type not in HEAD_TYPES:
+            raise ValueError(f"the port has the {HEAD_TYPES} heads, not "
+                             f"{head_type!r}")
         self.compute_dtype = compute_dtype
-        self.backbone = BACKBONES[backbone_name](
-            compute_dtype=compute_dtype, window_size=window_size,
-            remat=remat, use_pallas=use_pallas)
-        self.head = FusionHead(self.backbone.channels[0], num_keypoints,
-                               hidden_dim, compute_dtype=compute_dtype)
+        self.head_type = head_type
+        kw = dict(compute_dtype=compute_dtype, remat=remat)
+        if backbone_name.startswith("hrnet"):
+            kw.update(stage_modules=stage_modules)
+        else:
+            kw.update(window_size=window_size, use_pallas=use_pallas)
+        self.backbone = BACKBONES[backbone_name](**kw)
+        width = self.backbone.channels[0]
+        self.head = (
+            FusionHead(width, num_keypoints, hidden_dim,
+                       compute_dtype=compute_dtype)
+            if head_type == "fusion" else
+            HeatmapHead(width, num_keypoints, compute_dtype=compute_dtype))
 
     def forward(self, x: torch.Tensor,
                 drop_masks: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """``drop_masks``: the backbone's DropPath keep masks, for
-        training (see HRFormer.forward)."""
+        training (see HRFormer.forward; None for HRNet)."""
         return self.head(self.backbone(x.to(self.compute_dtype), drop_masks))
 
 
@@ -70,44 +91,54 @@ def build_model(cfg, device="cuda") -> PoseEstimator:
     from ..weights import init_weights
 
     device = resolve_device(device)
-    if cfg.model.head_type != "fusion":
-        raise ValueError(f"the port has the fusion head only, not "
-                         f"{cfg.model.head_type!r}")
     model = PoseEstimator(
         backbone_name=cfg.model.backbone,
+        head_type=cfg.model.head_type,
         num_keypoints=cfg.data.num_keypoints,
         hidden_dim=cfg.model.hidden_dim,
         window_size=cfg.model.hrformer_window_size,
         compute_dtype=COMPUTE_DTYPES[cfg.model.compute_dtype],
         remat=cfg.model.remat,
-        use_pallas=cfg.model.use_pallas)
+        use_pallas=cfg.model.use_pallas,
+        stage_modules=tuple(cfg.model.hrnet_stage_modules) or None)
     init_weights(model, cfg.train.seed)
     return model.to(device).eval()
 
 
-def decode_outputs(outputs: Dict[str, torch.Tensor],
+def decode_outputs(outputs: Dict[str, torch.Tensor], head_type: str,
+                   decode_method: str = "quarter",
                    softargmax_beta: float = 1.0, refine_radius: int = 2
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fusion-head outputs -> (coords (B, K, 2) in heatmap pixels,
-    scores (B, K))."""
-    return decode_ops.fusion_decode(
-        outputs["heatmaps"], outputs["offsets"],
-        outputs["subpixel_alpha_logit"], outputs["fusion_weight_logit"],
-        beta=softargmax_beta, radius=refine_radius)
+    """Head outputs -> (coords (B, K, 2) in heatmap pixels, scores (B, K)).
+    The fusion head decodes by sub-pixel fusion; the heatmap head by
+    ``decode_method``: "taylor", "softargmax", or else the quarter
+    shift."""
+    if head_type == "fusion":
+        return decode_ops.fusion_decode(
+            outputs["heatmaps"], outputs["offsets"],
+            outputs["subpixel_alpha_logit"], outputs["fusion_weight_logit"],
+            beta=softargmax_beta, radius=refine_radius)
+    if decode_method == "taylor":
+        return decode_ops.taylor_decode(outputs["heatmaps"])
+    if decode_method == "softargmax":
+        return decode_ops.soft_argmax(outputs["heatmaps"], softargmax_beta)
+    return decode_ops.quarter_shift_decode(outputs["heatmaps"])
 
 
 def flip_inference(model: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                    images: torch.Tensor, flip_index: torch.Tensor,
+                   head_type: str, decode_method: str = "quarter",
                    shift_heatmap: bool = False, flip: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward on NHWC images and their mirror, un-mirror and average the
-    heatmaps, then decode with ``decode_outputs``' defaults."""
+    heatmaps (the other outputs from the unflipped pass), then decode with
+    ``decode_outputs``' defaults."""
     outputs = model(images)
     if not flip:
-        return decode_outputs(outputs)
+        return decode_outputs(outputs, head_type, decode_method)
     flipped = model(torch.flip(images, dims=[2]))
     hm_f = decode_ops.flip_heatmaps(flipped["heatmaps"], flip_index,
                                     shift=shift_heatmap)
     merged = dict(outputs)
     merged["heatmaps"] = (outputs["heatmaps"] + hm_f) * 0.5
-    return decode_outputs(merged)
+    return decode_outputs(merged, head_type, decode_method)

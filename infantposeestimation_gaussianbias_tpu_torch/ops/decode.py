@@ -1,8 +1,8 @@
-"""Keypoint decoding for the fusion head, batched on the device.
+"""Keypoint decoding, batched on the device.
 
-Port of the fusion-path functions of
-infantposeestimation_gaussianbias_tpu/ops/decode.py.  Heatmaps are
-(B, H, W, K) and all maths runs in float32.
+Port of the heatmap-head decodes (argmax, quarter shift, Taylor) and the
+fusion-path functions of infantposeestimation_gaussianbias_tpu/ops/
+decode.py.  Heatmaps are (B, H, W, K) and all maths runs in float32.
 """
 
 from __future__ import annotations
@@ -10,6 +10,68 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+
+def argmax_decode(heatmaps: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """coords (B, K, 2) of each map's maximum in heatmap pixels (x, y) and
+    the maximum (B, K); a tie goes to the lowest row-major (H, W) index."""
+    B, H, W, K = heatmaps.shape
+    flat = heatmaps.permute(0, 3, 1, 2).reshape(B, K, H * W)
+    idx = torch.argmax(flat, dim=-1)
+    maxvals = torch.take_along_dim(flat, idx[..., None], dim=-1)[..., 0]
+    coords = torch.stack([(idx % W).float(), (idx // W).float()], dim=-1)
+    return coords, maxvals
+
+
+def _gather_hm(heatmaps: torch.Tensor, xi: torch.Tensor,
+               yi: torch.Tensor) -> torch.Tensor:
+    """heatmaps[b, y, x, k] at per-(b, k) integer coords (B, K), clamped
+    to the map."""
+    B, H, W, K = heatmaps.shape
+    flat = heatmaps.permute(0, 3, 1, 2).reshape(B, K, H * W)
+    lin = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+    return torch.take_along_dim(flat, lin[..., None], dim=-1)[..., 0]
+
+
+def quarter_shift_decode(heatmaps: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Argmax, then 0.25 px towards the larger neighbour on each axis
+    (the sign of the central difference), strictly inside the border."""
+    B, H, W, K = heatmaps.shape
+    coords, maxvals = argmax_decode(heatmaps)
+    xi, yi = coords[..., 0].long(), coords[..., 1].long()
+    dx = _gather_hm(heatmaps, xi + 1, yi) - _gather_hm(heatmaps, xi - 1, yi)
+    dy = _gather_hm(heatmaps, xi, yi + 1) - _gather_hm(heatmaps, xi, yi - 1)
+    inside = (xi > 0) & (xi < W - 1) & (yi > 0) & (yi < H - 1)
+    zero = torch.zeros((), device=heatmaps.device)
+    shift = torch.stack([torch.where(inside, torch.sign(dx) * 0.25, zero),
+                         torch.where(inside, torch.sign(dy) * 0.25, zero)],
+                        dim=-1)
+    return coords + shift, maxvals
+
+
+def taylor_decode(heatmaps: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Argmax, then per axis d1 / (2 |d2|) clipped to +-0.5 (first and
+    second central differences), where d2 < 0 and the peak lies at least
+    2 px inside the low borders (1 < p < size - 1)."""
+    B, H, W, K = heatmaps.shape
+    coords, maxvals = argmax_decode(heatmaps)
+    xi, yi = coords[..., 0].long(), coords[..., 1].long()
+    c = _gather_hm(heatmaps, xi, yi)
+    xr, xl = _gather_hm(heatmaps, xi + 1, yi), _gather_hm(heatmaps, xi - 1, yi)
+    yd, yu = _gather_hm(heatmaps, xi, yi + 1), _gather_hm(heatmaps, xi, yi - 1)
+    dx, dy = xr - xl, yd - yu
+    dxx, dyy = xr - 2 * c + xl, yd - 2 * c + yu
+    inside = (xi > 1) & (xi < W - 1) & (yi > 1) & (yi < H - 1)
+    off_x = (dx / (2.0 * dxx.abs() + 1e-12)).clamp(-0.5, 0.5)
+    off_y = (dy / (2.0 * dyy.abs() + 1e-12)).clamp(-0.5, 0.5)
+    zero = torch.zeros((), device=heatmaps.device)
+    shift = torch.stack([torch.where(inside & (dxx < 0), off_x, zero),
+                         torch.where(inside & (dyy < 0), off_y, zero)],
+                        dim=-1)
+    return coords + shift, maxvals
 
 
 def soft_argmax(heatmaps: torch.Tensor, beta: float = 1.0

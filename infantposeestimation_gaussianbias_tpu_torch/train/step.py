@@ -2,9 +2,10 @@
 
 Port of infantposeestimation_gaussianbias_tpu/train/step.py.  One call of
 the train step does, on the model's device: Gaussian targets -> forward in
-train mode (W-MSA through K1) -> every loss term in float32 -> backward
-(W-MSA through K2) -> optimizer update, and returns the per-term losses
-and ``grad_norm`` as 0-d device tensors (no host sync).
+train mode (HRFormer: W-MSA through K1) -> every loss term in float32 (the
+heatmap head: the weighted MSE; the fusion head: the six terms) ->
+backward (HRFormer: W-MSA through K2) -> optimizer update, and returns the
+per-term losses and ``grad_norm`` as 0-d device tensors (no host sync).
 
 Batch contract (tensors, moved to the model's device):
   image:     (B, H, W, 3) float32, normalised crops
@@ -13,10 +14,15 @@ Batch contract (tensors, moved to the model's device):
 Optional 'target' (B, h, w, K) and 'target_weight' (B, K) replace the
 on-device targets.
 
-DropPath: the step draws the keep masks of all blocks for the whole batch
-from the ``torch.Generator`` it is given, before the forward (see
-``draw_drop_masks``), or takes them from the caller (``drop_masks``);
-microbatch i uses the masks of its samples.
+DropPath (HRFormer): the step draws the keep masks of all blocks for the
+whole batch from the ``torch.Generator`` it is given, before the forward
+(see ``draw_drop_masks``), or takes them from the caller (``drop_masks``);
+microbatch i uses the masks of its samples.  HRNet has no DropPath and
+needs no generator.
+
+A non-zero ``data.color_jitter`` (the ``preemie`` config) raises
+``NotImplementedError``: the on-device photometric jitter
+(``ops/photometric.py``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -84,7 +90,7 @@ def draw_drop_masks(model: nn.Module, batch_size: int,
                     device=None) -> Optional[torch.Tensor]:
     """(num_drop_paths, batch_size) bool DropPath keep masks for every
     block of ``model``'s backbone, each True with probability
-    1 - drop_path_rate; None at rate 0.  Drawn on the generator's device,
+    1 - drop_path_rate; None at rate 0 (HRNet).  Drawn on the generator's device,
     returned on ``device``."""
     backbone = model.backbone
     rate = backbone.drop_path_rate

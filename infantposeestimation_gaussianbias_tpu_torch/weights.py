@@ -1,15 +1,17 @@
 """Weights for the port: seeded initialisation and the JAX bridge.
 
 ``init_weights`` fills a PoseEstimator from a ``torch.Generator`` with the
-JAX package's initialisers (kaiming-normal fan-out convs, truncated-normal
-0.02 Linears and RPE tables, normal 0.001 prediction convs, identity
-norms, 0.5 decode logits).  The two frameworks draw different numbers
+JAX package's initialisers (kaiming-normal fan-out convs, among them the
+BasicBlocks'; truncated-normal 0.02 Linears and RPE tables; normal 0.001
+prediction convs with zero bias, the heatmap head's ``final_layer`` among
+them; identity norms; 0.5 decode logits).  The two frameworks draw different numbers
 from one seed, so the port's random weights are its own.
 
 ``state_dict_from_jax`` turns the JAX package's variables (numpy arrays)
 into the port's state dict, named as the reference checkpoint.  It is the
 inverse of ``tools/import_torch_checkpoint.convert_checkpoint`` of the JAX
-package: flax conv kernels (kh, kw, I, O) become (O, I, kh, kw), Dense
+package (its ``convert_hrnet_backbone``, ``convert_hrformer_backbone``,
+``convert_heatmap_head`` and ``convert_fusion_head``): flax conv kernels (kh, kw, I, O) become (O, I, kh, kw), Dense
 kernels (I, O) become (O, I), BatchNorm scale/bias/mean/var become
 weight/bias/running_mean/running_var.
 """
@@ -86,7 +88,7 @@ _HEAD_CONVNORMS = {
     "var_conv": ("variance_branch.0", "variance_branch.1"),
 }
 _HEAD_FINALS = {"hm_final": "heatmap_branch.3", "off_final": "offset_branch.3",
-                "var_final": "variance_branch.3"}
+                "var_final": "variance_branch.3", "final": "final_layer"}
 
 
 def _convnorm_names(path: Tuple[str, ...]) -> Tuple[str, str]:
@@ -111,6 +113,12 @@ def _convnorm_names(path: Tuple[str, ...]) -> Tuple[str, str]:
         # which the reference wraps in one more Sequential.
         base = f"transition{t}.{i}.0" if i == t else f"transition{t}.{i}"
         return f"{base}.0", f"{base}.1"
+    m = re.fullmatch(r"stage(\d)_module(\d+)/branch(\d)_block(\d+)/conv(\d)",
+                     p)
+    if m:  # an HRNet BasicBlock's ConvNorm
+        s, mod, br, blk, i = m.groups()
+        base = f"stage{s}.{mod}.branches.{br}.{blk}"
+        return f"{base}.conv{i}", f"{base}.bn{i}"
     m = re.fullmatch(r"stage(\d)_module(\d+)/fuse(\d)_(\d)(?:_(\d))?", p)
     if m:
         s, mod, i, j, k = m.groups()
@@ -140,6 +148,14 @@ def _param_entry(part: str, path: Tuple[str, ...], value: np.ndarray
         if path[1] == "kernel":
             return f"{name}.weight", value.transpose(3, 2, 0, 1)
         return f"{name}.bias", value
+    # ConvNorm leaves: (..., conv, kernel) and (..., norm, bn, scale|bias)
+    if path[-2:] == ("conv", "kernel"):
+        conv, _ = _convnorm_names(path[:-2])
+        return f"{conv}.weight", value.transpose(3, 2, 0, 1)
+    if path[-3:-1] == ("norm", "bn"):
+        _, bn = _convnorm_names(path[:-3])
+        return f"{bn}.{'weight' if path[-1] == 'scale' else 'bias'}", value
+    # HRFormer block leaves: norm1/2, attn.qkv/proj, the RPE table, mlp.fc1/2
     m = re.fullmatch(r"stage(\d)_module(\d+)", path[0])
     b = re.fullmatch(r"branch(\d)_block(\d+)", path[1]) if m else None
     if b:
@@ -152,13 +168,6 @@ def _param_entry(part: str, path: Tuple[str, ...], value: np.ndarray
         if rest[-1] == "kernel":
             return f"{base}.{layer}.weight", value.T
         return f"{base}.{layer}.bias", value
-    # ConvNorm leaves: (..., conv, kernel) and (..., norm, bn, scale|bias)
-    if path[-2:] == ("conv", "kernel"):
-        conv, _ = _convnorm_names(path[:-2])
-        return f"{conv}.weight", value.transpose(3, 2, 0, 1)
-    if path[-3:-1] == ("norm", "bn"):
-        _, bn = _convnorm_names(path[:-3])
-        return f"{bn}.{'weight' if path[-1] == 'scale' else 'bias'}", value
     raise KeyError(f"no reference name for {part}/{'/'.join(path)}")
 
 
