@@ -62,8 +62,24 @@ Phases, in order; any failure exits non-zero:
      terms, a falling loss, step time, images/s, peak memory and the
      profile by kernel; one bf16 fusion-head step with finite terms and
      hooks on every stride-1 3x3 conv: K6 on each captured (x, dy)
-     against that conv's weight.grad, one launch per conv.
-Each fused phase sets IPE_FUSED_BLOCK itself and restores it after.  The
+     against that conv's weight.grad, one launch per conv;
+ 14. K1-hm (CUDA W-MSA forward on head-major operands) against its plain
+     version at every K1 shape at b = 64, with and without bias, float32
+     and bf16; kernel, plain, SDPA (batch H, mask bias[h]) ms and bound;
+     then the window-major entry point (relayout copies + K1-hm) fed from
+     the flat qkv against K1 on it, with the time of each;
+ 15. K8 (CUDA phase ablation of K1): every variant and windows-per-block
+     value against its plain version, ``full`` at one window per block
+     bit for bit against K1; the port's probe ``main()`` at its default
+     shape and at hrformer_base b0-b3 (b = 64): each variant's ms, bound
+     and plain ms, and K1's phase shares (staging, products, softmax);
+ 16. analysis: ``benchmark_model`` for Config() and hrformer_base (bf16,
+     b = 32; K1 44 launches per HRFormer forward, none for HRNet);
+     saliency (44 K1 and 44 K2 launches), Grad-CAM and occlusion on
+     hrformer_base in float32, card against CPU; a ``profile_trace`` of
+     one forward (44 K1 kernels among its device events); MC DropPath
+     uncertainty (n = 4) leaving the BatchNorm statistics as they were.
+Every phase's seconds and the whole run's are printed.Each fused phase sets IPE_FUSED_BLOCK itself and restores it after.  The
 last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -73,6 +89,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -235,9 +252,11 @@ def fused_blocks(flag: str):
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
-        conv_wgrad, fused_block, residual_block, window_msa)
+        conv_wgrad, fused_block, residual_block, window_msa,
+        window_msa_ablate)
 
     window_msa.LAUNCHES = window_msa.BWD_LAUNCHES = 0
+    window_msa.HM_LAUNCHES = window_msa_ablate.ABLATE_LAUNCHES = 0
     fused_block.ATTN_LAUNCHES = fused_block.ATTN_BWD_LAUNCHES = 0
     fused_block.MLP_LAUNCHES = fused_block.MLP_BWD_LAUNCHES = 0
     conv_wgrad.LAUNCHES = residual_block.LAUNCHES = 0
@@ -245,14 +264,15 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     """Launches since the last reset: K1, K2, K4 (fwd, bwd), K5 (fwd, bwd),
-    K6, K7."""
+    K6, K7, K1-hm, K8."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
         conv_wgrad as cw, fused_block as fb, residual_block as rb,
-        window_msa as wm)
+        window_msa as wm, window_msa_ablate as ab)
 
     return dict(k1=wm.LAUNCHES, k2=wm.BWD_LAUNCHES, k4=fb.ATTN_LAUNCHES,
                 k4b=fb.ATTN_BWD_LAUNCHES, k5=fb.MLP_LAUNCHES,
-                k5b=fb.MLP_BWD_LAUNCHES, k6=cw.LAUNCHES, k7=rb.LAUNCHES)
+                k5b=fb.MLP_BWD_LAUNCHES, k6=cw.LAUNCHES, k7=rb.LAUNCHES,
+                k1hm=wm.HM_LAUNCHES, k8=ab.ABLATE_LAUNCHES)
 
 
 def cuda_median_ms(fn, warmup: int = 3, runs: int = 25) -> float:
@@ -934,7 +954,8 @@ def hrformer_cfg():
 
 
 def no_launches() -> dict:
-    return dict(k1=0, k2=0, k4=0, k4b=0, k5=0, k5b=0, k6=0, k7=0)
+    return dict(k1=0, k2=0, k4=0, k4b=0, k5=0, k5b=0, k6=0, k7=0, k1hm=0,
+                k8=0)
 
 
 def train_bf16(smi: str, cfg, tag: str, want: dict) -> dict:
@@ -1483,40 +1504,414 @@ def hrnet_fusion_step_k6() -> dict:
                 plain_rel=worst_plain)
 
 
+# -- K1-hm, K8 and the analysis path (phases 14-16) ---------------------------
+
+def phase_k1_hm() -> dict:
+    """K1-hm against its plain version at every BRANCH_SHAPES row at
+    b = 64, head-major, with and without bias, float32 and bf16; then the
+    window-major entry point (relayouts + K1-hm) against flat K1."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import window_msa
+
+    B = 64
+    g = torch.Generator(device="cuda").manual_seed(14)
+    worst = 0.0
+    record = None
+    for label, w, N, H, hd in BRANCH_SHAPES:
+        nW = B * w
+        qkv32 = [torch.randn(H, nW, N, hd, device="cuda", generator=g)
+                 for _ in range(3)]
+        bias_full = torch.randn(H, N, N, device="cuda", generator=g)
+        for with_bias in (True, False):
+            bias = bias_full if with_bias else None
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v = (x.to(dt) for x in qkv32)
+                out = window_msa.window_attention_hm(q, k, v, bias)
+                torch.cuda.synchronize()
+                ref = window_msa.window_attention_hm_reference(q, k, v, bias)
+                if dt == torch.float32:
+                    torch.testing.assert_close(out, ref, atol=F32_ATOL,
+                                               rtol=0)
+                else:
+                    torch.testing.assert_close(out.float(), ref.float(),
+                                               atol=BF16_TOL, rtol=BF16_TOL)
+                err = (out.float() - ref.float()).abs().max().item()
+                worst = max(worst, err)
+                name = "f32" if dt == torch.float32 else "bf16"
+                if not with_bias:
+                    log(f"[k1-hm] {label:12s} nW={nW:5d} N={N} H={H:2d} "
+                        f"hd={hd} {name:4s} no bias max_abs_err={err:.3e}")
+                    continue
+                ms = cuda_median_ms(
+                    lambda: window_msa.window_attention_hm(q, k, v, bias))
+                plain_ms = cuda_median_ms(
+                    lambda: window_msa.window_attention_hm_reference(
+                        q, k, v, bias))
+                # yardstick: SDPA on the head-major tensors, batch H,
+                # mask bias[h] broadcast over the windows
+                mask = bias.to(dt)[:, None]
+                lib_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask))
+                nbytes = 4 * H * nW * N * hd * q.element_size() + H * N * N * 4
+                b_ms, b_by = bound_ms(nbytes, 4 * N * N * hd * nW * H)
+                log(f"[k1-hm] {label:12s} nW={nW:5d} N={N} H={H:2d} hd={hd} "
+                    f"{name:4s} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+                    f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                    f"bound_ms={b_ms:.4f} ({b_by})")
+                if label == "base b0" and dt == torch.bfloat16:
+                    record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  shape=f"H={H},nW={nW},N={N},hd={hd},bf16")
+    record["max_abs_err"] = worst
+    record.update(relayout_vs_flat())
+    return record
+
+
+def relayout_vs_flat() -> dict:
+    """The window-major entry point ``window_attention_wm`` fed from the
+    model's flat qkv (split views, relayout copies to head-major, K1-hm,
+    the output back to (nW, N, C)) against K1 on the flat qkv at every
+    BRANCH_SHAPES row at b = 64, float32 and bf16: the card's reading of
+    the TPU finding that the relayout copies cost more than the fusion
+    saved (window_msa.py:232-235).  K1-hm's launches on this path are the
+    record's count."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import window_msa
+
+    def wm_path(qkv, bias, H):
+        nW, N, C3 = qkv.shape
+        C = C3 // 3
+        q, k, v = qkv.view(nW, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+        out = window_msa.window_attention_wm(q, k, v, bias)
+        return out.permute(0, 2, 1, 3).reshape(nW, N, C)
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    cases = []
+    for label, w, N, H, hd in BRANCH_SHAPES:
+        qkv32 = torch.randn(64 * w, N, 3 * H * hd, device="cuda", generator=g)
+        bias = torch.randn(H, N, N, device="cuda", generator=g)
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append((label, qkv32.to(dt), bias, H))
+    reset_launches()
+    outs = [wm_path(qkv, bias, H) for _, qkv, bias, H in cases]
+    torch.cuda.synchronize()
+    hm_launches = window_msa.HM_LAUNCHES
+    assert hm_launches == len(cases), hm_launches
+    rows = []
+    for (label, qkv, bias, H), out in zip(cases, outs):
+        flat = window_msa.window_attention_qkv(qkv, bias, H)
+        torch.cuda.synchronize()
+        same = torch.equal(out, flat)
+        tol = F32_ATOL if qkv.dtype == torch.float32 else BF16_TOL
+        torch.testing.assert_close(out.float(), flat.float(), atol=tol,
+                                   rtol=tol)
+        nW, N, C3 = qkv.shape
+        qh, kh, vh = (qkv.view(nW, N, 3, H, C3 // 3 // H)[:, :, i]
+                      .permute(2, 0, 1, 3).contiguous() for i in range(3))
+        flat_ms = cuda_median_ms(
+            lambda: window_msa.window_attention_qkv(qkv, bias, H))
+        wm_ms = cuda_median_ms(lambda: wm_path(qkv, bias, H))
+        hm_ms = cuda_median_ms(
+            lambda: window_msa.window_attention_hm(qh, kh, vh, bias))
+        name = "f32" if qkv.dtype == torch.float32 else "bf16"
+        log(f"[relayout] {label:12s} {name:4s} flat K1 {flat_ms:.4f} ms; "
+            f"window-major path {wm_ms:.4f} ms = K1-hm {hm_ms:.4f} + "
+            f"relayouts {wm_ms - hm_ms:.4f}; path/flat "
+            f"{wm_ms / flat_ms:.2f}x; bit-equal to K1: {same}")
+        rows.append(dict(shape=label, dtype=name, flat_ms=flat_ms,
+                         wm_path_ms=wm_ms, hm_ms=hm_ms, bit_equal=same))
+    return dict(relayout=rows, path_launches=hm_launches)
+
+
+def k8_flops(variant: str, nW: int, N: int, H: int, hd: int) -> float:
+    """A variant's useful float32 operations: the products 4 N^2 hd per
+    (window, head), the softmax 5 N^2 (bias add, max, subtract, exp, sum),
+    the normalisation N hd; packslim's useful work is full's (its
+    cross-window scores are thrown away)."""
+    products, softmax, norm = 4 * N * N * hd, 5 * N * N, N * hd
+    per = {"empty": 0, "gemmonly": products, "softonly": softmax + norm,
+           "full": products + softmax + norm,
+           "packslim": products + softmax + norm}[variant]
+    return float(per * nW * H)
+
+
+def phase_k8() -> dict:
+    """K8: every variant of the plan against its plain version, ``full`` at
+    one window per block bit for bit against K1; then the port's probe
+    ``main()`` at its default shape and at hrformer_base b0-b3 at b = 64
+    (launches counted over those runs), K1's phase shares, the bound and
+    the plain version's time of each variant."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        window_msa, window_msa_ablate as ablate)
+    from infantposeestimation_gaussianbias_tpu_torch.tools import (
+        probe_wmsa_ablate as probe)
+
+    shapes = [("default", probe.DEFAULT_SHAPE)] + [
+        (label, f"{64 * w},{N},{H * hd},{H}")
+        for label, w, N, H, hd in BRANCH_SHAPES[:4]]
+    worst = 0.0
+    for label, shape in shapes:
+        nW, N, C, H = (int(v) for v in shape.split(","))
+        qkv, bias = probe.make_inputs(nW, N, C, H, "cuda")
+        k1 = window_msa.window_attention_qkv(qkv, bias, H)
+        for variant, wpb in probe.plan(nW, N, C, H, 1):
+            out = ablate.window_attention_ablate(variant, qkv, bias, H, wpb)
+            torch.cuda.synchronize()
+            ref = ablate.ablate_reference(variant, qkv, bias, H)
+            err = (out.float() - ref.float()).abs().max().item()
+            if variant == "empty":
+                assert torch.equal(out, ref), (label, variant, wpb)
+            else:
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           atol=BF16_TOL, rtol=BF16_TOL)
+            if variant == "full" and wpb == 1:
+                assert torch.equal(out, k1), "full is not K1 bit for bit"
+            worst = max(worst, err)
+            log(f"[k8] {label:8s} {variant:8s} wpb={wpb} max_abs_err={err:.3e}"
+                + (f" bit-equal to K1: {torch.equal(out, k1)}"
+                   if variant == "full" else ""))
+    reset_launches()
+    runs = [(label, shape, probe.main(["--shape", shape]))
+            for label, shape in shapes]
+    launches = ablate.ABLATE_LAUNCHES
+    assert launches > 0
+    per_shape = []
+    for label, shape, rows in runs:
+        nW, N, C, H = (int(v) for v in shape.split(","))
+        hd = C // H
+        qkv, bias = probe.make_inputs(nW, N, C, H, "cuda")
+        ms = {(r["variant"], r["windows_per_block"]): r["ms"] for r in rows}
+        nbytes = nW * N * 4 * C * qkv.element_size()
+        bounds, plain = {}, {}
+        for variant in ablate.VARIANTS:
+            bounds[variant] = bound_ms(nbytes, k8_flops(variant, nW, N, H,
+                                                        hd))[0]
+            plain[variant] = cuda_median_ms(
+                lambda: ablate.ablate_reference(variant, qkv, bias, H),
+                runs=10)
+        G = ablate.pack_factor(H, C, N)
+        e, f = ms[("empty", 1)], ms[("full", 1)]
+        shares = {"staging": e, "products": ms[("gemmonly", 1)] - e,
+                  "softmax": ms[("softonly", 1)] - e}
+        sets = max(shares, key=shares.get)
+        log(f"[k8-phases] {label:8s} nW={nW} N={N} C={C} H={H}: staging "
+            f"{shares['staging']:.4f} ms, products {shares['products']:.4f}, "
+            f"softmax {shares['softmax']:.4f}, full {f:.4f}, packslim "
+            f"(G={G}) {ms.get(('packslim', G), float('nan')):.4f}; "
+            f"{sets} sets K1's time")
+        log(f"[k8-bounds] {label:8s} " + " ".join(
+            f"{v}={bounds[v]:.4f}/plain {plain[v]:.4f}"
+            for v in ablate.VARIANTS))
+        per_shape.append(dict(shape=label, nW=nW, N=N, C=C, H=H, G=G,
+                              ms={f"{v}@{w}": t for (v, w), t in ms.items()},
+                              bound_ms=bounds, plain_ms=plain, shares=shares,
+                              sets=sets))
+    rec = per_shape[0]
+    nW, N, C, H = rec["nW"], rec["N"], rec["C"], rec["H"]
+    qkv, bias = probe.make_inputs(nW, N, C, H, "cuda")
+    q, k, v = (_heads(qkv[..., i * C:(i + 1) * C], H) for i in range(3))
+    mask = bias.to(qkv.dtype)[None]
+    lib_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask))
+    b_ms, b_by = bound_ms(nW * N * 4 * C * 2, k8_flops("full", nW, N, H,
+                                                         C // H))
+    record = dict(ms=rec["ms"]["full@1"], plain_ms=rec["plain_ms"]["full"],
+                  library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                  max_abs_err=worst,
+                  shape=f"nW={nW},N={N},C={C},H={H},bf16 (full@1)",
+                  variants_ms=rec["ms"], variants_bound_ms=rec["bound_ms"],
+                  variants_plain_ms=rec["plain_ms"])
+    return dict(record=record, launches=launches, per_shape=per_shape)
+
+
+# Saliency card vs CPU (float32, TF32 off): the input gradient of a heatmap
+# peak through 44 blocks and the stem's BatchNorms, in another summation
+# order; a ReLU input on the other side of 0 moves every gradient below it
+# by ~1e-3 relative (ROADMAP Queue 3, ReLU ties).  Relative norm.
+SALIENCY_RTOL = 1e-2
+# Grad-CAM: features from the forward (card vs CPU ~1e-6) weighted by the
+# head's gradient (a few convs, BatchNorms and ReLUs, the same ties), the
+# map normalised to 1; largest element difference.
+CAM_ATOL = 5e-3
+# Occlusion: differences of forward peaks, each agreeing to ~1e-6 of the
+# heatmaps' scale (HEATMAP_ATOL above is the served maps' bound).
+OCCLUSION_ATOL = HEATMAP_ATOL
+
+
+def phase_analysis(smi: str) -> dict:
+    """benchmark_model for Config() and hrformer_base (bf16, b = 32) with
+    launch counts; saliency, Grad-CAM and occlusion on hrformer_base in
+    float32, card against the port on the CPU; MC DropPath uncertainty
+    with the BatchNorm statistics unchanged."""
+    from infantposeestimation_gaussianbias_tpu_torch import Config
+    from infantposeestimation_gaussianbias_tpu_torch.analysis import (
+        benchmark_model, grad_cam, mc_droppath_uncertainty,
+        occlusion_sensitivity, profile_trace, saliency_map)
+    from infantposeestimation_gaussianbias_tpu_torch.models import build_model
+
+    out = {}
+    warmup, runs = 3, 10
+    for name, cfg, k1_per in (("hrnet_w32", Config(), 0),
+                              ("hrformer_base", hrformer_cfg(),
+                               K1_CALLS_PER_FORWARD)):
+        assert cfg.model.compute_dtype == "bfloat16"
+        reset_launches()
+        stats = benchmark_model(cfg, batch_size=32, warmup=warmup, runs=runs)
+        got = launches()
+        want = dict(no_launches(), k1=k1_per * (1 + warmup + runs))
+        assert got == want, (name, got)
+        log(f"[analysis] benchmark_model {name} bf16 b=32: median "
+            f"{stats['median_ms']:.2f} ms (mean {stats['mean_ms']:.2f}, min "
+            f"{stats['min_ms']:.2f}, max {stats['max_ms']:.2f}), "
+            f"{stats['images_per_sec']:.1f} images/s, K1 "
+            f"{got['k1'] // (1 + warmup + runs)} per forward; on {smi}")
+        out[f"benchmark_{name}"] = dict(stats, k1_per_forward=k1_per)
+
+    cfg = hrformer_cfg()
+    cfg.model.compute_dtype = "float32"
+    gpu = build_model(cfg, device="cuda")
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    W, H = cfg.data.input_size
+    rng = np.random.RandomState(16)
+    crop = rng.randn(H, W, 3).astype(np.float32)
+    kp = 5
+    reset_launches()
+    sal = saliency_map(gpu, crop, kp)
+    got = launches()
+    assert got == dict(no_launches(), k1=K1_CALLS_PER_FORWARD,
+                       k2=K1_CALLS_PER_FORWARD), got
+    out["saliency_launches"] = got
+    sal_cpu = saliency_map(cpu, crop, kp)
+    assert sal.shape == (H, W) and np.isfinite(sal).all()
+    rel = float(np.linalg.norm(sal - sal_cpu) / np.linalg.norm(sal_cpu))
+    log(f"[analysis] saliency f32 card vs CPU: rel {rel:.3e} (bound "
+        f"{SALIENCY_RTOL:g}); K1 {got['k1']}, K2 {got['k2']} launches")
+    assert rel <= SALIENCY_RTOL, rel
+
+    reset_launches()
+    cam = grad_cam(gpu, crop, kp)
+    got = launches()
+    assert got == dict(no_launches(), k1=K1_CALLS_PER_FORWARD), got
+    cam_cpu = grad_cam(cpu, crop, kp)
+    cam_err = float(np.abs(cam - cam_cpu).max())
+    log(f"[analysis] grad_cam f32 {cam.shape} card vs CPU: max_abs_err "
+        f"{cam_err:.3e} (bound {CAM_ATOL:g}); K1 {got['k1']} launches")
+    assert np.isfinite(cam).all() and cam_err <= CAM_ATOL, cam_err
+
+    t0 = time.perf_counter()
+    occ = occlusion_sensitivity(gpu, crop, kp, patch=64, stride=64)
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    occ_cpu = occlusion_sensitivity(cpu, crop, kp, patch=64, stride=64)
+    t_cpu = time.perf_counter() - t0
+    occ_err = float(np.abs(occ - occ_cpu).max())
+    log(f"[analysis] occlusion f32 {occ.shape} (patch 64, stride 64) card vs "
+        f"CPU: max_abs_err {occ_err:.3e} (bound {OCCLUSION_ATOL:g}); "
+        f"{t_gpu:.2f} s on the card, {t_cpu:.2f} s on the CPU")
+    assert occ_err <= OCCLUSION_ATOL, occ_err
+
+    # profile_trace on the card: a Chrome trace (in a temporary directory,
+    # removed after) whose device events include K1.
+    x = torch.from_numpy(crop[None]).cuda()
+    with torch.no_grad():
+        trace_dir = profile_trace(gpu, x, iters=1)
+    try:
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(trace_dir)
+    k1_events = [e for e in events if e.get("cat") == "kernel"
+                 and "window_msa_fwd" in e.get("name", "")]
+    log(f"[analysis] profile_trace: {len(events)} events, "
+        f"{sum(e.get('cat') == 'kernel' for e in events)} device kernels, "
+        f"{len(k1_events)} of them K1")
+    assert len(k1_events) == K1_CALLS_PER_FORWARD, len(k1_events)
+
+    stats_before = {k: v.clone() for k, v in gpu.state_dict().items()
+                    if "running" in k or "num_batches" in k}
+    crops = rng.randn(2, H, W, 3).astype(np.float32)
+    reset_launches()
+    mc = mc_droppath_uncertainty(gpu, crops, n_samples=4)
+    got = launches()
+    assert got == dict(no_launches(), k1=4 * K1_CALLS_PER_FORWARD), got
+    after = gpu.state_dict()
+    assert all(torch.equal(v, after[k]) for k, v in stats_before.items())
+    assert np.isfinite(mc["mean"]).all() and np.isfinite(mc["std"]).all()
+    assert mc["std"].max() > 0, "DropPath moved nothing"
+    assert not gpu.training
+    log(f"[analysis] mc_droppath_uncertainty n=4 {mc['mean'].shape}: std "
+        f"mean {mc['std'].mean():.3e} max {mc['std'].max():.3e}; "
+        f"{len(stats_before)} BatchNorm buffers unchanged")
+    out.update(saliency_rel=rel, grad_cam_err=cam_err, occlusion_err=occ_err,
+               occlusion_cpu_s=t_cpu)
+    return out
+
+
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its seconds logged and kept under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    log(f"[time] {name}: {PHASE_SECONDS[name]:.1f} s")
+    return out
+
+
 def main() -> int:
-    smi = phase_device()
-    phase_build()
-    k1 = phase_k1()
-    k2 = phase_k2()
+    t_start = time.perf_counter()
+    smi = timed("0 device", phase_device)
+    timed("1 build", phase_build)
+    k1 = timed("2 k1", phase_k1)
+    k2 = timed("3 k2", phase_k2)
     with fused_blocks("0"):  # the default path: K1 and K2, no fused block
-        inf, serve_launches = phase_slice()
-        thr = phase_throughput(inf, smi)
-    k45 = phase_fused_kernels()
-    fused_thr, fused_serve = phase_fused_serving(inf, smi)
+        inf, serve_launches = timed("4 serving", phase_slice)
+        thr = timed("5 throughput", phase_throughput, inf, smi)
+    k45 = timed("7 k4/k5", phase_fused_kernels)
+    fused_thr, fused_serve = timed("8 fused serving", phase_fused_serving,
+                                   inf, smi)
     del inf
-    with fused_blocks("0"):
+
+    def train_unfused():
         train_agreement_f32()
         train = train_bf16(smi, hrformer_cfg(), "train", dict(
             no_launches(), k1=K1_CALLS_PER_FORWARD, k2=K1_CALLS_PER_FORWARD))
         train.update(train_remat())
-    with fused_blocks("1"):
+        return train
+
+    def train_fused():
         train_agreement_f32("fused-train", FUSED_STEP_LOSS_RTOL,
                             FUSED_STEP_GRAD_RTOL, FUSED_STEP_STAT_TOL)
         n = K1_CALLS_PER_FORWARD
-        fused_train = train_bf16(smi, hrformer_cfg(), "fused-train", dict(
+        return train_bf16(smi, hrformer_cfg(), "fused-train", dict(
             no_launches(), k4=n, k4b=n, k5=n, k5b=n))
-    k7 = phase_k7()
-    k6, k6_shapes = phase_k6()
-    hr_serve = phase_hrnet_serving(smi)
-    hrnet_train_agreement_f32()
-    hr_train = train_bf16(smi, hrnet_cfg("heatmap"), "hrnet-train",
-                          no_launches())
-    hr_k6 = hrnet_fusion_step_k6()
+
+    with fused_blocks("0"):
+        train = timed("6 training", train_unfused)
+    with fused_blocks("1"):
+        fused_train = timed("9 fused training", train_fused)
+    k7 = timed("10 k7", phase_k7)
+    k6, k6_shapes = timed("11 k6", phase_k6)
+    hr_serve = timed("12 hrnet serving", phase_hrnet_serving, smi)
+
+    def hrnet_train():
+        hrnet_train_agreement_f32()
+        hr_train = train_bf16(smi, hrnet_cfg("heatmap"), "hrnet-train",
+                              no_launches())
+        return hr_train, hrnet_fusion_step_k6()
+
+    hr_train, hr_k6 = timed("13 hrnet training", hrnet_train)
+    k1hm = timed("14 k1-hm", phase_k1_hm)
+    k8 = timed("15 k8", phase_k8)
+    with fused_blocks("0"):
+        analysis = timed("16 analysis", phase_analysis, smi)
     log(f"[fused] bf16 b=32 serving {fused_thr['crops_per_s']:.1f} crops/s "
         f"fused vs {thr['crops_per_s']:.1f} unfused; training "
         f"{fused_train['step_ms']:.1f} ms/step fused vs "
         f"{train['step_ms']:.1f} unfused, peak memory "
         f"{fused_train['peak_gib']:.2f} vs {train['peak_gib']:.2f} GiB")
+    log(f"[time] whole run {time.perf_counter() - t_start:.1f} s; phases "
+        + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "flax",
                                       "infantposeestimation_gaussianbias_tpu")]
@@ -1527,27 +1922,32 @@ def main() -> int:
                                     for h in ("heatmap", "fusion")},
                     "hrnet_train": hr_train, "hrnet_k7_served": hr_serve["k7"],
                     "hrnet_k6_step": hr_k6,
-                    "hrnet_conv3x3_shapes": k6_shapes}))
+                    "hrnet_conv3x3_shapes": k6_shapes,
+                    "k1_hm_relayout": k1hm["relayout"],
+                    "k8_per_shape": k8["per_shape"], "analysis": analysis}))
     source = "infantposeestimation_gaussianbias_tpu_torch/csrc/"
-    pallas = "infantposeestimation_gaussianbias_tpu/ops/pallas/"
+    jax_pkg = "infantposeestimation_gaussianbias_tpu/"
+    pallas = jax_pkg + "ops/pallas/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
+    extra = ("max_rel_err", "variants_ms", "variants_bound_ms",
+             "variants_plain_ms")
     t, ft = train["launches"], fused_train["launches"]
+    sal = analysis["saliency_launches"]
 
-    def entry(name, src, replaces, by_path, rec):
+    def entry(name, src, replaces, by_path, rec, root=pallas):
         return {"name": name, "route": "cuda", "source": source + src,
-                "replaces": pallas + replaces,
+                "replaces": root + replaces,
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path, **{k: rec[k] for k in keys},
-                **({"max_rel_err": rec["max_rel_err"]}
-                   if "max_rel_err" in rec else {})}
+                **{k: rec[k] for k in extra if k in rec}}
 
     log(json.dumps({"kernels": [
         entry("window_msa_fwd", "window_msa.cu", "window_msa.py:222",
               {"serve": serve_launches, "serve_auto": fused_serve["k1"],
-               "train": t["k1"]}, k1),
+               "train": t["k1"], "analysis_saliency": sal["k1"]}, k1),
         entry("window_msa_bwd", "window_msa_bwd.cu", "window_msa.py:422",
-              {"train": t["k2"]}, k2),
+              {"train": t["k2"], "analysis_saliency": sal["k2"]}, k2),
         entry("fused_attn_half_fwd", "fused_attn.cu", "fused_block.py:562",
               {"serve_fused": fused_serve["k4"], "train_fused": ft["k4"]},
               k45["attn_fwd"]),
@@ -1563,6 +1963,11 @@ def main() -> int:
         entry("fused_residual_chain", "residual_block.cu",
               "residual_block.py:87",
               {"hrnet_serve": hr_serve["k7"]["launches"]}, k7),
+        entry("window_msa_hm_fwd", "window_msa.cu", "window_msa.py:81",
+              {"window_major_relayout": k1hm["path_launches"]}, k1hm),
+        entry("window_msa_ablate", "window_msa_ablate.cu",
+              "tools/probe_wmsa_ablate.py:160", {"probe": k8["launches"]},
+              k8["record"], root=jax_pkg),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

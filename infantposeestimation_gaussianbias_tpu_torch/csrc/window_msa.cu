@@ -32,121 +32,75 @@
 //   * p v: one thread per (i, d) output element, normalised by 1/rowsum.
 // N <= 64 and hd <= 64 are runtime values (hd = 39 for HRFormer-Base is
 // ragged); the Python wrapper rejects anything larger.
+//
+// The body lives in window_msa_body.cuh.  This file instantiates it twice:
+// K1 on the flat qkv layout, and K1-hm, which replaces
+// `window_attention_pallas_hm` (window_msa.py:50, body `_attn_kernel`):
+// the same maths on head-major (H, nW, N, hd) q, k, v, read in place, with
+// an (H, nW, N, hd) output.  Same grid, same bound.
 
-#include <math_constants.h>
-
-#include "ipe_common.cuh"
+#include "window_msa_body.cuh"
 
 namespace {
 
-using ipe::from_f32;
-using ipe::odd_stride;
-using ipe::to_f32;
-
-constexpr int kThreads = 128;
-constexpr int kMaxN = 64;
-constexpr int kMaxHd = 64;
-
-__host__ __forceinline__ size_t smem_bytes(int N, int hd) {
-  return sizeof(float) * (3 * (size_t)N * odd_stride(hd) + (size_t)N * odd_stride(N) + N);
-}
+using ipe::wmsa::kMaxHd;
+using ipe::wmsa::kMaxN;
+using ipe::wmsa::kThreads;
+using ipe::wmsa::Layout;
+using ipe::wmsa::Phase;
+using ipe::wmsa::smem_bytes;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 window_msa_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
                       T* __restrict__ out, int N, int H, int hd, float scale) {
-  extern __shared__ float smem[];
-  const int ldq = odd_stride(hd);
-  const int lds = odd_stride(N);
-  float* q = smem;                 // (N, ldq), pre-scaled
-  float* k = q + N * ldq;          // (N, ldq)
-  float* v = k + N * ldq;          // (N, ldq)
-  float* s = v + N * ldq;          // (N, lds) scores, then exp(scores - max)
-  float* inv_sum = s + N * lds;    // (N)
+  ipe::wmsa::attend<T, Layout::kFlatQkv, Phase::kFull, 1>(
+      qkv, nullptr, nullptr, bias, out, gridDim.x, N, H, hd, scale, nullptr);
+}
 
-  const int w = blockIdx.x;
-  const int h = blockIdx.y;
-  const int C = H * hd;
-  const int tid = threadIdx.x;
-
-  // Load q/k/v of this (window, head); neighbouring threads read
-  // neighbouring columns of one row.
-  const T* base = qkv + (size_t)w * N * 3 * C + h * hd;
-  for (int idx = tid; idx < N * hd; idx += kThreads) {
-    const int n = idx / hd;
-    const int d = idx - n * hd;
-    const T* row = base + (size_t)n * 3 * C + d;
-    q[n * ldq + d] = to_f32(row[0]) * scale;
-    k[n * ldq + d] = to_f32(row[C]);
-    v[n * ldq + d] = to_f32(row[2 * C]);
-  }
-  __syncthreads();
-
-  // Scores s[i][j] = q_i . k_j + bias[h][i][j].
-  const float* bias_h = bias ? bias + (size_t)h * N * N : nullptr;
-  for (int idx = tid; idx < N * N; idx += kThreads) {
-    const int i = idx / N;
-    const int j = idx - i * N;
-    const float* qi = q + i * ldq;
-    const float* kj = k + j * ldq;
-    float acc = 0.f;
-    for (int d = 0; d < hd; ++d) acc = fmaf(qi[d], kj[d], acc);
-    if (bias_h) acc += bias_h[idx];
-    s[i * lds + j] = acc;
-  }
-  __syncthreads();
-
-  // Row softmax, one warp per row: p = exp(s - max), inv_sum = 1 / sum(p).
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  for (int i = warp; i < N; i += kThreads / 32) {
-    float* si = s + i * lds;
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < N; j += 32) m = fmaxf(m, si[j]);
-    m = ipe::warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(si[j] - m);
-      si[j] = e;
-      sum += e;
-    }
-    sum = ipe::warp_sum(sum);
-    if (lane == 0) inv_sum[i] = 1.f / sum;
-  }
-  __syncthreads();
-
-  // out[i][d] = sum_j p[i][j] v[j][d] / sum_i; neighbouring threads write
-  // neighbouring columns of one output row.
-  T* obase = out + (size_t)w * N * C + h * hd;
-  for (int idx = tid; idx < N * hd; idx += kThreads) {
-    const int i = idx / hd;
-    const int d = idx - i * hd;
-    const float* pi = s + i * lds;
-    float acc = 0.f;
-    for (int j = 0; j < N; ++j) acc = fmaf(pi[j], v[j * ldq + d], acc);
-    obase[(size_t)i * C + d] = from_f32<T>(acc * inv_sum[i]);
-  }
+// K1-hm: the same body on head-major (H, nW, N, hd) q, k, v.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+window_msa_hm_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const float* __restrict__ bias,
+                         T* __restrict__ out, int N, int H, int hd, float scale) {
+  ipe::wmsa::attend<T, Layout::kHeadMajor, Phase::kFull, 1>(
+      q, k, v, bias, out, gridDim.x, N, H, hd, scale, nullptr);
 }
 
 template <typename T>
 cudaError_t launch(const void* qkv, const float* bias, void* out, int nW, int N,
                    int H, int hd, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(N, hd);
-  // Above 48 KB a block may use dynamic shared memory only after opting in;
-  // set the attribute once per instantiation.
+  const size_t smem = smem_bytes(N, hd, 1);
   static bool opted_in = false;
-  if (smem > 48 * 1024 && !opted_in) {
-    const size_t most = smem_bytes(kMaxN, kMaxHd);
-    cudaError_t err = cudaFuncSetAttribute(window_msa_fwd_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)most);
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
+  cudaError_t err = ipe::wmsa::opt_in(window_msa_fwd_kernel<T>, smem,
+                                      smem_bytes(kMaxN, kMaxHd, 1), opted_in);
+  if (err != cudaSuccess) return err;
   dim3 grid(nW, H);
   window_msa_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(qkv), bias, static_cast<T*>(out), N, H, hd, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_hm(const void* q, const void* k, const void* v,
+                      const float* bias, void* out, int nW, int N, int H,
+                      int hd, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(N, hd, 1);
+  static bool opted_in = false;
+  cudaError_t err = ipe::wmsa::opt_in(window_msa_hm_fwd_kernel<T>, smem,
+                                      smem_bytes(kMaxN, kMaxHd, 1), opted_in);
+  if (err != cudaSuccess) return err;
+  dim3 grid(nW, H);
+  window_msa_hm_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), bias, static_cast<T*>(out), N, H, hd, scale);
+  return cudaGetLastError();
+}
+
+bool bad_sizes(int nW, int N, int H, int hd) {
+  return nW <= 0 || N <= 0 || N > kMaxN || hd <= 0 || hd > kMaxHd || H <= 0 ||
+         H > 65535;
 }
 
 }  // namespace
@@ -157,13 +111,26 @@ extern "C" {
 // the caller as the plain version rounds it.  Returns the launch's cudaError_t.
 int ipe_window_msa_fwd(const void* qkv, const void* bias, void* out, int nW, int N,
                        int H, int hd, float scale, int dtype, void* stream) {
-  if (nW <= 0 || N <= 0 || N > kMaxN || hd <= 0 || hd > kMaxHd ||
-      H <= 0 || H > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_sizes(nW, N, H, hd)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   if (dtype == 0) return (int)launch<float>(qkv, b, out, nW, N, H, hd, scale, st);
   if (dtype == 1) return (int)launch<__nv_bfloat16>(qkv, b, out, nW, N, H, hd, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1-hm: q, k, v and out (H, nW, N, hd) contiguous, one dtype; bias as above
+// (null: no bias, the same as zeros).
+int ipe_window_msa_hm_fwd(const void* q, const void* k, const void* v,
+                          const void* bias, void* out, int nW, int N, int H,
+                          int hd, float scale, int dtype, void* stream) {
+  if (bad_sizes(nW, N, H, hd)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  if (dtype == 0)
+    return (int)launch_hm<float>(q, k, v, b, out, nW, N, H, hd, scale, st);
+  if (dtype == 1)
+    return (int)launch_hm<__nv_bfloat16>(q, k, v, b, out, nW, N, H, hd, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

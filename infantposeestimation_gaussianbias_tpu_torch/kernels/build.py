@@ -119,6 +119,12 @@ def load() -> ctypes.CDLL:
         lib.ipe_window_msa_fwd.argtypes = [p, p, p, i, i, i, i,
                                            ctypes.c_float, i, p]
         lib.ipe_window_msa_fwd.restype = i
+        lib.ipe_window_msa_hm_fwd.argtypes = [p] * 5 + [i] * 4 + [
+            ctypes.c_float, i, p]
+        lib.ipe_window_msa_hm_fwd.restype = i
+        lib.ipe_window_msa_ablate.argtypes = [i, p, p, p, i, i, i, i,
+                                              ctypes.c_float, i, i, p, p]
+        lib.ipe_window_msa_ablate.restype = i
         lib.ipe_window_msa_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                            ctypes.c_float, i, i, p]
         lib.ipe_window_msa_bwd.restype = i

@@ -1,4 +1,4 @@
-"""K1 and K2: fused window multi-head self-attention on the flat qkv layout.
+"""K1, K1-hm and K2: fused window multi-head self-attention.
 
 K1, the forward, ports ``window_attention_pallas_qkv``
 (infantposeestimation_gaussianbias_tpu/ops/pallas/window_msa.py:221-289);
@@ -17,6 +17,15 @@ Contract, as ops/msa.py ``window_attention`` on the flat layout:
   out  (nW, N, C) in qkv's dtype; dout likewise;
   dqkv (nW, N, 3C) in qkv's dtype, dbias (num_heads, N, N) float32;
   maths in float32.
+
+K1-hm, ``window_attention_hm``, ports ``window_attention_pallas_hm``
+(window_msa.py:50-91): K1's body (``csrc/window_msa_body.cuh``) on
+head-major q, k, v (H, nW, N, hd), read in place, out (H, nW, N, hd) in
+v's dtype; bias None is zeros.  ``window_attention_wm`` ports the
+window-major wrapper ``window_attention_pallas`` (:94-106): relayouts to
+head-major, K1-hm, and a transpose back, as the JAX wrapper does.  The
+TPU tiling knob ``block_windows`` has no counterpart.  No model path
+runs K1-hm.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from . import build
 # else (K2's launch counts its dbias reduction pass with it).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+HM_LAUNCHES = 0
 
 MAX_TOKENS = 64
 MAX_HEAD_DIM = 64
@@ -122,6 +132,77 @@ def window_attention_qkv(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     build.check(lib, err, "window_msa_fwd launch")
     LAUNCHES += 1
     return out
+
+
+def window_attention_hm_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  bias: Optional[torch.Tensor]
+                                  ) -> torch.Tensor:
+    """Plain PyTorch version of K1-hm, the maths of ``_attn_kernel``: q
+    scaled before the product, float32 throughout (float64 for float64
+    inputs), one cast to v's dtype."""
+    acc = torch.promote_types(v.dtype, torch.float32)
+    s = (q.to(acc) * q.shape[-1] ** -0.5) @ k.to(acc).transpose(-2, -1)
+    if bias is not None:
+        s = s + bias.to(acc)[:, None]
+    return (torch.softmax(s, dim=-1) @ v.to(acc)).to(v.dtype)
+
+
+def _check_hm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> tuple[int, int, int, int]:
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q, k, v must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if (t.dtype != q.dtype or t.shape != q.shape
+                or t.device != q.device):
+            raise ValueError(
+                f"{name} must match q ({q.dtype} {tuple(q.shape)} on "
+                f"{q.device}), got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if q.dim() != 4 or not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError(f"q, k, v must be contiguous (H, nW, N, hd) tensors, "
+                         f"got shape {tuple(q.shape)}")
+    H, nW, N, hd = q.shape
+    if N > MAX_TOKENS or hd > MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes N <= {MAX_TOKENS} and head_dim <= "
+                         f"{MAX_HEAD_DIM}, got N={N}, head_dim={hd}")
+    if bias is not None and (
+            bias.dtype != torch.float32 or not bias.is_contiguous()
+            or tuple(bias.shape) != (H, N, N) or bias.device != q.device):
+        raise ValueError(
+            f"bias must be a contiguous float32 ({H}, {N}, {N}) tensor on "
+            f"{q.device}, got {bias.dtype} {tuple(bias.shape)} on "
+            f"{bias.device}")
+    return H, nW, N, hd
+
+
+def window_attention_hm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1-hm: head-major (H, nW, N, hd) q, k, v -> (H, nW, N, hd), see the
+    module doc."""
+    global HM_LAUNCHES
+    if not build.on_card(q, "W-MSA"):
+        return window_attention_hm_reference(q, k, v, bias)
+    H, nW, N, hd = _check_hm(q, k, v, bias)
+    out = torch.empty_like(v)
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ipe_window_msa_hm_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), nW, N,
+            H, hd, float(hd ** -0.5), _DTYPE_CODES[q.dtype], stream)
+    build.check(lib, err, "window_msa_hm_fwd launch")
+    HM_LAUNCHES += 1
+    return out
+
+
+def window_attention_wm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Window-major (nW, H, N, hd) q, k, v -> (nW, H, N, hd): relayout to
+    head-major, K1-hm, and a transpose back (a view), as
+    ``window_attention_pallas`` does."""
+    qa, ka, va = (x.transpose(0, 1).contiguous() for x in (q, k, v))
+    return window_attention_hm(qa, ka, va, bias).transpose(0, 1)
 
 
 def bwd_windows_per_block(nW: int, num_heads: int, sm_count: int) -> int:

@@ -86,9 +86,16 @@ def test_entry_points_refuse_a_missing_card():
         pytest.skip("this machine has a CUDA device")
     from infantposeestimation_gaussianbias_tpu_torch import (
         PoseInference, create_train_state)
+    from infantposeestimation_gaussianbias_tpu_torch.analysis import (
+        benchmark_model)
     from infantposeestimation_gaussianbias_tpu_torch.models import build_model
+    from infantposeestimation_gaussianbias_tpu_torch.tools import (
+        probe_wmsa_ablate)
 
     cfg = config.get_variant("hrformer_small")
-    for make in (PoseInference, build_model, create_train_state):
+    for make in (PoseInference, build_model, create_train_state,
+                 benchmark_model):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe_wmsa_ablate.main(["--shape", "2,16,16,1"])

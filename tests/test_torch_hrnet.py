@@ -5,9 +5,9 @@ numpy inputs and weights; and the full-width weight bridge.
 
 The tiny model is HRNet with base_channels 8 and stage modules (1, 1, 1)
 at 64x64, registered as ``hrnet_tiny`` in both packages' ``BACKBONES``
-(test-only).  One jitted JAX init (the fusion model) gives both heads'
-weights, and one jitted JAX train step is shared by the file.  Weights go
-JAX -> ``state_dict_from_jax`` -> the port.
+(test-only; tests/torch_tiny.py).  One jitted JAX init (the fusion model)
+gives both heads' weights, and one jitted JAX train step is shared by the
+file.  Weights go JAX -> ``state_dict_from_jax`` -> the port.
 """
 
 from types import SimpleNamespace
@@ -22,7 +22,6 @@ torch = pytest.importorskip("torch")
 
 from infantposeestimation_gaussianbias_tpu import inference as jinference
 from infantposeestimation_gaussianbias_tpu.config import get_config as jget_config
-from infantposeestimation_gaussianbias_tpu.models import hrnet as jhrnet
 from infantposeestimation_gaussianbias_tpu.models import pose_estimator as jpe
 from infantposeestimation_gaussianbias_tpu.ops import decode as jdecode
 from infantposeestimation_gaussianbias_tpu.train import optim as joptim
@@ -43,10 +42,9 @@ from infantposeestimation_gaussianbias_tpu_torch.train import draw_drop_masks
 from infantposeestimation_gaussianbias_tpu_torch.weights import (
     state_dict_from_jax,
 )
+from tests import torch_tiny
 
-TINY_C = 8
-SIZE = 64
-HM = 16
+TINY_C, SIZE, HM = torch_tiny.TINY_C, torch_tiny.SIZE, torch_tiny.HM
 # Float32 on both sides, on the CPU; only summation orders and XLA's
 # fusions differ.  Through the untrained residual chains the maps reach
 # magnitudes of ~1e2, and a sum's rounding scales with its terms, not with
@@ -54,83 +52,18 @@ HM = 16
 # magnitude, plus OUT_TOL relative (measured: ~7e-6 of the largest).
 OUT_TOL = 1e-4
 
-
-def _t(x):
-    return torch.from_numpy(np.array(x))
-
-
-def _cfg(cfg, head):
-    cfg.model.backbone = "hrnet_tiny"
-    cfg.model.head_type = head
-    cfg.model.hrnet_stage_modules = (1, 1, 1)
-    cfg.model.hidden_dim = 16
-    cfg.model.compute_dtype = "float32"
-    cfg.data.input_size = (SIZE, SIZE)
-    cfg.data.heatmap_size = (HM, HM)
-    cfg.train.warmup_epochs = 0
-    return cfg
-
-
-def _sharpen(variables, seed):
-    """Random BN statistics and stronger prediction convs (numpy copies):
-    the default init's flat heatmaps put every peak in one place.  The
-    offsets stay within a few pixels."""
-    rng = np.random.RandomState(seed)
-    v = jax.tree_util.tree_map(np.array, variables)
-    for path, leaf in jax.tree_util.tree_leaves_with_path(v["batch_stats"]):
-        name = jax.tree_util.keystr(path)
-        if name.endswith("['mean']"):
-            leaf[...] = rng.randn(*leaf.shape) * 0.1
-        elif name.endswith("['var']"):
-            leaf[...] = rng.rand(*leaf.shape) * 0.5 + 0.75
-    for final, scale in (("hm_final", 0.3), ("off_final", 3e-4)):
-        k = v["params"]["head"][final]["kernel"]
-        k[...] = rng.randn(*k.shape) * scale
-    return v
+_t = torch_tiny.t
+_port = torch_tiny.port
+_crops = torch_tiny.crops
 
 
 @pytest.fixture(scope="module")
 def tiny():
     """{head: (port cfg, JAX cfg, JAX model, JAX variables as numpy)} with
-    ``hrnet_tiny`` registered in both BACKBONES for the module.  The
-    heatmap head's 1x1 ``final`` conv is drawn from numpy; the backbone is
-    the fusion model's."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setitem(jpe.BACKBONES, "hrnet_tiny",
-                   lambda **kw: jhrnet.HRNet(base_channels=TINY_C, **kw))
-        mp.setitem(pose_estimator.BACKBONES, "hrnet_tiny",
-                   lambda **kw: hrnet.HRNet(base_channels=TINY_C, **kw))
-        jcfg = _cfg(jget_config(), "fusion")
-        model = jpe.build_model(jcfg)
-        variables = _sharpen(jax.jit(lambda: model.init(
-            jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)), False))(),
-            seed=1)
-        rng = np.random.RandomState(2)
-        hm_vars = {
-            "params": {"backbone": variables["params"]["backbone"],
-                       "head": {"final": {
-                           "kernel": (rng.randn(1, 1, TINY_C, 17) * 0.3)
-                           .astype(np.float32),
-                           "bias": (rng.randn(17) * 0.1).astype(np.float32)}}},
-            "batch_stats": {"backbone": variables["batch_stats"]["backbone"]}}
-        out = {}
-        for head, v in (("fusion", variables), ("heatmap", hm_vars)):
-            jc = _cfg(jget_config(), head)
-            out[head] = (_cfg(Config(), head), jc, jpe.build_model(jc), v)
+    ``hrnet_tiny`` registered in both BACKBONES for the module
+    (tests/torch_tiny.py)."""
+    with torch_tiny.tiny_models() as out:
         yield out
-
-
-def _port(cfg, variables):
-    model = pose_estimator.build_model(cfg, device="cpu")
-    model.load_state_dict(state_dict_from_jax(variables["params"],
-                                              variables["batch_stats"]),
-                          strict=True)
-    return model
-
-
-def _crops(seed, n=2):
-    return np.random.RandomState(seed).randn(n, SIZE, SIZE, 3).astype(
-        np.float32)
 
 
 # -- the tiny model -----------------------------------------------------------
