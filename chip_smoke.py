@@ -236,17 +236,23 @@ def log(*args) -> None:
 
 
 @contextlib.contextmanager
-def fused_blocks(flag: str):
-    """IPE_FUSED_BLOCK=flag inside the block, its old value after."""
-    old = os.environ.get(FUSED_ENV)
-    os.environ[FUSED_ENV] = flag
+def env_var(name: str, value: str):
+    """Environment variable ``name`` set to value inside the block, its old
+    value after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop(FUSED_ENV, None)
+            os.environ.pop(name, None)
         else:
-            os.environ[FUSED_ENV] = old
+            os.environ[name] = old
+
+
+def fused_blocks(flag: str):
+    """IPE_FUSED_BLOCK=flag inside the block, its old value after."""
+    return env_var(FUSED_ENV, flag)
 
 
 def reset_launches() -> None:
@@ -1070,6 +1076,26 @@ def train_remat() -> dict:
     return {"peak_gib_remat": on["peak_gib"]}
 
 
+def launch_device_ms(fn, runs: int = 10) -> float:
+    """Device time of one call of ``fn`` (one kernel), the median over
+    ``runs`` calls: CUDA events around the call, queued behind a spin
+    kernel so that the host's cost of issuing the call passes while the
+    card is busy and not between the events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)  # ~0.5 ms of clock cycles
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def profile_steps(run, step_ms: float, n: int = 2, tag: str = "train",
                   what: str = "step") -> dict:
     """Device kernel time of ``n`` calls of ``run`` (a train step or a
@@ -1637,8 +1663,10 @@ def phase_k8() -> dict:
     """K8: every variant of the plan against its plain version, ``full`` at
     one window per block bit for bit against K1; then the port's probe
     ``main()`` at its default shape and at hrformer_base b0-b3 at b = 64
-    (launches counted over those runs), K1's phase shares, the bound and
-    the plain version's time of each variant."""
+    (launches counted over those runs: the probe captures its launches in
+    CUDA graphs, so a graph's replays add none), K1's phase shares, the
+    bound and the plain version's time of each variant, and each variant's
+    device time per launch beside the probe's time."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
         window_msa, window_msa_ablate as ablate)
     from infantposeestimation_gaussianbias_tpu_torch.tools import (
@@ -1647,15 +1675,27 @@ def phase_k8() -> dict:
     shapes = [("default", probe.DEFAULT_SHAPE)] + [
         (label, f"{64 * w},{N},{H * hd},{H}")
         for label, w, N, H, hd in BRANCH_SHAPES[:4]]
+
+    def bias_of(variant, bias, H, N, C):
+        """The bias a variant takes: packslim's packed once, as the probe
+        packs it."""
+        return (ablate.packed_bias(bias, ablate.pack_factor(H, C, N))
+                if variant == "packslim" else bias)
+
+    # The kernel's own shared-memory reckoning: 8 windows of 49 tokens at
+    # hd 32 need 233,632 bytes, more than a block's 232,448.
+    assert (not ablate.fits("full", 49, 32, 8)
+            and ablate.fits("full", 49, 32, 4))
     worst = 0.0
     for label, shape in shapes:
         nW, N, C, H = (int(v) for v in shape.split(","))
         qkv, bias = probe.make_inputs(nW, N, C, H, "cuda")
         k1 = window_msa.window_attention_qkv(qkv, bias, H)
-        for variant, wpb in probe.plan(nW, N, C, H, 1):
-            out = ablate.window_attention_ablate(variant, qkv, bias, H, wpb)
+        for variant, wpb in probe.plan(nW, N, C, H, 1, ablate.fits):
+            b = bias_of(variant, bias, H, N, C)
+            out = ablate.window_attention_ablate(variant, qkv, b, H, wpb)
             torch.cuda.synchronize()
-            ref = ablate.ablate_reference(variant, qkv, bias, H)
+            ref = ablate.ablate_reference(variant, qkv, b, H)
             err = (out.float() - ref.float()).abs().max().item()
             if variant == "empty":
                 assert torch.equal(out, ref), (label, variant, wpb)
@@ -1669,8 +1709,10 @@ def phase_k8() -> dict:
                 + (f" bit-equal to K1: {torch.equal(out, k1)}"
                    if variant == "full" else ""))
     reset_launches()
-    runs = [(label, shape, probe.main(["--shape", shape]))
-            for label, shape in shapes]
+    runs = []
+    for label, shape in shapes:
+        with env_var("PROBE_SHAPE", shape):
+            runs.append((label, shape, probe.main()))
     launches = ablate.ABLATE_LAUNCHES
     assert launches > 0
     per_shape = []
@@ -1680,14 +1722,20 @@ def phase_k8() -> dict:
         qkv, bias = probe.make_inputs(nW, N, C, H, "cuda")
         ms = {(r["variant"], r["windows_per_block"]): r["ms"] for r in rows}
         nbytes = nW * N * 4 * C * qkv.element_size()
-        bounds, plain = {}, {}
+        G = ablate.pack_factor(H, C, N)
+        bounds, plain, device = {}, {}, {}
         for variant in ablate.VARIANTS:
+            b = bias_of(variant, bias, H, N, C)
             bounds[variant] = bound_ms(nbytes, k8_flops(variant, nW, N, H,
                                                         hd))[0]
             plain[variant] = cuda_median_ms(
-                lambda: ablate.ablate_reference(variant, qkv, bias, H),
+                lambda: ablate.ablate_reference(variant, qkv, b, H),
                 runs=10)
-        G = ablate.pack_factor(H, C, N)
+            wpb = G if variant == "packslim" else 1
+            if (variant, wpb) in ms:
+                device[variant] = launch_device_ms(
+                    lambda: ablate.window_attention_ablate(variant, qkv, b,
+                                                           H, wpb))
         e, f = ms[("empty", 1)], ms[("full", 1)]
         shares = {"staging": e, "products": ms[("gemmonly", 1)] - e,
                   "softmax": ms[("softonly", 1)] - e}
@@ -1700,10 +1748,14 @@ def phase_k8() -> dict:
         log(f"[k8-bounds] {label:8s} " + " ".join(
             f"{v}={bounds[v]:.4f}/plain {plain[v]:.4f}"
             for v in ablate.VARIANTS))
+        log(f"[k8-device] {label:8s} probe (graph replays) / one launch "
+            "behind a spin kernel, ms: " + ", ".join(
+                f"{v} {ms[(v, G if v == 'packslim' else 1)]:.4f} / {t:.4f}"
+                for v, t in device.items()))
         per_shape.append(dict(shape=label, nW=nW, N=N, C=C, H=H, G=G,
                               ms={f"{v}@{w}": t for (v, w), t in ms.items()},
-                              bound_ms=bounds, plain_ms=plain, shares=shares,
-                              sets=sets))
+                              bound_ms=bounds, plain_ms=plain,
+                              device_ms=device, shares=shares, sets=sets))
     rec = per_shape[0]
     nW, N, C, H = rec["nW"], rec["N"], rec["C"], rec["H"]
     qkv, bias = probe.make_inputs(nW, N, C, H, "cuda")
@@ -1718,7 +1770,8 @@ def phase_k8() -> dict:
                   max_abs_err=worst,
                   shape=f"nW={nW},N={N},C={C},H={H},bf16 (full@1)",
                   variants_ms=rec["ms"], variants_bound_ms=rec["bound_ms"],
-                  variants_plain_ms=rec["plain_ms"])
+                  variants_plain_ms=rec["plain_ms"],
+                  variants_device_ms=rec["device_ms"])
     return dict(record=record, launches=launches, per_shape=per_shape)
 
 
@@ -1830,7 +1883,8 @@ def phase_analysis(smi: str) -> dict:
                     if "running" in k or "num_batches" in k}
     crops = rng.randn(2, H, W, 3).astype(np.float32)
     reset_launches()
-    mc = mc_droppath_uncertainty(gpu, crops, n_samples=4)
+    mc = mc_droppath_uncertainty(gpu, crops, torch.Generator().manual_seed(17),
+                                 n_samples=4)
     got = launches()
     assert got == dict(no_launches(), k1=4 * K1_CALLS_PER_FORWARD), got
     after = gpu.state_dict()
@@ -1931,7 +1985,7 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     extra = ("max_rel_err", "variants_ms", "variants_bound_ms",
-             "variants_plain_ms")
+             "variants_plain_ms", "variants_device_ms")
     t, ft = train["launches"], fused_train["launches"]
     sal = analysis["saliency_launches"]
 

@@ -240,6 +240,9 @@ def confidence_calibration(scores: np.ndarray, correct: np.ndarray,
 
 # -- sensitivity (ref advanced_analysis.py:313-429) -------------------------
 
+# Occluded images per forward in occlusion_sensitivity.
+OCCLUSION_BATCH = 16
+
 def _peak(heatmaps: torch.Tensor, keypoint: int) -> torch.Tensor:
     """Largest activation of one keypoint's map per image, (B,)."""
     return heatmaps[..., keypoint].float().amax(dim=(1, 2))
@@ -256,11 +259,10 @@ def saliency_map(model: nn.Module, x, keypoint: int) -> np.ndarray:
 
 
 def occlusion_sensitivity(model: nn.Module, x, keypoint: int,
-                          patch: int = 16, stride: int = 16,
-                          batch_size: int = 16) -> np.ndarray:
+                          patch: int = 16, stride: int = 16) -> np.ndarray:
     """Drop of the keypoint's peak when a zero patch slides over the (H, W,
     3) image, one score per patch position; the occluded images run
-    ``batch_size`` at a time (eval mode: each image on its own)."""
+    ``OCCLUSION_BATCH`` at a time (eval mode: each image on its own)."""
     img = _image(model, x)
     H, W = img.shape[:2]
     hs = list(range(0, H - patch + 1, stride))
@@ -271,8 +273,9 @@ def occlusion_sensitivity(model: nn.Module, x, keypoint: int,
     with _mode(model, False), torch.no_grad():
         base = _peak(model(img[None])["heatmaps"], keypoint)
         scores = torch.cat([
-            _peak(model(occluded[i:i + batch_size])["heatmaps"], keypoint)
-            for i in range(0, len(occluded), batch_size)])
+            _peak(model(occluded[i:i + OCCLUSION_BATCH])["heatmaps"],
+                  keypoint)
+            for i in range(0, len(occluded), OCCLUSION_BATCH)])
     sens = (base - scores).double().cpu().numpy()
     return sens.reshape(len(hs), len(ws))
 
@@ -297,25 +300,21 @@ def grad_cam(model: nn.Module, x, keypoint: int) -> np.ndarray:
     return cam.cpu().numpy()
 
 
-def mc_droppath_uncertainty(model: nn.Module, x, n_samples: int = 10,
-                            seed: int = 0,
-                            generator: Optional[torch.Generator] = None
-                            ) -> Dict[str, np.ndarray]:
+def mc_droppath_uncertainty(model: nn.Module, x, generator: torch.Generator,
+                            n_samples: int = 10) -> Dict[str, np.ndarray]:
     """MC uncertainty by stochastic depth: ``n_samples`` train-mode
-    forwards of the NHWC batch x, each with DropPath masks drawn from
-    ``generator`` (a CPU generator seeded with ``seed`` if None), mean and
-    std of the heatmaps.  BatchNorm normalises with the batch's statistics,
-    as in training, but its running statistics stay as they were (the JAX
-    function discards the updated ``batch_stats``).  The masks cannot
-    match the JAX package's draws: compare distributions, or pass the same
-    masks to both."""
+    forwards of the NHWC batch x, each with DropPath masks drawn from the
+    caller's ``generator``, mean and std of the heatmaps.  BatchNorm
+    normalises with the batch's statistics, as in training, but its
+    running statistics stay as they were (the JAX function discards the
+    updated ``batch_stats``).  The masks cannot match the JAX package's
+    draws: compare distributions, or pass the same masks to both."""
     xs = _image(model, x)
-    gen = (torch.Generator().manual_seed(seed) if generator is None
-           else generator)
     outs = []
     with _mode(model, True), frozen_batch_stats(), torch.no_grad():
         for _ in range(n_samples):
-            masks = draw_drop_masks(model, xs.shape[0], gen, xs.device)
+            masks = draw_drop_masks(model, xs.shape[0], generator,
+                                    xs.device)
             outs.append(model(xs, masks)["heatmaps"].float().cpu().numpy())
     stack = np.stack(outs)
     return {"mean": stack.mean(0), "std": stack.std(0)}

@@ -208,9 +208,22 @@ cudaError_t launch_packslim(const bf16* qkv, const float* pbias, bf16* out,
   return cudaGetLastError();
 }
 
+// Shared memory one block of the variant asks for.
+size_t variant_smem_bytes(int variant, int N, int hd, int wpb, int pack) {
+  return variant == 4 ? packslim_smem_bytes(N, hd, wpb, pack)
+                      : ipe::wmsa::smem_bytes(N, hd, wpb);
+}
+
 }  // namespace
 
 extern "C" {
+
+// 1 if one block of the variant at wpb windows per block (packslim: pack
+// windows per group) fits the current device's shared memory, else 0.
+int ipe_window_msa_ablate_fits(int variant, int N, int hd, int wpb,
+                               int pack) {
+  return variant_smem_bytes(variant, N, hd, wpb, pack) <= (size_t)max_smem();
+}
 
 // variant: 0 empty, 1 gemmonly, 2 softonly, 3 full, 4 packslim.  qkv
 // (nW, N, 3C) and out (nW, N, C) bf16, contiguous; bias (H, N, N) float32,

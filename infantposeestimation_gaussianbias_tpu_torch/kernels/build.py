@@ -125,6 +125,8 @@ def load() -> ctypes.CDLL:
         lib.ipe_window_msa_ablate.argtypes = [i, p, p, p, i, i, i, i,
                                               ctypes.c_float, i, i, p, p]
         lib.ipe_window_msa_ablate.restype = i
+        lib.ipe_window_msa_ablate_fits.argtypes = [i] * 5
+        lib.ipe_window_msa_ablate_fits.restype = i
         lib.ipe_window_msa_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                            ctypes.c_float, i, i, p]
         lib.ipe_window_msa_bwd.restype = i

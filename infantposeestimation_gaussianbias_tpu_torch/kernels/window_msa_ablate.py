@@ -15,8 +15,10 @@ and their maths, the probe's exactly:
             o = q * sum_j p;
   full      K1 (at one window per block, K1 bit for bit);
   packslim  G = ``pack_factor(H, C, N)`` windows stacked into G*N rows:
-            all (G*N)^2 scores + ``packed_bias`` (-1e30 off the diagonal
-            blocks), softmax, then PV.
+            all (G*N)^2 scores + the packed bias, softmax, then PV.  It
+            takes ``packed_bias(bias, G)`` (H, G*N, G*N), -1e30 off the
+            diagonal blocks, which the caller builds once, as the probe's
+            ``run_variant`` does.
 
 ``windows_per_block`` (1, 2, 4 or 8; packslim a multiple of G) is the
 card's counterpart of the probe's ``GB``: how many windows one block
@@ -39,14 +41,6 @@ WINDOWS_PER_BLOCK = (1, 2, 4, 8)
 ABLATE_LAUNCHES = 0
 
 MAX_PACK = 8
-# The most dynamic shared memory a block may opt in to on the H100
-# (232,448 bytes); the kernel asks the device and refuses more.
-MAX_SMEM_BYTES = 232_448
-_PACKSLIM_BAND = 32  # packslim's query rows per score band (kBand)
-# The last packed bias: (bias tensor, its version, G, packed).  Holding the
-# tensor keeps its identity from being reused; the TPU probe likewise
-# packs once, outside the timed call.
-_PACKED = None
 
 
 def pack_factor(num_heads: int, C: int, N: int) -> int:
@@ -69,32 +63,13 @@ def packed_bias(bias: torch.Tensor, G: int) -> torch.Tensor:
                                     device=bias.device))
 
 
-def _packed_once(bias: torch.Tensor, G: int) -> torch.Tensor:
-    """``packed_bias(bias, G)``, reused while bias is the same unchanged
-    tensor, so that back-to-back launches time the kernel alone."""
-    global _PACKED
-    if (_PACKED is None or _PACKED[0] is not bias
-            or _PACKED[1] != bias._version or _PACKED[2] != G):
-        _PACKED = (bias, bias._version, G, packed_bias(bias, G))
-    return _PACKED[3]
-
-
-def smem_bytes(variant: str, N: int, hd: int, windows_per_block: int,
-               pack: int = 1) -> int:
-    """Shared memory one block of the variant asks for (the .cu files'
-    ``smem_bytes`` and ``packslim_smem_bytes``)."""
-    odd = lambda n: n | 1  # noqa: E731
-    if variant == "packslim":
-        return 4 * (3 * windows_per_block * N * odd(hd)
-                    + _PACKSLIM_BAND * odd(pack * N) + _PACKSLIM_BAND)
-    return 4 * windows_per_block * (3 * N * odd(hd) + N * odd(N) + N)
-
-
 def fits(variant: str, N: int, hd: int, windows_per_block: int,
          pack: int = 1) -> bool:
-    """Whether a block of the variant fits the card's shared memory."""
-    return smem_bytes(variant, N, hd, windows_per_block,
-                      pack) <= MAX_SMEM_BYTES
+    """Whether one block of the variant fits the current card's shared
+    memory (the kernel's own reckoning, ``ipe_window_msa_ablate_fits``).
+    Builds the kernels if needed."""
+    return bool(build.load().ipe_window_msa_ablate_fits(
+        VARIANTS.index(variant), N, hd, windows_per_block, pack))
 
 
 def _split(qkv: torch.Tensor, num_heads: int):
@@ -114,7 +89,7 @@ def _merge(o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def ablate_reference(variant: str, qkv: torch.Tensor, bias: torch.Tensor,
                      num_heads: int) -> torch.Tensor:
     """Plain PyTorch version of each variant (the probe's bodies), in
-    float32, cast once to qkv's dtype."""
+    float32, cast once to qkv's dtype; packslim's bias is the packed one."""
     nW, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // num_heads
@@ -141,8 +116,7 @@ def ablate_reference(variant: str, qkv: torch.Tensor, bias: torch.Tensor,
                       .reshape(-1, G, num_heads, N, hd).transpose(1, 2)
                       .reshape(-1, num_heads, G * N, hd)
                       for x in (q * scale, k, v))
-        p = torch.softmax(qs @ ks.transpose(-2, -1)
-                          + packed_bias(biasf, G)[None], dim=-1)
+        p = torch.softmax(qs @ ks.transpose(-2, -1) + biasf[None], dim=-1)
         o = (p @ vs).reshape(-1, num_heads, G, N, hd).transpose(1, 2)
         return _merge(o.reshape(-1, num_heads, N, hd)[:nW], qkv.dtype)
     raise ValueError(f"unknown variant {variant!r}; known: {VARIANTS}")
@@ -165,14 +139,14 @@ def _check(variant: str, qkv: torch.Tensor, bias: torch.Tensor,
     if N > MAX_TOKENS or hd > MAX_HEAD_DIM:
         raise ValueError(f"kernel takes N <= {MAX_TOKENS} and head_dim <= "
                          f"{MAX_HEAD_DIM}, got N={N}, head_dim={hd}")
+    G = pack_factor(num_heads, C, N) if variant == "packslim" else 1
     if (bias.dtype != torch.float32 or not bias.is_contiguous()
-            or tuple(bias.shape) != (num_heads, N, N)
+            or tuple(bias.shape) != (num_heads, G * N, G * N)
             or bias.device != qkv.device):
         raise ValueError(
-            f"bias must be a contiguous float32 ({num_heads}, {N}, {N}) "
-            f"tensor on {qkv.device}, got {bias.dtype} {tuple(bias.shape)} "
-            f"on {bias.device}")
-    G = pack_factor(num_heads, C, N) if variant == "packslim" else 1
+            f"{variant}'s bias must be a contiguous float32 ({num_heads}, "
+            f"{G * N}, {G * N}) tensor on {qkv.device}, got {bias.dtype} "
+            f"{tuple(bias.shape)} on {bias.device}")
     if variant == "packslim":
         if G > MAX_PACK or windows_per_block % G:
             raise ValueError(f"packslim takes a multiple of G={G} windows "
@@ -182,10 +156,8 @@ def _check(variant: str, qkv: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"windows_per_block must be one of "
                          f"{WINDOWS_PER_BLOCK}, got {windows_per_block}")
     if not fits(variant, N, hd, windows_per_block, G):
-        raise ValueError(
-            f"{variant} at {windows_per_block} windows per block needs "
-            f"{smem_bytes(variant, N, hd, windows_per_block, G)} bytes of "
-            f"shared memory, more than {MAX_SMEM_BYTES}")
+        raise ValueError(f"{variant} at {windows_per_block} windows per block "
+                         f"does not fit a block's shared memory")
     return nW, N, C, hd, G
 
 
@@ -193,19 +165,19 @@ def window_attention_ablate(variant: str, qkv: torch.Tensor,
                             bias: torch.Tensor, num_heads: int,
                             windows_per_block: int = 1) -> torch.Tensor:
     """K8: one variant of K1's body on bf16 (nW, N, 3C) qkv and float32
-    (H, N, N) bias -> (nW, N, C) bf16, see the module doc."""
+    (H, N, N) bias (packslim: the packed bias) -> (nW, N, C) bf16, see the
+    module doc."""
     global ABLATE_LAUNCHES
     if not build.on_card(qkv, "W-MSA ablation"):
         return ablate_reference(variant, qkv, bias, num_heads)
     nW, N, C, hd, G = _check(variant, qkv, bias, num_heads,
                              windows_per_block)
-    bias_in = _packed_once(bias, G) if variant == "packslim" else bias
     out = torch.empty((nW, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = build.load()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ipe_window_msa_ablate(
-            VARIANTS.index(variant), qkv.data_ptr(), bias_in.data_ptr(),
+            VARIANTS.index(variant), qkv.data_ptr(), bias.data_ptr(),
             out.data_ptr(), nW, N, num_heads, hd, float(hd ** -0.5),
             windows_per_block, G, None, stream)
     build.check(lib, err, f"window_msa_ablate ({variant}) launch")

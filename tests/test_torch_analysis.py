@@ -247,12 +247,13 @@ def test_grad_cam_matches_jax(tiny):
     assert got.max() == pytest.approx(1.0, abs=1e-6)
 
 
-def test_occlusion_matches_jax(tiny):
-    """Batched occluded forwards against the JAX one-at-a-time loop."""
+def test_occlusion_matches_jax(tiny, monkeypatch):
+    """Batched occluded forwards (16 images in chunks of 5, the last one
+    short) against the JAX one-at-a-time loop."""
     _, model, jmodel, variables = tiny
     x = torch_tiny.crops(5, 1)[0]
-    got = P.occlusion_sensitivity(model, x, KEYPOINT, patch=16, stride=16,
-                                  batch_size=5)
+    monkeypatch.setattr(P, "OCCLUSION_BATCH", 5)
+    got = P.occlusion_sensitivity(model, x, KEYPOINT, patch=16, stride=16)
     want = J.occlusion_sensitivity(jmodel, variables, x, KEYPOINT, patch=16,
                                    stride=16)
     assert got.shape == want.shape == (4, 4)
@@ -268,7 +269,8 @@ def test_mc_droppath_keeps_batch_stats(tiny):
     _, model, _, _ = tiny
     x = torch_tiny.crops(6, 2)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    got = P.mc_droppath_uncertainty(model, x, n_samples=2)
+    got = P.mc_droppath_uncertainty(model, x, torch.Generator().manual_seed(0),
+                                    n_samples=2)
     assert all(torch.equal(v, model.state_dict()[k])
                for k, v in before.items())
     assert not model.training
@@ -295,9 +297,9 @@ def test_mc_droppath_masks_come_from_the_generator(monkeypatch):
     model = pose_estimator.build_model(cfg, device="cpu")
     x = torch_tiny.crops(7, 2)[:, :32, :32]
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    runs = [P.mc_droppath_uncertainty(model, x, n_samples=3,
-                                      generator=torch.Generator()
-                                      .manual_seed(s)) for s in (1, 1, 2)]
+    runs = [P.mc_droppath_uncertainty(model, x,
+                                      torch.Generator().manual_seed(s),
+                                      n_samples=3) for s in (1, 1, 2)]
     assert all(torch.equal(v, model.state_dict()[k])
                for k, v in before.items())
     np.testing.assert_array_equal(runs[0]["mean"], runs[1]["mean"])

@@ -79,7 +79,7 @@ def test_port_imports_nothing_of_jax(path):
     assert not bad, bad
 
 
-def test_entry_points_refuse_a_missing_card():
+def test_entry_points_refuse_a_missing_card(monkeypatch):
     """Without a device argument the entry points run on CUDA; where there
     is no CUDA they raise instead of carrying on on the CPU."""
     if torch.cuda.is_available():
@@ -97,5 +97,6 @@ def test_entry_points_refuse_a_missing_card():
                  benchmark_model):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(cfg)
+    monkeypatch.setenv("PROBE_SHAPE", "2,16,16,1")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        probe_wmsa_ablate.main(["--shape", "2,16,16,1"])
+        probe_wmsa_ablate.main()
