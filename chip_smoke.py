@@ -30,9 +30,11 @@ Phases, in order; any failure exits non-zero:
   7. K4 and K5 (CUDA fused attention and MLP half-blocks, forward and
      backward) against their plain versions at every hrformer_base branch
      shape: forward at the serving batch 64, forward and backward at the
-     training batch 32, float32 and bf16, every output (dx, dgamma, dbeta,
-     each weight and bias gradient, drpe); kernel, plain and stock-PyTorch
-     chain (LayerNorm, F.linear, SDPA or tanh GELU) times and the bound;
+     training batch 32, and forward and backward at window 8 (N = 64) at
+     the training batch, float32 and bf16, every output (dx, dgamma,
+     dbeta, each weight and bias gradient, drpe); kernel, plain and
+     stock-PyTorch chain (LayerNorm, F.linear, SDPA or tanh GELU) times
+     and the bound;
   8. fused serving (IPE_FUSED_BLOCK=1): batches of 1, 3 and 8 frames, 88
      K4 and 88 K5 launches per flip-tested batch and no K1; under "auto"
      28 K1, 60 K4 and 60 K5; float32 card against the CPU; fused against
@@ -40,7 +42,8 @@ Phases, in order; any failure exits non-zero:
   9. fused training (IPE_FUSED_BLOCK=1): a float32 step at b=2, card
      against CPU; bf16 steps at b=32 with 44 launches of each of K4 and
      K5 forward and backward per step, no K1 or K2, a falling loss, step
-     time, images/s, peak memory and the profile by kernel;
+     time, images/s, peak memory and the profile by kernel; one bf16 step
+     at window 8, 44 launches of each, finite terms;
  10. K7 (CUDA fused residual chain) against its plain version at every
      hrnet_w32 branch shape at the served batch 32, float32 (TF32 off) and
      bf16; kernel, plain and stock-chain (four eval BasicBlocks: cuDNN
@@ -78,7 +81,24 @@ Phases, in order; any failure exits non-zero:
      saliency (44 K1 and 44 K2 launches), Grad-CAM and occlusion on
      hrformer_base in float32, card against CPU; a ``profile_trace`` of
      one forward (44 K1 kernels among its device events); MC DropPath
-     uncertainty (n = 4) leaving the BatchNorm statistics as they were.
+     uncertainty (n = 4) leaving the BatchNorm statistics as they were;
+ 17. K3 (the sharded W-MSA) on a 2 x 2 grid of gloo ranks on the card
+     (parallel.run_grid; the kernels built above, so the ranks only load
+     them): at every hrformer_base branch shape at the global batch 32,
+     float32 and bf16, each rank's output and dqkv against unsharded K1/K2
+     on its windows (bit for bit) and the plain versions, dbias against
+     K2 and the plain version over all windows; per rank, in turns, its
+     K1 and K2 ms, the plain version's and SDPA's at the local shape, the
+     bound, and the all-reduce ms;
+ 18. grid serving: hrformer_base + fusion over the grid, bf16, b = 32
+     with flip: 88 K1 launches per rank, all through K3, every rank the
+     whole batch, crops/s (4 ranks, 1 card, gloo); float32 heatmaps and
+     keypoints against one process on the card;
+ 19. grid training: a float32 step over the grid at global b = 4 against
+     one process's (loss terms, RPE-table and qkv-weight gradients, the
+     global BatchNorm statistics); a bf16 step at global b = 32, 44 K1
+     and 44 K2 launches per rank through K3, the same state on every rank.
+The ranks import no JAX (each asserts it).
 Every phase's seconds and the whole run's are printed.Each fused phase sets IPE_FUSED_BLOCK itself and restores it after.  The
 last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
@@ -262,6 +282,7 @@ def reset_launches() -> None:
         window_msa_ablate)
 
     window_msa.LAUNCHES = window_msa.BWD_LAUNCHES = 0
+    window_msa.SHARDED_LAUNCHES = window_msa.SHARDED_BWD_LAUNCHES = 0
     window_msa.HM_LAUNCHES = window_msa_ablate.ABLATE_LAUNCHES = 0
     fused_block.ATTN_LAUNCHES = fused_block.ATTN_BWD_LAUNCHES = 0
     fused_block.MLP_LAUNCHES = fused_block.MLP_BWD_LAUNCHES = 0
@@ -270,7 +291,7 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     """Launches since the last reset: K1, K2, K4 (fwd, bwd), K5 (fwd, bwd),
-    K6, K7, K1-hm, K8."""
+    K6, K7, K1-hm, K8, and K3's K1 and K2 (counted in K1 and K2 too)."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
         conv_wgrad as cw, fused_block as fb, residual_block as rb,
         window_msa as wm, window_msa_ablate as ab)
@@ -278,7 +299,8 @@ def launches() -> dict:
     return dict(k1=wm.LAUNCHES, k2=wm.BWD_LAUNCHES, k4=fb.ATTN_LAUNCHES,
                 k4b=fb.ATTN_BWD_LAUNCHES, k5=fb.MLP_LAUNCHES,
                 k5b=fb.MLP_BWD_LAUNCHES, k6=cw.LAUNCHES, k7=rb.LAUNCHES,
-                k1hm=wm.HM_LAUNCHES, k8=ab.ABLATE_LAUNCHES)
+                k1hm=wm.HM_LAUNCHES, k8=ab.ABLATE_LAUNCHES,
+                k3=wm.SHARDED_LAUNCHES, k3b=wm.SHARDED_BWD_LAUNCHES)
 
 
 def cuda_median_ms(fn, warmup: int = 3, runs: int = 25) -> float:
@@ -596,11 +618,12 @@ def phase_throughput(inf, smi: str, tag: str = "throughput") -> dict:
 
 # -- K4 and K5, the fused half-blocks -------------------------------------------
 
-def _half_inputs(Hm: int, Wm: int, C: int, heads: int, B: int, dt, g) -> dict:
+def _half_inputs(Hm: int, Wm: int, C: int, heads: int, B: int, dt, g,
+                 ws: int = 7) -> dict:
     """Seeded inputs of both halves of one hrformer_base block on an
-    (Hm, Wm) map at batch B, windows of 7, a DropPath vector that drops
-    about a fifth of the samples."""
-    ws, N = 7, 49
+    (Hm, Wm) map at batch B, windows of ws (7 or 8), a DropPath vector
+    that drops about a fifth of the samples."""
+    N = ws * ws
     nwin = -(-Hm // ws) * -(-Wm // ws)
     nW, Hd = B * nwin, 4 * C
 
@@ -616,7 +639,7 @@ def _half_inputs(Hm: int, Wm: int, C: int, heads: int, B: int, dt, g) -> dict:
         b2=0.1 * rn(C),
         dp=(torch.rand(B, device="cuda", generator=g) > 0.2).float() / 0.8,
         dy=rn(nW, N, C).to(dt), heads=heads, geom=(Hm, Wm, ws),
-        tps=nwin * N, nW=nW, C=C, Hd=Hd)
+        tps=nwin * N, nW=nW, C=C, Hd=Hd, N=N)
 
 
 def _attn_args(a: dict) -> tuple:
@@ -733,53 +756,59 @@ def phase_fused_kernels() -> dict:
             r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      bound_ms=b_ms, bound_by=b_by, shape=label)
 
-    for label, Hm, Wm, C, heads in BASE_MAPS:
-        for B, train in ((SERVE_BATCH, False), (TRAIN_BATCH, True)):
-            for dt in (torch.float32, torch.bfloat16):
-                a = _half_inputs(Hm, Wm, C, heads, B, dt, g)
-                nW, Hd, geom = a["nW"], a["Hd"], a["geom"]
-                M, es = nW * 49, a["xw"].element_size()
-                nm = "f32" if dt == torch.float32 else "bf16"
-                shape = f"{label} b={B} nW={nW} M={M} C={C} H={heads} {nm}"
-                b0_bf16 = label == "base b0" and dt == torch.bfloat16
-                aa, ma = _attn_args(a), _mlp_args(a)
-                vec = 4 * (heads * 49 * 49 + 6 * C)
-                measure("attn_fwd", shape, "y",
-                        lambda: fb.fused_attn_half_fwd(*aa, heads, geom),
-                        lambda: fb.fused_attn_half_reference(*aa, heads,
-                                                             geom),
-                        lambda: attn_chain(*aa, heads, geom), fwd_names,
-                        2 * M * C * es + 4 * C * C * es + vec,
-                        8 * M * C * C + 4 * nW * 49 * 49 * C, dt,
-                        b0_bf16 and not train)
-                measure("mlp_fwd", shape, "y",
-                        lambda: fb.fused_mlp_half_fwd(*ma, a["tps"]),
-                        lambda: fb.fused_mlp_half_reference(*ma, a["tps"]),
-                        lambda: mlp_chain(*ma, a["tps"]), fwd_names,
-                        2 * M * C * es + 2 * C * Hd * es + 4 * (Hd + 3 * C),
-                        4 * M * C * Hd, dt, b0_bf16 and not train)
-                if train:
-                    dy, dy2 = a["dy"], a["dy"].reshape(-1, C)
-                    measure("attn_bwd", shape, "all gradients",
-                            lambda: fb.fused_attn_half_bwd(*aa, dy, heads,
-                                                           geom),
-                            lambda: fb.fused_attn_half_bwd_reference(
-                                *aa, dy, heads, geom),
-                            _grad_fn(attn_chain, aa, 8, (heads, geom), dy),
-                            attn_names,
-                            3 * M * C * es + 8 * C * C * es + 2 * vec,
-                            22 * M * C * C + 12 * nW * 49 * 49 * C, dt,
-                            b0_bf16)
-                    measure("mlp_bwd", shape, "all gradients",
-                            lambda: fb.fused_mlp_half_bwd(*ma, dy2, a["tps"]),
-                            lambda: fb.fused_mlp_half_bwd_reference(
-                                *ma, dy2, a["tps"]),
-                            _grad_fn(mlp_chain, ma, 7, (a["tps"],), dy2),
-                            mlp_names,
-                            3 * M * C * es + 4 * C * Hd * es
-                            + 8 * (Hd + 3 * C),
-                            10 * M * C * Hd, dt, b0_bf16)
-                del a, aa, ma
+    # hrformer_base's branches at window 7 (serving and training batch),
+    # then at window 8 (N = 64, the training batch; F2 in ROADMAP.md).
+    runs = [(label, Hm, Wm, C, heads, B, train, 7)
+            for label, Hm, Wm, C, heads in BASE_MAPS
+            for B, train in ((SERVE_BATCH, False), (TRAIN_BATCH, True))]
+    runs += [(f"{label} ws8", Hm, Wm, C, heads, TRAIN_BATCH, True, 8)
+             for label, Hm, Wm, C, heads in BASE_MAPS]
+    for label, Hm, Wm, C, heads, B, train, ws in runs:
+        for dt in (torch.float32, torch.bfloat16):
+            a = _half_inputs(Hm, Wm, C, heads, B, dt, g, ws)
+            nW, Hd, geom, N = a["nW"], a["Hd"], a["geom"], a["N"]
+            M, es = nW * N, a["xw"].element_size()
+            nm = "f32" if dt == torch.float32 else "bf16"
+            shape = f"{label} b={B} nW={nW} M={M} C={C} H={heads} {nm}"
+            b0_bf16 = label == "base b0" and dt == torch.bfloat16
+            aa, ma = _attn_args(a), _mlp_args(a)
+            vec = 4 * (heads * N * N + 6 * C)
+            measure("attn_fwd", shape, "y",
+                    lambda: fb.fused_attn_half_fwd(*aa, heads, geom),
+                    lambda: fb.fused_attn_half_reference(*aa, heads,
+                                                         geom),
+                    lambda: attn_chain(*aa, heads, geom), fwd_names,
+                    2 * M * C * es + 4 * C * C * es + vec,
+                    8 * M * C * C + 4 * nW * N * N * C, dt,
+                    b0_bf16 and not train)
+            measure("mlp_fwd", shape, "y",
+                    lambda: fb.fused_mlp_half_fwd(*ma, a["tps"]),
+                    lambda: fb.fused_mlp_half_reference(*ma, a["tps"]),
+                    lambda: mlp_chain(*ma, a["tps"]), fwd_names,
+                    2 * M * C * es + 2 * C * Hd * es + 4 * (Hd + 3 * C),
+                    4 * M * C * Hd, dt, b0_bf16 and not train)
+            if train:
+                dy, dy2 = a["dy"], a["dy"].reshape(-1, C)
+                measure("attn_bwd", shape, "all gradients",
+                        lambda: fb.fused_attn_half_bwd(*aa, dy, heads,
+                                                       geom),
+                        lambda: fb.fused_attn_half_bwd_reference(
+                            *aa, dy, heads, geom),
+                        _grad_fn(attn_chain, aa, 8, (heads, geom), dy),
+                        attn_names,
+                        3 * M * C * es + 8 * C * C * es + 2 * vec,
+                        22 * M * C * C + 12 * nW * N * N * C, dt,
+                        b0_bf16)
+                measure("mlp_bwd", shape, "all gradients",
+                        lambda: fb.fused_mlp_half_bwd(*ma, dy2, a["tps"]),
+                        lambda: fb.fused_mlp_half_bwd_reference(
+                            *ma, dy2, a["tps"]),
+                        _grad_fn(mlp_chain, ma, 7, (a["tps"],), dy2),
+                        mlp_names,
+                        3 * M * C * es + 4 * C * Hd * es
+                        + 8 * (Hd + 3 * C),
+                        10 * M * C * Hd, dt, b0_bf16)
+            del a, aa, ma
     return rec
 
 
@@ -961,7 +990,7 @@ def hrformer_cfg():
 
 def no_launches() -> dict:
     return dict(k1=0, k2=0, k4=0, k4b=0, k5=0, k5b=0, k6=0, k7=0, k1hm=0,
-                k8=0)
+                k8=0, k3=0, k3b=0)
 
 
 def train_bf16(smi: str, cfg, tag: str, want: dict) -> dict:
@@ -1074,6 +1103,36 @@ def train_remat() -> dict:
                                atol=1e-7)
     assert on["peak_gib"] < off["peak_gib"]
     return {"peak_gib_remat": on["peak_gib"]}
+
+
+def fused_train_ws8() -> dict:
+    """One fused bf16 hrformer_base step at window 8 (N = 64) at b = 32,
+    the configuration ROADMAP.md's F2 said could not train: 44 launches of
+    each of K4 and K5, forward and backward, and finite terms."""
+    from infantposeestimation_gaussianbias_tpu_torch import (
+        create_train_state, make_train_step)
+
+    cfg = hrformer_cfg()
+    cfg.model.hrformer_window_size = 8
+    state = create_train_state(cfg, device="cuda")
+    batch = {k: v.cuda() for k, v in
+             make_train_batch(cfg, TRAIN_BATCH, seed=5).items()}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, metrics = make_train_step(cfg)(state, batch, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = launches()
+    values = {k: v.item() for k, v in metrics.items()}
+    log(f"[fused-train] window 8 bf16 b={TRAIN_BATCH} one step: {ms:.1f} ms "
+        f"(first call), launches "
+        + " ".join(f"{k.upper()} {v}" for k, v in got.items() if v)
+        + ", " + " ".join(f"{k}={v:.6g}" for k, v in values.items()))
+    n = K1_CALLS_PER_FORWARD
+    assert got == dict(no_launches(), k4=n, k4b=n, k5=n, k5b=n), got
+    assert all(np.isfinite(v) for v in values.values()), values
+    return dict(first_step_ms=ms, launches=got)
 
 
 def launch_device_ms(fn, runs: int = 10) -> float:
@@ -1900,6 +1959,433 @@ def phase_analysis(smi: str) -> dict:
     return out
 
 
+# -- K3 and the process grid (phases 17-19) ----------------------------------
+
+# (data, model) ranks: four processes on the one card, gloo (NCCL refuses
+# two ranks on one device).  hrformer_base's heads (2/4/8/16) all divide 2,
+# so K3 splits the heads at every branch.  A correctness path: the four
+# ranks share the card and gloo copies every all-reduce through the host,
+# so no time here is a scaling figure.
+GRID = (2, 2)
+GRID_LABEL = "4 ranks, 1 card, gloo"
+GRID_F32_BATCH = 4  # the float32 step against one process (2 rows a rank)
+
+
+def jax_modules() -> list:
+    """Modules of JAX, flax or the JAX package this process has loaded."""
+    return [m for m, v in sys.modules.items() if v is not None
+            and m.split(".")[0] in ("jax", "flax",
+                                    "infantposeestimation_gaussianbias_tpu")]
+
+
+def _grid_rank_setup() -> None:
+    """In a grid rank (a process run_grid spawned): TF32 off, no JAX."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    loaded = jax_modules()
+    assert not loaded, loaded
+
+
+def _in_turns(grid, fn):
+    """fn() on each rank in turn while the others wait at a barrier, so
+    that a rank's kernel times do not include the others' kernels on the
+    shared card; returns this rank's result."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(grid.size):
+        dist.barrier()
+        if grid.rank == r:
+            out = fn()
+    dist.barrier()
+    return out
+
+
+def _allreduce_ms(t: torch.Tensor, group, runs: int = 5) -> float:
+    """Median host time of an all-reduce of t over group, card work before
+    and after synchronised; every rank of the group calls it."""
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(t, group=group)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times[1:])) * 1e3
+
+
+def k3_rank(grid) -> dict:
+    """Phase 17 on one rank: K3 forward and backward at every
+    hrformer_base branch shape at the global training batch, float32 and
+    bf16, on this rank's windows (data) and heads (model); its output and
+    dqkv against unsharded K1/K2 on the same windows (the same per-head
+    arithmetic: equal bit for bit) and against the plain versions; its
+    dbias against unsharded K2 and the plain version over all windows.
+    Then, in turns, K1 and K2 of this rank's shard, the plain version and
+    SDPA at the same local shape; the all-reduces, all ranks together."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        window_msa as wm)
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
+        shard_batch)
+
+    _grid_rank_setup()
+    dev = grid.device
+    rows = []
+    for label, w, N, H, hd in BRANCH_SHAPES[:4]:
+        nW, C = TRAIN_BATCH * w, H * hd
+        g = torch.Generator(device=dev).manual_seed(17)
+        qkv32 = torch.randn(nW, N, 3 * C, device=dev, generator=g)
+        dout32 = torch.randn(nW, N, C, device=dev, generator=g)
+        bias = torch.randn(H, N, N, device=dev, generator=g)
+        heads = wm.head_range(H, grid)
+        h0, hl = heads or (0, H)
+        for dt in (torch.float32, torch.bfloat16):
+            qkv, dout = qkv32.to(dt), dout32.to(dt)
+            q_l, d_l = shard_batch(qkv, grid), shard_batch(dout, grid)
+            nWl = q_l.shape[0]
+            reset_launches()
+            x = q_l.clone().requires_grad_()
+            b = bias.clone().requires_grad_()
+            y = wm.window_attention_sharded(x, b, H, grid)
+            y.backward(d_l)
+            torch.cuda.synchronize()
+            got = launches()
+            assert (got["k3"], got["k3b"], got["k1"], got["k2"]) == (1, 1, 1, 1)
+            k1 = wm.window_attention_qkv(q_l, bias, H)
+            k2_dq, _ = wm.window_attention_qkv_bwd(q_l, bias, d_l, H)
+            _, k2_db = wm.window_attention_qkv_bwd(qkv, bias, dout, H)
+            p_y = wm.window_attention_qkv_reference(q_l, bias, H)
+            p_dq, _ = wm.window_attention_qkv_bwd_reference(q_l, bias, d_l, H)
+            _, p_db = wm.window_attention_qkv_bwd_reference(qkv, bias, dout,
+                                                            H)
+            torch.testing.assert_close(y, k1, atol=0, rtol=0)
+            torch.testing.assert_close(x.grad, k2_dq, atol=0, rtol=0)
+            torch.testing.assert_close(b.grad, k2_db, atol=DBIAS_TOL,
+                                       rtol=DBIAS_TOL)
+            tol = F32_ATOL if dt == torch.float32 else BF16_TOL
+            rtol = 0 if dt == torch.float32 else BF16_TOL
+            torch.testing.assert_close(y.float(), p_y.float(), atol=tol,
+                                       rtol=rtol)
+            torch.testing.assert_close(x.grad.float(), p_dq.float(),
+                                       atol=tol, rtol=tol)
+            torch.testing.assert_close(b.grad, p_db, atol=DBIAS_TOL,
+                                       rtol=DBIAS_TOL)
+            err = max((y.float() - p_y.float()).abs().max().item(),
+                      (x.grad.float() - p_dq.float()).abs().max().item(),
+                      (b.grad - p_db).abs().max().item())
+            db_err = (b.grad - k2_db).abs().max().item()
+
+            def timings():
+                k1_ms = cuda_median_ms(lambda: wm.window_attention_qkv(
+                    q_l, bias, H, heads), warmup=2, runs=10)
+                k2_ms = cuda_median_ms(lambda: wm.window_attention_qkv_bwd(
+                    q_l, bias, d_l, H, heads), warmup=2, runs=10)
+                plain_ms = cuda_median_ms(lambda: (
+                    wm.window_attention_qkv_reference(q_l, bias, H, heads),
+                    wm.window_attention_qkv_bwd_reference(q_l, bias, d_l, H,
+                                                          heads)),
+                    warmup=2, runs=10)
+                q, k, v = (_heads(q_l[..., i * C + h0 * hd:
+                                      i * C + (h0 + hl) * hd], hl)
+                           .requires_grad_() for i in range(3))
+                mask = bias[h0:h0 + hl].to(dt).clone().requires_grad_()
+                do = _heads(d_l[..., h0 * hd:(h0 + hl) * hd], hl)
+
+                def sdpa():
+                    o = F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask.expand(nWl, hl, N, N))
+                    return torch.autograd.grad(o, (q, k, v, mask), do)
+
+                lib_ms = cuda_median_ms(sdpa, warmup=2, runs=10)
+                return k1_ms, k2_ms, plain_ms, lib_ms
+
+            k1_ms, k2_ms, plain_ms, lib_ms = _in_turns(grid, timings)
+            if heads is None:
+                ar = dict(dbias=_allreduce_ms(torch.zeros_like(bias),
+                                              grid.data_group))
+            else:
+                ar = dict(
+                    out=_allreduce_ms(torch.zeros_like(d_l), grid.model_group),
+                    dqkv=_allreduce_ms(torch.zeros_like(q_l),
+                                       grid.model_group),
+                    dbias=_allreduce_ms(torch.zeros_like(bias),
+                                        grid.world_group))
+            es, cl = qkv.element_size(), hl * hd
+            f_bytes = nWl * N * 4 * cl * es + hl * N * N * 4
+            f_ops = 4 * N * N * hd * nWl * hl
+            b_bytes = nWl * N * 7 * cl * es + 2 * hl * N * N * 4
+            b_ops = 10 * N * N * hd * nWl * hl
+            k1_bound, _ = bound_ms(f_bytes, f_ops)
+            b_ms, b_by = bound_ms(f_bytes + b_bytes, f_ops + b_ops)
+            rows.append(dict(
+                label=label, dtype="f32" if dt == torch.float32 else "bf16",
+                nW_local=nWl, heads=(h0, hl), max_abs_err=err,
+                dbias_vs_k2=db_err, k1_ms=k1_ms, k2_ms=k2_ms,
+                ms=k1_ms + k2_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                k1_bound_ms=k1_bound, bound_ms=b_ms, bound_by=b_by,
+                allreduce_ms=ar, launches=got))
+    return dict(rank=grid.rank, coords=(grid.data_index, grid.model_index),
+                rows=rows)
+
+
+def phase_k3() -> dict:
+    """K3 on a 2 x 2 grid of gloo ranks on the one card (k3_rank): every
+    rank's errors, times, bound and launches; the record is rank 0's at
+    hrformer_base b0, bf16 (one forward and one backward of its shard)."""
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import run_grid
+
+    results = run_grid(k3_rank, *GRID, "gloo", device="cuda", timeout=600)
+    worst, record = 0.0, None
+    for r in results:
+        for row in r["rows"]:
+            h0, hl = row["heads"]
+            log(f"[k3] rank {r['rank']} (data {r['coords'][0]}, model "
+                f"{r['coords'][1]}) {row['label']} {row['dtype']:4s} "
+                f"nW_local={row['nW_local']} heads [{h0},{h0 + hl}) "
+                f"max_abs_err={row['max_abs_err']:.3e} (vs plain; out, dqkv "
+                f"equal to unsharded K1/K2, dbias within "
+                f"{row['dbias_vs_k2']:.2e}) K1_ms={row['k1_ms']:.4f} "
+                f"K2_ms={row['k2_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"sdpa_ms={row['library_ms']:.4f} K1_bound_ms="
+                f"{row['k1_bound_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                f"({row['bound_by']}) allreduce_ms(" + ", ".join(
+                    f"{k} {v:.3f}" for k, v in row["allreduce_ms"].items())
+                + f"; {GRID_LABEL}) launches K1 {row['launches']['k1']} K2 "
+                f"{row['launches']['k2']}")
+            worst = max(worst, row["max_abs_err"])
+            if r["rank"] == 0 and row["label"] == "base b0" \
+                    and row["dtype"] == "bf16":
+                record = dict(row, shape=(
+                    f"rank 0 of {GRID[0]}x{GRID[1]}: nW={row['nW_local']},"
+                    f"N=49,H={hl} of 2,hd=39,bf16, fwd+bwd"))
+    record["max_abs_err"] = worst
+    return record
+
+
+def grid_serve_rank(grid, frames, bboxes) -> dict:
+    """Phase 18 on one rank: hrformer_base + fusion, bf16, served over the
+    grid (every rank handed the whole request): one batch of 32 with flip,
+    its launches, then 1 warm-up and 4 timed batches; then the float32
+    model (the same seeded weights as one process's) on 4 frames, with
+    this data rank's heatmaps of their crops."""
+    from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
+                                                              get_variant)
+    from infantposeestimation_gaussianbias_tpu_torch.ops import affine
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
+        shard_batch)
+
+    _grid_rank_setup()
+    cfg = get_variant("hrformer_base")
+    assert cfg.model.compute_dtype == "bfloat16" and cfg.eval.flip_test
+    inf = PoseInference(cfg, device="cuda", mesh=grid)
+    reset_launches()
+    kpts, scores = inf.predict_batch(frames, bboxes)
+    torch.cuda.synchronize()
+    got = launches()
+    assert kpts.shape == (32, 17, 2) and scores.shape == (32, 17)
+    assert np.isfinite(kpts).all() and np.isfinite(scores).all()
+    times = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inf.predict_batch(frames, bboxes)
+        if i >= 1:
+            times.append(time.perf_counter() - t0)
+    del inf
+    cfg32 = get_variant("hrformer_base")
+    cfg32.model.compute_dtype = "float32"
+    inf32 = PoseInference(cfg32, device="cuda", mesh=grid)
+    n = GRID_F32_BATCH
+    k32, s32 = inf32.predict_batch(frames[:n], bboxes[:n])
+    centers = (bboxes[:n, :2] + bboxes[:n, 2:]) / 2
+    scales = (bboxes[:n, 2:] - bboxes[:n, :2]) * cfg32.data.bbox_padding
+    with torch.inference_mode():
+        crops = affine.crop_and_normalize(
+            torch.from_numpy(frames[:n]).to(grid.device),
+            torch.from_numpy(centers).to(grid.device),
+            torch.from_numpy(scales).to(grid.device), cfg32.data.input_size)
+        hm = inf32.model(shard_batch(crops, grid))["heatmaps"].cpu().numpy()
+    return dict(rank=grid.rank, kpts=kpts, scores=scores, launches=got,
+                batch_s=times, k32=k32, s32=s32, hm32=hm)
+
+
+def phase_grid_serving(smi: str) -> dict:
+    """Grid serving (grid_serve_rank): every rank returns the same whole
+    batch, 88 K1 launches per rank through K3, crops/s; float32 heatmaps
+    and keypoints against one process on the card under phase 4's bounds."""
+    from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
+                                                              get_variant)
+    from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import run_grid
+
+    frames, bboxes = make_requests(32, seed=2)
+    results = run_grid(grid_serve_rank, *GRID, "gloo", device="cuda",
+                       args=(frames, bboxes), timeout=600)
+    n2 = 2 * K1_CALLS_PER_FORWARD
+    for r in results:
+        assert r["launches"] == dict(no_launches(), k1=n2, k3=n2), r["launches"]
+        np.testing.assert_array_equal(r["kpts"], results[0]["kpts"])
+        np.testing.assert_array_equal(r["scores"], results[0]["scores"])
+    cfg32 = get_variant("hrformer_base")
+    cfg32.model.compute_dtype = "float32"
+    one = PoseInference(cfg32, device="cuda")
+    n = GRID_F32_BATCH
+    k_one, s_one = one.predict_batch(frames[:n], bboxes[:n])
+    centers = (bboxes[:n, :2] + bboxes[:n, 2:]) / 2
+    scales = (bboxes[:n, 2:] - bboxes[:n, :2]) * cfg32.data.bbox_padding
+    with torch.inference_mode():
+        crops = affine.crop_and_normalize(
+            torch.from_numpy(frames[:n]).cuda(),
+            torch.from_numpy(centers).cuda(), torch.from_numpy(scales).cuda(),
+            cfg32.data.input_size)
+        hm = one.model(crops)["heatmaps"]
+        hm_f = decode.flip_heatmaps(
+            one.model(torch.flip(crops, [2]))["heatmaps"], one._flip_index)
+        unsure = _unsure_keypoints((hm + hm_f) * 0.5, "fusion")
+    hm_grid = np.concatenate([results[0]["hm32"],
+                              results[GRID[1]]["hm32"]])
+    hm_err = float(np.abs(hm_grid - hm.cpu().numpy()).max())
+    keep = ~unsure
+    kp_err = float(np.abs(results[0]["k32"] - k_one)[keep].max())
+    s_err = float(np.abs(results[0]["s32"] - s_one).max())
+    log(f"[grid-serve] f32 grid vs one process on the card, {n} frames: "
+        f"heatmaps max_abs_err={hm_err:.3e}, keypoints {kp_err:.3e} px "
+        f"(left out {int(unsure.sum())} of {unsure.size} on a decode tie), "
+        f"scores {s_err:.3e}")
+    assert hm_err <= HEATMAP_ATOL and keep.any() and kp_err <= KEYPOINT_ATOL_PX
+    med = float(np.median(results[0]["batch_s"]))
+    out = dict(crops_per_s=32 / med, batch32_ms=med * 1e3,
+               launches=results[0]["launches"]["k3"], label=GRID_LABEL,
+               card=smi)
+    log(f"[grid-serve] bf16 b=32 flip over the {GRID[0]}x{GRID[1]} grid: "
+        f"K1 launches per rank {results[0]['launches']['k1']} (all through "
+        f"K3), every rank the same {results[0]['kpts'].shape} keypoints; "
+        f"{out['crops_per_s']:.1f} crops/s (median {med * 1e3:.1f} ms over "
+        f"{len(results[0]['batch_s'])} batches, {GRID_LABEL}: a correctness "
+        f"path, not a scaling figure); on {smi}")
+    return out
+
+
+def _state_digest(model) -> str:
+    """sha256 of a model's state dict (parameters and BatchNorm
+    statistics), byte for byte."""
+    import hashlib
+
+    return hashlib.sha256(b"".join(
+        t.detach().cpu().numpy().tobytes()
+        for t in model.state_dict().values())).hexdigest()
+
+
+def grid_train_rank(grid, batch4, masks4, batch32) -> dict:
+    """Phase 19 on one rank: a float32 hrformer_base step over the grid at
+    global b = 4 with given DropPath masks (rank 0 returns its RPE-table
+    and qkv-weight gradients and BatchNorm statistics); then a bf16 step at
+    global b = 32: its launches, terms, and after each step a digest of
+    the state dict (parameters and BatchNorm statistics)."""
+    from infantposeestimation_gaussianbias_tpu_torch import (
+        create_train_state, get_variant, make_train_step)
+
+    _grid_rank_setup()
+    dev = grid.device
+    cfg = get_variant("hrformer_base")
+    cfg.model.compute_dtype = "float32"
+    cfg.train.warmup_epochs = 0
+    state = create_train_state(cfg, device="cuda", grid=grid)
+    _, m = make_train_step(cfg, grid)(state, batch4, None,
+                                      drop_masks=masks4.to(dev))
+    out = dict(rank=grid.rank, f32={k: v.item() for k, v in m.items()},
+               f32_digest=_state_digest(state.model))
+    if grid.rank == 0:
+        out["grads"] = {
+            n: p.grad.cpu() for n, p in state.model.named_parameters()
+            if n.endswith(("relative_position_bias_table",
+                           "attn.qkv.weight"))}
+        out["stats"] = {n: b.cpu() for n, b in state.model.named_buffers()
+                        if n.endswith(("running_mean", "running_var"))}
+    del state
+    cfg = hrformer_cfg()
+    state = create_train_state(cfg, device="cuda", grid=grid)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    batch = {k: v.to(dev) for k, v in batch32.items()}
+    step = make_train_step(cfg, grid)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    out.update(step_ms=(time.perf_counter() - t0) * 1e3, launches=launches(),
+               bf16={k: v.item() for k, v in metrics.items()},
+               digest=_state_digest(state.model))
+    return out
+
+
+def phase_grid_training(smi: str) -> dict:
+    """Grid training (grid_train_rank): the float32 step against one
+    process's step on the card (same weights, batch and masks) under
+    phase 6's bounds, BatchNorm statistics global; the bf16 step: finite
+    terms, 44 K1 and 44 K2 launches per rank (all through K3), the same
+    parameters on every rank."""
+    from infantposeestimation_gaussianbias_tpu_torch import (
+        create_train_state, get_variant, make_train_step)
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import run_grid
+    from infantposeestimation_gaussianbias_tpu_torch.train import (
+        draw_drop_masks)
+
+    cfg = get_variant("hrformer_base")
+    cfg.model.compute_dtype = "float32"
+    cfg.train.warmup_epochs = 0
+    n = GRID_F32_BATCH
+    batch4 = make_train_batch(cfg, n, seed=3)
+    one = create_train_state(cfg, device="cuda")
+    masks4 = draw_drop_masks(one.model, n, torch.Generator().manual_seed(4))
+    _, m_one = make_train_step(cfg)(one, batch4, None,
+                                    drop_masks=masks4.cuda())
+    batch32 = make_train_batch(hrformer_cfg(), TRAIN_BATCH, seed=5)
+    results = run_grid(grid_train_rank, *GRID, "gloo", device="cuda",
+                       args=(batch4, masks4, batch32), timeout=600)
+    r0 = results[0]
+    for k, v in m_one.items():
+        a, b = r0["f32"][k], v.item()
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        log(f"[grid-train] f32 b={n} {k:14s} grid {a:.7e} one process "
+            f"{b:.7e} rel {rel:.2e}")
+        assert np.isfinite(a) and rel <= STEP_LOSS_RTOL, (k, a, b)
+    for r in results:
+        assert r["f32"] == r0["f32"], (r["rank"], r["f32"])
+        assert r["f32_digest"] == r0["f32_digest"], "f32 states differ"
+    params = dict(one.model.named_parameters())
+    errs = {n: _rel(g, params[n].grad.cpu()) for n, g in r0["grads"].items()}
+    log(f"[grid-train] f32 RPE-table and qkv-weight gradients, grid vs one "
+        f"process: max rel err {max(errs.values()):.2e} over {len(errs)}")
+    assert len(errs) == 2 * K1_CALLS_PER_FORWARD
+    assert max(errs.values()) <= STEP_GRAD_RTOL
+    bufs = dict(one.model.named_buffers())
+    stat_err = 0.0
+    for name, b in r0["stats"].items():
+        torch.testing.assert_close(b, bufs[name].cpu(), atol=STEP_STAT_TOL,
+                                   rtol=STEP_STAT_TOL)
+        stat_err = max(stat_err, (b - bufs[name].cpu()).abs().max().item())
+    log(f"[grid-train] f32 BN running stats (global over the data ranks) "
+        f"grid vs one process: max_abs_err={stat_err:.3e}")
+    del one
+    n1 = K1_CALLS_PER_FORWARD
+    for r in results:
+        assert r["launches"] == dict(no_launches(), k1=n1, k2=n1, k3=n1,
+                                     k3b=n1), r["launches"]
+        assert all(np.isfinite(v) for v in r["bf16"].values()), r["bf16"]
+        assert r["digest"] == r0["digest"], "parameters differ across ranks"
+    log(f"[grid-train] bf16 global b={TRAIN_BATCH} step over the "
+        f"{GRID[0]}x{GRID[1]} grid: {r0['step_ms']:.1f} ms (first call, "
+        f"{GRID_LABEL}), launches per rank K1 {r0['launches']['k1']} K2 "
+        f"{r0['launches']['k2']} (all through K3), parameters identical on "
+        f"all {len(results)} ranks (sha256 {r0['digest'][:16]}), "
+        + " ".join(f"{k}={v:.6g}" for k, v in r0["bf16"].items())
+        + f"; on {smi}")
+    return dict(launches=r0["launches"]["k3"] + r0["launches"]["k3b"],
+                first_step_ms=r0["step_ms"], loss=r0["bf16"]["total_loss"])
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -1937,8 +2423,10 @@ def main() -> int:
         train_agreement_f32("fused-train", FUSED_STEP_LOSS_RTOL,
                             FUSED_STEP_GRAD_RTOL, FUSED_STEP_STAT_TOL)
         n = K1_CALLS_PER_FORWARD
-        return train_bf16(smi, hrformer_cfg(), "fused-train", dict(
+        result = train_bf16(smi, hrformer_cfg(), "fused-train", dict(
             no_launches(), k4=n, k4b=n, k5=n, k5b=n))
+        result["window8"] = fused_train_ws8()
+        return result
 
     with fused_blocks("0"):
         train = timed("6 training", train_unfused)
@@ -1959,6 +2447,9 @@ def main() -> int:
     k8 = timed("15 k8", phase_k8)
     with fused_blocks("0"):
         analysis = timed("16 analysis", phase_analysis, smi)
+    k3 = timed("17 k3", phase_k3)
+    grid_serve = timed("18 grid serving", phase_grid_serving, smi)
+    grid_train = timed("19 grid training", phase_grid_training, smi)
     log(f"[fused] bf16 b=32 serving {fused_thr['crops_per_s']:.1f} crops/s "
         f"fused vs {thr['crops_per_s']:.1f} unfused; training "
         f"{fused_train['step_ms']:.1f} ms/step fused vs "
@@ -1966,9 +2457,7 @@ def main() -> int:
         f"{fused_train['peak_gib']:.2f} vs {train['peak_gib']:.2f} GiB")
     log(f"[time] whole run {time.perf_counter() - t_start:.1f} s; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
-    loaded = [m for m, v in sys.modules.items() if v is not None
-              and m.split(".")[0] in ("jax", "flax",
-                                      "infantposeestimation_gaussianbias_tpu")]
+    loaded = jax_modules()
     assert not loaded, loaded
     log(json.dumps({"slice": thr, "train": train, "fused_slice": fused_thr,
                     "fused_train": fused_train,
@@ -1978,7 +2467,9 @@ def main() -> int:
                     "hrnet_k6_step": hr_k6,
                     "hrnet_conv3x3_shapes": k6_shapes,
                     "k1_hm_relayout": k1hm["relayout"],
-                    "k8_per_shape": k8["per_shape"], "analysis": analysis}))
+                    "k8_per_shape": k8["per_shape"], "analysis": analysis,
+                    "fused_train_window8": fused_train["window8"],
+                    "grid_slice": grid_serve, "grid_train": grid_train}))
     source = "infantposeestimation_gaussianbias_tpu_torch/csrc/"
     jax_pkg = "infantposeestimation_gaussianbias_tpu/"
     pallas = jax_pkg + "ops/pallas/"
@@ -2022,6 +2513,12 @@ def main() -> int:
         entry("window_msa_ablate", "window_msa_ablate.cu",
               "tools/probe_wmsa_ablate.py:160", {"probe": k8["launches"]},
               k8["record"], root=jax_pkg),
+        dict(entry("window_msa_sharded", "window_msa.cu", "window_msa.py:483",
+                   {"grid_serve_rank0": grid_serve["launches"],
+                    "grid_train_rank0": grid_train["launches"]}, k3),
+             sources=[source + "window_msa.cu", source + "window_msa_bwd.cu"],
+             allreduce_ms=k3["allreduce_ms"], k1_ms=k3["k1_ms"],
+             k2_ms=k3["k2_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

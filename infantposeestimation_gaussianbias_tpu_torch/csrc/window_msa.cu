@@ -33,6 +33,14 @@
 // N <= 64 and hd <= 64 are runtime values (hd = 39 for HRFormer-Base is
 // ragged); the Python wrapper rejects anything larger.
 //
+// A head range (K3, the sharded W-MSA of kernels/window_msa.py): the C entry
+// takes the model's H heads and a range [h0, h0 + Hl) of them, and launches
+// the same kernel over Hl heads at pointers moved by h0 heads (qkv and out
+// by h0*hd columns, bias by h0 N x N tiles).  The kernel's row strides stay
+// 3C and C of the full width, so it reads this rank's heads of the full
+// (nW, N, 3C) qkv in place and writes their columns of a full-width
+// (nW, N, C) output: no slice copy, and K1's instantiation is unchanged.
+//
 // The body lives in window_msa_body.cuh.  This file instantiates it twice:
 // K1 on the flat qkv layout, and K1-hm, which replaces
 // `window_attention_pallas_hm` (window_msa.py:50, body `_attn_kernel`):
@@ -68,17 +76,22 @@ window_msa_hm_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       q, k, v, bias, out, gridDim.x, N, H, hd, scale, nullptr);
 }
 
+// Heads [h0, h0 + Hl) of H: grid (nW, Hl) at pointers moved by h0 heads.
 template <typename T>
 cudaError_t launch(const void* qkv, const float* bias, void* out, int nW, int N,
-                   int H, int hd, float scale, cudaStream_t stream) {
+                   int H, int h0, int Hl, int hd, float scale,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes(N, hd, 1);
   static bool opted_in = false;
   cudaError_t err = ipe::wmsa::opt_in(window_msa_fwd_kernel<T>, smem,
                                       smem_bytes(kMaxN, kMaxHd, 1), opted_in);
   if (err != cudaSuccess) return err;
-  dim3 grid(nW, H);
+  dim3 grid(nW, Hl);
+  const size_t col = (size_t)h0 * hd;
   window_msa_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), bias, static_cast<T*>(out), N, H, hd, scale);
+      static_cast<const T*>(qkv) + col,
+      bias ? bias + (size_t)h0 * N * N : nullptr, static_cast<T*>(out) + col,
+      N, H, hd, scale);
   return cudaGetLastError();
 }
 
@@ -108,14 +121,20 @@ bool bad_sizes(int nW, int N, int H, int hd) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  scale is hd^-0.5, rounded to float32 by
-// the caller as the plain version rounds it.  Returns the launch's cudaError_t.
+// the caller as the plain version rounds it.  Computes heads [h0, h0 + Hl)
+// of the H in qkv (h0 = 0, Hl = H: all) and writes only their columns of
+// out.  Returns the launch's cudaError_t.
 int ipe_window_msa_fwd(const void* qkv, const void* bias, void* out, int nW, int N,
-                       int H, int hd, float scale, int dtype, void* stream) {
-  if (bad_sizes(nW, N, H, hd)) return (int)cudaErrorInvalidValue;
+                       int H, int h0, int Hl, int hd, float scale, int dtype,
+                       void* stream) {
+  if (bad_sizes(nW, N, H, hd) || h0 < 0 || Hl <= 0 || h0 + Hl > H)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
-  if (dtype == 0) return (int)launch<float>(qkv, b, out, nW, N, H, hd, scale, st);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(qkv, b, out, nW, N, H, hd, scale, st);
+  if (dtype == 0)
+    return (int)launch<float>(qkv, b, out, nW, N, H, h0, Hl, hd, scale, st);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(qkv, b, out, nW, N, H, h0, Hl, hd, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -44,6 +44,14 @@
 //     the scratch at a few MB whatever nW is.
 // N <= 64 and hd <= 64 are runtime values (hd = 39 for HRFormer-Base is
 // ragged); the Python wrapper rejects anything larger.
+//
+// A head range (K3, the sharded W-MSA of kernels/window_msa.py): the C entry
+// takes the model's H heads and a range [h0, h0 + Hl) of them.  The kernel
+// runs over Hl heads at pointers moved by h0 heads (qkv, dout and dqkv by
+// h0*hd columns, bias and dbias by h0 N x N tiles) with the full width C as
+// its row stride, so it reads this rank's heads of qkv and dout in place,
+// writes their columns of a full-width dqkv and their tiles of dbias, and
+// keeps (chunks, Hl, N, N) partials.
 
 #include <math_constants.h>
 
@@ -70,8 +78,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 window_msa_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
                       const T* __restrict__ dout, T* __restrict__ dqkv,
-                      float* __restrict__ partial, int nW, int N, int H, int hd,
-                      float scale, int wpb) {
+                      float* __restrict__ partial, int nW, int N, int H, int C,
+                      int hd, float scale, int wpb) {
   extern __shared__ float smem[];
   const int ldq = odd_stride(hd);
   const int lds = odd_stride(N);
@@ -83,9 +91,10 @@ window_msa_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   float* ds = p + N * lds;         // (N, lds) dP, then dS
   float* acc = ds + N * lds;       // (N * N) dbias of this block's windows
 
+  // H: the heads of this launch (gridDim.y); C: the row width of dout, and
+  // a third of qkv's and dqkv's.
   const int chunk = blockIdx.x;
   const int h = blockIdx.y;
-  const int C = H * hd;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -197,10 +206,11 @@ dbias_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dbias
   dbias[e] = s;
 }
 
+// Heads [h0, h0 + Hl) of H: pointers moved by h0 heads, Hl heads per chunk.
 template <typename T>
 cudaError_t launch(const void* qkv, const float* bias, const void* dout, void* dqkv,
-                   float* dbias, float* partial, int nW, int N, int H, int hd,
-                   float scale, int wpb, cudaStream_t stream) {
+                   float* dbias, float* partial, int nW, int N, int H, int h0,
+                   int Hl, int hd, float scale, int wpb, cudaStream_t stream) {
   const size_t smem = smem_bytes(N, hd);
   // Above 48 KB a block may use dynamic shared memory only after opting in;
   // set the attribute once per instantiation.
@@ -213,14 +223,17 @@ cudaError_t launch(const void* qkv, const float* bias, const void* dout, void* d
     opted_in = true;
   }
   const int chunks = (nW + wpb - 1) / wpb;
-  window_msa_bwd_kernel<T><<<dim3(chunks, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), bias, static_cast<const T*>(dout),
-      static_cast<T*>(dqkv), partial, nW, N, H, hd, scale, wpb);
+  const size_t col = (size_t)h0 * hd;
+  const size_t tile = (size_t)h0 * N * N;
+  window_msa_bwd_kernel<T><<<dim3(chunks, Hl), kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv) + col, bias + tile,
+      static_cast<const T*>(dout) + col, static_cast<T*>(dqkv) + col, partial,
+      nW, N, Hl, H * hd, hd, scale, wpb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int entries = H * N * N;
+  const int entries = Hl * N * N;
   dbias_reduce_kernel<<<(entries + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0,
-                        stream>>>(partial, dbias, chunks, entries);
+                        stream>>>(partial, dbias + tile, chunks, entries);
   return cudaGetLastError();
 }
 
@@ -229,23 +242,26 @@ cudaError_t launch(const void* qkv, const float* bias, const void* dout, void* d
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  scale is hd^-0.5, rounded to float32 by
-// the caller as the plain version rounds it.  partial is float32 scratch of
-// ceil(nW / wpb) * H * N * N entries.  Returns the launches' cudaError_t.
+// the caller as the plain version rounds it.  Computes heads [h0, h0 + Hl)
+// of the H in qkv (h0 = 0, Hl = H: all): their columns of dqkv and their
+// tiles of dbias, nothing else.  partial is float32 scratch of
+// ceil(nW / wpb) * Hl * N * N entries.  Returns the launches' cudaError_t.
 int ipe_window_msa_bwd(const void* qkv, const void* bias, const void* dout, void* dqkv,
-                       void* dbias, void* partial, int nW, int N, int H, int hd,
-                       float scale, int wpb, int dtype, void* stream) {
+                       void* dbias, void* partial, int nW, int N, int H, int h0, int Hl,
+                       int hd, float scale, int wpb, int dtype, void* stream) {
   if (nW <= 0 || N <= 0 || N > kMaxN || hd <= 0 || hd > kMaxHd || H <= 0 ||
-      H > 65535 || wpb <= 0 || bias == nullptr)
+      H > 65535 || h0 < 0 || Hl <= 0 || h0 + Hl > H || wpb <= 0 || bias == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   float* db = static_cast<float*>(dbias);
   float* part = static_cast<float*>(partial);
   if (dtype == 0)
-    return (int)launch<float>(qkv, b, dout, dqkv, db, part, nW, N, H, hd, scale, wpb, st);
+    return (int)launch<float>(qkv, b, dout, dqkv, db, part, nW, N, H, h0, Hl, hd, scale,
+                              wpb, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(qkv, b, dout, dqkv, db, part, nW, N, H, hd, scale,
-                                      wpb, st);
+    return (int)launch<__nv_bfloat16>(qkv, b, dout, dqkv, db, part, nW, N, H, h0, Hl, hd,
+                                      scale, wpb, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,6 +8,14 @@ runs eval-mode BatchNorm: the JAX package's BN-fold is the same maths
 with other roundings and is not ported.  Frames
 cross to the device as uint8, and every batch is padded to a power-of-two
 bucket by repeating its last row, with results trimmed back.
+
+``mesh`` (a parallel.ProcessGrid) serves over a process grid, as the JAX
+``PoseInference(mesh=...)`` does over a device mesh: every rank is handed
+the same full request; the rows, padded to their bucket and then to a
+multiple of the 'data' axis (the last row repeated, JAX's order), are
+split over the data ranks; each data rank crops, runs the model (its
+W-MSA is K3 over the grid) and decodes its rows; the keypoints and scores
+are gathered, so every rank returns the whole trimmed result.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch
 from .models import build_model, flip_inference, resolve_device
 from .ops import affine
 from .ops import decode as decode_ops
+from .parallel.mesh import TENSOR_PARALLEL_TODO, gather_data_rows, shard_batch
 
 
 def detect_persons(image: np.ndarray) -> list:
@@ -32,15 +41,20 @@ class PoseInference:
     """Pose predictor on ``device`` (the CUDA card unless the caller asks
     for ``"cpu"``).  Weights come from ``state_dict`` (the reference
     checkpoint's naming) or, when it is None, from the seeded
-    initialisation of ``build_model`` (``cfg.train.seed``)."""
+    initialisation of ``build_model`` (``cfg.train.seed``).  ``mesh``: a
+    ProcessGrid to serve over (see the module doc); the model then runs on
+    the grid's device.  ``tensor_parallel`` is not ported and raises."""
 
     def __init__(self, cfg,
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None, tensor_parallel: bool = False):
+        if tensor_parallel:
+            raise NotImplementedError(TENSOR_PARALLEL_TODO)
         self.cfg = cfg
         self.schema = cfg.data.keypoint_schema
-        self.device = resolve_device(device)
-        self.model = build_model(cfg, self.device)
+        self.mesh = mesh
+        self.model = build_model(cfg, resolve_device(device), mesh)
+        self.device = next(self.model.parameters()).device
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self._flip_index = torch.as_tensor(self.schema.flip_index(),
@@ -86,12 +100,22 @@ class PoseInference:
             centers = np.concatenate(
                 [centers, np.repeat(centers[-1:], pad, 0)])
             scales = np.concatenate([scales, np.repeat(scales[-1:], pad, 0)])
+        if self.mesh is not None:
+            pad = -frames.shape[0] % self.mesh.data
+            frames, centers, scales = (
+                np.concatenate([x, np.repeat(x[-1:], pad, 0)])
+                for x in (frames, centers, scales))
+            frames, centers, scales = (shard_batch(x, self.mesh)
+                                       for x in (frames, centers, scales))
 
         def put(x: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
         coords, scores = self._pipeline(put(frames), put(centers), put(scales))
-        return coords.cpu().numpy()[:n], scores.cpu().numpy()[:n]
+        coords, scores = coords.cpu().numpy(), scores.cpu().numpy()
+        if self.mesh is not None:
+            coords, scores = gather_data_rows((coords, scores), self.mesh)
+        return coords[:n], scores[:n]
 
     def predict(self, image: np.ndarray, bbox: Optional[Sequence] = None
                 ) -> Tuple[np.ndarray, np.ndarray]:

@@ -116,8 +116,8 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ipe_window_msa_fwd.argtypes = [p, p, p, i, i, i, i,
-                                           ctypes.c_float, i, p]
+        lib.ipe_window_msa_fwd.argtypes = [p, p, p] + [i] * 6 + [
+            ctypes.c_float, i, p]
         lib.ipe_window_msa_fwd.restype = i
         lib.ipe_window_msa_hm_fwd.argtypes = [p] * 5 + [i] * 4 + [
             ctypes.c_float, i, p]
@@ -127,8 +127,8 @@ def load() -> ctypes.CDLL:
         lib.ipe_window_msa_ablate.restype = i
         lib.ipe_window_msa_ablate_fits.argtypes = [i] * 5
         lib.ipe_window_msa_ablate_fits.restype = i
-        lib.ipe_window_msa_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                           ctypes.c_float, i, i, p]
+        lib.ipe_window_msa_bwd.argtypes = [p] * 6 + [i] * 6 + [
+            ctypes.c_float, i, i, p]
         lib.ipe_window_msa_bwd.restype = i
         f = ctypes.c_float
         lib.ipe_fused_mlp_fwd.argtypes = [p] * 9 + [i] * 5 + [p]

@@ -45,11 +45,15 @@ def pack_basic_block_params(blocks: Sequence, dtype=torch.bfloat16,
     in ``dtype``, affines (2n, 2, C) float32): each conv weight (O, I, 3, 3)
     as ``permute(2, 3, 1, 0).reshape(9C, C)``; a = weight * rsqrt(var +
     eps), b = bias - mean * a from the BatchNorm's running statistics, in
-    float32."""
+    float32.  BatchNorm only, as the JAX package's fold (models/fold.py):
+    a block with another norm raises."""
     ws, abs_ = [], []
     with torch.no_grad():
         for blk in blocks:
             for conv, bn in ((blk.conv1, blk.bn1), (blk.conv2, blk.bn2)):
+                if getattr(bn, "running_var", None) is None:
+                    raise ValueError(f"K7 folds BatchNorm, not "
+                                     f"{type(bn).__name__}")
                 C = conv.weight.shape[0]
                 ws.append(conv.weight.permute(2, 3, 1, 0).reshape(9 * C, C)
                           .to(dtype))

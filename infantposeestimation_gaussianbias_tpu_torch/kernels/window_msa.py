@@ -26,6 +26,23 @@ window-major wrapper ``window_attention_pallas`` (:94-106): relayouts to
 head-major, K1-hm, and a transpose back, as the JAX wrapper does.  The
 TPU tiling knob ``block_windows`` has no counterpart.  No model path
 runs K1-hm.
+
+K3, ``window_attention_sharded``, ports ``window_attention_pallas_qkv_sharded``
+(window_msa.py:483-559): W-MSA over a process grid (parallel/mesh.py), as
+an autograd Function around K1 and K2.  Each rank passes its own windows,
+(nW_local, N, 3C) with all heads (the qkv Linear is replicated).  When the
+model axis divides the heads (``head_range``) model rank j computes heads
+[j H/m, (j+1) H/m): K1 and K2 take a head range (``heads=(h0, Hl)``), read
+those heads of qkv and dout in place and write their columns of
+zero-filled full-width outputs, which an all-reduce over the model group
+assembles; dbias, those heads' tiles of a zero-filled (H, N, N), is
+all-reduced over the world group (a sum over 'data' and an assembly over
+'model').  Otherwise the model axis replicates: K1 and K2 run every head
+and dbias is all-reduced over the data group only.  The JAX version pads
+nW to a multiple of 'data'; here each rank passes the windows of its own
+batch rows, so nothing pads.  On CPU tensors the same function runs over the
+plain versions and gloo; the collectives are ``all_reduce`` only (gloo's
+CUDA path has all_reduce and broadcast).
 """
 
 from __future__ import annotations
@@ -33,15 +50,20 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops import msa
 from . import build
 
 # Kernel launches since the last reset, K1 and K2; one per launch, nowhere
-# else (K2's launch counts its dbias reduction pass with it).
+# else (K2's launch counts its dbias reduction pass with it).  K3's K1 and
+# K2 launches count in LAUNCHES and BWD_LAUNCHES and again in
+# SHARDED_LAUNCHES and SHARDED_BWD_LAUNCHES.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 HM_LAUNCHES = 0
+SHARDED_LAUNCHES = 0
+SHARDED_BWD_LAUNCHES = 0
 
 MAX_TOKENS = 64
 MAX_HEAD_DIM = 64
@@ -51,11 +73,34 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BWD_BLOCKS_PER_SM = 4
 
 
+Heads = Optional[Tuple[int, int]]  # (h0, Hl): heads [h0, h0 + Hl), or all
+
+
+def _head_columns(qkv: torch.Tensor, num_heads: int, heads: Tuple[int, int]
+                  ) -> list:
+    """The q, k and v column slices of heads [h0, h0 + Hl) of qkv."""
+    h0, hl = heads
+    C = qkv.shape[-1] // 3
+    hd = C // num_heads
+    return [slice(t * C + h0 * hd, t * C + (h0 + hl) * hd) for t in range(3)]
+
+
 def window_attention_qkv_reference(qkv: torch.Tensor,
                                    bias: Optional[torch.Tensor],
-                                   num_heads: int) -> torch.Tensor:
+                                   num_heads: int,
+                                   heads: Heads = None) -> torch.Tensor:
     """Plain PyTorch version of K1 (the einsum path of ops/msa.py fed from
-    the flat qkv tensor)."""
+    the flat qkv tensor).  ``heads=(h0, Hl)``: those heads' columns of a
+    zero-filled output, as K1's head range."""
+    if heads is not None:
+        h0, hl = heads
+        cols = _head_columns(qkv, num_heads, heads)
+        hd = qkv.shape[-1] // 3 // num_heads
+        out = qkv.new_zeros(qkv.shape[:2] + (qkv.shape[-1] // 3,))
+        out[..., h0 * hd:(h0 + hl) * hd] = window_attention_qkv_reference(
+            torch.cat([qkv[..., c] for c in cols], -1),
+            None if bias is None else bias[h0:h0 + hl], hl)
+        return out
     nW, N, C3 = qkv.shape
     split = qkv.reshape(nW, N, 3, num_heads, C3 // 3 // num_heads)
     split = split.permute(2, 0, 3, 1, 4)
@@ -64,11 +109,25 @@ def window_attention_qkv_reference(qkv: torch.Tensor,
 
 
 def window_attention_qkv_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor,
-                                       dout: torch.Tensor, num_heads: int
+                                       dout: torch.Tensor, num_heads: int,
+                                       heads: Heads = None
                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2, the maths of the TPU kernel
     (``_attn_qkv_bwd_kernel``): recompute P, then dV, dP, dS, dQ, dK and
-    dbias, in float32 (float64 for float64 inputs)."""
+    dbias, in float32 (float64 for float64 inputs).  ``heads=(h0, Hl)``:
+    those heads' columns of a zero-filled dqkv and tiles of a zero-filled
+    dbias, as K2's head range."""
+    if heads is not None:
+        h0, hl = heads
+        cols = _head_columns(qkv, num_heads, heads)
+        dq, db = window_attention_qkv_bwd_reference(
+            torch.cat([qkv[..., c] for c in cols], -1), bias[h0:h0 + hl],
+            dout[..., cols[0]], hl)
+        dqkv, dbias = torch.zeros_like(qkv), torch.zeros_like(bias)
+        for c, part in zip(cols, dq.chunk(3, dim=-1)):
+            dqkv[..., c] = part
+        dbias[h0:h0 + hl] = db
+        return dqkv, dbias
     nW, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // num_heads
@@ -88,8 +147,10 @@ def window_attention_qkv_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor,
     return dqkv.to(qkv.dtype), ds.sum(dim=0).to(bias.dtype)
 
 
-def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor],
-           num_heads: int) -> tuple[int, int, int, int]:
+def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int,
+           heads: Heads = None) -> tuple[int, int, int, int, int, int]:
+    """(nW, N, hd, dtype code, h0, Hl) of a valid K1/K2 call; raises
+    otherwise."""
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(f"qkv must be float32 or bfloat16, got {qkv.dtype}")
     if qkv.dim() != 3 or not qkv.is_contiguous():
@@ -110,25 +171,33 @@ def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor],
                 f"bias must be a contiguous float32 ({num_heads}, {N}, {N}) "
                 f"tensor on {qkv.device}, got {bias.dtype} "
                 f"{tuple(bias.shape)} on {bias.device}")
-    return nW, N, hd, _DTYPE_CODES[qkv.dtype]
+    h0, hl = (0, num_heads) if heads is None else heads
+    if h0 < 0 or hl <= 0 or h0 + hl > num_heads:
+        raise ValueError(f"head range {heads} is not within {num_heads} "
+                         f"heads")
+    return nW, N, hd, _DTYPE_CODES[qkv.dtype], h0, hl
 
 
 def window_attention_qkv(qkv: torch.Tensor, bias: Optional[torch.Tensor],
-                         num_heads: int) -> torch.Tensor:
-    """K1, fused W-MSA: (nW, N, 3C) qkv -> (nW, N, C), see the module doc."""
+                         num_heads: int, heads: Heads = None) -> torch.Tensor:
+    """K1, fused W-MSA: (nW, N, 3C) qkv -> (nW, N, C), see the module doc.
+    ``heads=(h0, Hl)``: only those heads, into their columns of a
+    zero-filled output."""
     global LAUNCHES
     if not build.on_card(qkv, "W-MSA"):
-        return window_attention_qkv_reference(qkv, bias, num_heads)
-    nW, N, hd, code = _check(qkv, bias, num_heads)
-    out = torch.empty((nW, N, num_heads * hd), dtype=qkv.dtype,
-                      device=qkv.device)
+        return window_attention_qkv_reference(qkv, bias, num_heads, heads)
+    nW, N, hd, code, h0, hl = _check(qkv, bias, num_heads, heads)
+    shape = (nW, N, num_heads * hd)
+    out = (torch.empty(shape, dtype=qkv.dtype, device=qkv.device)
+           if heads is None else
+           torch.zeros(shape, dtype=qkv.dtype, device=qkv.device))
     lib = build.load()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ipe_window_msa_fwd(
             qkv.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), nW, N, num_heads, hd, float(hd ** -0.5), code,
-            stream)
+            out.data_ptr(), nW, N, num_heads, h0, hl, hd, float(hd ** -0.5),
+            code, stream)
     build.check(lib, err, "window_msa_fwd launch")
     LAUNCHES += 1
     return out
@@ -214,16 +283,19 @@ def bwd_windows_per_block(nW: int, num_heads: int, sm_count: int) -> int:
 
 
 def window_attention_qkv_bwd(qkv: torch.Tensor, bias: torch.Tensor,
-                             dout: torch.Tensor, num_heads: int
+                             dout: torch.Tensor, num_heads: int,
+                             heads: Heads = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2, the W-MSA backward: (qkv, bias, dout) -> (dqkv, dbias), see the
-    module doc."""
+    module doc.  ``heads=(h0, Hl)``: only those heads, into their columns
+    of a zero-filled dqkv and their tiles of a zero-filled dbias."""
     global BWD_LAUNCHES
     if not build.on_card(qkv, "W-MSA"):
-        return window_attention_qkv_bwd_reference(qkv, bias, dout, num_heads)
+        return window_attention_qkv_bwd_reference(qkv, bias, dout, num_heads,
+                                                  heads)
     if bias is None:
         raise ValueError("the W-MSA backward kernel needs the bias")
-    nW, N, hd, code = _check(qkv, bias, num_heads)
+    nW, N, hd, code, h0, hl = _check(qkv, bias, num_heads, heads)
     C = num_heads * hd
     if (dout.dtype != qkv.dtype or tuple(dout.shape) != (nW, N, C)
             or not dout.is_contiguous() or dout.device != qkv.device):
@@ -232,19 +304,19 @@ def window_attention_qkv_bwd(qkv: torch.Tensor, bias: torch.Tensor,
             f"on {qkv.device}, got {dout.dtype} {tuple(dout.shape)} on "
             f"{dout.device}")
     sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
-    wpb = bwd_windows_per_block(nW, num_heads, sms)
+    wpb = bwd_windows_per_block(nW, hl, sms)
     chunks = -(-nW // wpb)
-    dqkv = torch.empty_like(qkv)
-    dbias = torch.empty_like(bias)
-    partial = torch.empty((chunks, num_heads, N, N), dtype=torch.float32,
+    fill = torch.empty_like if heads is None else torch.zeros_like
+    dqkv, dbias = fill(qkv), fill(bias)
+    partial = torch.empty((chunks, hl, N, N), dtype=torch.float32,
                           device=qkv.device)
     lib = build.load()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ipe_window_msa_bwd(
             qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-            dbias.data_ptr(), partial.data_ptr(), nW, N, num_heads, hd,
-            float(hd ** -0.5), wpb, code, stream)
+            dbias.data_ptr(), partial.data_ptr(), nW, N, num_heads, h0, hl,
+            hd, float(hd ** -0.5), wpb, code, stream)
     build.check(lib, err, "window_msa_bwd launch")
     BWD_LAUNCHES += 1
     return dqkv, dbias
@@ -276,3 +348,64 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     if bias is None:
         raise ValueError("window_attention needs the relative position bias")
     return _WindowAttention.apply(qkv, bias, num_heads)
+
+
+def head_range(num_heads: int, grid) -> Heads:
+    """This rank's heads (h0, Hl) under K3: a contiguous 1/m of them when
+    the grid's model axis m > 1 divides ``num_heads`` (head-parallel, the
+    JAX ``head_parallel``), else None (the model axis replicates)."""
+    m = grid.model
+    if m > 1 and num_heads % m == 0:
+        hl = num_heads // m
+        return grid.model_index * hl, hl
+    return None
+
+
+class _ShardedWindowAttention(torch.autograd.Function):
+    """K3: K1 forward and K2 backward on this rank's windows and heads, with
+    the collectives of the module doc.  The all-reduced output is the same
+    on every model rank, so the cotangent arriving here is too: K2 reads
+    this rank's heads of it in place, and nothing reduces it."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
+                grid) -> torch.Tensor:
+        global SHARDED_LAUNCHES
+        heads = head_range(num_heads, grid)
+        ctx.save_for_backward(qkv, bias)
+        ctx.num_heads, ctx.grid, ctx.heads = num_heads, grid, heads
+        out = window_attention_qkv(qkv, bias, num_heads, heads)
+        if qkv.is_cuda:
+            SHARDED_LAUNCHES += 1
+        if heads is not None:
+            dist.all_reduce(out, group=grid.model_group)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        global SHARDED_BWD_LAUNCHES
+        qkv, bias = ctx.saved_tensors
+        grid, heads = ctx.grid, ctx.heads
+        dqkv, dbias = window_attention_qkv_bwd(qkv, bias, dout.contiguous(),
+                                               ctx.num_heads, heads)
+        if qkv.is_cuda:
+            SHARDED_BWD_LAUNCHES += 1
+        if heads is not None:
+            dist.all_reduce(dqkv, group=grid.model_group)
+            dist.all_reduce(dbias, group=grid.world_group)
+        elif grid.data > 1:
+            dist.all_reduce(dbias, group=grid.data_group)
+        return dqkv, dbias, None, None
+
+
+def window_attention_sharded(qkv: torch.Tensor, bias: torch.Tensor,
+                             num_heads: int, grid) -> torch.Tensor:
+    """K3, differentiable W-MSA over the process grid ``grid``
+    (parallel.ProcessGrid): this rank's (nW_local, N, 3C) qkv -> its
+    (nW_local, N, C) output, see the module doc.  bias (H, N, N) is
+    required and its gradient comes back already summed over the grid's
+    data ranks (the caller must not reduce it again)."""
+    if bias is None:
+        raise ValueError("window_attention_sharded needs the relative "
+                         "position bias")
+    return _ShardedWindowAttention.apply(qkv, bias, num_heads, grid)

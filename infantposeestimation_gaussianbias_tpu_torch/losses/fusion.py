@@ -13,12 +13,20 @@ Port of infantposeestimation_gaussianbias_tpu/losses/fusion.py:
 Every term is float32, whatever the model's compute dtype.  Layouts:
 heatmaps and variances (B, H, W, K); offsets (B, H, W, K, 2); weights
 (B, K); gt_keypoints (B, K, 2) in input-image pixels.
+
+Every term is a ratio over the batch, sum(loss * w) / (sum(w) + 1e-8) or a
+mean.  Under a process grid each data rank holds some of the batch rows;
+``global_sum`` (a function summing a detached 0-d tensor over the data
+ranks) then gives the global denominator, so that each rank's term is its
+share of the global term and the shares add up to it (losses/fusion.py:
+40-42 and 95 in the JAX package, over the global batch).  None: the batch
+is the whole batch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -32,10 +40,29 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
     return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
 
 
-def _weighted_mean(per_kpt: torch.Tensor, weight: torch.Tensor
-                   ) -> torch.Tensor:
+GlobalSum = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _ratio(num: torch.Tensor, den: torch.Tensor,
+           global_sum: GlobalSum) -> torch.Tensor:
+    """num / (den + 1e-8), den summed over the data ranks under a grid."""
+    if global_sum is not None:
+        den = global_sum(den.detach())
+    return num / (den + 1e-8)
+
+
+def _weighted_mean(per_kpt: torch.Tensor, weight: torch.Tensor,
+                   global_sum: GlobalSum = None) -> torch.Tensor:
     """sum(loss * w) / (sum(w) + 1e-8) over all (B, K)."""
-    return (per_kpt * weight).sum() / (weight.sum() + 1e-8)
+    return _ratio((per_kpt * weight).sum(), weight.sum(), global_sum)
+
+
+def batch_mean(x: torch.Tensor, global_sum: GlobalSum = None
+               ) -> torch.Tensor:
+    """x.mean(); under a grid, x's sum over the global element count."""
+    if global_sum is None:
+        return x.mean()
+    return x.sum() / global_sum(x.new_tensor(float(x.numel())))
 
 
 def _pixel_grids(H: int, W: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -46,12 +73,13 @@ def _pixel_grids(H: int, W: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def heatmap_mse(pred: torch.Tensor, target: torch.Tensor,
-                weight: torch.Tensor, use_weight: bool = True) -> torch.Tensor:
+                weight: torch.Tensor, use_weight: bool = True,
+                global_sum: GlobalSum = None) -> torch.Tensor:
     """Per-keypoint spatial-mean MSE, visibility-weighted."""
     per = ((pred.float() - target) ** 2).mean(dim=(1, 2))  # (B, K)
     if use_weight:
-        return _weighted_mean(per, weight)
-    return per.mean()
+        return _weighted_mean(per, weight, global_sum)
+    return batch_mean(per, global_sum)
 
 
 def heatmap_variance(heatmaps: torch.Tensor, coords: torch.Tensor
@@ -72,19 +100,21 @@ def heatmap_variance(heatmaps: torch.Tensor, coords: torch.Tensor
 def variance_alignment_loss(heatmaps: torch.Tensor, coords: torch.Tensor,
                             weight: torch.Tensor,
                             variances: Optional[torch.Tensor],
-                            target_sigma: float) -> torch.Tensor:
+                            target_sigma: float,
+                            global_sum: GlobalSum = None) -> torch.Tensor:
     """(sigma_heatmap - sigma_t)^2 + (mean variance branch - sigma_t)^2,
     weighted."""
     per = (heatmap_variance(heatmaps, coords) - target_sigma) ** 2
     if variances is not None:
         sig_pred = variances.float().mean(dim=(1, 2))  # (B, K)
         per = per + (sig_pred - target_sigma) ** 2
-    return _weighted_mean(per, weight)
+    return _weighted_mean(per, weight, global_sum)
 
 
 def spatial_overlap_loss(heatmaps: torch.Tensor, weight: torch.Tensor,
                          skeleton: torch.Tensor,
-                         threshold: float = 0.5) -> torch.Tensor:
+                         threshold: float = 0.5,
+                         global_sum: GlobalSum = None) -> torch.Tensor:
     """Per-edge min(sigmoid h_i, sigmoid h_j) overlap-ratio hinge over the
     (E, 2) skeleton edge table."""
     prob = torch.sigmoid(heatmaps.float())  # (B, H, W, K)
@@ -96,18 +126,19 @@ def spatial_overlap_loss(heatmaps: torch.Tensor, weight: torch.Tensor,
     ratio = overlap / (torch.minimum(si, sj) + 1e-8)
     penalty = torch.relu(ratio - threshold)
     vis = weight[:, skeleton[:, 0]] * weight[:, skeleton[:, 1]]  # (B, E)
-    return (penalty * vis).sum() / (vis.sum() + 1e-8)
+    return _ratio((penalty * vis).sum(), vis.sum(), global_sum)
 
 
 def distribution_shape_loss(heatmaps: torch.Tensor, weight: torch.Tensor,
-                            target_sigma: float) -> torch.Tensor:
+                            target_sigma: float,
+                            global_sum: GlobalSum = None) -> torch.Tensor:
     """Softmax entropy against the analytic 2D Gaussian entropy
     log(2 pi e sigma^2)."""
     B, H, W, K = heatmaps.shape
     probs = torch.softmax(heatmaps.float().reshape(B, H * W, K), dim=1)
     entropy = -(probs * torch.log(probs + 1e-8)).sum(dim=1)  # (B, K)
     target = math.log(2 * math.pi * math.e * target_sigma ** 2)
-    return _weighted_mean((entropy - target) ** 2, weight)
+    return _weighted_mean((entropy - target) ** 2, weight, global_sum)
 
 
 def fusion_pose_loss(outputs: Dict[str, torch.Tensor],
@@ -119,7 +150,8 @@ def fusion_pose_loss(outputs: Dict[str, torch.Tensor],
                      weights: Tuple[float, ...] = (1.0, 1.0, 0.5, 0.1, 0.05,
                                                    0.05),
                      target_sigma: float = 2.0,
-                     use_target_weight: bool = True
+                     use_target_weight: bool = True,
+                     global_sum: GlobalSum = None
                      ) -> Dict[str, torch.Tensor]:
     """The six weighted terms and their sum ``total_loss``.  The offset
     target is GT (in heatmap pixels) minus the *current* soft-argmax
@@ -139,23 +171,25 @@ def fusion_pose_loss(outputs: Dict[str, torch.Tensor],
     sampled = decode_ops.sample_at_coords(offsets, pred_coords)  # (B, K, 2)
     off_per = smooth_l1(sampled, gt_hm - pred_coords).mean(dim=-1)
     peak_per = ((pred_coords - gt_hm) ** 2).sum(dim=-1)
+    gs = global_sum
     if use_target_weight:
-        l_off = _weighted_mean(off_per, wt)
-        l_peak = _weighted_mean(peak_per, wt)
+        l_off = _weighted_mean(off_per, wt, gs)
+        l_peak = _weighted_mean(peak_per, wt, gs)
     else:
-        l_off = off_per.mean()
-        l_peak = peak_per.mean()
+        l_off = batch_mean(off_per, gs)
+        l_peak = batch_mean(peak_per, gs)
 
     losses = {
         "heatmap_loss": w1 * heatmap_mse(heatmaps, target_heatmaps, wt,
-                                         use_target_weight),
+                                         use_target_weight, gs),
         "offset_loss": w2 * l_off,
         "peak_loss": w3 * l_peak,
         "variance_loss": w4 * variance_alignment_loss(
-            heatmaps, pred_coords, wt, variances, target_sigma),
-        "overlap_loss": w5 * spatial_overlap_loss(heatmaps, wt, skeleton),
+            heatmaps, pred_coords, wt, variances, target_sigma, gs),
+        "overlap_loss": w5 * spatial_overlap_loss(heatmaps, wt, skeleton,
+                                                  global_sum=gs),
         "shape_loss": w6 * distribution_shape_loss(heatmaps, wt,
-                                                   target_sigma),
+                                                   target_sigma, gs),
     }
     losses["total_loss"] = sum(losses.values())
     return losses

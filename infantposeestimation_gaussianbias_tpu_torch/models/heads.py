@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm, Conv2d
+from .layers import Conv2d, make_norm
 
 
 class HeatmapHead(nn.Module):
@@ -45,23 +45,25 @@ class _SubpixelRefine(nn.Module):
 
 
 class FusionHead(nn.Module):
-    """Shared trunk (2 x 3x3 conv-BN-ReLU) + heatmap / offset / variance
-    branches (3x3 conv-BN-ReLU -> 1x1), variance through softplus, plus the
-    two decode logits."""
+    """Shared trunk (2 x 3x3 conv-norm-ReLU) + heatmap / offset / variance
+    branches (3x3 conv-norm-ReLU -> 1x1), variance through softplus, plus
+    the two decode logits."""
 
     def __init__(self, in_channels: int, num_keypoints: int,
                  hidden_dim: int = 256,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 norm: str = "batchnorm"):
         super().__init__()
         h, K = hidden_dim, num_keypoints
         kw = dict(compute_dtype=compute_dtype)
         self.num_keypoints = K
         self.shared_layers = nn.Sequential(
-            Conv2d(in_channels, h, 3, **kw), BatchNorm(h), nn.ReLU(),
-            Conv2d(h, h, 3, **kw), BatchNorm(h), nn.ReLU())
+            Conv2d(in_channels, h, 3, **kw), make_norm(norm, h), nn.ReLU(),
+            Conv2d(h, h, 3, **kw), make_norm(norm, h), nn.ReLU())
 
         def branch(width: int, out: int) -> nn.Sequential:
-            return nn.Sequential(Conv2d(h, width, 3, **kw), BatchNorm(width),
+            return nn.Sequential(Conv2d(h, width, 3, **kw),
+                                 make_norm(norm, width),
                                  nn.ReLU(), Conv2d(width, out, 1, bias=True,
                                                    **kw))
 

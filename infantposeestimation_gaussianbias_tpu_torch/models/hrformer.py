@@ -22,6 +22,14 @@ Fused half-blocks: with ``use_pallas`` (``cfg.model.use_pallas``) and the
 read when a block runs, as in the JAX package), a block runs as K4 then K5
 (kernels/fused_block.py) on one window layout, from the same parameters.
 
+Process grid (parallel/mesh.py): ``models.build_model`` sets ``grid`` on
+every WindowAttention (and BatchNorm).  With a grid of more than one rank
+the attention core is K3, ``window_attention_sharded`` (each rank's
+windows, its heads when the model axis divides them), as the JAX
+``WindowAttention`` calls ``window_attention_pallas_qkv_sharded`` under a
+multi-device mesh; and the blocks never fuse, as the JAX gate requires
+``mesh is None``.
+
 Base:  channels (78, 156, 312, 624), heads (2, 4, 8, 16), window 7,
        modules per stage (1, 4, 2), 2 blocks per branch, drop-path 0.2.
 Small: channels (32, 64, 128, 256), heads (1, 2, 4, 8), drop-path 0.1.
@@ -38,11 +46,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_block import fused_attn_half, fused_mlp_half
-from ..kernels.window_msa import window_attention
+from ..kernels.window_msa import window_attention, window_attention_sharded
 from ..ops import msa
-from .layers import (BatchNorm, Bottleneck, Conv2d, Linear, apply_transition,
-                     drop_path, fuse, make_fuse_layers, make_transition,
-                     remat_contexts)
+from .layers import (Bottleneck, Conv2d, Linear, apply_transition,
+                     drop_path, fuse, make_fuse_layers, make_norm,
+                     make_transition, remat_contexts)
 
 BLOCKS_PER_BRANCH = 2
 MLP_RATIO = 4
@@ -65,7 +73,10 @@ def _fused_blocks_enabled(dim: int) -> bool:
 class WindowAttention(nn.Module):
     """W-MSA with relative position bias over (nW, N, C) windows; the
     attention core is the fused kernel pair (kernels/window_msa.py: K1
-    forward, K2 backward), which takes its plain version for CPU tensors."""
+    forward, K2 backward), which takes its plain version for CPU tensors;
+    under a process grid of more than one rank (``grid``), K3."""
+
+    grid = None  # set by models.build_model under a process grid
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
                  compute_dtype: torch.dtype = torch.float32):
@@ -88,7 +99,11 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         qkv = self.qkv(x).contiguous()
-        out = window_attention(qkv, self.rpe_bias(), self.num_heads)
+        if self.grid is not None and self.grid.size > 1:
+            out = window_attention_sharded(qkv, self.rpe_bias(),
+                                           self.num_heads, self.grid)
+        else:
+            out = window_attention(qkv, self.rpe_bias(), self.num_heads)
         return self.proj(out)
 
 
@@ -112,7 +127,7 @@ class HRFormerBlock(nn.Module):
     LayerNorm statistics are float32 with eps 1e-5; the normalised map
     drops to the compute dtype before the window partition, as in the JAX
     block (hrformer.py:188-227).  With ``use_pallas`` and the fused gate
-    on, the block runs ``_fused`` instead."""
+    on, and no process grid, the block runs ``_fused`` instead."""
 
     DROP_PATHS = 2  # keep masks per block: after attention, after the MLP
 
@@ -133,7 +148,8 @@ class HRFormerBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``keep``: (2, B) bool DropPath masks, or None for none."""
-        if self.use_pallas and _fused_blocks_enabled(self.dim):
+        if (self.use_pallas and self.attn.grid is None
+                and _fused_blocks_enabled(self.dim)):
             return self._fused(x, keep)
         B, H, W, C = x.shape
         ws, dt, rate = self.window_size, self.compute_dtype, self.drop_path_rate
@@ -189,7 +205,8 @@ class HRFormerModule(nn.Module):
     def __init__(self, channels: Sequence[int], heads: Sequence[int],
                  window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
-                 drop_path_rate: float = 0.0, use_pallas: bool = False):
+                 drop_path_rate: float = 0.0, use_pallas: bool = False,
+                 norm: str = "batchnorm"):
         super().__init__()
         kw = dict(compute_dtype=compute_dtype)
         self.branches = nn.ModuleList([
@@ -200,7 +217,7 @@ class HRFormerModule(nn.Module):
             for c, h in zip(channels, heads)])
         self.num_drop_paths = (len(channels) * BLOCKS_PER_BRANCH
                                * HRFormerBlock.DROP_PATHS)
-        self.fuse_layers = make_fuse_layers(channels, compute_dtype)
+        self.fuse_layers = make_fuse_layers(channels, compute_dtype, norm)
 
     def forward(self, xs: List[torch.Tensor],
                 keep: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
@@ -225,22 +242,22 @@ class HRFormer(nn.Module):
                  window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
                  drop_path_rate: float = 0.2, remat: bool = False,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, norm: str = "batchnorm"):
         super().__init__()
         self.channels = tuple(channels)
         self.drop_path_rate = drop_path_rate
         self.remat = remat
-        kw = dict(compute_dtype=compute_dtype)
-        self.conv1 = Conv2d(3, 64, 3, stride=2, **kw)
-        self.bn1 = BatchNorm(64)
-        self.conv2 = Conv2d(64, 64, 3, stride=2, **kw)
-        self.bn2 = BatchNorm(64)
+        kw = dict(compute_dtype=compute_dtype, norm=norm)
+        self.conv1 = Conv2d(3, 64, 3, stride=2, compute_dtype=compute_dtype)
+        self.bn1 = make_norm(norm, 64)
+        self.conv2 = Conv2d(64, 64, 3, stride=2, compute_dtype=compute_dtype)
+        self.bn2 = make_norm(norm, 64)
         self.layer1 = nn.Sequential(Bottleneck(64, 64, **kw),
                                     Bottleneck(256, 64, **kw))
         prev = [256]
         for s, modules in enumerate(stage_modules):
             cur = list(channels[: s + 2])
-            trans = make_transition(prev, cur, compute_dtype)
+            trans = make_transition(prev, cur, **kw)
             setattr(self, f"transition{s + 1}", trans)
             setattr(self, f"stage{s + 2}", nn.ModuleList([
                 HRFormerModule(cur, num_heads[: s + 2], window_size,
@@ -283,15 +300,19 @@ class HRFormer(nn.Module):
 
 def hrformer_base(compute_dtype: torch.dtype = torch.float32,
                   window_size: int = 7, remat: bool = False,
-                  use_pallas: bool = False) -> HRFormer:
+                  use_pallas: bool = False,
+                  norm: str = "batchnorm") -> HRFormer:
     return HRFormer(channels=(78, 156, 312, 624), num_heads=(2, 4, 8, 16),
                     compute_dtype=compute_dtype, window_size=window_size,
-                    drop_path_rate=0.2, remat=remat, use_pallas=use_pallas)
+                    drop_path_rate=0.2, remat=remat, use_pallas=use_pallas,
+                    norm=norm)
 
 
 def hrformer_small(compute_dtype: torch.dtype = torch.float32,
                    window_size: int = 7, remat: bool = False,
-                   use_pallas: bool = False) -> HRFormer:
+                   use_pallas: bool = False,
+                   norm: str = "batchnorm") -> HRFormer:
     return HRFormer(channels=(32, 64, 128, 256), num_heads=(1, 2, 4, 8),
                     compute_dtype=compute_dtype, window_size=window_size,
-                    drop_path_rate=0.1, remat=remat, use_pallas=use_pallas)
+                    drop_path_rate=0.1, remat=remat, use_pallas=use_pallas,
+                    norm=norm)

@@ -31,9 +31,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (BasicBlock, BatchNorm, Bottleneck, Conv2d,
-                     apply_transition, fuse, make_fuse_layers,
-                     make_transition, remat_contexts)
+from .layers import (BasicBlock, Bottleneck, Conv2d, apply_transition,
+                     fuse, make_fuse_layers, make_norm, make_transition,
+                     remat_contexts)
 
 BLOCKS_PER_BRANCH = 4
 STAGE_MODULES = (1, 4, 3)
@@ -44,13 +44,15 @@ class HRModule(nn.Module):
     (layers.make_fuse_layers / layers.fuse)."""
 
     def __init__(self, channels: Sequence[int],
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 norm: str = "batchnorm"):
         super().__init__()
         self.branches = nn.ModuleList([
-            nn.Sequential(*[BasicBlock(c, compute_dtype=compute_dtype)
+            nn.Sequential(*[BasicBlock(c, compute_dtype=compute_dtype,
+                                       norm=norm)
                             for _ in range(BLOCKS_PER_BRANCH)])
             for c in channels])
-        self.fuse_layers = make_fuse_layers(channels, compute_dtype)
+        self.fuse_layers = make_fuse_layers(channels, compute_dtype, norm)
 
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         return fuse(self.fuse_layers,
@@ -66,17 +68,17 @@ class HRNet(nn.Module):
     def __init__(self, base_channels: int = 32,
                  stage_modules: Optional[Tuple[int, ...]] = None,
                  compute_dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, norm: str = "batchnorm"):
         super().__init__()
         C = base_channels
         self.channels = (C, 2 * C, 4 * C, 8 * C)
         self.remat = remat
         stage_modules = tuple(stage_modules or STAGE_MODULES)
-        kw = dict(compute_dtype=compute_dtype)
-        self.conv1 = Conv2d(3, 64, 3, stride=2, **kw)
-        self.bn1 = BatchNorm(64)
-        self.conv2 = Conv2d(64, 64, 3, stride=2, **kw)
-        self.bn2 = BatchNorm(64)
+        kw = dict(compute_dtype=compute_dtype, norm=norm)
+        self.conv1 = Conv2d(3, 64, 3, stride=2, compute_dtype=compute_dtype)
+        self.bn1 = make_norm(norm, 64)
+        self.conv2 = Conv2d(64, 64, 3, stride=2, compute_dtype=compute_dtype)
+        self.bn2 = make_norm(norm, 64)
         self.layer1 = nn.Sequential(Bottleneck(64, 64, **kw),
                                     *[Bottleneck(256, 64, **kw)
                                       for _ in range(3)])
@@ -84,7 +86,7 @@ class HRNet(nn.Module):
         for s, modules in enumerate(stage_modules):
             cur = list(self.channels[: s + 2])
             setattr(self, f"transition{s + 1}",
-                    make_transition(prev, cur, compute_dtype))
+                    make_transition(prev, cur, **kw))
             setattr(self, f"stage{s + 2}", nn.ModuleList([
                 HRModule(cur, **kw) for _ in range(modules)]))
             prev = cur
@@ -112,12 +114,14 @@ class HRNet(nn.Module):
 
 
 def hrnet_w32(compute_dtype: torch.dtype = torch.float32, remat: bool = False,
-              stage_modules: Optional[Tuple[int, ...]] = None) -> HRNet:
+              stage_modules: Optional[Tuple[int, ...]] = None,
+              norm: str = "batchnorm") -> HRNet:
     return HRNet(base_channels=32, stage_modules=stage_modules,
-                 compute_dtype=compute_dtype, remat=remat)
+                 compute_dtype=compute_dtype, remat=remat, norm=norm)
 
 
 def hrnet_w48(compute_dtype: torch.dtype = torch.float32, remat: bool = False,
-              stage_modules: Optional[Tuple[int, ...]] = None) -> HRNet:
+              stage_modules: Optional[Tuple[int, ...]] = None,
+              norm: str = "batchnorm") -> HRNet:
     return HRNet(base_channels=48, stage_modules=stage_modules,
-                 compute_dtype=compute_dtype, remat=remat)
+                 compute_dtype=compute_dtype, remat=remat, norm=norm)

@@ -1,6 +1,7 @@
-"""Shared building blocks: compute-dtype Linear and Conv2d, BatchNorm,
-ConvNorm, BasicBlock, Bottleneck, bilinear resize, DropPath, and the
-transition and all-pairs fuse layers of the multi-resolution backbones.
+"""Shared building blocks: compute-dtype Linear and Conv2d, BatchNorm and
+GroupNorm (``make_norm``), ConvNorm, BasicBlock, Bottleneck, bilinear
+resize, DropPath, and the transition and all-pairs fuse layers of the
+multi-resolution backbones.
 
 Port of infantposeestimation_gaussianbias_tpu/models/layers.py.  Feature
 maps are NHWC, as in the JAX package: a convolution hands PyTorch the
@@ -13,6 +14,12 @@ float32, and each Linear and Conv2d casts its input, weight and bias to
 the module's ``compute_dtype`` before the product, as a flax
 ``nn.Dense(dtype=...)`` does.  BatchNorm folds its statistics in float32
 and applies the affine in the activation dtype.
+
+Under a process grid (parallel/mesh.py) a train-mode BatchNorm whose
+``grid`` is set takes its statistics over the global batch: the float32
+sum, sum of squares and count are all-reduced over the grid's data group
+(``_GlobalSums``), as GSPMD's statistics over a 'data'-sharded batch are
+global in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import contextvars
 from typing import Iterator, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -73,6 +81,26 @@ class Conv2d(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+class _GlobalSums(torch.autograd.Function):
+    """Sum a tensor of per-rank partial sums over a process group.  Every
+    rank's loss reads the global sums, so the gradient of each rank's
+    partial sums is the sum over the group of the gradients of the global
+    ones: the backward all-reduces too."""
+
+    @staticmethod
+    def forward(ctx, sums: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = sums.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d over the last (channel) axis of an NHWC map, with the
     JAX package's arithmetic (models/layers.py:124-165 there); eps 1e-5.
@@ -83,10 +111,28 @@ class BatchNorm(nn.BatchNorm2d):
     variance E[x^2] - E[x]^2 in float32, moves the running statistics to
     ``0.9 * running + 0.1 * batch`` with that biased variance (torch's own
     BatchNorm2d would use the unbiased one), and returns
-    ``(x.float() * a + b)`` cast back to x's dtype.
+    ``(x.float() * a + b)`` cast back to x's dtype.  With ``grid`` set (a
+    ProcessGrid of more than one data rank) the batch is the global one:
+    its sums are all-reduced over the data group, so every rank normalises
+    with the same statistics and moves its running statistics alike.
     """
 
     MOMENTUM = 0.9  # flax's convention: the weight of the running value
+    grid = None     # set by models.build_model under a process grid
+
+    def _batch_stats(self, xf: torch.Tensor) -> tuple:
+        dims = (0, 1, 2)
+        grid = self.grid
+        if grid is None or grid.data == 1:
+            mean = xf.mean(dim=dims)
+            return mean, (xf * xf).mean(dim=dims) - mean * mean
+        C = xf.shape[-1]
+        count = xf.new_full((1,), xf.numel() // C)
+        sums = _GlobalSums.apply(
+            torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]),
+            grid.data_group)
+        mean = sums[:C] / sums[-1]
+        return mean, sums[C:2 * C] / sums[-1] - mean * mean
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -94,8 +140,7 @@ class BatchNorm(nn.BatchNorm2d):
             b = self.bias - self.running_mean * a
             return x * a.to(x.dtype) + b.to(x.dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 1, 2))
-        var = (xf * xf).mean(dim=(0, 1, 2)) - mean * mean
+        mean, var = self._batch_stats(xf)
         if not _STATS_FROZEN.get():
             m = self.MOMENTUM
             with torch.no_grad():
@@ -107,14 +152,49 @@ class BatchNorm(nn.BatchNorm2d):
         return (xf * a + b).to(x.dtype)
 
 
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over the last (channel) axis of an NHWC map, the JAX
+    package's ``Norm(kind="groupnorm")`` (models/layers.py:168-186 there):
+    ``min(32, C)`` groups, lowered until they divide C; eps 1e-5;
+    statistics over (H, W, group channels) in float32; the output cast
+    back to the input's dtype.  flax takes the variance as E[x^2] - E[x]^2
+    and torch's ``group_norm`` as E[(x - mean)^2]: the two agree to float32
+    rounding of the statistics (tests/test_torch_hrnet.py states the
+    bound).  No running statistics: train and eval are the same."""
+
+    def __init__(self, channels: int):
+        groups = min(32, channels)
+        while channels % groups:
+            groups -= 1
+        super().__init__(groups, channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
+                         self.weight, self.bias, self.eps)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+NORMS = {"batchnorm": BatchNorm, "groupnorm": GroupNorm}
+
+
+def make_norm(kind: str, channels: int) -> nn.Module:
+    """The norm layer ``cfg.model.norm`` names: "batchnorm" or
+    "groupnorm"; any other name raises, as the JAX package's ``Norm``
+    does."""
+    if kind not in NORMS:
+        raise ValueError(f"Unknown norm {kind!r}")
+    return NORMS[kind](channels)
+
+
 def conv_norm(in_channels: int, out_channels: int, kernel_size: int = 3,
               stride: int = 1, relu: bool = True,
-              compute_dtype: torch.dtype = torch.float32) -> nn.Sequential:
-    """Conv (bias-free) -> BatchNorm (-> ReLU), named 0/1(/2) as the
+              compute_dtype: torch.dtype = torch.float32,
+              norm: str = "batchnorm") -> nn.Sequential:
+    """Conv (bias-free) -> norm (-> ReLU), named 0/1(/2) as the
     reference's ``Sequential`` blocks."""
     mods = [Conv2d(in_channels, out_channels, kernel_size, stride,
                    compute_dtype=compute_dtype),
-            BatchNorm(out_channels)]
+            make_norm(norm, out_channels)]
     if relu:
         mods.append(nn.ReLU())
     return nn.Sequential(*mods)
@@ -126,13 +206,14 @@ class BasicBlock(nn.Module):
     The float path of models/layers.py:193-222 of the JAX package."""
 
     def __init__(self, features: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 norm: str = "batchnorm"):
         super().__init__()
         kw = dict(compute_dtype=compute_dtype)
         self.conv1 = Conv2d(features, features, 3, **kw)
-        self.bn1 = BatchNorm(features)
+        self.bn1 = make_norm(norm, features)
         self.conv2 = Conv2d(features, features, 3, **kw)
-        self.bn2 = BatchNorm(features)
+        self.bn2 = make_norm(norm, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -146,17 +227,19 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_channels: int, features: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 norm: str = "batchnorm"):
         super().__init__()
         out = features * self.expansion
         kw = dict(compute_dtype=compute_dtype)
         self.conv1 = Conv2d(in_channels, features, 1, **kw)
-        self.bn1 = BatchNorm(features)
+        self.bn1 = make_norm(norm, features)
         self.conv2 = Conv2d(features, features, 3, **kw)
-        self.bn2 = BatchNorm(features)
+        self.bn2 = make_norm(norm, features)
         self.conv3 = Conv2d(features, out, 1, **kw)
-        self.bn3 = BatchNorm(out)
-        self.downsample = (conv_norm(in_channels, out, 1, relu=False, **kw)
+        self.bn3 = make_norm(norm, out)
+        self.downsample = (conv_norm(in_channels, out, 1, relu=False,
+                                     norm=norm, **kw)
                            if in_channels != out else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -190,13 +273,13 @@ def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor],
 
 
 def make_transition(prev: Sequence[int], cur: Sequence[int],
-                    compute_dtype: torch.dtype = torch.float32
-                    ) -> nn.ModuleList:
+                    compute_dtype: torch.dtype = torch.float32,
+                    norm: str = "batchnorm") -> nn.ModuleList:
     """Transition into a stage of ``cur`` branches from one of ``prev``: a
     3x3 ConvNorm where a branch's width changes (Identity where it does
     not), and a stride-2 3x3 ConvNorm from the lowest branch for each new
     one, wrapped in one more Sequential as in the reference."""
-    kw = dict(compute_dtype=compute_dtype)
+    kw = dict(compute_dtype=compute_dtype, norm=norm)
     trans = nn.ModuleList()
     for i, ch in enumerate(cur):
         if i < len(prev):
@@ -216,13 +299,13 @@ def apply_transition(trans: nn.ModuleList,
 
 
 def make_fuse_layers(channels: Sequence[int],
-                     compute_dtype: torch.dtype = torch.float32
-                     ) -> nn.ModuleList:
+                     compute_dtype: torch.dtype = torch.float32,
+                     norm: str = "batchnorm") -> nn.ModuleList:
     """All-pairs fuse layers of an exchange module: layer (i, j) is, for
     j > i, a 1x1 ConvNorm (upsampled in ``fuse``); for j == i the
     identity; for j < i a chain of stride-2 3x3 ConvNorms, ReLU on all but
     the last, which also changes the width."""
-    kw = dict(compute_dtype=compute_dtype)
+    kw = dict(compute_dtype=compute_dtype, norm=norm)
     n = len(channels)
     rows = nn.ModuleList()
     for i in range(n):

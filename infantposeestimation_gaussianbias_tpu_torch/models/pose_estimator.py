@@ -5,6 +5,11 @@ the HRNet and HRFormer backbones and the heatmap and fusion heads.
 ``flip_inference`` keeps the reference's flip-test contract: heatmaps are
 averaged with the mirrored pass, while the fusion head's offsets and
 decode logits come from the unflipped pass.
+
+``build_model(cfg, device, grid)`` reads ``cfg.model.norm`` (BatchNorm or
+GroupNorm in every ConvNorm, as the JAX package) and, under a process grid
+(parallel/mesh.py), hands the grid to every WindowAttention and BatchNorm,
+as the JAX ``build_model(cfg, mesh=...)`` threads its mesh.
 """
 
 from __future__ import annotations
@@ -16,8 +21,9 @@ import torch.nn as nn
 
 from ..ops import decode as decode_ops
 from .heads import FusionHead, HeatmapHead
-from .hrformer import hrformer_base, hrformer_small
+from .hrformer import WindowAttention, hrformer_base, hrformer_small
 from .hrnet import hrnet_w32, hrnet_w48
+from .layers import BatchNorm
 
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
     "hrnet_w32": hrnet_w32,
@@ -42,7 +48,8 @@ class PoseEstimator(nn.Module):
                  hidden_dim: int = 256, window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
                  remat: bool = False, use_pallas: bool = False,
-                 stage_modules: Optional[Tuple[int, ...]] = None):
+                 stage_modules: Optional[Tuple[int, ...]] = None,
+                 norm: str = "batchnorm"):
         super().__init__()
         if backbone_name not in BACKBONES:
             raise ValueError(f"Unknown backbone {backbone_name!r}; "
@@ -52,7 +59,7 @@ class PoseEstimator(nn.Module):
                              f"{head_type!r}")
         self.compute_dtype = compute_dtype
         self.head_type = head_type
-        kw = dict(compute_dtype=compute_dtype, remat=remat)
+        kw = dict(compute_dtype=compute_dtype, remat=remat, norm=norm)
         if backbone_name.startswith("hrnet"):
             kw.update(stage_modules=stage_modules)
         else:
@@ -61,7 +68,7 @@ class PoseEstimator(nn.Module):
         width = self.backbone.channels[0]
         self.head = (
             FusionHead(width, num_keypoints, hidden_dim,
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype, norm=norm)
             if head_type == "fusion" else
             HeatmapHead(width, num_keypoints, compute_dtype=compute_dtype))
 
@@ -85,12 +92,21 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_model(cfg, device="cuda") -> PoseEstimator:
+def build_model(cfg, device="cuda", grid=None) -> PoseEstimator:
     """PoseEstimator from a Config, with seeded weights (``cfg.train.seed``,
-    see weights.init_weights), in eval mode on ``device``."""
+    see weights.init_weights), in eval mode on ``device``.  ``grid``: a
+    parallel.ProcessGrid whose device is ``device``'s kind; the model is
+    built on the grid's device, its W-MSA runs K3 over the grid and its
+    train-mode BatchNorm statistics are global over the grid's data
+    group."""
     from ..weights import init_weights
 
     device = resolve_device(device)
+    if grid is not None:
+        if grid.device.type != device.type:
+            raise ValueError(f"the grid's ranks run on {grid.device}, not "
+                             f"{device}")
+        device = grid.device
     model = PoseEstimator(
         backbone_name=cfg.model.backbone,
         head_type=cfg.model.head_type,
@@ -100,8 +116,13 @@ def build_model(cfg, device="cuda") -> PoseEstimator:
         compute_dtype=COMPUTE_DTYPES[cfg.model.compute_dtype],
         remat=cfg.model.remat,
         use_pallas=cfg.model.use_pallas,
-        stage_modules=tuple(cfg.model.hrnet_stage_modules) or None)
+        stage_modules=tuple(cfg.model.hrnet_stage_modules) or None,
+        norm=cfg.model.norm)
     init_weights(model, cfg.train.seed)
+    if grid is not None:
+        for m in model.modules():
+            if isinstance(m, (BatchNorm, WindowAttention)):
+                m.grid = grid
     return model.to(device).eval()
 
 

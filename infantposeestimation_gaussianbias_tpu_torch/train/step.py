@@ -23,6 +23,26 @@ needs no generator.
 A non-zero ``data.color_jitter`` (the ``preemie`` config) raises
 ``NotImplementedError``: the on-device photometric jitter
 (``ops/photometric.py``) is not ported yet.
+
+Under a process grid (``make_train_step(cfg, grid)``, parallel/mesh.py)
+every rank is handed the same global batch, as the JAX step is handed a
+batch sharded over 'data', and works on its data rank's share of each
+microbatch; the DropPath masks are drawn for the global batch from the
+shared generator and each rank keeps its columns.  Each loss term is the
+rank's share of the global term (its numerator over the global
+denominator, losses/fusion.py ``global_sum``), so the terms and the
+gradients add up over the data ranks to JAX's.  After the backward one
+all-reduce over the world group sums every gradient, flattened in
+parameter order, and a scale takes it back to the sum over the data
+ranks: 1/m (the m model ranks of a data index hold the same gradient),
+and 1/(d m) for the RPE tables, whose gradient K3 returns already summed
+over the d data ranks.  Summing over the world, and not over the data
+group alone, is what keeps the ranks equal: on the card the model ranks'
+gradients agree only up to the order of atomic sums (the RPE table's
+scatter-add, the bilinear upsample's backward), and two data groups would
+sum two such versions.  Then the global-norm clip and the same AdamW
+update run on every rank, which keeps the parameters equal bit for bit.
+No DDP: it would reduce the RPE tables a second time.
 """
 
 from __future__ import annotations
@@ -30,11 +50,14 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from .. import losses as L
 from ..models import build_model
+from ..models.hrformer import WindowAttention
 from ..ops import heatmap as heatmap_ops
+from ..parallel.mesh import TENSOR_PARALLEL_TODO
 from .optim import build_optimizer
 from .state import TrainState, optax_global_norm
 
@@ -51,9 +74,9 @@ def _targets(batch: Batch, heatmap_size, input_size, sigma
         sigma, "msra")
 
 
-def make_loss_fn(cfg) -> Callable:
+def make_loss_fn(cfg, global_sum: L.GlobalSum = None) -> Callable:
     """Loss: (outputs, batch, target, weight) -> (loss, terms dict), for
-    the fusion and heatmap heads."""
+    the fusion and heatmap heads.  ``global_sum``: see losses/fusion.py."""
     head = cfg.model.head_type
     if head not in ("fusion", "heatmap"):
         raise NotImplementedError(f"no loss for the {head!r} head in the "
@@ -69,7 +92,7 @@ def make_loss_fn(cfg) -> Callable:
     def loss_fn(outputs, batch, target, weight):
         if head == "heatmap":
             loss = L.keypoint_mse_loss(outputs["heatmaps"], target, weight,
-                                       m.use_target_weight)
+                                       m.use_target_weight, global_sum)
             return loss, {"total_loss": loss, "heatmap_loss": loss}
         dev = target.device
         if dev not in skeletons:
@@ -79,7 +102,7 @@ def make_loss_fn(cfg) -> Callable:
             outputs, target, weight, batch["keypoints"], skeletons[dev],
             input_size=input_size, weights=fusion_weights,
             target_sigma=cfg.data.sigma,
-            use_target_weight=m.use_target_weight)
+            use_target_weight=m.use_target_weight, global_sum=global_sum)
         return terms["total_loss"], terms
 
     return loss_fn
@@ -105,9 +128,24 @@ def _on(batch: Batch, device) -> Batch:
     return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
 
 
-def make_train_step(cfg) -> Callable:
+def _data_sum(grid) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+    """Sum of a tensor over the grid's data ranks (None: no data axis)."""
+    if grid is None or grid.data == 1:
+        return None
+
+    def data_sum(t: torch.Tensor) -> torch.Tensor:
+        t = t.clone()
+        dist.all_reduce(t, group=grid.data_group)
+        return t
+
+    return data_sum
+
+
+def make_train_step(cfg, grid=None) -> Callable:
     """The train step ``(state, batch, generator, drop_masks=None) ->
-    (state, metrics)``.  The state is updated in place and returned."""
+    (state, metrics)``.  The state is updated in place and returned.
+    ``grid``: the ProcessGrid the state's model was built over (see the
+    module doc); ``batch`` and ``drop_masks`` are then the global ones."""
     if any(float(j) != 0.0 for j in cfg.data.color_jitter):
         raise NotImplementedError(
             "photometric jitter is not ported yet: set data.color_jitter to "
@@ -115,8 +153,10 @@ def make_train_step(cfg) -> Callable:
     heatmap_size = tuple(cfg.data.heatmap_size)
     input_size = tuple(cfg.data.input_size)
     sigma = cfg.data.sigma
-    loss_fn = make_loss_fn(cfg)
+    data_sum = _data_sum(grid)
+    loss_fn = make_loss_fn(cfg, data_sum)
     accum = max(1, int(cfg.train.grad_accum_steps))
+    D, d = (1, 0) if grid is None else (grid.data, grid.data_index)
 
     def micro_grads(model, batch, keep) -> Metrics:
         """Targets -> forward -> loss -> backward for one (micro)batch; the
@@ -135,17 +175,18 @@ def make_train_step(cfg) -> Callable:
         device = next(model.parameters()).device
         batch = _on(batch, device)
         b = batch["image"].shape[0]
-        if b % accum:
+        if b % (accum * D):
             raise ValueError(f"global batch {b} not divisible by "
-                             f"grad_accum_steps={accum}")
+                             f"grad_accum_steps={accum} x {D} data ranks")
         model.train()
         if drop_masks is None:
             drop_masks = draw_drop_masks(model, b, generator, device)
         state.optimizer.zero_grad(set_to_none=True)
         mb = b // accum
+        per = mb // D  # this data rank's rows of each microbatch
         sums: Optional[Metrics] = None
         for i in range(accum):
-            rows = slice(i * mb, (i + 1) * mb)
+            rows = slice(i * mb + d * per, i * mb + (d + 1) * per)
             keep = None if drop_masks is None else drop_masks[:, rows]
             terms = micro_grads(model, {k: v[rows] for k, v in batch.items()},
                                 keep)
@@ -156,6 +197,10 @@ def make_train_step(cfg) -> Callable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        if grid is not None and grid.size > 1:
+            _sum_gradients(model, params, grid)
+        if data_sum is not None:
+            sums = dict(zip(sums, data_sum(torch.stack(list(sums.values())))))
         if accum > 1:  # gradients were summed in float32; average them
             torch._foreach_mul_(grads, 1.0 / accum)
             sums = {k: v * (1.0 / accum) for k, v in sums.items()}
@@ -165,6 +210,26 @@ def make_train_step(cfg) -> Callable:
         return state, metrics
 
     return train_step
+
+
+def _sum_gradients(model: nn.Module, params, grid) -> None:
+    """Every gradient summed over the grid's data ranks, the same bits on
+    every rank: one all-reduce over the world group, flattened in
+    parameter order, then 1/m, and 1/(d m) for the RPE tables (K3 returns
+    those summed over the data ranks already); see the module doc."""
+    rpe = {id(m.relative_position_bias_table) for m in model.modules()
+           if isinstance(m, WindowAttention)}
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=grid.world_group)
+    torch._foreach_copy_(grads, [t.view_as(g) for t, g in zip(
+        flat.split([g.numel() for g in grads]), grads)])
+    for scale, group in ((1.0 / grid.model, [p.grad for p in params
+                                             if id(p) not in rpe]),
+                         (1.0 / grid.size, [p.grad for p in params
+                                            if id(p) in rpe])):
+        if scale != 1.0 and group:
+            torch._foreach_mul_(group, scale)
 
 
 def make_eval_step(cfg) -> Callable:
@@ -193,12 +258,17 @@ def make_eval_step(cfg) -> Callable:
     return eval_step
 
 
-def create_train_state(cfg, device="cuda", state_dict=None) -> TrainState:
+def create_train_state(cfg, device="cuda", state_dict=None,
+                       grid=None) -> TrainState:
     """Model (seeded weights from ``cfg.train.seed``, or ``state_dict`` in
     the reference checkpoint's naming) in train mode on ``device`` (the
     CUDA card unless the caller asks for ``"cpu"``), with its optimizer and
-    schedule."""
-    model = build_model(cfg, device)
+    schedule.  ``grid``: build the model over this ProcessGrid (see
+    models.build_model); ``cfg.parallel.tensor_parallel`` is not ported
+    and raises."""
+    if grid is not None and cfg.parallel.tensor_parallel:
+        raise NotImplementedError(TENSOR_PARALLEL_TODO)
+    model = build_model(cfg, device, grid)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     model.train()

@@ -13,7 +13,7 @@ inverse of ``tools/import_torch_checkpoint.convert_checkpoint`` of the JAX
 package (its ``convert_hrnet_backbone``, ``convert_hrformer_backbone``,
 ``convert_heatmap_head`` and ``convert_fusion_head``): flax conv kernels (kh, kw, I, O) become (O, I, kh, kw), Dense
 kernels (I, O) become (O, I), BatchNorm scale/bias/mean/var become
-weight/bias/running_mean/running_var.
+weight/bias/running_mean/running_var, GroupNorm scale/bias weight/bias.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import torch.nn as nn
 
 from .models.heads import FusionHead
 from .models.hrformer import WindowAttention
-from .models.layers import BatchNorm, Conv2d, Linear
+from .models.layers import BatchNorm, Conv2d, GroupNorm, Linear
 from .ops.msa import relative_position_index
 
 # -- seeded initialisation ---------------------------------------------------
@@ -54,7 +54,7 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, Linear):
             trunc_normal(m.weight, 0.02)
             m.bias.zero_()
-        elif isinstance(m, (BatchNorm, nn.LayerNorm)):
+        elif isinstance(m, (BatchNorm, GroupNorm, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
             if isinstance(m, BatchNorm):
@@ -148,11 +148,12 @@ def _param_entry(part: str, path: Tuple[str, ...], value: np.ndarray
         if path[1] == "kernel":
             return f"{name}.weight", value.transpose(3, 2, 0, 1)
         return f"{name}.bias", value
-    # ConvNorm leaves: (..., conv, kernel) and (..., norm, bn, scale|bias)
+    # ConvNorm leaves: (..., conv, kernel) and (..., norm, bn|gn,
+    # scale|bias)
     if path[-2:] == ("conv", "kernel"):
         conv, _ = _convnorm_names(path[:-2])
         return f"{conv}.weight", value.transpose(3, 2, 0, 1)
-    if path[-3:-1] == ("norm", "bn"):
+    if path[-3:-1] in (("norm", "bn"), ("norm", "gn")):
         _, bn = _convnorm_names(path[:-3])
         return f"{bn}.{'weight' if path[-1] == 'scale' else 'bias'}", value
     # HRFormer block leaves: norm1/2, attn.qkv/proj, the RPE table, mlp.fc1/2

@@ -14,6 +14,8 @@ from infantposeestimation_gaussianbias_tpu import config as jconfig
 from infantposeestimation_gaussianbias_tpu import schemas as jschemas
 from infantposeestimation_gaussianbias_tpu_torch import config, schemas
 
+from tests import torch_grid
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "infantposeestimation_gaussianbias_tpu_torch"
 
@@ -69,9 +71,11 @@ def _imported_modules(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO))
-    for p in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]))
+    for p in [*PORT.rglob("*.py"), REPO / "chip_smoke.py",
+              REPO / "tests" / "torch_grid.py"]))
 def test_port_imports_nothing_of_jax(path):
-    """No module of the port, and not chip_smoke.py, imports jax, flax or
+    """No module of the port, not chip_smoke.py, and not the process-grid
+    tests' rank helper (which spawned ranks import) imports jax, flax or
     the JAX package (its framework-neutral modules included)."""
     bad = [m for m in _imported_modules(REPO / path)
            if m.split(".")[0] in ("jax", "flax", "optax",
@@ -89,6 +93,8 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from infantposeestimation_gaussianbias_tpu_torch.analysis import (
         benchmark_model)
     from infantposeestimation_gaussianbias_tpu_torch.models import build_model
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
+        ProcessGrid, run_grid)
     from infantposeestimation_gaussianbias_tpu_torch.tools import (
         probe_wmsa_ablate)
 
@@ -100,3 +106,57 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     monkeypatch.setenv("PROBE_SHAPE", "2,16,16,1")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         probe_wmsa_ablate.main()
+    grid = ProcessGrid(data=2, model=1, rank=0, data_index=0, model_index=0,
+                       data_group=None, model_group=None, world_group=None,
+                       device=torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PoseInference(cfg, mesh=grid)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_grid(torch_grid.raise_on, 1, 2, "gloo", args=(5,))
+
+
+def test_backends_are_explicit():
+    """nccl needs a card per rank: more ranks than cards raises before a
+    process starts; a backend other than gloo or nccl raises."""
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
+        check_backend, run_grid)
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match="nccl needs a card per rank"):
+        check_backend("nccl", cards + 1)
+    with pytest.raises(RuntimeError, match="nccl needs a card per rank"):
+        run_grid(torch_grid.raise_on, cards + 1, 1, "nccl", device="cpu",
+                 args=(5,))
+    with pytest.raises(ValueError, match="backend must be one of"):
+        check_backend("mpi", 1)
+    check_backend("gloo", cards + 4)
+
+
+def test_tensor_parallel_is_refused():
+    """The JAX package's tensor_parallel is not ported yet: asked for, it
+    raises and names the roadmap item."""
+    from infantposeestimation_gaussianbias_tpu_torch import (
+        PoseInference, create_train_state)
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
+        ProcessGrid)
+
+    cfg = config.get_variant("hrformer_small")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        PoseInference(cfg, device="cpu", tensor_parallel=True)
+    cfg.parallel.tensor_parallel = True
+    grid = ProcessGrid(data=2, model=1, rank=0, data_index=0, model_index=0,
+                       data_group=None, model_group=None, world_group=None,
+                       device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        create_train_state(cfg, device="cpu", grid=grid)
+
+
+def test_run_grid_fails_when_a_rank_raises():
+    """A rank's exception fails the call, with the rank's message."""
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import run_grid
+
+    assert run_grid(torch_grid.raise_on, 1, 2, "gloo", device="cpu",
+                    args=(5,), timeout=120) == [0, 1]
+    with pytest.raises(Exception, match="rank 1 fails on purpose"):
+        run_grid(torch_grid.raise_on, 1, 2, "gloo", device="cpu",
+                 args=(1,), timeout=120)

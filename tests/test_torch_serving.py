@@ -313,8 +313,9 @@ def test_hrformer_base_state_dict_matches_jax_shapes():
 # -- no jax at run time -------------------------------------------------------
 
 def test_port_runs_without_jax():
-    """With jax, flax and the JAX package unimportable, the port imports,
-    serves a batch and takes a training step (DropPath on), on the CPU."""
+    """With jax, flax and the JAX package unimportable, the port imports
+    (its process grid and the grid tests' rank helper too), serves a batch
+    and takes a training step (DropPath on), on the CPU."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = sys.modules["flax"] = None
@@ -325,6 +326,8 @@ def test_port_runs_without_jax():
             PoseInference, create_train_state, get_variant, make_train_step)
         from infantposeestimation_gaussianbias_tpu_torch.models import (
             hrformer, pose_estimator)
+        from infantposeestimation_gaussianbias_tpu_torch import parallel
+        from tests import torch_grid
         pose_estimator.BACKBONES["tiny"] = lambda **kw: hrformer.HRFormer(
             channels=(8, 16, 32, 64), num_heads=(1, 2, 4, 8),
             stage_modules=(1, 1, 1), **kw)
