@@ -176,10 +176,10 @@ FUSED_STEP_STAT_TOL = 1e-2
 FUSED_VS_UNFUSED_TOL = 4e-2
 # Least time of a kernel: its bytes (each input read once, each output
 # written once) at the H100 SXM's 3.35 TB/s, or its FLOPs at the peak rate
-# for their type, whichever is longer (NVIDIA's H100 SXM data sheet).  K1
-# and K2 do all their maths in float32: 67 TFLOP/s of the CUDA cores.  K4
-# and K5's products are bf16 x bf16 -> f32 in the TPU kernels: the 989
-# TFLOP/s dense bf16 tensor-core rate.
+# for their type, whichever is longer (NVIDIA's H100 SXM data sheet):
+# float32 inputs at 67 TFLOP/s of the CUDA cores, bf16 inputs at the 989
+# TFLOP/s dense bf16 tensor-core rate (the least time for the work, even
+# where a kernel, as K1 and K2 do, computes in float32).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
@@ -319,6 +319,11 @@ def cuda_median_ms(fn, warmup: int = 3, runs: int = 25) -> float:
     return float(np.median(times))
 
 
+def flop_rate(dtype: torch.dtype) -> float:
+    """The card's peak FLOP/s for products of inputs of this type."""
+    return BF16_TC_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+
+
 def bound_ms(nbytes: float, flops: float,
              flop_rate: float = F32_FLOP_PER_S) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") for the work of one call."""
@@ -409,7 +414,8 @@ def phase_k1() -> dict:
                 q, k, v, attn_mask=mask))
             es = qkv.element_size()
             nbytes = nW * N * 4 * C * es + (H * N * N * 4 if with_bias else 0)
-            b_ms, b_by = bound_ms(nbytes, 4 * N * N * hd * nW * H)
+            b_ms, b_by = bound_ms(nbytes, 4 * N * N * hd * nW * H,
+                                  flop_rate(dt))
             name = "f32" if dt == torch.float32 else "bf16"
             log(f"[k1] {label:16s} nW={nW:5d} N={N} H={H:2d} hd={hd} "
                 f"{name:4s} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
@@ -466,7 +472,8 @@ def phase_k2() -> dict:
             del out
             es = qkv.element_size()
             nbytes = nW * N * 7 * C * es + 2 * H * N * N * 4
-            b_ms, b_by = bound_ms(nbytes, 10 * N * N * hd * nW * H)
+            b_ms, b_by = bound_ms(nbytes, 10 * N * N * hd * nW * H,
+                                  flop_rate(dt))
             name = "f32" if dt == torch.float32 else "bf16"
             log(f"[k2] {label:12s} nW={nW:5d} N={N} H={H:2d} hd={hd} "
                 f"{name:4s} dqkv_err={err_q:.3e} dbias_err={err_b:.3e} "
@@ -1225,8 +1232,8 @@ def _chain_bound(x: torch.Tensor, w: torch.Tensor, n: int):
     B, H, W, C = x.shape
     nbytes = (2 * x.numel() * x.element_size() + w.numel() * w.element_size()
               + 2 * n * 2 * C * 4)
-    rate = BF16_TC_FLOP_PER_S if w.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    return bound_ms(nbytes, 2 * n * 2 * B * H * W * 9 * C * C, rate)
+    return bound_ms(nbytes, 2 * n * 2 * B * H * W * 9 * C * C,
+                    flop_rate(w.dtype))
 
 
 def phase_k7() -> dict:
@@ -1319,8 +1326,7 @@ def _wgrad_bound(x: torch.Tensor, dy: torch.Tensor):
     B, H, W, Ci = x.shape
     Co = dy.shape[-1]
     nbytes = (x.numel() + dy.numel()) * x.element_size() + 9 * Ci * Co * 4
-    rate = BF16_TC_FLOP_PER_S if x.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    return bound_ms(nbytes, 2 * B * H * W * 9 * Ci * Co, rate)
+    return bound_ms(nbytes, 2 * B * H * W * 9 * Ci * Co, flop_rate(x.dtype))
 
 
 def phase_k6() -> tuple:
@@ -1637,7 +1643,8 @@ def phase_k1_hm() -> dict:
                 lib_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask))
                 nbytes = 4 * H * nW * N * hd * q.element_size() + H * N * N * 4
-                b_ms, b_by = bound_ms(nbytes, 4 * N * N * hd * nW * H)
+                b_ms, b_by = bound_ms(nbytes, 4 * N * N * hd * nW * H,
+                                      flop_rate(q.dtype))
                 log(f"[k1-hm] {label:12s} nW={nW:5d} N={N} H={H:2d} hd={hd} "
                     f"{name:4s} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
                     f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
@@ -1786,7 +1793,8 @@ def phase_k8() -> dict:
         for variant in ablate.VARIANTS:
             b = bias_of(variant, bias, H, N, C)
             bounds[variant] = bound_ms(nbytes, k8_flops(variant, nW, N, H,
-                                                        hd))[0]
+                                                        hd),
+                                       flop_rate(qkv.dtype))[0]
             plain[variant] = cuda_median_ms(
                 lambda: ablate.ablate_reference(variant, qkv, b, H),
                 runs=10)
@@ -1823,7 +1831,8 @@ def phase_k8() -> dict:
     lib_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask))
     b_ms, b_by = bound_ms(nW * N * 4 * C * 2, k8_flops("full", nW, N, H,
-                                                         C // H))
+                                                         C // H),
+                          flop_rate(qkv.dtype))
     record = dict(ms=rec["ms"]["full@1"], plain_ms=rec["plain_ms"]["full"],
                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                   max_abs_err=worst,
@@ -2117,8 +2126,9 @@ def k3_rank(grid) -> dict:
             f_ops = 4 * N * N * hd * nWl * hl
             b_bytes = nWl * N * 7 * cl * es + 2 * hl * N * N * 4
             b_ops = 10 * N * N * hd * nWl * hl
-            k1_bound, _ = bound_ms(f_bytes, f_ops)
-            b_ms, b_by = bound_ms(f_bytes + b_bytes, f_ops + b_ops)
+            k1_bound, _ = bound_ms(f_bytes, f_ops, flop_rate(dt))
+            b_ms, b_by = bound_ms(f_bytes + b_bytes, f_ops + b_ops,
+                                  flop_rate(dt))
             rows.append(dict(
                 label=label, dtype="f32" if dt == torch.float32 else "bf16",
                 nW_local=nWl, heads=(h0, hl), max_abs_err=err,

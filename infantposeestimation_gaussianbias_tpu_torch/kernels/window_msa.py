@@ -56,9 +56,10 @@ from ..ops import msa
 from . import build
 
 # Kernel launches since the last reset, K1 and K2; one per launch, nowhere
-# else (K2's launch counts its dbias reduction pass with it).  K3's K1 and
-# K2 launches count in LAUNCHES and BWD_LAUNCHES and again in
-# SHARDED_LAUNCHES and SHARDED_BWD_LAUNCHES.
+# else (K2's launch counts its dbias reduction pass with it).  A launch over
+# a head range (K3's head-parallel K1 and K2) counts in LAUNCHES and
+# BWD_LAUNCHES and again in SHARDED_LAUNCHES and SHARDED_BWD_LAUNCHES; K3
+# with a replicated model axis launches whole-head K1/K2, counted there only.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 HM_LAUNCHES = 0
@@ -183,7 +184,7 @@ def window_attention_qkv(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     """K1, fused W-MSA: (nW, N, 3C) qkv -> (nW, N, C), see the module doc.
     ``heads=(h0, Hl)``: only those heads, into their columns of a
     zero-filled output."""
-    global LAUNCHES
+    global LAUNCHES, SHARDED_LAUNCHES
     if not build.on_card(qkv, "W-MSA"):
         return window_attention_qkv_reference(qkv, bias, num_heads, heads)
     nW, N, hd, code, h0, hl = _check(qkv, bias, num_heads, heads)
@@ -200,6 +201,7 @@ def window_attention_qkv(qkv: torch.Tensor, bias: Optional[torch.Tensor],
             code, stream)
     build.check(lib, err, "window_msa_fwd launch")
     LAUNCHES += 1
+    SHARDED_LAUNCHES += heads is not None
     return out
 
 
@@ -289,7 +291,7 @@ def window_attention_qkv_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     """K2, the W-MSA backward: (qkv, bias, dout) -> (dqkv, dbias), see the
     module doc.  ``heads=(h0, Hl)``: only those heads, into their columns
     of a zero-filled dqkv and their tiles of a zero-filled dbias."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, SHARDED_BWD_LAUNCHES
     if not build.on_card(qkv, "W-MSA"):
         return window_attention_qkv_bwd_reference(qkv, bias, dout, num_heads,
                                                   heads)
@@ -319,6 +321,7 @@ def window_attention_qkv_bwd(qkv: torch.Tensor, bias: torch.Tensor,
             hd, float(hd ** -0.5), wpb, code, stream)
     build.check(lib, err, "window_msa_bwd launch")
     BWD_LAUNCHES += 1
+    SHARDED_BWD_LAUNCHES += heads is not None
     return dqkv, dbias
 
 
@@ -370,26 +373,20 @@ class _ShardedWindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
                 grid) -> torch.Tensor:
-        global SHARDED_LAUNCHES
         heads = head_range(num_heads, grid)
         ctx.save_for_backward(qkv, bias)
         ctx.num_heads, ctx.grid, ctx.heads = num_heads, grid, heads
         out = window_attention_qkv(qkv, bias, num_heads, heads)
-        if qkv.is_cuda:
-            SHARDED_LAUNCHES += 1
         if heads is not None:
             dist.all_reduce(out, group=grid.model_group)
         return out
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
-        global SHARDED_BWD_LAUNCHES
         qkv, bias = ctx.saved_tensors
         grid, heads = ctx.grid, ctx.heads
         dqkv, dbias = window_attention_qkv_bwd(qkv, bias, dout.contiguous(),
                                                ctx.num_heads, heads)
-        if qkv.is_cuda:
-            SHARDED_BWD_LAUNCHES += 1
         if heads is not None:
             dist.all_reduce(dqkv, group=grid.model_group)
             dist.all_reduce(dbias, group=grid.world_group)

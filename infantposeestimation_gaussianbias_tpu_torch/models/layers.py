@@ -159,7 +159,7 @@ class GroupNorm(nn.GroupNorm):
     statistics over (H, W, group channels) in float32; the output cast
     back to the input's dtype.  flax takes the variance as E[x^2] - E[x]^2
     and torch's ``group_norm`` as E[(x - mean)^2]: the two agree to float32
-    rounding of the statistics (tests/test_torch_hrnet.py states the
+    rounding of the statistics (tests/test_torch_norm.py states the
     bound).  No running statistics: train and eval are the same."""
 
     def __init__(self, channels: int):

@@ -82,16 +82,29 @@ def initialize_multihost(backend: str, coordinator: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None,
                          timeout: timedelta = TIMEOUT) -> None:
-    """Initialise the default process group.  With coordinator and
-    num_processes None, from torchrun's environment (MASTER_ADDR,
-    MASTER_PORT, RANK, WORLD_SIZE); otherwise at
+    """Initialise the default process group: with coordinator,
+    num_processes and process_id all None, from torchrun's environment
+    (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE); with all three set, at
     ``tcp://coordinator`` ("host:port") as rank ``process_id`` of
-    ``num_processes``."""
-    check_backend(backend, int(os.environ.get("LOCAL_WORLD_SIZE", "1")))
-    if coordinator is None and num_processes is None:
+    ``num_processes``; anything between raises.  ``check_backend`` counts
+    torchrun's LOCAL_WORLD_SIZE (else WORLD_SIZE) ranks on this host on the
+    environment path, and every one of ``num_processes`` on the explicit
+    path: ranks spread over hosts come through torchrun."""
+    explicit = (coordinator, num_processes, process_id)
+    if any(v is None for v in explicit) and any(
+            v is not None for v in explicit):
+        raise ValueError(
+            "coordinator, num_processes and process_id are set together or "
+            f"not at all, got {coordinator!r}, {num_processes!r}, "
+            f"{process_id!r}")
+    if coordinator is None:
+        env = os.environ
+        check_backend(backend, int(env.get("LOCAL_WORLD_SIZE",
+                                           env.get("WORLD_SIZE", "1"))))
         dist.init_process_group(backend, init_method="env://",
                                 timeout=timeout)
     else:
+        check_backend(backend, num_processes)
         dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                                 world_size=num_processes, rank=process_id,
                                 timeout=timeout)

@@ -3,6 +3,7 @@
 JAX package (its imports, and its entry points' device default)."""
 
 import ast
+import socket
 from pathlib import Path
 
 import numpy as np
@@ -130,6 +131,62 @@ def test_backends_are_explicit():
     with pytest.raises(ValueError, match="backend must be one of"):
         check_backend("mpi", 1)
     check_backend("gloo", cards + 4)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@pytest.mark.parametrize("path", ["env", "tcp"])
+def test_initialize_multihost(path, monkeypatch):
+    """A one-rank gloo group on this host, from torchrun's environment or
+    from cfg.parallel's coordinator, process count and id."""
+    import torch.distributed as dist
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
+        initialize_multihost, maybe_initialize_multihost)
+
+    port = _free_port()
+    cfg = config.get_variant("hrformer_small")
+    try:
+        if path == "env":
+            for k, v in (("MASTER_ADDR", "127.0.0.1"),
+                         ("MASTER_PORT", str(port)), ("RANK", "0"),
+                         ("WORLD_SIZE", "1")):
+                monkeypatch.setenv(k, v)
+            initialize_multihost("gloo")
+        else:
+            cfg.parallel.multihost = True
+            cfg.parallel.coordinator = f"127.0.0.1:{port}"
+            cfg.parallel.num_processes, cfg.parallel.process_id = 1, 0
+            maybe_initialize_multihost(cfg, "gloo")
+        assert dist.is_initialized()
+        assert (dist.get_rank(), dist.get_world_size()) == (0, 1)
+        assert dist.get_backend() == "gloo"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_initialize_multihost_refuses_what_it_cannot_run(monkeypatch):
+    """The explicit arguments come all together or not at all; nccl counts
+    every rank on this host (num_processes, or torchrun's WORLD_SIZE where
+    LOCAL_WORLD_SIZE is unset) against the cards."""
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
+        initialize_multihost)
+
+    for args in (("127.0.0.1:1", None, None), (None, 2, 0),
+                 ("127.0.0.1:1", 2, None)):
+        with pytest.raises(ValueError, match="set together or not at all"):
+            initialize_multihost("gloo", *args)
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match=f"{cards + 1} ranks"):
+        initialize_multihost("nccl", "127.0.0.1:1", cards + 1, 0)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    monkeypatch.setenv("WORLD_SIZE", str(cards + 2))
+    with pytest.raises(RuntimeError, match=f"{cards + 2} ranks"):
+        initialize_multihost("nccl")
 
 
 def test_tensor_parallel_is_refused():

@@ -54,9 +54,9 @@ def jax_results():
             return jnp.sum(jnp.sin(y)), y
 
         with jwm.interpret_mode():
-            (_, y), (dq, db) = jax.value_and_grad(
-                loss, argnums=(0, 1), has_aux=True)(jnp.asarray(qkv),
-                                                    jnp.asarray(bias))
+            (_, y), (dq, db) = jax.jit(jax.value_and_grad(
+                loss, argnums=(0, 1), has_aux=True))(jnp.asarray(qkv),
+                                                     jnp.asarray(bias))
         out.append(tuple(np.asarray(a) for a in (y, dq, db)))
     return out
 

@@ -1,24 +1,18 @@
-"""PyTorch port, process grid: the slice over a 2 x 2 grid of gloo ranks
-on the CPU against the JAX package, on the tiny HRFormer + fusion head of
+"""PyTorch port, process grid: serving over a 2 x 2 grid of gloo ranks on
+the CPU against the JAX package, on the tiny HRFormer + fusion head of
 tests/test_torch_serving.py (heads 1/2/4/8: branch 0's one head makes K3
 replicate the model axis, the others split their heads).
 
-* serving: ``PoseInference(mesh=grid)`` on a ragged batch of 5 frames
-  against JAX's single-device ``PoseInference`` (equal to its mesh
-  serving by tests/test_sharded_serving.py); under IPE_FUSED_BLOCK=1 the
-  grid still runs the unfused blocks and K3, bit for bit;
-* training: one grid step at global B = 4 against JAX's ``make_train_step``
-  on the same batch and weights (loss terms, gradients, updated
-  parameters, BatchNorm statistics, with tests/test_torch_train.py's
-  tolerances); every rank ends with the same parameters bit for bit; and
-  with DropPath (0.2, given global masks) the grid step against the
-  port's single-process step.
+``PoseInference(mesh=grid)`` on a ragged batch of 5 frames is held against
+JAX's single-device ``PoseInference`` (equal to its mesh serving by
+tests/test_sharded_serving.py); under IPE_FUSED_BLOCK=1 the grid still
+runs the unfused blocks and K3, bit for bit.  The grid train step is held
+against JAX in tests/test_torch_train.py, which shares its JAX step.
 
 The weights are the port's seeded init (sharpened), taken to JAX by its
 own importer: no JAX init to compile.  One ``run_grid`` spawn (module
-fixture, tests/torch_grid.py ``slice_rank``) runs every rank-side case.
+fixture, tests/torch_grid.py ``serve_rank``) runs every rank-side case.
 """
-
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
@@ -31,25 +25,14 @@ import jax.numpy as jnp
 torch = pytest.importorskip("torch")
 
 from infantposeestimation_gaussianbias_tpu import inference as jinference
-from infantposeestimation_gaussianbias_tpu.config import get_variant
 from infantposeestimation_gaussianbias_tpu.models import hrformer as jhr
 from infantposeestimation_gaussianbias_tpu.models import pose_estimator as jpe
 from infantposeestimation_gaussianbias_tpu.tools.import_torch_checkpoint import (
     convert_checkpoint,
 )
-from infantposeestimation_gaussianbias_tpu.train import optim as joptim
-from infantposeestimation_gaussianbias_tpu.train import step as jstep
-from infantposeestimation_gaussianbias_tpu.train.state import (
-    TrainState as JTrainState,
-)
 from infantposeestimation_gaussianbias_tpu_torch import PoseInference, parallel
 from infantposeestimation_gaussianbias_tpu_torch.models import pose_estimator
 from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
-from infantposeestimation_gaussianbias_tpu_torch.train import (
-    create_train_state, draw_drop_masks, make_train_step)
-from infantposeestimation_gaussianbias_tpu_torch.weights import (
-    state_dict_from_jax,
-)
 
 from tests import torch_grid
 
@@ -58,12 +41,11 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def _seeded_state_dict(backbone, seed):
+def _seeded_state_dict(seed):
     """The port's seeded tiny model with random BatchNorm statistics and
     stronger prediction convs (flat heatmaps would put every soft-argmax
     on the map centre)."""
-    model = pose_estimator.build_model(torch_grid.tiny_cfg(backbone),
-                                       device="cpu")
+    model = pose_estimator.build_model(torch_grid.tiny_cfg(), device="cpu")
     rng = np.random.RandomState(seed)
     with torch.no_grad():
         for name, buf in model.named_buffers():
@@ -85,20 +67,10 @@ def _frames_and_boxes():
     return frames, bboxes
 
 
-def _batch(B=4):
-    rng = np.random.RandomState(12)
-    kpts = np.stack([rng.uniform(-8, 56, (B, 17)),
-                     rng.uniform(-8, 72, (B, 17))], -1)
-    vis = rng.choice([0, 1, 2], (B, 17), p=[0.15, 0.15, 0.7])
-    return {"image": rng.randn(B, 64, 48, 3).astype(np.float32),
-            "keypoints": kpts.astype(np.float32),
-            "visible": vis.astype(np.float32)}
-
-
 @pytest.fixture(scope="module")
 def setup():
-    """(cfg, state dicts, JAX model and variables) with the tiny backbones
-    registered in both BACKBONES for the module, and the DropPath masks."""
+    """(cfg, state dict, JAX model and variables) with the tiny backbone
+    registered in both BACKBONES for the module."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(jpe.BACKBONES, "tiny_hrformer", lambda **kw: jhr.HRFormer(
             drop_path_rate=0.0, **torch_grid.TINY, **kw))
@@ -106,32 +78,24 @@ def setup():
             mp.setitem(pose_estimator.BACKBONES, name, None)
         torch_grid.register_tiny()
         cfg = torch_grid.tiny_cfg()
-        sd = _seeded_state_dict("tiny_hrformer", seed=1)
-        dp_sd = _seeded_state_dict("tiny_hrformer_dp", seed=2)
+        sd = _seeded_state_dict(seed=1)
         params, stats = convert_checkpoint(
             {k: v.numpy().copy() for k, v in sd.items()}, head_type="fusion")
         jcfg = torch_grid.tiny_cfg()
-        dp_model = pose_estimator.build_model(
-            torch_grid.tiny_cfg("tiny_hrformer_dp"), device="cpu")
-        masks = draw_drop_masks(dp_model, 4, torch.Generator().manual_seed(3))
         yield SimpleNamespace(
-            cfg=cfg, sd=sd, dp_sd=dp_sd, masks=masks.numpy(),
-            jmodel=jpe.build_model(jcfg), jcfg=jcfg,
+            cfg=cfg, sd=sd, jmodel=jpe.build_model(jcfg), jcfg=jcfg,
             variables={"params": params, "batch_stats": stats})
 
 
 @pytest.fixture(scope="module")
 def ranks(setup, request):
-    """Every rank's results of tests/torch_grid.py ``slice_rank``; the ranks
-    run while this process compiles and runs JAX's serving and step."""
-    frames, bboxes = _frames_and_boxes()
+    """Every rank's results of tests/torch_grid.py ``serve_rank``; the
+    ranks run while this process compiles and runs JAX's serving."""
     with ThreadPoolExecutor(1) as pool:
         out = pool.submit(
-            parallel.run_grid, torch_grid.slice_rank, 2, 2, "gloo",
-            device="cpu", args=(setup.sd, frames, bboxes, _batch(),
-                                setup.dp_sd, setup.masks), timeout=300)
+            parallel.run_grid, torch_grid.serve_rank, 2, 2, "gloo",
+            device="cpu", args=(setup.sd, *_frames_and_boxes()), timeout=300)
         request.getfixturevalue("jax_serving")
-        request.getfixturevalue("jax_step")
         return out.result()
 
 
@@ -179,81 +143,3 @@ def test_grid_serving_matches_jax(setup, ranks, jax_serving):
         np.testing.assert_allclose(scores, ref_s, atol=1e-4)
         for a, b in zip(r["serve1"], r["serve0"]):
             np.testing.assert_array_equal(a, b)
-
-
-@pytest.fixture(scope="module")
-def jax_step(setup):
-    jcfg, model = setup.jcfg, setup.jmodel
-    tx, _ = joptim.build_optimizer(jcfg, jcfg.train.steps_per_epoch or 1000)
-    state = JTrainState.create(
-        apply_fn=model.apply,
-        params=jax.tree_util.tree_map(jnp.asarray,
-                                      setup.variables["params"]),
-        batch_stats=jax.tree_util.tree_map(jnp.asarray,
-                                           setup.variables["batch_stats"]),
-        tx=tx)
-    step = jax.jit(jstep.make_train_step(jcfg, jcfg.data.keypoint_schema))
-    state, metrics = step(state, jax.tree_util.tree_map(jnp.asarray,
-                                                        _batch()),
-                          jax.random.PRNGKey(0))
-    return state, jax.tree_util.tree_map(np.asarray, metrics)
-
-
-def test_grid_train_step_matches_jax(setup, ranks, jax_step):
-    """Loss terms and grad_norm (rtol 1e-4), the parameters after the
-    update where the gradient is far from 0 (the AdamW test of
-    tests/test_torch_train.py), the global BatchNorm running statistics;
-    every rank's parameters and statistics are the same bit for bit."""
-    jstate, jmetrics = jax_step
-    first = ranks[0]["train"]
-    for r in ranks[1:]:
-        for key in ("params", "buffers"):
-            for n, v in r["train"][key].items():
-                np.testing.assert_array_equal(v, first[key][n], err_msg=n)
-    for k, v in first["metrics"].items():
-        np.testing.assert_allclose(v, jmetrics[k], rtol=1e-4, err_msg=k)
-    j_grads = state_dict_from_jax(jax.tree_util.tree_map(
-        lambda m: np.asarray(m) / 0.1, jstate.opt_state[0].mu), {})
-    j_now = state_dict_from_jax(
-        jax.tree_util.tree_map(np.asarray, jstate.params),
-        jax.tree_util.tree_map(np.asarray, jstate.batch_stats))
-    grad_norm = first["metrics"]["grad_norm"]
-    for n, p in first["params"].items():
-        g = j_grads[n].numpy()
-        big = (np.abs(g) > 1e-2 * np.abs(g).max()) & (
-            np.abs(g) > 1e-7 * grad_norm)
-        p0 = setup.sd[n].numpy()
-        np.testing.assert_allclose((p - p0)[big],
-                                   (j_now[n].numpy() - p0)[big],
-                                   atol=1e-6, rtol=1e-3, err_msg=n)
-    for n, b in first["buffers"].items():
-        np.testing.assert_allclose(b, j_now[n].numpy(), atol=1e-5,
-                                   rtol=1e-4, err_msg=n)
-
-
-def test_grid_train_step_with_drop_path_matches_one_process(setup, ranks):
-    """DropPath 0.2 with the same global masks: the grid step (each rank
-    its columns) against the port's single-process step on the whole
-    batch; the same loss terms, and the same update where the gradient is
-    far from 0 (a bias that feeds only a train-mode BatchNorm has a zero
-    gradient up to rounding, and AdamW moves it by lr times that noise's
-    sign)."""
-    cfg = torch_grid.tiny_cfg("tiny_hrformer_dp")
-    state = create_train_state(cfg, device="cpu", state_dict=setup.dp_sd)
-    _, metrics = make_train_step(cfg)(
-        state, {k: _t(v) for k, v in _batch().items()}, None,
-        drop_masks=_t(setup.masks))
-    assert 0 < setup.masks.sum() < setup.masks.size
-    got = ranks[0]["train_dp"]
-    for k, v in metrics.items():
-        np.testing.assert_allclose(got["metrics"][k], v.item(), rtol=1e-5,
-                                   err_msg=k)
-    grad_norm = metrics["grad_norm"].item()
-    for n, p in state.model.named_parameters():
-        g = p.grad.numpy()
-        big = (np.abs(g) > 1e-2 * np.abs(g).max()) & (
-            np.abs(g) > 1e-7 * grad_norm)
-        p0 = setup.dp_sd[n].numpy()
-        np.testing.assert_allclose((got["params"][n] - p0)[big],
-                                   (p.detach().numpy() - p0)[big],
-                                   atol=1e-6, rtol=1e-3, err_msg=n)

@@ -9,6 +9,7 @@ jitted JAX train step is shared per module.
 """
 
 import math
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -34,7 +35,7 @@ from infantposeestimation_gaussianbias_tpu.train import step as jstep
 from infantposeestimation_gaussianbias_tpu.train.state import (
     TrainState as JTrainState,
 )
-from infantposeestimation_gaussianbias_tpu_torch import config, losses
+from infantposeestimation_gaussianbias_tpu_torch import config, losses, parallel
 from infantposeestimation_gaussianbias_tpu_torch.models import hrformer
 from infantposeestimation_gaussianbias_tpu_torch.models import pose_estimator
 from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
@@ -56,6 +57,8 @@ from infantposeestimation_gaussianbias_tpu_torch.train import (
 from infantposeestimation_gaussianbias_tpu_torch.weights import (
     state_dict_from_jax,
 )
+
+from tests import torch_grid
 
 TINY = dict(channels=(8, 16, 32, 64), num_heads=(1, 2, 4, 8),
             stage_modules=(1, 1, 1))
@@ -459,6 +462,105 @@ def _jax_named(tree_params, tree_stats=None):
     """JAX params (and batch stats) -> the port's names, via weights.py."""
     sd = state_dict_from_jax(tree_params, tree_stats or {})
     return {k: v for k, v in sd.items()}
+
+
+# The same step over a 2 x 2 grid of gloo ranks on the CPU (tests/torch_grid.py
+# ``train_rank``): its global batch is _batch(12), so it is held against the
+# JAX step above, and its ranks run while that step compiles.
+
+def _grid_drop_masks():
+    """DropPath masks (rate 0.2) of the tiny model for a global batch of 4,
+    from a seeded generator."""
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("tiny_hrformer", "tiny_hrformer_dp"):
+            mp.setitem(pose_estimator.BACKBONES, name, None)
+        torch_grid.register_tiny()
+        model = pose_estimator.build_model(
+            torch_grid.tiny_cfg("tiny_hrformer_dp"), device="cpu")
+        return draw_drop_masks(model, 4, torch.Generator().manual_seed(3))
+
+
+@pytest.fixture(scope="module")
+def grid_steps(tiny, request):
+    """Every rank's results: one grid step of the tiny model, and one of
+    the DropPath model (the same weights) with _grid_drop_masks()."""
+    _, _, _, variables = tiny
+    sd = state_dict_from_jax(variables["params"], variables["batch_stats"])
+    with ThreadPoolExecutor(1) as pool:
+        out = pool.submit(parallel.run_grid, torch_grid.train_rank, 2, 2,
+                          "gloo", device="cpu",
+                          args=(sd, _batch(12), _grid_drop_masks().numpy()),
+                          timeout=300)
+        request.getfixturevalue("jax_steps")
+        return out.result()
+
+
+def test_grid_train_step_matches_jax(tiny, grid_steps, jax_steps):
+    """Loss terms and grad_norm (rtol 1e-4), the parameters after the
+    update where the gradient is far from 0 (as test_train_step_matches_jax
+    below), the global BatchNorm running statistics; every rank's
+    parameters and statistics are the same bit for bit, and no rank loaded
+    JAX."""
+    _, _, _, variables = tiny
+    assert all(r["jax_modules"] == [] for r in grid_steps)
+    jstate, jmetrics = jax_steps[0]
+    first = grid_steps[0]["train"]
+    for r in grid_steps[1:]:
+        for key in ("params", "buffers"):
+            for n, v in r["train"][key].items():
+                np.testing.assert_array_equal(v, first[key][n], err_msg=n)
+    for k, v in first["metrics"].items():
+        np.testing.assert_allclose(v, jmetrics[k], rtol=1e-4, err_msg=k)
+    j_grads = _jax_named(jax.tree_util.tree_map(
+        lambda m: np.asarray(m) / 0.1, jstate.opt_state[0].mu))
+    j_now = _jax_named(jax.tree_util.tree_map(np.asarray, jstate.params),
+                       jax.tree_util.tree_map(np.asarray, jstate.batch_stats))
+    p0 = _jax_named(variables["params"])
+    grad_norm = first["metrics"]["grad_norm"]
+    for n, p in first["params"].items():
+        g = j_grads[n].numpy()
+        big = (np.abs(g) > 1e-2 * np.abs(g).max()) & (
+            np.abs(g) > 1e-7 * grad_norm)
+        np.testing.assert_allclose((p - p0[n].numpy())[big],
+                                   (j_now[n] - p0[n]).numpy()[big],
+                                   atol=1e-6, rtol=1e-3, err_msg=n)
+    for n, b in first["buffers"].items():
+        np.testing.assert_allclose(b, j_now[n].numpy(), atol=1e-5,
+                                   rtol=1e-4, err_msg=n)
+
+
+def test_grid_train_step_with_drop_path_matches_one_process(tiny, grid_steps):
+    """DropPath 0.2 with the same global masks: the grid step (each rank
+    its columns) against the port's single-process step on the whole
+    batch; the same loss terms, and the same update where the gradient is
+    far from 0 (a bias that feeds only a train-mode BatchNorm has a zero
+    gradient up to rounding, and AdamW moves it by lr times that noise's
+    sign)."""
+    _, _, _, variables = tiny
+    masks = _grid_drop_masks()
+    assert 0 < masks.sum() < masks.numel()
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("tiny_hrformer", "tiny_hrformer_dp"):
+            mp.setitem(pose_estimator.BACKBONES, name, None)
+        torch_grid.register_tiny()
+        cfg = torch_grid.tiny_cfg("tiny_hrformer_dp")
+        state = _port_state(cfg, variables)
+    p0 = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    _, metrics = make_train_step(cfg)(
+        state, {k: _t(v) for k, v in _batch(12).items()}, None,
+        drop_masks=masks)
+    got = grid_steps[0]["train_dp"]
+    for k, v in metrics.items():
+        np.testing.assert_allclose(got["metrics"][k], v.item(), rtol=1e-5,
+                                   err_msg=k)
+    grad_norm = metrics["grad_norm"].item()
+    for n, p in state.model.named_parameters():
+        g = p.grad.numpy()
+        big = (np.abs(g) > 1e-2 * np.abs(g).max()) & (
+            np.abs(g) > 1e-7 * grad_norm)
+        np.testing.assert_allclose((got["params"][n] - p0[n].numpy())[big],
+                                   (p.detach() - p0[n]).numpy()[big],
+                                   atol=1e-6, rtol=1e-3, err_msg=n)
 
 
 def test_train_step_matches_jax(tiny, jax_steps):

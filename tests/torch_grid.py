@@ -91,26 +91,31 @@ def mesh_rank(grid, cases) -> dict:
     return out
 
 
-def slice_rank(grid, state_dict, frames, bboxes, batch, dp_state_dict,
-               dp_masks) -> dict:
+def serve_rank(grid, state_dict, frames, bboxes) -> dict:
     """Serving a ragged batch over the grid, under IPE_FUSED_BLOCK=0 and
-    =1; one train step of the tiny model at the global batch, and one of
-    the DropPath model with given global masks."""
+    =1."""
     register_tiny()
     out = dict(jax_modules=no_jax())
-    cfg = tiny_cfg()
-    inf = PoseInference(cfg, state_dict=state_dict, device="cpu", mesh=grid)
+    inf = PoseInference(tiny_cfg(), state_dict=state_dict, device="cpu",
+                        mesh=grid)
     for flag in ("0", "1"):
         os.environ["IPE_FUSED_BLOCK"] = flag
         try:
             out[f"serve{flag}"] = inf.predict_batch(frames, bboxes)
         finally:
             os.environ.pop("IPE_FUSED_BLOCK")
-    for name, cfg, sd, masks in (
-            ("train", cfg, state_dict, None),
-            ("train_dp", tiny_cfg("tiny_hrformer_dp"), dp_state_dict,
-             dp_masks)):
-        state = create_train_state(cfg, device="cpu", state_dict=sd,
+    return out
+
+
+def train_rank(grid, state_dict, batch, dp_masks) -> dict:
+    """One train step of the tiny model at the global batch, and one of
+    the DropPath model (the same weights) with given global masks."""
+    register_tiny()
+    out = dict(jax_modules=no_jax())
+    for name, backbone, masks in (("train", "tiny_hrformer", None),
+                                  ("train_dp", "tiny_hrformer_dp", dp_masks)):
+        cfg = tiny_cfg(backbone)
+        state = create_train_state(cfg, device="cpu", state_dict=state_dict,
                                    grid=grid)
         _, metrics = make_train_step(cfg, grid)(
             state, {k: torch.from_numpy(v) for k, v in batch.items()}, None,
