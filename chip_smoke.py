@@ -12,10 +12,16 @@ Phases, in order; any failure exits non-zero:
      hrformer_small's branch 0, at window 8 and without bias; float32
      (TF32 off) at atol 1e-4, bf16 at atol/rtol 2e-2; median kernel,
      plain and SDPA times and the bound;
-  3. K2 (CUDA W-MSA backward) against its plain version at every training
+  3. K2 (CUDA W-MSA backward, on the tensor-core core of
+     csrc/wmsa_bwd_core.cuh) against its plain version at every training
      shape at batch 32 (hrformer_base's four branches, hrformer_small's
      branch 0, window 8), float32 and bf16, dqkv and dbias; median kernel,
-     plain and SDPA-backward times and the bound;
+     plain and SDPA-backward times and the bound; at three odd row widths
+     (rows that start mid-word) against its plain version, the last head
+     alone equal to the whole bit for bit; at b0 and b3 (bf16) a
+     ``[k2-split]`` line: the launches and device ms per call of each
+     kernel (the window kernel, the dbias reduction), the totals of seven
+     calls under one torch.profiler over seven;
   4. serving: PoseInference(hrformer_base) with seeded weights serves
      batches of 1, 3 and 8 uint8 frames; K1 must launch 88 times per
      flip-tested batch; then float32 on the card against the port on the
@@ -34,7 +40,11 @@ Phases, in order; any failure exits non-zero:
      the training batch, float32 and bf16, every output (dx, dgamma,
      dbeta, each weight and bias gradient, drpe); kernel, plain and
      stock-PyTorch chain (LayerNorm, F.linear, SDPA or tanh GELU) times
-     and the bound;
+     and the bound; at b0 and b3 (bf16, window 7) a ``[k4bwd-split]``
+     line, as phase 3's, of one K4 backward (stages (a)
+     LayerNorm, (b) the core per (chunk, head), (c) dln and the LayerNorm
+     backward, (d) the weight-gradient and partial-row reductions, and the
+     wrapper's copies);
   8. fused serving (IPE_FUSED_BLOCK=1): batches of 1, 3 and 8 frames, 88
      K4 and 88 K5 launches per flip-tested batch and no K1; under "auto"
      28 K1, 60 K4 and 60 K5; float32 card against the CPU; fused against
@@ -98,6 +108,15 @@ Phases, in order; any failure exits non-zero:
      one process's (loss terms, RPE-table and qkv-weight gradients, the
      global BatchNorm statistics); a bf16 step at global b = 32, 44 K1
      and 44 K2 launches per rank through K3, the same state on every rank.
+ 20. only with ``--parent DIR`` (DIR a checkout of the parent commit, e.g.
+     from ``git archive``): K2 and K4's backward at every training shape
+     of phases 3 and 7 and the bf16 b = 32 steps of phases 6 and 9 (step
+     ms, device ms, peak memory), the parent's against this checkout's,
+     each in a fresh subprocess that imports its checkout's package and
+     builds its kernels, in turns: parent, change, change, parent
+     (``[parent]`` lines); the K2 and K4-backward records take the
+     parent's b0 bf16 ms as ``parent_ms`` and this checkout's, timed the
+     same way, as ``fresh_ms`` (both null without ``--parent``).
 The ranks import no JAX (each asserts it).
 Every phase's seconds and the whole run's are printed.Each fused phase sets IPE_FUSED_BLOCK itself and restores it after.  The
 last two lines are the kernels' JSON record and
@@ -109,6 +128,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -118,7 +138,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-F32_ATOL = 1e-4           # exact float32 maths, summation order differs
+F32_ATOL = 1e-4           # float32 inputs, products exact or in split-bf16
+                          # terms (csrc/wmsa_bwd_core.cuh); order differs
 BF16_TOL = 2e-2           # a few bf16 ulps on the output cast
 # K2's dbias is float32 in both dtypes and sums dS over up to 2,240
 # windows in another order than the plain version: relative 1e-4.
@@ -319,6 +340,51 @@ def cuda_median_ms(fn, warmup: int = 3, runs: int = 25) -> float:
     return float(np.median(times))
 
 
+def _kernel_name(name: str) -> str:
+    """A profiler's kernel name without return type, namespace and
+    arguments: ``atb_kernel``, ``core_kernel<bf16>``."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.removeprefix("void ").split("(")[0]
+    return name.replace("__nv_bfloat16", "bf16")
+
+
+def launch_split(fn, runs: int = 7) -> list:
+    """Device time of each kernel (and copy) name that one call of ``fn``
+    launches, in order of first launch: [(name, launches per call, ms per
+    call)], the totals of ``runs`` calls under one torch.profiler divided
+    by ``runs``.  A record the profiler drops lowers a total a little; it
+    fails nothing (this is a measurement, not a check)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    totals: dict = {}
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.time_range.start):
+        n, us = totals.get(_kernel_name(e.name), (0, 0.0))
+        totals[_kernel_name(e.name)] = (n + 1, us + e.time_range.elapsed_us())
+    return [(name, n / runs, us / 1e3 / runs)
+            for name, (n, us) in totals.items()]
+
+
+def log_split(tag: str, label: str, fn) -> list:
+    """``[tag] label: total | each kernel name`` from ``launch_split``."""
+    split = launch_split(fn)
+    log(f"[{tag}] {label}: {sum(ms for *_, ms in split):.4f} ms device in "
+        f"{sum(n for _, n, _ in split):g} launches: "
+        + (" | ".join(f"{name} x{n:g} {ms:.4f}" for name, n, ms in split)
+           or "no device records"))
+    return split
+
+
 def flop_rate(dtype: torch.dtype) -> float:
     """The card's peak FLOP/s for products of inputs of this type."""
     return BF16_TC_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
@@ -364,9 +430,16 @@ def phase_build() -> None:
     build.load()
     log(f"[build] {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.BUILD_SECONDS:.2f} s)")
+    kernel = ""
     for line in build.BUILD_LOG.splitlines():
+        if "entry function" in line:  # the mangled name holds the kernel's
+            found = re.search(r"\d([a-z][a-z0-9_]*_kernel)", line)
+            kernel = found.group(1) if found else line.split("'")[1][:60]
+            targ = re.search(r"_kernelI(f|13__nv_bfloat16)E", line)
+            if targ:  # a template's element type
+                kernel += " (float)" if targ.group(1) == "f" else " (bf16)"
         if "registers" in line or "spill" in line:
-            log("[build]", line.strip())
+            log("[build]", kernel, line.strip())
 
 
 def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
@@ -480,10 +553,40 @@ def phase_k2() -> dict:
                 f"(|dbias| max {r_dbias.abs().max().item():.3e}) "
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+            if label in ("base b0", "base b3") and dt == torch.bfloat16:
+                log_split("k2-split", f"{label} nW={nW} bf16",
+                          lambda: window_msa.window_attention_qkv_bwd(
+                              qkv, bias, dout, H))
             if label == "base b0" and dt == torch.bfloat16:
                 record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bound_ms=b_ms, bound_by=b_by,
                               shape=f"nW={nW},N={N},H={H},hd={hd},bf16")
+    # Odd row widths (no model has one): bf16 rows that start mid-word,
+    # alternating, and N = 16 (one slab); a head range equals the whole.
+    for nW, N, H, hd in ((70, 49, 1, 33), (35, 49, 3, 39), (7, 16, 5, 9)):
+        C = H * hd
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(nW, N, 3 * C, device="cuda", generator=g).to(dt)
+            dout = torch.randn(nW, N, C, device="cuda", generator=g).to(dt)
+            bias = torch.randn(H, N, N, device="cuda", generator=g)
+            dqkv, dbias = window_msa.window_attention_qkv_bwd(qkv, bias, dout,
+                                                              H)
+            part, _ = window_msa.window_attention_qkv_bwd(
+                qkv, bias, dout, H, heads=(H - 1, 1))
+            torch.cuda.synchronize()
+            r_dqkv, r_dbias = window_msa.window_attention_qkv_bwd_reference(
+                qkv, bias, dout, H)
+            tol = F32_ATOL if dt == torch.float32 else BF16_TOL
+            torch.testing.assert_close(dqkv.float(), r_dqkv.float(),
+                                       atol=tol, rtol=tol)
+            torch.testing.assert_close(dbias, r_dbias, atol=DBIAS_TOL,
+                                       rtol=DBIAS_TOL)
+            last = [slice(t * C + (H - 1) * hd, (t + 1) * C) for t in range(3)]
+            assert all(torch.equal(part[..., c], dqkv[..., c]) for c in last)
+            log(f"[k2] odd width nW={nW} N={N} H={H} hd={hd} "
+                f"{'f32' if dt == torch.float32 else 'bf16'}: dqkv_err="
+                f"{(dqkv.float() - r_dqkv.float()).abs().max().item():.3e}, "
+                f"last head alone bit for bit")
     record["max_abs_err"] = worst
     return record
 
@@ -806,6 +909,11 @@ def phase_fused_kernels() -> dict:
                         3 * M * C * es + 8 * C * C * es + 2 * vec,
                         22 * M * C * C + 12 * nW * N * N * C, dt,
                         b0_bf16)
+                if (label in ("base b0", "base b3")
+                        and dt == torch.bfloat16):
+                    log_split("k4bwd-split", shape,
+                              lambda: fb.fused_attn_half_bwd(*aa, dy, heads,
+                                                             geom))
                 measure("mlp_bwd", shape, "all gradients",
                         lambda: fb.fused_mlp_half_bwd(*ma, dy2, a["tps"]),
                         lambda: fb.fused_mlp_half_bwd_reference(
@@ -2396,6 +2504,91 @@ def phase_grid_training(smi: str) -> dict:
                 first_step_ms=r0["step_ms"], loss=r0["bf16"]["total_loss"])
 
 
+# -- phase 20 (with --parent): this checkout's backward kernels and steps
+# against the parent commit's, in turns ------------------------------------------
+
+def bwd_times(smi: str) -> dict:
+    """Median ms of K2 at every training shape of phase 3 and of K4's
+    backward at every training shape of phase 7 (float32 and bf16), and the
+    bf16 b = 32 steps of phases 6 (unfused) and 9 (fused): step ms, device
+    ms, peak memory.  Runs whichever package ``sys.path`` finds first, so
+    that a parent commit's checkout can be timed by the same code."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        fused_block as fb, window_msa)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    kernels = {}
+    for label, w, N, H, hd in BRANCH_SHAPES:
+        nW, C = TRAIN_BATCH * w, H * hd
+        qkv32 = torch.randn(nW, N, 3 * C, device="cuda", generator=g)
+        dout32 = torch.randn(nW, N, C, device="cuda", generator=g)
+        bias = torch.randn(H, N, N, device="cuda", generator=g)
+        for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            qkv, dout = qkv32.to(dt), dout32.to(dt)
+            kernels[f"k2 {label} {name}"] = cuda_median_ms(
+                lambda: window_msa.window_attention_qkv_bwd(qkv, bias, dout,
+                                                            H))
+    for label, Hm, Wm, C, heads in BASE_MAPS:
+        for ws in (7, 8):
+            for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                a = _half_inputs(Hm, Wm, C, heads, TRAIN_BATCH, dt, g, ws)
+                aa, dy, geom = _attn_args(a), a["dy"], a["geom"]
+                tag = f"{label}{' ws8' if ws == 8 else ''}"
+                kernels[f"k4bwd {tag} {name}"] = cuda_median_ms(
+                    lambda: fb.fused_attn_half_bwd(*aa, dy, heads, geom),
+                    warmup=2, runs=10)
+                del a, aa, dy
+    n = K1_CALLS_PER_FORWARD
+    steps = {}
+    for flag, tag, want in (
+            ("0", "unfused", dict(no_launches(), k1=n, k2=n)),
+            ("1", "fused", dict(no_launches(), k4=n, k4b=n, k5=n, k5b=n))):
+        with fused_blocks(flag):
+            r = train_bf16(smi, hrformer_cfg(), f"times-{tag}", want)
+        steps[tag] = {k: r[k] for k in ("step_ms", "device_ms", "peak_gib")}
+        torch.cuda.empty_cache()
+    return dict(kernels=kernels, steps=steps)
+
+
+def phase_parent(parent: str) -> dict:
+    """``bwd_times`` of the parent checkout ``parent`` and of this one, each
+    in a fresh subprocess that imports that checkout's package and builds
+    its kernels, in turns: parent, change, change, parent.  Logs each pair;
+    returns per key the means {"parent_ms", "ms"} and the steps of both."""
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def run(root: str) -> dict:
+        proc = subprocess.run(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--bwd-times", "--package-root", os.path.abspath(root)],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            log(proc.stdout[-4000:], proc.stderr[-4000:])
+            raise RuntimeError(f"timing {root} failed ({proc.returncode})")
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    p1, c1, c2, p2 = run(parent), run(here), run(here), run(parent)
+    kernels = {}
+    for key in p1["kernels"]:
+        ps = [r["kernels"][key] for r in (p1, p2)]
+        cs = [r["kernels"][key] for r in (c1, c2)]
+        kernels[key] = dict(parent_ms=float(np.mean(ps)), ms=float(np.mean(cs)))
+        log(f"[parent] {key}: parent {ps[0]:.4f}/{ps[1]:.4f} ms, change "
+            f"{cs[0]:.4f}/{cs[1]:.4f} ms, change/parent "
+            f"{kernels[key]['ms'] / kernels[key]['parent_ms']:.3f}")
+    steps = {}
+    for tag in ("unfused", "fused"):
+        steps[tag] = {}
+        for k in ("step_ms", "device_ms", "peak_gib"):
+            ps = [r["steps"][tag][k] for r in (p1, p2)]
+            cs = [r["steps"][tag][k] for r in (c1, c2)]
+            steps[tag][k] = dict(parent=float(np.mean(ps)),
+                                 change=float(np.mean(cs)))
+            log(f"[parent] bf16 b={TRAIN_BATCH} {tag} step {k}: parent "
+                f"{ps[0]:.4f}/{ps[1]:.4f}, change {cs[0]:.4f}/{cs[1]:.4f}")
+    return dict(kernels=kernels, steps=steps)
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -2408,7 +2601,25 @@ def timed(name: str, fn, *args, **kwargs):
     return out
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent", metavar="DIR",
+                        help="a checkout of the parent commit (git archive): "
+                        "phase 20 times its K2, K4 backward and bf16 steps "
+                        "against this checkout's, in turns")
+    parser.add_argument("--bwd-times", action="store_true",
+                        help=argparse.SUPPRESS)  # phase 20's subprocess
+    parser.add_argument("--package-root", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.package_root:
+        sys.path.insert(0, args.package_root)
+    if args.bwd_times:
+        smi = phase_device()
+        phase_build()
+        print(json.dumps(bwd_times(smi)), flush=True)
+        return 0
     t_start = time.perf_counter()
     smi = timed("0 device", phase_device)
     timed("1 build", phase_build)
@@ -2460,6 +2671,8 @@ def main() -> int:
     k3 = timed("17 k3", phase_k3)
     grid_serve = timed("18 grid serving", phase_grid_serving, smi)
     grid_train = timed("19 grid training", phase_grid_training, smi)
+    parent = (timed("20 parent", phase_parent, args.parent)
+              if args.parent else None)
     log(f"[fused] bf16 b=32 serving {fused_thr['crops_per_s']:.1f} crops/s "
         f"fused vs {thr['crops_per_s']:.1f} unfused; training "
         f"{fused_train['step_ms']:.1f} ms/step fused vs "
@@ -2486,7 +2699,16 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     extra = ("max_rel_err", "variants_ms", "variants_bound_ms",
-             "variants_plain_ms", "variants_device_ms")
+             "variants_plain_ms", "variants_device_ms", "parent_ms",
+             "fresh_ms")
+    # The redesigned K2 and K4 backward at the record shape, from phase 20
+    # of this call (null without --parent): the parent commit's ms and this
+    # checkout's, both timed the same way in fresh processes (``ms`` is
+    # phase 3's or 7's, timed in this process).
+    for rec, key in ((k2, "k2 base b0 bf16"),
+                     (k45["attn_bwd"], "k4bwd base b0 bf16")):
+        for out, src in (("parent_ms", "parent_ms"), ("fresh_ms", "ms")):
+            rec[out] = parent["kernels"][key][src] if parent else None
     t, ft = train["launches"], fused_train["launches"]
     sal = analysis["saliency_launches"]
 
@@ -2537,4 +2759,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

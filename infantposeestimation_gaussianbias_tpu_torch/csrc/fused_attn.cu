@@ -26,33 +26,48 @@
 // of rows: ~4C FLOP per byte in bf16, above the H100's ridge for bf16
 // tensor cores (~295) at every hrformer_base width but C = 78.  The qkv,
 // proj and gradient products run on the tensor cores (mma.sync m16n8k16,
-// bf16 x bf16 -> f32, fused_common.cuh); the attention core stays float32
-// FMAs on CUDA cores, as the TPU kernel keeps it float32.  The design moves
-// each window's rows once in and once out, and keeps ln, o and one head's
-// q, k, v, scores and gradients in shared memory: a whole window's float32
-// qkv (49 x 1,872 x 4 B = 367 KB at C = 624) would not fit in a block's
-// 227 KB, so the heads are streamed.
+// bf16 x bf16 -> f32, fused_common.cuh), and so does the backward's
+// attention core (wmsa_bwd_core.cuh); the forward's attention core stays
+// float32 FMAs on the CUDA cores.
 //
-// Design:
-//   * forward: one block per window; LN per row by one warp into a bf16 ln
-//     tile; per head, the (N, 3 hd) qkv slice by a tile product, the
-//     masked bias rows, scores, softmax by one warp per row and P v into a
-//     bf16 o tile; then proj + bias + DropPath residual straight to y.
-//   * backward, windows: one block per window recomputes LN, writes the
-//     bf16 ln and dpo rows to scratch, and per head recomputes q, k, v and
-//     P, computes do_h from dpo, dS, dq, dk, dv, writes bf16(o) and
-//     bf16(dqkv valid) to scratch and its sums of dqkv and dS to its
-//     partial vector; then dln = bf16(dqkv valid) Wqkv and the LayerNorm
-//     backward.
-//   * backward, reductions: dWqkv = bf16(dqkv valid)^T lnb and
-//     dWproj = dpob^T ob by a tile product over the rows, in a bounded
-//     number of row chunks added in a fixed order; the per-window partial
-//     vectors (dgamma, dbeta, dbqkv, dbproj, drpe) summed over windows in a
-//     fixed order.  No atomics: deterministic.
+// Forward: one block per window; LN per row by one warp into a bf16 ln
+// tile; per head, the (N, 3 hd) qkv slice by a tile product, the masked
+// bias rows, float32 scores and softmax (one warp per row) and P v into a
+// bf16 o tile; then proj + bias + DropPath residual straight to y.
+//
+// Backward.  A first version ran it in one block per window that walked
+// the H heads in turn with the float32 attention core on the CUDA cores:
+// that kernel was 2.24 of 2.52 ms of device time at hrformer_base b0 (bf16,
+// b = 32) and at b3 gave 64 blocks for 132 SMs, each 16 heads long (an
+// NVIDIA H100, PERF.md).  Now four stages, each parallel over what it
+// needs:
+//   (a) one block per window: the LayerNorm recompute (bf16 ln rows, each
+//       row's mean and rstd), dpob = bf16(dp * dy) and the dbproj partial;
+//   (b) one block of 4 warps per (chunk of windows, head), as K2's grid:
+//       per window, q, k, v and do_h by tensor-core products from the ln
+//       and dpob rows, split into two bf16 terms in shared memory; then the
+//       shared core (csrc/wmsa_bwd_core.cuh) on the tensor cores, which
+//       writes bf16(o) and bf16(dqkv valid) and keeps dS's drpe share and
+//       the dbqkv column sums on chip for the whole chunk: one partial row
+//       per chunk instead of a (6C + H N^2) vector per window;
+//   (c) dln = bf16(dqkv valid) Wqkv as 64 x 64 output tiles over all rows,
+//       then one block per window for the LayerNorm backward (dx, dgamma
+//       and dbeta partials);
+//   (d) dWqkv = bf16(dqkv valid)^T lnb and dWproj = dpob^T ob by a tile
+//       product over the rows, in a bounded number of row chunks added in
+//       a fixed order; the per-window and per-chunk partial rows summed in
+//       a fixed order.  No atomics: deterministic.
+// Float32 weights are split into their three bf16 terms once per call
+// (split_weights_kernel), not by every warp that reads them; stage (b)
+// runs the q, k and v products in one loop over C (three independent
+// accumulator chains on one A operand).
+
+#include <algorithm>
 
 #include <math_constants.h>
 
 #include "fused_common.cuh"
+#include "wmsa_bwd_core.cuh"
 
 namespace {
 
@@ -122,25 +137,16 @@ __device__ void head_qkv(const Geometry& g, int h, const bf16* ln, const T* __re
   __syncthreads();
 }
 
-// s[i][j] = sum_d q_scale * q[i][d] * k[j][d] + rpe_h[i][j] (and, when dp_out is
-// not null, dp_out[i][j] = sum_d dO[i][d] v[j][d]).
-__device__ void scores(int N, int hd, const float* q, const float* k, const float* v,
-                       const float* dO, int ldq, float q_scale, const float* __restrict__ rpe_h,
-                       float* s, float* dp_out, int lds) {
+// s[i][j] = sum_d q[i][d] * k[j][d] + rpe_h[i][j] (q scaled by the caller).
+__device__ void scores(int N, int hd, const float* q, const float* k, int ldq,
+                       const float* __restrict__ rpe_h, float* s, int lds) {
   for (int idx = threadIdx.x; idx < N * N; idx += kThreads) {
     const int i = idx / N, j = idx - (idx / N) * N;
     const float* qi = q + i * ldq;
     const float* kj = k + j * ldq;
     float a = 0.f;
-    for (int d = 0; d < hd; ++d) a = fmaf(qi[d] * q_scale, kj[d], a);
+    for (int d = 0; d < hd; ++d) a = fmaf(qi[d], kj[d], a);
     s[i * lds + j] = a + rpe_h[idx];
-    if (dp_out) {
-      const float* gi = dO + i * ldq;
-      const float* vj = v + j * ldq;
-      float b = 0.f;
-      for (int d = 0; d < hd; ++d) b = fmaf(gi[d], vj[d], b);
-      dp_out[i * lds + j] = b;
-    }
   }
   __syncthreads();
 }
@@ -203,7 +209,7 @@ attn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 
   for (int h = 0; h < g.H; ++h) {
     head_qkv(g, h, ln, wqkv, bqkv, valid, scale, q, k, v, ldq);
-    scores(N, hd, q, k, v, nullptr, ldq, 1.f, rpe + (size_t)h * N * N, s, nullptr, lds);
+    scores(N, hd, q, k, ldq, rpe + (size_t)h * N * N, s, lds);
     softmax_rows(N, s, lds);
     for (int idx = threadIdx.x; idx < N * hd; idx += kThreads) {  // o = P v
       const int i = idx / hd, d = idx - (idx / hd) * hd;
@@ -238,170 +244,282 @@ attn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-size_t bwd_smem(const Geometry& g) {
-  const int ldq = odd_stride(g.hd), lds = odd_stride(g.N);
-  // ln (N, C) bf16; q, k, v, dO, dq, dk, dv; P, dS; mean, rstd, valid
-  return float_offset(g, 1) +
-         sizeof(float) * ((size_t)7 * g.N * ldq + (size_t)2 * g.N * lds + 3 * g.N);
-}
-
-// The window stage of the backward.  wqkv (3C, C) is the weight the
-// forward reads; wqkv_io (C, 3C) and wproj_io (C, C) are the weights in the
-// (in, out) layout, whose rows are the columns the backward's products
-// need.  part: this window's partial vector,
-// [dgamma C | dbeta C | dbqkv 3C | dbproj C | drpe H*N*N].  Scratch rows
-// (window w at rows w*N ...): lnb_g, ob_g, dpob_g (nW*N, C) and dqkvv_g
-// (nW*N, 3C) bf16, dln_g (nW*N, C) float32.
+// The backward, stage (a), one block per window: the LayerNorm recompute
+// (bf16 ln rows, each row's mean and rstd), dpob = bf16(dp * dy) and this
+// window's dbproj partial.  rows_part: per window [dgamma C | dbeta C |
+// dbproj C]; stage (c) fills the first two.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_window_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                       const float* __restrict__ beta, const T* __restrict__ wqkv,
-                       const T* __restrict__ wqkv_io, const float* __restrict__ bqkv,
-                       const float* __restrict__ rpe, const T* __restrict__ wproj_io,
-                       const float* __restrict__ dp,
-                       const T* __restrict__ dy, T* dx, bf16* lnb_g, bf16* ob_g, bf16* dpob_g,
-                       bf16* dqkvv_g, float* dln_g, float* part, Geometry g, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int N = g.N, C = g.C, hd = g.hd, H = g.H;
-  const int ldq = odd_stride(hd), lds = odd_stride(N);
-  constexpr int NW = Terms<T>::n;
-  bf16* ln = reinterpret_cast<bf16*>(smem);                          // (N, C)
-  float* q = reinterpret_cast<float*>(smem + float_offset(g, 1));    // (N, ldq) each
-  float* k = q + N * ldq;
-  float* v = k + N * ldq;
-  float* dO = v + N * ldq;
-  float* dq = dO + N * ldq;
-  float* dk = dq + N * ldq;
-  float* dv = dk + N * ldq;
-  float* p = dv + N * ldq;                                           // (N, lds) each
-  float* ds = p + N * lds;
-  float* mean = ds + N * lds;
-  float* rstd = mean + N;
-  float* valid = rstd + N;
-  const int w = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31;
+attn_bwd_ln_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, const float* __restrict__ dp,
+                   const T* __restrict__ dy, bf16* __restrict__ lnb_g,
+                   bf16* __restrict__ dpob_g, float* __restrict__ mean_g,
+                   float* __restrict__ rstd_g, float* __restrict__ rows_part, Geometry g) {
+  const int N = g.N, C = g.C, w = blockIdx.x;
   const size_t base = (size_t)w * N * C;
-  float* pv = part + (size_t)w * (6 * C + H * N * N);
   const float scale_w = dp[w / g.nwin];
-  const bf16* dpob_w = dpob_g + base;                  // this window's rows
-  const bf16* dqkvv_w = dqkvv_g + (size_t)w * N * 3 * C;
-
-  valid_tokens(g, w, valid);
-  layernorm_rows(x + base, N, C, gamma, beta, ln, lnb_g + base, mean, rstd);
-  for (int c = tid; c < C; c += kThreads) {  // dpo = dp * dy, bf16 rows, dbproj
+  layernorm_rows(x + base, N, C, gamma, beta, lnb_g + base, nullptr, mean_g + (size_t)w * N,
+                 rstd_g + (size_t)w * N);
+  float* pv = rows_part + (size_t)w * 3 * C;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
     float sum = 0.f;
     for (int m = 0; m < N; ++m) {
       const float d = scale_w * to_f32(dy[base + (size_t)m * C + c]);
       dpob_g[base + (size_t)m * C + c] = __float2bfloat16(d);
       sum += d;
     }
-    pv[5 * C + c] = sum;
+    pv[2 * C + c] = sum;
   }
-  __syncthreads();
+}
 
+// P products sharing A, 16 rows (m0 ...) x ntiles n8 tiles each, over
+// depth K on one warp: acc[p] = A B_p; pa(m, k) the bf16 pair A(m, k),
+// A(m, k + 1); pb(p, n, k, o) the NW terms of B_p(k, n), B_p(k + 1, n).
+// The P products' accumulator chains are independent, so their mma and
+// loads overlap.
+template <int NW, int P, class PA, class PB>
+__device__ __forceinline__ void slab_product(float (&acc)[P][8][4], int m0, int ntiles, int K,
+                                             PA pa, PB pb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][nt][e] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const int ka = k0 + 2 * t;
+    const uint32_t a[4] = {pa(m0 + g, ka), pa(m0 + g + 8, ka), pa(m0 + g, ka + 8),
+                           pa(m0 + g + 8, ka + 8)};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt < ntiles) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          uint32_t b0[NW], b1[NW];
+          pb(p, nt * 8 + g, ka, b0);
+          pb(p, nt * 8 + g, ka + 8, b1);
+#pragma unroll
+          for (int i = 0; i < NW; ++i) wcore::mma(acc[p][nt], a, b0[i], b1[i]);
+        }
+      }
+    }
+  }
+}
+
+// A weight as the backward's products read it: NW bf16 term arrays, term
+// t of element e at p[t * stride + e].  A bf16 weight is its own single
+// term; a float32 one is split once per call by split_weights_kernel (the
+// split of fused_common.cuh, exact in sum), not again by every warp that
+// reads it.
+struct WTerms {
+  const bf16* p;
+  size_t stride;
+};
+
+template <int NW>
+__device__ __forceinline__ void tpair_row(const WTerms& w, int row, int ld, int k, int K,
+                                          uint32_t (&o)[NW]) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) o[i] = pair_row(w.p + i * w.stride, row, ld, k, K);
+}
+
+__global__ void __launch_bounds__(kThreads)
+split_weights_kernel(const float* __restrict__ w, bf16* __restrict__ out, size_t n) {
+  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * kThreads) {
+    bf16 t[3];
+    wcore::split1<3>(w[e], t);
+    out[e] = t[0];
+    out[n + e] = t[1];
+    out[2 * n + e] = t[2];
+  }
+}
+
+// Stage (b)'s shared memory: the core's exchange | zero row | q, k, v, dO
+// as two bf16 terms each (N, operand_ld) | column sums [warps][3][kMaxHd] |
+// valid (kMaxN) | drpe (N, N).
+__host__ __device__ size_t core_operands_offset(const Geometry& g) {
+  return wcore::exchange_bytes(g.N) + sizeof(bf16) * wcore::kZeroRow;
+}
+
+size_t core_smem(const Geometry& g) {
+  return core_operands_offset(g) + sizeof(bf16) * 4 * 2 * (size_t)g.N * wcore::operand_ld(g.hd) +
+         sizeof(float) * (wcore::kWarps * 3 * wcore::kMaxHd + wcore::kMaxN + (size_t)g.N * g.N);
+}
+
+// Stage (b), block (chunk, h) over the windows [chunk*wpb, (chunk+1)*wpb):
+// per window, q, k, v = lnb Wqkv_h^T + bqkv (the bias row for a pad token)
+// and do_h = dpob Wproj[:, head h] on the tensor cores, one warp per 16
+// rows, stored as two bf16 terms each; then the core (csrc/wmsa_bwd_core.cuh)
+// writes bf16(o) and bf16(dqkv valid) to this head's columns of ob_g and
+// dqkvv_g and adds dS to the chunk's drpe.  Last, the chunk's partial
+// row, chunk_part[chunk] = [dbqkv 3C | drpe H*N*N], gets this head's
+// columns of dbqkv (the float32 dqkv summed over every token) and its drpe
+// tile.
+template <typename T>
+__global__ void __launch_bounds__(wcore::kThreads)
+attn_bwd_core_kernel(WTerms wqkv, const float* __restrict__ bqkv,
+                     const float* __restrict__ rpe, WTerms wproj_io,
+                     const bf16* __restrict__ lnb_g, const bf16* __restrict__ dpob_g,
+                     bf16* __restrict__ ob_g, bf16* __restrict__ dqkvv_g,
+                     float* __restrict__ chunk_part, Geometry g, float scale, int nW,
+                     int wpb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NW = Terms<T>::n;
+  constexpr int kWarps = wcore::kWarps, kMaxHd = wcore::kMaxHd;
+  const int N = g.N, C = g.C, hd = g.hd, H = g.H;
+  const int ld = wcore::operand_ld(hd);
+  const int term = N * ld;
+  bf16* xch = reinterpret_cast<bf16*>(smem);
+  bf16* zrow = reinterpret_cast<bf16*>(smem + wcore::exchange_bytes(N));
+  bf16* opnd = reinterpret_cast<bf16*>(smem + core_operands_offset(g));  // q, k, v, dO
+  float* colsum = reinterpret_cast<float*>(opnd + 4 * 2 * term);         // [warps][3][kMaxHd]
+  float* valid = colsum + kWarps * 3 * kMaxHd;                           // (kMaxN)
+  float* drpe = valid + wcore::kMaxN;                                    // (N, N)
+  const int chunk = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int lane = tid & 31, gq = lane >> 2, t = lane & 3;
+  const int ntd = (hd + 7) >> 3;
+  const float* rpe_h = rpe + (size_t)h * N * N;
+
+  // Zeros: the zero row, the operands' padding columns, the column sums.
+  for (int i = tid; i < wcore::kZeroRow + 4 * 2 * term; i += wcore::kThreads)
+    zrow[i] = __float2bfloat16(0.f);
+  for (int i = tid; i < kWarps * 3 * kMaxHd; i += wcore::kThreads) colsum[i] = 0.f;
+  for (int i = tid; i < N * N; i += wcore::kThreads) drpe[i] = 0.f;
+
+  const int w_end = min(nW, (chunk + 1) * wpb);
+  for (int w = chunk * wpb; w < w_end; ++w) {
+    const size_t base = (size_t)w * N * C;
+    const bf16* lnb_w = lnb_g + base;
+    const bf16* dpob_w = dpob_g + base;
+    valid_tokens(g, w, valid);
+    __syncthreads();
+    const int m0 = warp * 16;
+    if (m0 < N) {
+      // One operand tile as two bf16 terms, a column pair (d, d + 1) per
+      // store; columns >= hd stay zero.  q, k and v get the qkv bias, or
+      // only it for a pad token.
+      auto store = [&](int part, const float (&acc)[8][4]) {
+        uint32_t* dst = reinterpret_cast<uint32_t*>(opnd + part * 2 * term);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int d = nt * 8 + 2 * t;
+          if (nt < ntd && d < hd) {
+            const bool two = d + 1 < hd;
+            float b0 = 0.f, b1 = 0.f;
+            if (part < 3) {
+              b0 = bqkv[part * C + h * hd + d];
+              b1 = two ? bqkv[part * C + h * hd + d + 1] : 0.f;
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int m = m0 + gq + 8 * r;
+              if (m < N) {
+                float x0 = acc[nt][2 * r], x1 = two ? acc[nt][2 * r + 1] : 0.f;
+                if (part < 3) {
+                  const bool in = valid[m] != 0.f;
+                  x0 = in ? x0 + b0 : b0;
+                  x1 = in ? x1 + b1 : b1;
+                }
+                uint32_t u[2];
+                wcore::split<2>(x0, x1, u);
+                dst[(m * ld + d) / 2] = u[0];
+                dst[(term + m * ld + d) / 2] = u[1];
+              }
+            }
+          }
+        }
+      };
+      {
+        float acc[3][8][4];  // q, k, v from lnb
+        slab_product<NW, 3>(
+            acc, m0, ntd, C,
+            [&](int m, int kk) { return pair_row(lnb_w, m < N ? m : -1, C, kk, C); },
+            [&](int part, int n, int kk, uint32_t (&o)[NW]) {
+              tpair_row<NW>(wqkv, n < hd ? part * C + h * hd + n : -1, C, kk, C, o);
+            });
+#pragma unroll
+        for (int part = 0; part < 3; ++part) store(part, acc[part]);
+      }
+      float acc[1][8][4];  // do_h from dpob
+      slab_product<NW, 1>(
+          acc, m0, ntd, C,
+          [&](int m, int kk) { return pair_row(dpob_w, m < N ? m : -1, C, kk, C); },
+          [&](int, int n, int kk, uint32_t (&o)[NW]) {
+            tpair_row<NW>(wproj_io, n < hd ? h * hd + n : -1, C, kk, C, o);
+          });
+      store(3, acc[0]);
+    }
+    __syncthreads();
+    auto operand = [&](int part) { return wcore::Operand{opnd + part * 2 * term, ld, term}; };
+    bf16* ob_w = ob_g + base + h * hd;
+    bf16* dq_w = dqkvv_g + (size_t)w * N * 3 * C + h * hd;
+    wcore::attention_bwd<2, true>(
+        operand(0), operand(1), operand(2), operand(3), N, hd, scale,
+        [&](int i, int j) { return __ldg(rpe_h + i * N + j); },
+        [&](int, int, int i, int j, float x) { drpe[i * N + j] += x; }, xch, zrow, colsum,
+        [&](int kind, int i, int d, float x0, float x1, bool two) {
+          if (kind == 3)
+            wcore::store_pair(ob_w + (size_t)i * C + d, x0, x1, two);
+          else
+            wcore::store_pair(dq_w + (size_t)i * 3 * C + kind * C + d, valid[i] * x0,
+                              valid[i] * x1, two);
+        });
+  }
+
+  float* row = chunk_part + (size_t)chunk * (3 * C + H * N * N);
+  for (int idx = tid; idx < 3 * hd; idx += wcore::kThreads) {
+    const int part = idx / hd, d = idx - part * hd;
+    float s = 0.f;
+    for (int i = 0; i < kWarps; ++i) s += colsum[(i * 3 + part) * kMaxHd + d];
+    row[part * C + h * hd + d] = s;
+  }
+  for (int idx = tid; idx < N * N; idx += wcore::kThreads)
+    row[3 * C + (size_t)h * N * N + idx] = drpe[idx];
+}
+
+// Stage (c1): dln = bf16(dqkv valid) Wqkv on the tensor cores, one 64-row
+// x 64-column tile of the (M, C) output per block.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dln_kernel(WTerms wqkv_io, const bf16* __restrict__ dqkvv_g,
+                    float* __restrict__ dln_g, int M, int C) {
+  constexpr int NW = Terms<T>::n;
+  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * kBN;
+  const int rows = min(64, M - m0);
+  const bf16* a = dqkvv_g + (size_t)m0 * 3 * C;
   float acc[4][kTN];
-  for (int h = 0; h < H; ++h) {
-    head_qkv(g, h, ln, wqkv, bqkv, valid, 1.f, q, k, v, ldq);
-    // do_h = dpob Wproj[:, h*hd : (h+1)*hd]
-    mma_tile<64, NW>(
-        acc, C, [&](int m, int kk) { return pair_row(dpob_w, m < N ? m : -1, C, kk, C); },
-        [&](int n, int kk, uint32_t (&o)[NW]) {
-          wpair_row(wproj_io, n < hd ? h * hd + n : -1, C, kk, C, o);
-        });
+  mma_tile<64, NW>(
+      acc, 3 * C, [&](int m, int kk) { return pair_row(a, m < rows ? m : -1, 3 * C, kk, 3 * C); },
+      [&](int n, int kk, uint32_t (&o)[NW]) {
+        tpair_row<NW>(wqkv_io, n0 + n < C ? n0 + n : -1, 3 * C, kk, 3 * C, o);
+      });
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = tile_row<64>(i);
+  for (int i = 0; i < 4; ++i) {
+    const int m = tile_row<64>(i);
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int n = tile_col(j);
-        if (m < N && n < hd) dO[m * ldq + n] = acc[i][j];
-      }
-    }
-    __syncthreads();
-    scores(N, hd, q, k, v, dO, ldq, scale, rpe + (size_t)h * N * N, p, ds, lds);
-    // One warp per row: P = softmax(S), r = rowsum(dP P), dS = P (dP - r),
-    // which is also this window's share of drpe.
-    for (int i = tid >> 5; i < N; i += kThreads / 32) {
-      float* pi = p + i * lds;
-      float* di = ds + i * lds;
-      float m = -CUDART_INF_F;
-      for (int j = lane; j < N; j += 32) m = fmaxf(m, pi[j]);
-      m = ipe::warp_max(m);
-      float sum = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        const float e = expf(pi[j] - m);
-        pi[j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      float r = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        const float pij = pi[j] / sum;
-        pi[j] = pij;
-        r = fmaf(pij, di[j], r);
-      }
-      r = warp_sum(r);
-      float* drpe = pv + 6 * C + ((size_t)h * N + i) * N;
-      for (int j = lane; j < N; j += 32) {
-        const float dsij = pi[j] * (di[j] - r);
-        di[j] = dsij;
-        drpe[j] = dsij;
-      }
-    }
-    __syncthreads();
-    // o = P v; dq = scale dS k; dk = scale dS^T q; dv = P^T dO.
-    for (int idx = tid; idx < N * hd; idx += kThreads) {
-      const int i = idx / hd, d = idx - (idx / hd) * hd;
-      float ao = 0.f, aq = 0.f, ak = 0.f, av = 0.f;
-      for (int j = 0; j < N; ++j) {
-        ao = fmaf(p[i * lds + j], v[j * ldq + d], ao);
-        aq = fmaf(ds[i * lds + j], k[j * ldq + d], aq);
-        ak = fmaf(ds[j * lds + i], q[j * ldq + d], ak);
-        av = fmaf(p[j * lds + i], dO[j * ldq + d], av);
-      }
-      ob_g[base + (size_t)i * C + h * hd + d] = __float2bfloat16(ao);
-      dq[i * ldq + d] = scale * aq;
-      dk[i * ldq + d] = scale * ak;
-      dv[i * ldq + d] = av;
-    }
-    __syncthreads();
-    // dbqkv over every token; bf16(dqkv valid) rows for dWqkv and dln.
-    for (int j = tid; j < 3 * hd; j += kThreads) {
-      const int part_ = j / hd, d = j - part_ * hd;
-      const float* src = part_ == 0 ? dq : (part_ == 1 ? dk : dv);
-      const int col = part_ * C + h * hd + d;
-      float sum = 0.f;
-      for (int i = 0; i < N; ++i) {
-        const float val = src[i * ldq + d];
-        sum += val;
-        dqkvv_g[((size_t)w * N + i) * 3 * C + col] = __float2bfloat16(valid[i] * val);
-      }
-      pv[2 * C + col] = sum;
-    }
-    __syncthreads();
-  }
-
-  for (int n0 = 0; n0 < C; n0 += kBN) {  // dln = bf16(dqkv valid) Wqkv
-    mma_tile<64, NW>(
-        acc, 3 * C,
-        [&](int m, int kk) { return pair_row(dqkvv_w, m < N ? m : -1, 3 * C, kk, 3 * C); },
-        [&](int n, int kk, uint32_t (&o)[NW]) {
-          wpair_row(wqkv_io, n0 + n < C ? n0 + n : -1, 3 * C, kk, 3 * C, o);
-        });
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = tile_row<64>(i);
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int n = n0 + tile_col(j);
-        if (m < N && n < C) dln_g[base + (size_t)m * C + n] = acc[i][j];
-      }
+    for (int j = 0; j < kTN; ++j) {
+      const int n = n0 + tile_col(j);
+      if (m < rows && n < C) dln_g[(size_t)(m0 + m) * C + n] = acc[i][j];
     }
   }
-  __syncthreads();
+}
 
-  layernorm_bwd_rows(x + base, dy + base, dln_g + base, mean, rstd, gamma, N, C, dx + base, pv,
-                     pv + C);
+// Stage (c2), one block per window: the LayerNorm backward, dx, and this
+// window's dgamma and dbeta partials into rows_part.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_lnb_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                    const float* __restrict__ gamma, const float* __restrict__ dln_g,
+                    const float* __restrict__ mean_g, const float* __restrict__ rstd_g,
+                    T* __restrict__ dx, float* __restrict__ rows_part, Geometry g) {
+  const int N = g.N, C = g.C, w = blockIdx.x;
+  const size_t base = (size_t)w * N * C;
+  float* pv = rows_part + (size_t)w * 3 * C;
+  layernorm_bwd_rows(x + base, dy + base, dln_g + base, mean_g + (size_t)w * N,
+                     rstd_g + (size_t)w * N, gamma, N, C, dx + base, pv, pv + C);
 }
 
 template <typename T>
@@ -424,26 +542,62 @@ cudaError_t bwd(const void* x, const float* gamma, const float* beta, const void
                 const void* wqkv_io, const float* bqkv, const float* rpe,
                 const void* wproj_io, const float* dp, const void* dy, void* dx, float* vec,
                 float* dwqkv, float* dwproj, bf16* lnb, bf16* ob, bf16* dpob, bf16* dqkvv,
-                float* dln, float* vec_part, float* atb_part, int nW, const Geometry& g,
-                float scale, int s1, int s2, cudaStream_t stream) {
-  const size_t smem = bwd_smem(g);
+                float* dln, float* stats, float* rows_part, float* chunk_part,
+                float* atb_part, bf16* wterms, int nW, const Geometry& g, float scale,
+                int wpb, int s1, int s2, cudaStream_t stream) {
+  const size_t smem = core_smem(g);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(attn_bwd_window_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  attn_bwd_window_kernel<T><<<nW, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), gamma, beta, static_cast<const T*>(wqkv),
-      static_cast<const T*>(wqkv_io), bqkv, rpe, static_cast<const T*>(wproj_io), dp,
-      static_cast<const T*>(dy), static_cast<T*>(dx), lnb, ob, dpob, dqkvv, dln, vec_part, g,
-      scale);
-  err = cudaGetLastError();
+  cudaError_t err = allow_smem(attn_bwd_core_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   const int M = nW * g.N, C = g.C;
+  // The weights as bf16 terms: Wqkv (3C, C), Wproj (in, out) and Wqkv
+  // (in, out), split into wterms when float32.
+  const void* src[3] = {wqkv, wproj_io, wqkv_io};
+  const size_t sizes[3] = {(size_t)3 * C * C, (size_t)C * C, (size_t)3 * C * C};
+  WTerms wt[3];
+  for (int i = 0; i < 3; ++i) {
+    if (sizeof(T) == 2) {
+      wt[i] = WTerms{static_cast<const bf16*>(src[i]), 0};
+    } else {
+      const int blocks = (int)std::min<size_t>((sizes[i] + kThreads - 1) / kThreads, 1024);
+      split_weights_kernel<<<blocks, kThreads, 0, stream>>>(static_cast<const float*>(src[i]),
+                                                           wterms, sizes[i]);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      wt[i] = WTerms{wterms, sizes[i]};
+      wterms += 3 * sizes[i];
+    }
+  }
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  float* mean = stats;
+  float* rstd = stats + M;
+  attn_bwd_ln_kernel<T><<<nW, kThreads, 0, stream>>>(xt, gamma, beta, dp, dyt, lnb, dpob,
+                                                     mean, rstd, rows_part, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int chunks = (nW + wpb - 1) / wpb;
+  attn_bwd_core_kernel<T><<<dim3(chunks, g.H), wcore::kThreads, smem, stream>>>(
+      wt[0], bqkv, rpe, wt[1], lnb, dpob, ob, dqkvv, chunk_part, g, scale, nW, wpb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dln_kernel<T><<<dim3((M + 63) / 64, (C + kBN - 1) / kBN), kThreads, 0, stream>>>(
+      wt[2], dqkvv, dln, M, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_lnb_kernel<T><<<nW, kThreads, 0, stream>>>(xt, dyt, gamma, dln, mean, rstd,
+                                                      static_cast<T*>(dx), rows_part, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   // dWqkv (3C, C) = dqkvv^T lnb;  dWproj (C, C) = dpob^T ob
   err = launch_atb(dqkvv, 3 * C, lnb, C, dwqkv, atb_part, M, 3 * C, C, s1, stream);
   if (err != cudaSuccess) return err;
   err = launch_atb(dpob, C, ob, C, dwproj, atb_part, M, C, C, s2, stream);
   if (err != cudaSuccess) return err;
-  return launch_colsum(vec_part, vec, nW, 6 * C + g.H * g.N * g.N, stream);
+  // vec = [dgamma | dbeta | dbproj] over windows, then [dbqkv | drpe] over chunks
+  err = launch_colsum(rows_part, vec, nW, 3 * C, stream);
+  if (err != cudaSuccess) return err;
+  return launch_colsum(chunk_part, vec + 3 * C, chunks, 3 * C + g.H * g.N * g.N, stream);
 }
 
 bool bad_shape(int nW, int N, int C, int H, int Himg, int Wimg, int ws) {
@@ -481,32 +635,37 @@ int ipe_fused_attn_fwd(const void* x, const void* gamma, const void* beta, const
 
 // wqkv (3C, C) as in the forward; wqkv_io (C, 3C) and wproj_io (C, C): the
 // weights in the (in, out) layout.  Scratch, all on the card (M = nW * N
-// rows): lnb, ob, dpob (M, C) and dqkvv (M, 3C) bf16; dln (M, C) float32;
-// vec_part (nW, 6C + H*N*N) float32; atb_part max(3 * s1, s2) * C * C
-// float32.  Outputs: dx in the dtype; vec = [dgamma C | dbeta C | dbqkv 3C
-// | dbproj C | drpe H*N*N], dwqkv (3C, C), dwproj (C, C) float32.  s1, s2:
-// row chunks of the dWqkv and dWproj reductions.
+// rows, chunks = ceil(nW / wpb)): lnb, ob, dpob (M, C) and dqkvv (M, 3C)
+// bf16; dln (M, C), stats (2, M) (each row's LayerNorm mean, rstd),
+// rows_part (nW, 3C), chunk_part (chunks, 3C + H*N*N) and atb_part
+// max(3 * s1, s2) * C * C float32; wterms (float32 weights only, else
+// unused) 3 * 7 * C * C bf16.  Outputs: dx in the dtype; vec =
+// [dgamma C | dbeta C | dbproj C | dbqkv 3C | drpe H*N*N], dwqkv (3C, C),
+// dwproj (C, C) float32.  wpb: windows per block of the core stage; s1,
+// s2: row chunks of the dWqkv and dWproj reductions.
 int ipe_fused_attn_bwd(const void* x, const void* gamma, const void* beta, const void* wqkv,
                        const void* wqkv_io, const void* bqkv, const void* rpe,
                        const void* wproj_io, const void* dp, const void* dy, void* dx,
                        void* vec, void* dwqkv, void* dwproj, void* lnb, void* ob, void* dpob,
-                       void* dqkvv, void* dln, void* vec_part, void* atb_part, int nW, int N,
-                       int C, int H, int Himg, int Wimg, int ws, float scale, int s1, int s2,
-                       int dtype, void* stream) {
-  if (bad_shape(nW, N, C, H, Himg, Wimg, ws) || s1 <= 0 || s2 <= 0)
+                       void* dqkvv, void* dln, void* stats, void* rows_part, void* chunk_part,
+                       void* atb_part, void* wterms, int nW, int N, int C, int H, int Himg,
+                       int Wimg, int ws,
+                       float scale, int wpb, int s1, int s2, int dtype, void* stream) {
+  if (bad_shape(nW, N, C, H, Himg, Wimg, ws) || wpb <= 0 || s1 <= 0 || s2 <= 0)
     return (int)cudaErrorInvalidValue;
   const Geometry g = make_geometry(N, C, H, Himg, Wimg, ws);
   auto f = [&](auto tag) {
     using T = decltype(tag);
     return bwd<T>(x, static_cast<const float*>(gamma), static_cast<const float*>(beta), wqkv,
                   wqkv_io, static_cast<const float*>(bqkv), static_cast<const float*>(rpe),
-                  wproj_io,
-                  static_cast<const float*>(dp), dy, dx, static_cast<float*>(vec),
+                  wproj_io, static_cast<const float*>(dp), dy, dx, static_cast<float*>(vec),
                   static_cast<float*>(dwqkv), static_cast<float*>(dwproj),
                   static_cast<bf16*>(lnb), static_cast<bf16*>(ob), static_cast<bf16*>(dpob),
                   static_cast<bf16*>(dqkvv), static_cast<float*>(dln),
-                  static_cast<float*>(vec_part), static_cast<float*>(atb_part), nW, g, scale,
-                  s1, s2, static_cast<cudaStream_t>(stream));
+                  static_cast<float*>(stats), static_cast<float*>(rows_part),
+                  static_cast<float*>(chunk_part), static_cast<float*>(atb_part),
+                  static_cast<bf16*>(wterms), nW, g, scale, wpb, s1, s2,
+                  static_cast<cudaStream_t>(stream));
   };
   if (dtype == 0) return (int)f(float{});
   if (dtype == 1) return (int)f(bf16{});

@@ -1,11 +1,11 @@
-// Window multi-head self-attention backward (W-MSA core) for Hopper.
+// K2: window multi-head self-attention backward (W-MSA core) for Hopper.
 //
 // Replaces the TPU kernel `_qkv_vjp_bwd`, the backward of
 // `window_attention_pallas_qkv_vjp` in
-// infantposeestimation_gaussianbias_tpu/ops/pallas/window_msa.py (bodies
-// `_attn_qkv_bwd_kernel` and `_attn_qkv_bwd_kernel_packed`; the packed
-// variant is an MXU-shaping device with the same result, so one kernel
-// covers both).
+// infantposeestimation_gaussianbias_tpu/ops/pallas/window_msa.py:422
+// (bodies `_attn_qkv_bwd_kernel` and `_attn_qkv_bwd_kernel_packed`; the
+// packed variant is an MXU-shaping device with the same result, so one
+// kernel covers both).
 //
 // Contract, for each window w and head h, with q, k, v and dO read from the
 // flat layouts of the forward (csrc/window_msa.cu):
@@ -15,35 +15,39 @@
 //   qkv  (nW, N, 3C) in T (float or bf16);  bias (H, N, N) float32;
 //   dout (nW, N, C) in T;  dqkv (nW, N, 3C) in T, head h at columns h*hd,
 //   C + h*hd and 2C + h*hd;  dbias (H, N, N) float32.
-//   All maths in float32; dqkv is cast once to T (round to nearest even).
+//   Float32 inputs and accumulation; the products in split-bf16 terms as
+//   csrc/wmsa_bwd_core.cuh states (P and dS in two terms, ~2^-17
+//   relative), within 1e-4 of the plain version's float32 maths; dqkv is
+//   cast once to T (round to nearest even).
 //
-// What bounds it: one (window, head) pair does about 10*N^2*hd FLOPs
-// (0.94 MFLOP at N=49, hd=39) against about 8*N*hd*sizeof(T) bytes of
-// device traffic (q, k, v, dO read; dq, dk, dv written: ~31 KB in bf16),
-// some 30 FLOP/byte.  With its float32 maths on CUDA cores (67 TFLOP/s,
-// a ridge of 20 FLOP/byte at 3.35 TB/s) that is bound by operations;
-// on bf16 tensor cores (ridge ~295) it would be bound by memory.  So the
-// design reads every input byte once, recomputes P in shared memory
-// instead of storing it in the forward, and writes no N x N tile to
-// device memory except one dbias partial per block.
-//
-// Design (a simple, correct first version):
-//   * grid (chunks, H), 256 threads: block (c, h) walks the windows
-//     [c*wpb, (c+1)*wpb) of head h one after the other;
-//   * per window: q, k, v, dO of the head loaded once into shared memory as
-//     float32 (odd row strides); one thread per (i, j) computes S and dP;
-//     one warp per row takes the softmax, rowsum(dP o P) and dS; one
-//     thread per (i, d) computes dq, dk and dv and writes them to dqkv;
-//   * dbias: the block adds dS of each of its windows into an N x N
-//     accumulator in shared memory (each entry owned by one thread, no
-//     atomics) and writes it once, as the block's partial, to a scratch
-//     (chunks, H, N, N) buffer; a second kernel sums the partials over the
-//     chunks in a fixed order.  The result is deterministic: blocks run in
-//     no order on the card, but no sum depends on that order.  The wrapper
-//     picks wpb so that the grid holds a few blocks per SM, which keeps
-//     the scratch at a few MB whatever nW is.
-// N <= 64 and hd <= 64 are runtime values (hd = 39 for HRFormer-Base is
-// ragged); the Python wrapper rejects anything larger.
+// What bounds it: per (window, head) ~10 N^2 hd FLOPs (0.94 MFLOP at
+// N = 49, hd = 39) against ~7 N hd sizeof(T) bytes of device traffic (q, k,
+// v, dO read; dq, dk, dv written): ~34 FLOP/byte in bf16, under the H100's
+// bf16 tensor-core ridge (~295), so device memory bounds it (0.0358 ms at
+// hrformer_base b0, b = 32).  The float32 version this replaces ran the
+// products on the CUDA cores out of shared memory, one thread per output
+// element, and shared-memory bandwidth set its pace (0.89 of 0.90 ms of
+// device time at b0 was that kernel on an NVIDIA H100, PERF.md).  Now:
+//   * the attention maths is the shared tensor-core core
+//     (csrc/wmsa_bwd_core.cuh), 4 warps on one (window, head);
+//   * grid (chunks, H), 128 threads: block (c, h) walks the windows
+//     [c*wpb, (c+1)*wpb) of head h, two stages deep: the next window's q,
+//     k, v and dO rows stream into a staging buffer with cp.async while
+//     this window computes on the operand tiles, and are converted into
+//     them (bf16 stays bf16; float32 becomes three bf16 terms) once it is
+//     done.  The copies are 4-byte words: a head's columns start at h*hd
+//     elements, only 2-byte aligned at hd = 39 (no 16-byte copies, no
+//     TMA); the conversion shifts a row that starts mid-word;
+//   * registers bounded for 4 blocks (16 warps) per SM in bf16, whose
+//     shared memory (~52 KB at b0) allows that many;
+//   * dbias: each thread adds dS of the block's windows at its own (i, j)
+//     into registers (no atomics) and the block writes them once, as its
+//     partial, to a scratch (chunks, H, N, N) buffer; a second kernel sums
+//     the partials over the chunks in a fixed order.  Deterministic:
+//     blocks run in no order on the card, but no sum depends on that
+//     order.
+// N <= 64 and hd <= 64 are runtime values; the Python wrapper rejects
+// anything larger.
 //
 // A head range (K3, the sharded W-MSA of kernels/window_msa.py): the C entry
 // takes the model's H heads and a range [h0, h0 + Hl) of them.  The kernel
@@ -51,147 +55,187 @@
 // h0*hd columns, bias and dbias by h0 N x N tiles) with the full width C as
 // its row stride, so it reads this rank's heads of qkv and dout in place,
 // writes their columns of a full-width dqkv and their tiles of dbias, and
-// keeps (chunks, Hl, N, N) partials.
+// keeps (chunks, Hl, N, N) partials.  A (window, head)'s dq, dk and dv do
+// not depend on the other heads or windows of the launch: K3's equal K2's
+// bit for bit.
 
-#include <math_constants.h>
+#include <cstdint>
 
-#include "ipe_common.cuh"
+#include "wmsa_bwd_core.cuh"
 
 namespace {
 
 using ipe::from_f32;
-using ipe::odd_stride;
-using ipe::to_f32;
+using wcore::bf16;
+using wcore::kThreads;
 
-constexpr int kThreads = 256;
 constexpr int kReduceThreads = 256;
-constexpr int kMaxN = 64;
-constexpr int kMaxHd = 64;
+constexpr int kMaxN = wcore::kMaxN;
+constexpr int kMaxHd = wcore::kMaxHd;
 
-__host__ __forceinline__ size_t smem_bytes(int N, int hd) {
-  // q, k, v, dO: (N, odd hd); P, dP/dS: (N, odd N); dbias accumulator: N*N.
-  return sizeof(float) * (4 * (size_t)N * odd_stride(hd) +
-                          2 * (size_t)N * odd_stride(N) + (size_t)N * N);
+// bf16 terms of the core's operands: a bf16 input is exact in one, a float
+// one takes three (csrc/wmsa_bwd_core.cuh, Numerics).
+template <typename T>
+constexpr int kTerms = sizeof(T) == 2 ? 1 : 3;
+
+// 4-byte words of one staged row: a bf16 row may start mid-word.
+template <typename T>
+__host__ __device__ __forceinline__ int row_words(int hd) {
+  return sizeof(T) == 2 ? (hd + 2) / 2 : hd;
+}
+
+// exchange | zero row | operands: 4 x kTerms (N, operand_ld) bf16 tiles |
+// staging: 4 (N, row_words) word tiles.
+__host__ __device__ __forceinline__ size_t operands_offset(int N) {
+  return wcore::exchange_bytes(N) + sizeof(wcore::bf16) * wcore::kZeroRow;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ __forceinline__ size_t smem_bytes(int N, int hd) {
+  return operands_offset(N) +
+         sizeof(wcore::bf16) * 4 * kTerms<T> * (size_t)N * wcore::operand_ld(hd) +
+         sizeof(uint32_t) * 4 * (size_t)N * row_words<T>(hd);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Element shift (0 or 1) of a row's first element within its 4-byte word.
+template <typename T>
+__device__ __forceinline__ int word_shift(const T* p) {
+  return sizeof(T) == 2 ? (int)((reinterpret_cast<uintptr_t>(p) >> 1) & 1) : 0;
+}
+
+// Blocks per SM the registers are bounded for: 4 fit the bf16 kernel's
+// shared memory, 2 the float one's.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 4 : 2)
 window_msa_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
                       const T* __restrict__ dout, T* __restrict__ dqkv,
-                      float* __restrict__ partial, int nW, int N, int H, int C,
-                      int hd, float scale, int wpb) {
-  extern __shared__ float smem[];
-  const int ldq = odd_stride(hd);
-  const int lds = odd_stride(N);
-  float* q = smem;                 // (N, ldq)
-  float* k = q + N * ldq;          // (N, ldq)
-  float* v = k + N * ldq;          // (N, ldq)
-  float* g = v + N * ldq;          // (N, ldq) dO
-  float* p = g + N * ldq;          // (N, lds) S, then P
-  float* ds = p + N * lds;         // (N, lds) dP, then dS
-  float* acc = ds + N * lds;       // (N * N) dbias of this block's windows
+                      float* __restrict__ partial, const T* qkv_end, const T* dout_end,
+                      int nW, int N, int H, int C, int hd, float scale, int wpb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NI = kTerms<T>;
+  constexpr int kPer = 4 / sizeof(T);  // elements per word
+  bf16* xch = reinterpret_cast<bf16*>(smem);
+  bf16* zrow = reinterpret_cast<bf16*>(smem + wcore::exchange_bytes(N));
+  bf16* opnd = reinterpret_cast<bf16*>(smem + operands_offset(N));
+  const int ld = wcore::operand_ld(hd);
+  const int term = N * ld;
+  uint32_t* stage = reinterpret_cast<uint32_t*>(opnd + 4 * NI * term);
+  const int lw = row_words<T>(hd);
 
   // H: the heads of this launch (gridDim.y); C: the row width of dout, and
   // a third of qkv's and dqkv's.
   const int chunk = blockIdx.x;
   const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* bias_h = bias + (size_t)h * N * N;
 
-  for (int idx = tid; idx < N * N; idx += kThreads) acc[idx] = 0.f;
+  // Zeros: the zero row and the operands' padding columns (windows write
+  // only the columns < hd).
+  for (int i = tid; i < wcore::kZeroRow + 4 * NI * term; i += kThreads)
+    zrow[i] = __float2bfloat16(0.f);  // the operands follow the zero row
 
-  const int w_end = min(nW, (chunk + 1) * wpb);
-  for (int w = chunk * wpb; w < w_end; ++w) {
-    // Load q/k/v/dO of this (window, head); neighbouring threads read
-    // neighbouring columns of one row.
-    const T* base = qkv + (size_t)w * N * 3 * C + h * hd;
-    const T* gbase = dout + (size_t)w * N * C + h * hd;
-    for (int idx = tid; idx < N * hd; idx += kThreads) {
-      const int n = idx / hd;
-      const int d = idx - n * hd;
-      const T* row = base + (size_t)n * 3 * C + d;
-      q[n * ldq + d] = to_f32(row[0]);
-      k[n * ldq + d] = to_f32(row[C]);
-      v[n * ldq + d] = to_f32(row[2 * C]);
-      g[n * ldq + d] = to_f32(gbase[(size_t)n * C + d]);
-    }
-    __syncthreads();
-
-    // S[i][j] = scale * q_i . k_j + bias[h][i][j];  dP[i][j] = dO_i . v_j.
-    for (int idx = tid; idx < N * N; idx += kThreads) {
-      const int i = idx / N;
-      const int j = idx - i * N;
-      const float* qi = q + i * ldq;
-      const float* kj = k + j * ldq;
-      const float* gi = g + i * ldq;
-      const float* vj = v + j * ldq;
-      float sq = 0.f, sg = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        sq = fmaf(qi[d], kj[d], sq);
-        sg = fmaf(gi[d], vj[d], sg);
-      }
-      p[i * lds + j] = scale * sq + bias_h[idx];
-      ds[i * lds + j] = sg;
-    }
-    __syncthreads();
-
-    // One warp per row: P = softmax(S), r = rowsum(dP o P),
-    // dS = P o (dP - r), and dS into the dbias accumulator.  Every lane
-    // reads back only the entries it wrote itself.
-    for (int i = warp; i < N; i += kThreads / 32) {
-      float* pi = p + i * lds;
-      float* di = ds + i * lds;
-      float m = -CUDART_INF_F;
-      for (int j = lane; j < N; j += 32) m = fmaxf(m, pi[j]);
-      m = ipe::warp_max(m);
-      float sum = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        const float e = expf(pi[j] - m);
-        pi[j] = e;
-        sum += e;
-      }
-      const float inv_sum = 1.f / ipe::warp_sum(sum);
-      float r = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        const float pij = pi[j] * inv_sum;
-        pi[j] = pij;
-        r = fmaf(pij, di[j], r);
-      }
-      r = ipe::warp_sum(r);
-      for (int j = lane; j < N; j += 32) {
-        const float dsij = pi[j] * (di[j] - r);
-        di[j] = dsij;
-        acc[i * N + j] += dsij;
+  // Tile s (0 q, 1 k, 2 v, 3 dO) of window w: its head's first element of
+  // row 0 in device memory; rows are row_stride(s) elements apart.
+  auto tile_ptr = [&](int w, int s) -> const T* {
+    return s < 3 ? qkv + (size_t)w * N * 3 * C + s * C + h * hd
+                 : dout + (size_t)w * N * C + h * hd;
+  };
+  auto row_stride = [&](int s) -> size_t { return s < 3 ? 3 * (size_t)C : C; };
+  // Stage window w's four tiles: cp.async of 4-byte words, warp per row,
+  // lane per word; a word that would reach past a tensor's end (a bf16
+  // row ending there on a word's lower half) is copied by hand.
+  auto issue = [&](int w) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const T* base = tile_ptr(w, s);
+      const T* end = s < 3 ? qkv_end : dout_end;
+      for (int r = warp; r < N; r += wcore::kWarps) {
+        const T* e = base + r * row_stride(s);
+        const int words = (word_shift(e) + hd + kPer - 1) / kPer;
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(
+            reinterpret_cast<uintptr_t>(e) & ~static_cast<uintptr_t>(3));
+        uint32_t* dst = stage + (s * N + r) * lw;
+        for (int i = lane; i < words; i += 32) {
+          if (reinterpret_cast<const char*>(src + i + 1) <= reinterpret_cast<const char*>(end))
+            cp_async4(dst + i, src + i);
+          else
+            dst[i] = *reinterpret_cast<const unsigned short*>(src + i);
+        }
       }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  // The staged rows of window w as the operands' bf16 terms, a pair of
+  // columns (one 4-byte word of each term tile) per lane.
+  auto convert = [&](int w) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const T* base = tile_ptr(w, s);
+      for (int r = warp; r < N; r += wcore::kWarps) {
+        const uint32_t* raw = stage + (s * N + r) * lw;
+        uint32_t* dst = reinterpret_cast<uint32_t*>(opnd + s * NI * term + r * ld);
+        for (int c2 = lane; 2 * c2 < hd; c2 += 32) {
+          if constexpr (NI == 1) {
+            // bf16: element d at raw element shift + d
+            const int sh = word_shift(base + r * row_stride(s));
+            const int words = (sh + hd + 1) / 2;
+            uint32_t x = raw[c2];
+            if (sh) x = __byte_perm(x, c2 + 1 < words ? raw[c2 + 1] : 0u, 0x5432);
+            if (2 * c2 + 1 >= hd) x &= 0xffffu;
+            dst[c2] = x;
+          } else {
+            const float* f = reinterpret_cast<const float*>(raw);
+            uint32_t u[NI];
+            wcore::split<NI>(f[2 * c2], 2 * c2 + 1 < hd ? f[2 * c2 + 1] : 0.f, u);
+#pragma unroll
+            for (int i = 0; i < NI; ++i) dst[i * (term / 2) + c2] = u[i];
+          }
+        }
+      }
+    }
+  };
 
-    // dq[i][d] = scale * sum_j dS[i][j] k[j][d];
-    // dk[i][d] = scale * sum_j dS[j][i] q[j][d];
-    // dv[i][d] = sum_j P[j][i] dO[j][d].
+  float dbias[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dbias[nt][e] = 0.f;
+
+  const int w_begin = chunk * wpb;
+  const int w_end = min(nW, w_begin + wpb);
+  issue(w_begin);
+  for (int w = w_begin; w < w_end; ++w) {
+    cp_async_wait_all();
+    __syncthreads();  // window w staged (and, the first time, the zeros)
+    convert(w);
+    __syncthreads();  // the stage is free, the operands written
+    if (w + 1 < w_end) issue(w + 1);  // in flight while this window computes
+
+    auto operand = [&](int s) { return wcore::Operand{opnd + s * NI * term, ld, term}; };
     T* obase = dqkv + (size_t)w * N * 3 * C + h * hd;
-    for (int idx = tid; idx < N * hd; idx += kThreads) {
-      const int i = idx / hd;
-      const int d = idx - i * hd;
-      const float* dsi = ds + i * lds;
-      float aq = 0.f, ak = 0.f, av = 0.f;
-      for (int j = 0; j < N; ++j) {
-        aq = fmaf(dsi[j], k[j * ldq + d], aq);
-        ak = fmaf(ds[j * lds + i], q[j * ldq + d], ak);
-        av = fmaf(p[j * lds + i], g[j * ldq + d], av);
-      }
-      T* row = obase + (size_t)i * 3 * C + d;
-      row[0] = from_f32<T>(scale * aq);
-      row[C] = from_f32<T>(scale * ak);
-      row[2 * C] = from_f32<T>(av);
-    }
-    __syncthreads();  // the next window overwrites q, k, v, dO, P and dS
+    wcore::attention_bwd<NI, false>(
+        operand(0), operand(1), operand(2), operand(3), N, hd, scale,
+        [&](int i, int j) { return __ldg(bias_h + i * N + j); },
+        [&](int nt, int e, int, int, float x) { dbias[nt][e] += x; }, xch, zrow, nullptr,
+        [&](int kind, int i, int d, float x0, float x1, bool two) {
+          wcore::store_pair(obase + (size_t)i * 3 * C + kind * C + d, x0, x1, two);
+        });
   }
-
-  float* out = partial + ((size_t)chunk * H + h) * N * N;
-  for (int idx = tid; idx < N * N; idx += kThreads) out[idx] = acc[idx];
+  if (warp < (N + 15) / 16)
+    wcore::store_dbias(dbias, N, partial + ((size_t)chunk * H + h) * N * N);
 }
 
 // dbias[e] = sum over chunks c, in order, of partial[c][e], for the
@@ -211,24 +255,26 @@ template <typename T>
 cudaError_t launch(const void* qkv, const float* bias, const void* dout, void* dqkv,
                    float* dbias, float* partial, int nW, int N, int H, int h0,
                    int Hl, int hd, float scale, int wpb, cudaStream_t stream) {
-  const size_t smem = smem_bytes(N, hd);
+  const size_t smem = smem_bytes<T>(N, hd);
   // Above 48 KB a block may use dynamic shared memory only after opting in;
-  // set the attribute once per instantiation.
+  // set the attribute once per instantiation, for the largest shape.
   static bool opted_in = false;
   if (smem > 48 * 1024 && !opted_in) {
     cudaError_t err = cudaFuncSetAttribute(window_msa_bwd_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem_bytes(kMaxN, kMaxHd));
+                                           (int)smem_bytes<T>(kMaxN, kMaxHd));
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const int chunks = (nW + wpb - 1) / wpb;
   const size_t col = (size_t)h0 * hd;
   const size_t tile = (size_t)h0 * N * N;
+  const int C = H * hd;
+  const T* q = static_cast<const T*>(qkv);
+  const T* g = static_cast<const T*>(dout);
   window_msa_bwd_kernel<T><<<dim3(chunks, Hl), kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv) + col, bias + tile,
-      static_cast<const T*>(dout) + col, static_cast<T*>(dqkv) + col, partial,
-      nW, N, Hl, H * hd, hd, scale, wpb);
+      q + col, bias + tile, g + col, static_cast<T*>(dqkv) + col, partial,
+      q + (size_t)nW * N * 3 * C, g + (size_t)nW * N * C, nW, N, Hl, C, hd, scale, wpb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int entries = Hl * N * N;

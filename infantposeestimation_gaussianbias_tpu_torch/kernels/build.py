@@ -139,8 +139,8 @@ def load() -> ctypes.CDLL:
         lib.ipe_fused_mlp_bwd.restype = i
         lib.ipe_fused_attn_fwd.argtypes = [p] * 10 + [i] * 7 + [f, i, p]
         lib.ipe_fused_attn_fwd.restype = i
-        lib.ipe_fused_attn_bwd.argtypes = ([p] * 21 + [i] * 7 + [f]
-                                           + [i] * 3 + [p])
+        lib.ipe_fused_attn_bwd.argtypes = ([p] * 24 + [i] * 7 + [f]
+                                           + [i] * 4 + [p])
         lib.ipe_fused_attn_bwd.restype = i
         lib.ipe_residual_chain.argtypes = [p] * 6 + [i] * 7 + [p]
         lib.ipe_residual_chain.restype = i

@@ -50,7 +50,7 @@ from typing import Tuple
 import torch
 
 from . import build
-from .window_msa import MAX_HEAD_DIM, MAX_TOKENS
+from .window_msa import MAX_HEAD_DIM, MAX_TOKENS, bwd_windows_per_block
 
 # Kernel launches since the last reset, one per wrapper call that launches
 # (a backward's reduction passes count with it), nowhere else.
@@ -451,6 +451,22 @@ def fused_attn_half_fwd(xw, gamma, beta, wqkv, bqkv, rpe, wproj, bproj, dp,
     return y
 
 
+def attn_bwd_plan(nW: int, N: int, C: int, num_heads: int,
+                  sm_count: int) -> dict:
+    """Chunks and scratch of K4's backward (csrc/fused_attn.cu, which
+    launches its own grids): stage (b) runs one block per (chunk of ``wpb``
+    windows, head) as K2's (``bwd_windows_per_block``); float32 partial
+    rows: ``rows_part`` per window [dgamma | dbeta |
+    dbproj], ``chunk_part`` per chunk [dbqkv | drpe]; ``stats`` each row's
+    LayerNorm mean and rstd."""
+    wpb = bwd_windows_per_block(nW, num_heads, sm_count)
+    chunks = -(-nW // wpb)
+    return dict(wpb=wpb, chunks=chunks,
+                rows_part=(nW, 3 * C),
+                chunk_part=(chunks, 3 * C + num_heads * N * N),
+                stats=(2, nW * N))
+
+
 def fused_attn_half_bwd(xw, gamma, beta, wqkv, bqkv, rpe, wproj, bproj, dp,
                         dy, num_heads: int, geom: Tuple[int, int, int]):
     """K4 backward: (dx, dgamma, dbeta, dwqkv, dbqkv, drpe, dwproj, dbproj),
@@ -473,18 +489,22 @@ def fused_attn_half_bwd(xw, gamma, beta, wqkv, bqkv, rpe, wproj, bproj, dp,
     dpv = _vec(dp, dp.numel(), dev, "dp")
     M = nW * N
     sms = _sms(dev)
+    plan = attn_bwd_plan(nW, N, C, num_heads, sms)
     s1 = atb_splits(3 * C, C, M, sms)
     s2 = atb_splits(C, C, M, sms)
-    width = 6 * C + num_heads * N * N
     bf = dict(dtype=torch.bfloat16, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     lnb, ob, dpob = (torch.empty((M, C), **bf) for _ in range(3))
     dqkvv = torch.empty((M, 3 * C), **bf)
     dln = torch.empty((M, C), **f32)
-    vec_part = torch.empty((nW, width), **f32)
+    stats = torch.empty(plan["stats"], **f32)
+    rows_part = torch.empty(plan["rows_part"], **f32)
+    chunk_part = torch.empty(plan["chunk_part"], **f32)
     atb_part = torch.empty((max(s1 * 3, s2) * C * C,), **f32)
+    # float32 weights as three bf16 terms each, split once per call
+    wterms = torch.empty((21 * C * C if code == 0 else 0,), **bf)
     dx = torch.empty_like(xw)
-    vec = torch.empty((width,), **f32)
+    vec = torch.empty((6 * C + num_heads * N * N,), **f32)
     dwqkvt = torch.empty((3 * C, C), **f32)
     dwprojt = torch.empty((C, C), **f32)
     H, W, ws = geom
@@ -496,13 +516,14 @@ def fused_attn_half_bwd(xw, gamma, beta, wqkv, bqkv, rpe, wproj, bproj, dp,
             dpv.data_ptr(), dy.data_ptr(), dx.data_ptr(), vec.data_ptr(),
             dwqkvt.data_ptr(), dwprojt.data_ptr(), lnb.data_ptr(),
             ob.data_ptr(), dpob.data_ptr(), dqkvv.data_ptr(), dln.data_ptr(),
-            vec_part.data_ptr(), atb_part.data_ptr(), nW, N, C, num_heads, H,
-            W, ws, float(hd ** -0.5), s1, s2, code,
+            stats.data_ptr(), rows_part.data_ptr(), chunk_part.data_ptr(),
+            atb_part.data_ptr(), wterms.data_ptr(), nW, N, C, num_heads, H, W,
+            ws, float(hd ** -0.5), plan["wpb"], s1, s2, code,
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "fused_attn_bwd launch")
     ATTN_BWD_LAUNCHES += 1
-    dgamma, dbeta, dbqkv, dbproj, drpe = vec.split(
-        [C, C, 3 * C, C, num_heads * N * N])
+    dgamma, dbeta, dbproj, dbqkv, drpe = vec.split(
+        [C, C, C, 3 * C, num_heads * N * N])
     return (dx, dgamma, dbeta, dwqkvt.t().to(wqkv.dtype), dbqkv,
             drpe.reshape(num_heads, N, N), dwprojt.t().to(wproj.dtype),
             dbproj)

@@ -9,7 +9,10 @@ and ``window_attention_qkv_bwd`` run the CUDA kernels of
 card and the plain PyTorch versions ``*_reference`` for tensors on the
 CPU; on any other device, or for a CUDA tensor the kernel does not take,
 they raise.  ``window_attention`` joins the two in a
-``torch.autograd.Function``: K1 forward, K2 backward.
+``torch.autograd.Function``: K1 forward, K2 backward.  K2's attention
+maths is the tensor-core core of ``csrc/wmsa_bwd_core.cuh``, which K4's
+backward shares; ``attention_bwd_core_emulation`` repeats its split-bf16
+products in plain PyTorch for the tests (no model path runs it).
 
 Contract, as ops/msa.py ``window_attention`` on the flat layout:
   qkv  (nW, N, 3C), columns [q heads | k heads | v heads], float32 or bf16;
@@ -146,6 +149,86 @@ def window_attention_qkv_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor,
     dk = scale * (ds.transpose(-2, -1) @ q)
     dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(nW, N, C3)
     return dqkv.to(qkv.dtype), ds.sum(dim=0).to(bias.dtype)
+
+
+# -- the tensor-core attention backward core (csrc/wmsa_bwd_core.cuh) ------------
+
+# The core's tile unit: tokens and the head dim are padded to multiples of it.
+CORE_TILE = 16
+# bf16 terms of the core's operands: K2's q, k, v, dO by dtype (exact in one
+# term in bf16); K4's recomputed float32 q, k, v, do_h; P and dS.
+K2_CORE_TERMS = {torch.bfloat16: 1, torch.float32: 3}
+K4_CORE_TERMS = 2
+PS_TERMS = 2
+
+
+def core_padding(N: int, hd: int) -> Tuple[int, int]:
+    """(tokens, head dim) of the core's padded tiles: 49, 39 -> 64, 48."""
+    pad = lambda n: -(-n // CORE_TILE) * CORE_TILE  # noqa: E731
+    return pad(N), pad(hd)
+
+
+def split_terms(x: torch.Tensor, n: int) -> list:
+    """x as n bf16 terms (float32 tensors of bf16 values), each the bf16
+    rounding of what the terms before it left: x = sum + O(2^-8n |x|)."""
+    terms, rest = [], x.float()
+    for _ in range(n):
+        t = rest.to(torch.bfloat16).float()
+        terms.append(t)
+        rest = rest - t
+    return terms
+
+
+def split_product(a: torch.Tensor, b: torch.Tensor, na: int, nb: int,
+                  pairs: int) -> torch.Tensor:
+    """a @ b as the core computes it: a in na bf16 terms, b in nb, the
+    products of the term pairs (i, j) with i + j < pairs, each exact in
+    float32, summed in float32."""
+    ta, tb = split_terms(a, na), split_terms(b, nb)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for i in range(na):
+        for j in range(nb):
+            if i + j < pairs:
+                out = out + ta[i] @ tb[j]
+    return out
+
+
+def attention_bwd_core_emulation(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, do: torch.Tensor,
+                                 bias: torch.Tensor, terms: int,
+                                 with_o: bool = False) -> tuple:
+    """The core's arithmetic in plain PyTorch, on the CPU: (..., N, hd)
+    float32 q, k, v, do (per head), bias (H, N, N) float32, q, k, v, do in
+    ``terms`` bf16 terms (S and dP keep the term pairs i + j < terms), P
+    and dS in ``PS_TERMS`` (their products keep i + j < PS_TERMS), tiles
+    padded as ``core_padding`` pads them with the padding masked out of the
+    softmax.  Returns (dq, dk, dv, dbias = sum of dS over the leading
+    dimension, o or None).  For the tests only: no model path runs it."""
+    N, hd = q.shape[-2:]
+    Np, hdp = core_padding(N, hd)
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32)
+
+    def pad(t: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.pad(t.float(), (0, hdp - hd, 0, Np - N))
+
+    qp, kp, vp, dop = (pad(t) for t in (q, k, v, do))
+    s = scale * split_product(qp, kp.transpose(-2, -1), terms, terms, terms)
+    s[..., :N, :N] += bias.float()
+    valid = torch.zeros(Np, Np, dtype=torch.bool)
+    valid[:N, :N] = True
+    p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)  # padded rows: every entry masked
+    dp = split_product(dop, vp.transpose(-2, -1), terms, terms, terms)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    ps = (PS_TERMS, terms, PS_TERMS)
+    dv = split_product(p.transpose(-2, -1), dop, *ps)
+    dq = scale * split_product(ds, kp, *ps)
+    dk = scale * split_product(ds.transpose(-2, -1), qp, *ps)
+    o = split_product(p, vp, *ps) if with_o else None
+    crop = (lambda t: t[..., :N, :hd])  # noqa: E731
+    dbias = ds.reshape(-1, *ds.shape[-3:]).sum(dim=0)[..., :N, :N]
+    return (crop(dq), crop(dk), crop(dv), dbias,
+            None if o is None else crop(o))
 
 
 def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int,
