@@ -36,15 +36,20 @@ Phases, in order; any failure exits non-zero:
   7. K4 and K5 (CUDA fused attention and MLP half-blocks, forward and
      backward) against their plain versions at every hrformer_base branch
      shape: forward at the serving batch 64, forward and backward at the
-     training batch 32, and forward and backward at window 8 (N = 64) at
-     the training batch, float32 and bf16, every output (dx, dgamma,
+     training batch 32, forward and backward at window 8 (N = 64) at
+     the training batch, and forward and backward at batch 2 (one
+     flip-tested frame served, or phase 9's float32 step), where K5's plan
+     takes its smallest tile, float32 and bf16, every output (dx, dgamma,
      dbeta, each weight and bias gradient, drpe); kernel, plain and
      stock-PyTorch chain (LayerNorm, F.linear, SDPA or tanh GELU) times
-     and the bound; at b0 and b3 (bf16, window 7) a ``[k4bwd-split]``
-     line, as phase 3's, of one K4 backward (stages (a)
+     and the bound; at b0 and b3 (bf16,
+     window 7, the training batch) ``[k4bwd-split]``, ``[k5fwd-split]`` and
+     ``[k5bwd-split]`` lines, as phase 3's, of one K4 backward (stages (a)
      LayerNorm, (b) the core per (chunk, head), (c) dln and the LayerNorm
      backward, (d) the weight-gradient and partial-row reductions, and the
-     wrapper's copies);
+     wrapper's copies), one K5 forward (LayerNorm, fc1, fc2) and one K5
+     backward (LayerNorm, the hidden stage, dln, the LayerNorm backward,
+     the weight-gradient reductions);
   8. fused serving (IPE_FUSED_BLOCK=1): batches of 1, 3 and 8 frames, 88
      K4 and 88 K5 launches per flip-tested batch and no K1; under "auto"
      28 K1, 60 K4 and 60 K5; float32 card against the CPU; fused against
@@ -110,13 +115,16 @@ Phases, in order; any failure exits non-zero:
      and 44 K2 launches per rank through K3, the same state on every rank.
  20. only with ``--parent DIR`` (DIR a checkout of the parent commit, e.g.
      from ``git archive``): K2 and K4's backward at every training shape
-     of phases 3 and 7 and the bf16 b = 32 steps of phases 6 and 9 (step
-     ms, device ms, peak memory), the parent's against this checkout's,
-     each in a fresh subprocess that imports its checkout's package and
-     builds its kernels, in turns: parent, change, change, parent
-     (``[parent]`` lines); the K2 and K4-backward records take the
-     parent's b0 bf16 ms as ``parent_ms`` and this checkout's, timed the
-     same way, as ``fresh_ms`` (both null without ``--parent``).
+     of phases 3 and 7, K5's forward at every hrformer_base branch at
+     b = 64 and 32 and its backward at b = 32 (window 7, float32 and bf16),
+     and the bf16 b = 32 steps of phases 6 and 9 (step ms, device ms, peak
+     memory), the parent's against this checkout's, each in a fresh
+     subprocess that imports its checkout's package and builds its
+     kernels, in turns: parent, change, change, parent (``[parent]``
+     lines); the K2 and K4-backward records take the parent's b0 bf16 ms
+     as ``parent_ms`` and this checkout's, timed the same way, as
+     ``fresh_ms``, the K5 records the same at b3 bf16 b = 32, its worst
+     branch (``parent_shape``; all null without ``--parent``).
 The ranks import no JAX (each asserts it).
 Every phase's seconds and the whole run's are printed.Each fused phase sets IPE_FUSED_BLOCK itself and restores it after.  The
 last two lines are the kernels' JSON record and
@@ -160,6 +168,7 @@ STEP_STAT_TOL = 1e-4      # BN running mean/var, atol and rtol
 K1_CALLS_PER_FORWARD = 44
 TRAIN_BATCH = 32
 SERVE_BATCH = 64  # crops through the model per served batch of 32: flip test
+SMALL_BATCH = 2  # crops through the model for one flip-tested frame
 FUSED_ENV = "IPE_FUSED_BLOCK"
 # Fused blocks per hrformer_base forward under IPE_FUSED_BLOCK=auto: the
 # blocks of width >= 128 (branches 1-3: 14 + 12 + 4), the rest unfused.
@@ -433,13 +442,36 @@ def phase_build() -> None:
     kernel = ""
     for line in build.BUILD_LOG.splitlines():
         if "entry function" in line:  # the mangled name holds the kernel's
-            found = re.search(r"\d([a-z][a-z0-9_]*_kernel)", line)
-            kernel = found.group(1) if found else line.split("'")[1][:60]
-            targ = re.search(r"_kernelI(f|13__nv_bfloat16)E", line)
-            if targ:  # a template's element type
-                kernel += " (float)" if targ.group(1) == "f" else " (bf16)"
+            kernel = _mangled_kernel(line)
         if "registers" in line or "spill" in line:
             log("[build]", kernel, line.strip())
+
+
+def _mangled_kernel(line: str) -> str:
+    """A kernel's name from ptxas's mangled one (each identifier is
+    <length><name>), with its element type and, for the staged product's
+    tiles (csrc/mlp_gemm.cuh ``Cfg``), BM x BN x BK, the warps and the
+    weight terms."""
+    name = line.split("'")[1][:60]
+    for m in re.finditer(r"\d+", line):  # a length may follow other digits
+        lengths = [int(m.group()[i:]) for i in range(len(m.group()))]
+        found = [line[m.end():m.end() + n] for n in lengths
+                 if line[m.end():m.end() + n].endswith("_kernel")]
+        if found and re.fullmatch(r"[A-Za-z_]\w*", found[-1]):
+            name = found[-1]
+            break
+    cfg = re.search(r"CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"
+                    r"EELi(\d+)E", line)
+    if cfg:
+        bm, bn, bk, wm, wn, _, nb = cfg.groups()
+        name += f" <{bm}x{bn}x{bk}, {wm}x{wn} warps, {nb} term(s)>"
+    vec = re.search(r"atb_kernelILi(\d+)E", line)
+    if vec:  # the weight-gradient reduction's copy width
+        name += f" <{2 * int(vec.group(1))}-byte copies>"
+    targ = re.search(r"_kernelI(f|13__nv_bfloat16)", line)
+    if targ:  # a template's element type
+        name += " (float)" if targ.group(1) == "f" else " (bf16)"
+    return name
 
 
 def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
@@ -873,6 +905,10 @@ def phase_fused_kernels() -> dict:
             for B, train in ((SERVE_BATCH, False), (TRAIN_BATCH, True))]
     runs += [(f"{label} ws8", Hm, Wm, C, heads, TRAIN_BATCH, True, 8)
              for label, Hm, Wm, C, heads in BASE_MAPS]
+    # batch 2: one flip-tested frame served, or the float32 step of phase 9;
+    # K5's plan takes its 64 x 64 tile there (never at the batches above)
+    runs += [(label, Hm, Wm, C, heads, SMALL_BATCH, True, 7)
+             for label, Hm, Wm, C, heads in BASE_MAPS]
     for label, Hm, Wm, C, heads, B, train, ws in runs:
         for dt in (torch.float32, torch.bfloat16):
             a = _half_inputs(Hm, Wm, C, heads, B, dt, g, ws)
@@ -880,7 +916,8 @@ def phase_fused_kernels() -> dict:
             M, es = nW * N, a["xw"].element_size()
             nm = "f32" if dt == torch.float32 else "bf16"
             shape = f"{label} b={B} nW={nW} M={M} C={C} H={heads} {nm}"
-            b0_bf16 = label == "base b0" and dt == torch.bfloat16
+            b0_bf16 = (label == "base b0" and dt == torch.bfloat16
+                       and B != SMALL_BATCH)
             aa, ma = _attn_args(a), _mlp_args(a)
             vec = 4 * (heads * N * N + 6 * C)
             measure("attn_fwd", shape, "y",
@@ -897,6 +934,12 @@ def phase_fused_kernels() -> dict:
                     lambda: mlp_chain(*ma, a["tps"]), fwd_names,
                     2 * M * C * es + 2 * C * Hd * es + 4 * (Hd + 3 * C),
                     4 * M * C * Hd, dt, b0_bf16 and not train)
+            split_shape = (B == TRAIN_BATCH and ws == 7
+                           and dt == torch.bfloat16
+                           and label in ("base b0", "base b3"))
+            if split_shape:
+                log_split("k5fwd-split", shape,
+                          lambda: fb.fused_mlp_half_fwd(*ma, a["tps"]))
             if train:
                 dy, dy2 = a["dy"], a["dy"].reshape(-1, C)
                 measure("attn_bwd", shape, "all gradients",
@@ -909,8 +952,7 @@ def phase_fused_kernels() -> dict:
                         3 * M * C * es + 8 * C * C * es + 2 * vec,
                         22 * M * C * C + 12 * nW * N * N * C, dt,
                         b0_bf16)
-                if (label in ("base b0", "base b3")
-                        and dt == torch.bfloat16):
+                if split_shape:
                     log_split("k4bwd-split", shape,
                               lambda: fb.fused_attn_half_bwd(*aa, dy, heads,
                                                              geom))
@@ -923,6 +965,10 @@ def phase_fused_kernels() -> dict:
                         3 * M * C * es + 4 * C * Hd * es
                         + 8 * (Hd + 3 * C),
                         10 * M * C * Hd, dt, b0_bf16)
+                if split_shape:
+                    log_split("k5bwd-split", shape,
+                              lambda: fb.fused_mlp_half_bwd(*ma, dy2,
+                                                            a["tps"]))
             del a, aa, ma
     return rec
 
@@ -2508,10 +2554,11 @@ def phase_grid_training(smi: str) -> dict:
 # against the parent commit's, in turns ------------------------------------------
 
 def bwd_times(smi: str) -> dict:
-    """Median ms of K2 at every training shape of phase 3 and of K4's
-    backward at every training shape of phase 7 (float32 and bf16), and the
-    bf16 b = 32 steps of phases 6 (unfused) and 9 (fused): step ms, device
-    ms, peak memory.  Runs whichever package ``sys.path`` finds first, so
+    """Median ms of K2 at every training shape of phase 3, of K4's
+    backward at every training shape of phase 7, of K5's forward at every
+    hrformer_base branch at b = 64 and 32 and of its backward at b = 32
+    (window 7; float32 and bf16), and the bf16 b = 32 steps of phases 6
+    (unfused) and 9 (fused): step ms, device ms, peak memory.  Runs whichever package ``sys.path`` finds first, so
     that a parent commit's checkout can be timed by the same code."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
         fused_block as fb, window_msa)
@@ -2538,6 +2585,18 @@ def bwd_times(smi: str) -> dict:
                     lambda: fb.fused_attn_half_bwd(*aa, dy, heads, geom),
                     warmup=2, runs=10)
                 del a, aa, dy
+        for B in (SERVE_BATCH, TRAIN_BATCH):
+            for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                a = _half_inputs(Hm, Wm, C, heads, B, dt, g)
+                ma, dy2, tps = _mlp_args(a), a["dy"].reshape(-1, C), a["tps"]
+                kernels[f"k5fwd {label} b={B} {name}"] = cuda_median_ms(
+                    lambda: fb.fused_mlp_half_fwd(*ma, tps), warmup=2,
+                    runs=10)
+                if B == TRAIN_BATCH:
+                    kernels[f"k5bwd {label} b={B} {name}"] = cuda_median_ms(
+                        lambda: fb.fused_mlp_half_bwd(*ma, dy2, tps),
+                        warmup=2, runs=10)
+                del a, ma, dy2
     n = K1_CALLS_PER_FORWARD
     steps = {}
     for flag, tag, want in (
@@ -2607,8 +2666,8 @@ def main(argv: list) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="DIR",
                         help="a checkout of the parent commit (git archive): "
-                        "phase 20 times its K2, K4 backward and bf16 steps "
-                        "against this checkout's, in turns")
+                        "phase 20 times its K2, K4 backward, K5 and bf16 "
+                        "steps against this checkout's, in turns")
     parser.add_argument("--bwd-times", action="store_true",
                         help=argparse.SUPPRESS)  # phase 20's subprocess
     parser.add_argument("--package-root", help=argparse.SUPPRESS)
@@ -2700,15 +2759,19 @@ def main(argv: list) -> int:
             "library_ms", "shape")
     extra = ("max_rel_err", "variants_ms", "variants_bound_ms",
              "variants_plain_ms", "variants_device_ms", "parent_ms",
-             "fresh_ms")
-    # The redesigned K2 and K4 backward at the record shape, from phase 20
-    # of this call (null without --parent): the parent commit's ms and this
-    # checkout's, both timed the same way in fresh processes (``ms`` is
-    # phase 3's or 7's, timed in this process).
+             "fresh_ms", "parent_shape")
+    # The redesigned kernels, from phase 20 of this call (null without
+    # --parent): the parent commit's ms and this checkout's, both timed the
+    # same way in fresh processes (``ms`` is phase 3's or 7's, timed in this
+    # process), K2 and K4's backward at the record shape, K5 at its worst
+    # branch (``parent_shape``).
     for rec, key in ((k2, "k2 base b0 bf16"),
-                     (k45["attn_bwd"], "k4bwd base b0 bf16")):
+                     (k45["attn_bwd"], "k4bwd base b0 bf16"),
+                     (k45["mlp_fwd"], "k5fwd base b3 b=32 bf16"),
+                     (k45["mlp_bwd"], "k5bwd base b3 b=32 bf16")):
         for out, src in (("parent_ms", "parent_ms"), ("fresh_ms", "ms")):
             rec[out] = parent["kernels"][key][src] if parent else None
+        rec["parent_shape"] = key
     t, ft = train["launches"], fused_train["launches"]
     sal = analysis["saliency_launches"]
 

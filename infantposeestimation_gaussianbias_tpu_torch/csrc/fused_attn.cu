@@ -62,7 +62,6 @@
 // runs the q, k and v products in one loop over C (three independent
 // accumulator chains on one A operand).
 
-#include <algorithm>
 
 #include <math_constants.h>
 
@@ -324,18 +323,6 @@ __device__ __forceinline__ void tpair_row(const WTerms& w, int row, int ld, int 
   for (int i = 0; i < NW; ++i) o[i] = pair_row(w.p + i * w.stride, row, ld, k, K);
 }
 
-__global__ void __launch_bounds__(kThreads)
-split_weights_kernel(const float* __restrict__ w, bf16* __restrict__ out, size_t n) {
-  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * kThreads) {
-    bf16 t[3];
-    wcore::split1<3>(w[e], t);
-    out[e] = t[0];
-    out[n + e] = t[1];
-    out[2 * n + e] = t[2];
-  }
-}
-
 // Stage (b)'s shared memory: the core's exchange | zero row | q, k, v, dO
 // as two bf16 terms each (N, operand_ld) | column sums [warps][3][kMaxHd] |
 // valid (kMaxN) | drpe (N, N).
@@ -559,10 +546,9 @@ cudaError_t bwd(const void* x, const float* gamma, const float* beta, const void
     if (sizeof(T) == 2) {
       wt[i] = WTerms{static_cast<const bf16*>(src[i]), 0};
     } else {
-      const int blocks = (int)std::min<size_t>((sizes[i] + kThreads - 1) / kThreads, 1024);
-      split_weights_kernel<<<blocks, kThreads, 0, stream>>>(static_cast<const float*>(src[i]),
-                                                           wterms, sizes[i]);
-      err = cudaGetLastError();
+      // each weight is contiguous: sizes[i] / C rows of C
+      err = launch_split_weights(static_cast<const float*>(src[i]), C, 1, (int)(sizes[i] / C),
+                                 C, C, wterms, stream);
       if (err != cudaSuccess) return err;
       wt[i] = WTerms{wterms, sizes[i]};
       wterms += 3 * sizes[i];

@@ -1,8 +1,10 @@
 // Device pieces shared by the fused half-block kernels (csrc/fused_mlp.cu,
 // csrc/fused_attn.cu): a block-level tile product on the tensor cores,
-// LayerNorm forward and backward over a block's rows, the tanh GELU, and
-// the two deterministic reductions of the backward (weight gradients as
-// A^T B over the rows, and fixed-order sums of per-block partial vectors).
+// LayerNorm forward and backward over a block's rows, the tanh GELU, the
+// split of float32 weights into bf16 terms once per call, and the two
+// deterministic reductions of the backward (weight gradients as
+// A^T B over the rows, on the staged tile product of mlp_gemm.cuh, and
+// fixed-order sums of per-block partial vectors).
 //
 // Numerics, as the TPU kernels (ops/pallas/fused_block.py): every product
 // takes its activation operand rounded to bf16 (the callers store those
@@ -21,6 +23,7 @@
 #include <cstdint>
 
 #include "ipe_common.cuh"
+#include "mlp_gemm.cuh"
 
 namespace {
 
@@ -243,6 +246,56 @@ __device__ void layernorm_bwd_rows(const T* x, const T* dy, const float* dln,
   }
 }
 
+// Opt a kernel in to `bytes` of dynamic shared memory (needed above 48 KB)
+// on the current device: before every launch, since the setting belongs to
+// the device's context.
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// A float32 weight as the three bf16 term arrays of the tensor-core
+// products: out[t][r][c] (3 x R x width) is the bf16 rounding of what
+// terms 0 .. t-1 left of w(r, c) = w[r * sr + c * sc] for c < K, and zero
+// for K <= c < width (rows padded to 16 bytes).  The terms sum to the
+// weight exactly (8 + 8 + 8 significant bits).  One 32 x 32 tile per
+// block through shared memory, read along whichever of w's strides is 1
+// and written along the rows, so that both coalesce for either layout.
+__global__ void __launch_bounds__(kThreads)
+split_weights_kernel(const float* __restrict__ w, int sr, int sc, int R, int K, int width,
+                     bf16* __restrict__ out) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  const bool along_r = sc != 1;
+  for (int i = ty; i < 32; i += kThreads / 32) {
+    const int rl = along_r ? tx : i, cl = along_r ? i : tx;
+    const int r = r0 + rl, c = c0 + cl;
+    tile[rl][cl] = r < R && c < K ? w[(size_t)r * sr + (size_t)c * sc] : 0.f;
+  }
+  __syncthreads();
+  const size_t n = (size_t)R * width;
+  for (int i = ty; i < 32; i += kThreads / 32) {
+    const int r = r0 + i, c = c0 + tx;
+    if (r >= R || c >= width) continue;
+    float x = tile[i][tx];
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const bf16 b = __float2bfloat16(x);
+      out[t * n + (size_t)r * width + c] = b;
+      x -= bf(b);
+    }
+  }
+}
+
+cudaError_t launch_split_weights(const float* w, int sr, int sc, int R, int K, int width,
+                                 bf16* out, cudaStream_t stream) {
+  split_weights_kernel<<<dim3((width + 31) / 32, (R + 31) / 32), kThreads, 0, stream>>>(
+      w, sr, sc, R, K, width, out);
+  return cudaGetLastError();
+}
+
 // out[e] = sum over r < rows of part[r * width + e], for e < width, in a
 // fixed order: thread (ry, cx) of a block sums rows ry, ry + 8, ... of
 // column 32 * blockIdx.x + cx, then the 8 sums are added in ry order.
@@ -272,74 +325,85 @@ cudaError_t launch_colsum(const float* part, float* out, int rows, int width,
 
 // partial[z][p][q] = sum over rows m of chunk z of A[m][p] * B[m][q]
 // (A: M x P, row stride lda; B: M x Q, row stride ldb; both bf16, P, Q,
-// lda and ldb even): one 64 x 64 output tile and one chunk of rows per
-// block, on the tensor cores, the rows being the products' k.  Slices of
-// kAtbRows rows of A and B are staged in shared memory as they lie in
-// device memory (coalesced 32-bit loads and stores); the operand pairs
-// (m, m + 1) of one column are then two 16-bit shared-memory loads.
-constexpr int kAtbRows = 32;
-constexpr int kAtbLd = 64 + 8;  // bf16 row stride of the staged slices
+// lda and ldb even): one 128 x 128 output tile and one chunk of rows per
+// block, the rows being the product's k.  Both operands are i-contiguous
+// operands of the staged product (mlp_gemm.cuh): 64-row slices staged by
+// cp.async (16-byte where both row strides and pointers allow it, else
+// 4-byte) in a ring, their fragments read with `ldmatrix.trans`.
+using AtbCfg = mg::Cfg<128, 128, 64, 2, 4, 3>;
 
-__global__ void __launch_bounds__(kThreads)
+template <int VEC>
+__global__ void __launch_bounds__(AtbCfg::threads)
 atb_kernel(const bf16* A, int lda, const bf16* B, int ldb, float* partial, int M, int P,
            int Q, int chunk) {
-  __shared__ __align__(16) bf16 sa[kAtbRows][kAtbLd];
-  __shared__ __align__(16) bf16 sb[kAtbRows][kAtbLd];
-  const int p0 = blockIdx.x * 64;
-  const int q0 = blockIdx.y * kBN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  using Op = mg::Operand<false, 1, VEC>;
+  const int p0 = blockIdx.x * AtbCfg::BM;
+  const int q0 = blockIdx.y * AtbCfg::BN;
   const int m0 = blockIdx.z * chunk;
   const int mlen = max(0, min(chunk, M - m0));
-  float acc[4][kTN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < mlen; k0 += kAtbRows) {
-    for (int e = threadIdx.x; e < kAtbRows * 32; e += kThreads) {
-      const int r = e >> 5, c = (e & 31) * 2;  // row of the slice, column pair
-      const size_t m = (size_t)m0 + k0 + r;
-      const bool in = k0 + r < mlen;
-      *reinterpret_cast<uint32_t*>(&sa[r][c]) =
-          in && p0 + c < P ? *reinterpret_cast<const uint32_t*>(A + m * lda + p0 + c) : 0u;
-      *reinterpret_cast<uint32_t*>(&sb[r][c]) =
-          in && q0 + c < Q ? *reinterpret_cast<const uint32_t*>(B + m * ldb + q0 + c) : 0u;
-    }
-    __syncthreads();
-    mma_tile<64, 1, true>(
-        acc, kAtbRows, [&](int p, int k) { return pack_bits(sa[k][p], sa[k + 1][p]); },
-        [&](int q, int k, uint32_t (&o)[1]) { o[0] = pack_bits(sb[k][q], sb[k + 1][q]); });
-  }
+  const Op a{A + (size_t)min(m0, M) * lda, lda, 0, P, mlen};
+  const Op b{B + (size_t)min(m0, M) * ldb, ldb, 0, Q, mlen};
+  mg::Acc<AtbCfg> acc;
+  mg::tile_product<AtbCfg>(acc, a, b, mlen, p0, q0, reinterpret_cast<bf16*>(smem));
   float* out = partial + (size_t)blockIdx.z * P * Q;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = p0 + tile_row<64>(i);
+  for (int mi = 0; mi < acc.MT; ++mi)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int q = q0 + tile_col(j);
-      if (p < P && q < Q) out[(size_t)p * Q + q] = acc[i][j];
-    }
-  }
+    for (int ni = 0; ni < acc.NT8; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + mg::acc_row<AtbCfg>(mi, 2 * h);
+        const int q = q0 + mg::acc_col<AtbCfg>(ni, 0);
+        if (p < P && q < Q)
+          mg::store2(out + (size_t)p * Q + q, acc.v[mi][ni][2 * h], acc.v[mi][ni][2 * h + 1]);
+      }
+}
+
+template <int VEC>
+cudaError_t launch_atb_kernel(dim3 grid, const bf16* A, int lda, const bf16* B, int ldb,
+                              float* partial, int M, int P, int Q, int chunk,
+                              cudaStream_t stream) {
+  using Op = mg::Operand<false, 1, VEC>;
+  constexpr size_t smem = mg::ring_bytes<AtbCfg, Op, Op>();
+  static_assert(smem <= kMaxSmem, "atb's ring exceeds the shared memory a block may have");
+  const cudaError_t opt = allow_smem(atb_kernel<VEC>, smem);
+  if (opt != cudaSuccess) return opt;
+  atb_kernel<VEC><<<grid, AtbCfg::threads, smem, stream>>>(A, lda, B, ldb, partial, M, P, Q,
+                                                            chunk);
+  return cudaGetLastError();
+}
+
+// out[e] = sum over z < chunks of part[z * n + e], in z order, one thread
+// per element.
+__global__ void __launch_bounds__(kThreads)
+chunksum_kernel(const float* part, float* out, int chunks, size_t n) {
+  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < chunks; ++z) s += part[(size_t)z * n + e];
+  out[e] = s;
 }
 
 // out (P x Q) = A^T B over all M rows: `splits` chunks of rows summed by
 // atb_kernel into `partial` (splits * P * Q floats), then added in chunk
-// order.  Deterministic: no sum depends on the order blocks run in.
+// order (one chunk: straight into out).  Deterministic: no sum depends on
+// the order blocks run in.
 cudaError_t launch_atb(const bf16* A, int lda, const bf16* B, int ldb, float* out,
                        float* partial, int M, int P, int Q, int splits, cudaStream_t stream) {
   int chunk = (M + splits - 1) / splits;
-  chunk = (chunk + kAtbRows - 1) / kAtbRows * kAtbRows;
-  dim3 grid((P + 63) / 64, (Q + kBN - 1) / kBN, splits);
-  atb_kernel<<<grid, kThreads, 0, stream>>>(A, lda, B, ldb, partial, M, P, Q, chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_colsum(partial, out, splits, P * Q, stream);
-}
-
-// Opt a kernel in to `bytes` of dynamic shared memory (needed above 48 KB).
-template <class K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  chunk = (chunk + AtbCfg::BK - 1) / AtbCfg::BK * AtbCfg::BK;
+  const dim3 grid((P + AtbCfg::BM - 1) / AtbCfg::BM, (Q + AtbCfg::BN - 1) / AtbCfg::BN, splits);
+  const bool wide = lda % 8 == 0 && ldb % 8 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  float* dst = splits == 1 ? out : partial;
+  cudaError_t err = wide ? launch_atb_kernel<8>(grid, A, lda, B, ldb, dst, M, P, Q, chunk, stream)
+                         : launch_atb_kernel<2>(grid, A, lda, B, ldb, dst, M, P, Q, chunk, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t n = (size_t)P * Q;
+  chunksum_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      partial, out, splits, n);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -7,65 +7,224 @@
 //
 // Contract (kernels/fused_block.py), on M token rows of width C, hidden Hd:
 //   y = x + dp[r / tps] * (gelu_tanh(bf16(LN(x)) W1 + b1) rounded to bf16) W2 + b2
-//   x, y, dy, dx (M, C) in T (float or bf16); W1 (Hd, C) and W2 (C, Hd) in T,
-//   the nn.Linear (out, in) layout; gamma, beta, b1, b2, dp float32.
+//   x, y, dy, dx (M, C) in T (float or bf16); gamma, beta, b1, b2, dp
+//   float32; the products read W1 (Hd, Cp) and W2 (C, Hd) in the nn.Linear
+//   (out, in) layout as NT bf16 terms, W1's rows zero-padded from C to
+//   Cp = C rounded up to 8 (16-byte rows): a bf16 weight is one term, which
+//   the wrapper pads (kernels/fused_block.py `mlp_weight_rows`); a float32
+//   weight, in any layout, is split here once per call into three exact
+//   terms (fused_common.cuh `split_weights_kernel`).
 //   Backward, as the TPU kernel: dw2 = gb^T dob, db2 = sum do,
 //   dh = (dob W2^T) * gelu'(h), dw1 = lnb^T dhb, db1 = sum dh,
 //   dln = dhb W1^T, dgamma = sum dln * xhat, dbeta = sum dln,
 //   dx = dy + LN backward; do = dp * dy; lnb, gb, dob, dhb are the bf16
-//   roundings of ln, g, do, dh.  All sums over rows in float32.
+//   roundings of ln, g, do, dh.  dln and every sum over rows in float32.
 //
-// What bounds it: the two products are 16 * M * C^2 FLOPs forward
+// What bounds it: the two products are 4 * M * C * Hd FLOPs forward
 // (hidden = 4C) against 2 * M * C * sizeof(T) bytes of rows, ~4C FLOP per
-// byte in bf16 (~310 at C = 78, ~2,500 at C = 624): above the H100's ridge
-// for bf16 tensor cores (~295 FLOP/byte), so bound by operations.  The
-// products run on the tensor cores (mma.sync m16n8k16, bf16 x bf16 ->
-// f32, fused_common.cuh), the operands read straight from shared memory
-// and L1/L2 without staging; the design keeps every intermediate of a row
-// tile (ln, the (rows, Hd) hidden) in shared memory and moves each row
-// once in and once out.
+// byte in bf16: above the H100's ridge for bf16 tensor cores (~295
+// FLOP/byte) at every hrformer_base width, so bound by operations.
 //
-// Design:
-//   * forward: one block per tile of BM rows (64, or 32 when the bf16 ln
-//     and hidden tiles of 64 rows do not fit in shared memory); LN per
-//     row by one warp; fc1 + bias + GELU tile by tile into a bf16 hidden
-//     tile in shared memory; fc2 + bias + DropPath residual straight to y.
-//   * backward, rows: one block per tile of 64 rows recomputes LN and h,
-//     writes the bf16 operands of the weight gradients (lnb, dob, gb, dhb)
-//     to scratch, computes dh and dln, and takes the LayerNorm backward;
-//     its sums over rows of db1, db2, dgamma and dbeta go to one partial
-//     vector per block.
-//   * backward, reductions: dW1 = dhb^T lnb and dW2 = dob^T gb by a tile
-//     product over the rows, in a bounded number of row chunks whose
-//     partials are added in a fixed order; the partial vectors are summed
-//     over blocks in a fixed order.  No atomics: the result does not
-//     depend on block scheduling.
+// The first version ran each direction in one block per 64 rows
+// that walked every hidden and output tile, its operands fetched unstaged
+// from L1/L2: at b = 32 it lost to the stock PyTorch chain by 1.2-2.5x
+// forward at C >= 156 and 1.1-1.9x backward at C >= 312 (grids of 49-147
+// blocks for 132 SMs; PERF.md).  Now every product is the staged
+// tensor-core tile product of mlp_gemm.cuh (cp.async ring, ldmatrix,
+// mma.sync), one output tile of 64 or 128 rows by 64 or 128 columns per
+// block (TileS/M/L below, the plan's choice), so each stage is parallel
+// over rows and columns; bf16 output tiles leave through shared memory as
+// 16-byte rows; bf16 intermediates go through device memory, where the
+// contract rounds them anyway:
+//   forward  (1) LayerNorm, one warp per row: lnb (M, Cp);
+//            (2) fc1 + b1 + GELU over (row tile x hidden tile): g (M, Hd);
+//            (3) fc2 + b2 + DropPath residual over (row tile x column
+//                tile): y, written once;
+//   backward (a) LayerNorm recompute: lnb, dob = bf16(dp dy) (M, Cp), each
+//                row's mean and rstd, db2 partials;
+//            (b) h = lnb W1^T + b1 and dg = dob W2 over (row tile x hidden
+//                tile), W2 read transposed from its one staged copy: gb,
+//                dhb (M, Hd), db1 partials per row tile;
+//            (c) dln = dhb W1 over (row tile x column tile), W1 read
+//                transposed; then the LayerNorm backward per row: dx,
+//                dgamma and dbeta partials;
+//            (d) dW1 = dhb^T lnb, dW2 = dob^T gb by `atb` (fused_common.cuh,
+//                on the same staged product) in row chunks added in a
+//                fixed order; the partial rows summed in a fixed order.
+// In float32 at C <= 160 the forward keeps the first version's
+// single-block form (mlp_fwd_f32_rows_kernel), as fast there as the
+// staged stages or faster.  The
+// tiles, the LayerNorm stages' rows per block and the form come from the
+// host plan (kernels/fused_block.py `mlp_plan`).  No atomics: every sum
+// over rows runs in a fixed order, independent of block scheduling.
+
+#include <type_traits>
 
 #include "fused_common.cuh"
 
 namespace {
 
+// The product tiles the host plan chooses from, per stage (plan ids 0-2):
+// rows x columns x k slice, warps as rows x columns, slices in flight.
+using TileS = mg::Cfg<64, 64, 64, 2, 2, 3>;    // 4 warps of 32 x 32
+using TileM = mg::Cfg<64, 128, 64, 2, 4, 3>;   // 8 warps of 32 x 32
+using TileL = mg::Cfg<128, 128, 64, 2, 4, 3>;  // 8 warps of 64 x 32
+
+// f(CF{}) for the tile of plan id `tile`.
+template <class F>
+cudaError_t with_tile(int tile, F f) {
+  if (tile == 0) return f(TileS{});
+  if (tile == 1) return f(TileM{});
+  if (tile == 2) return f(TileL{});
+  return cudaErrorInvalidValue;
+}
+
+template <int NB>
+using RowOp = mg::Operand<true, NB, 8>;  // k-contiguous, 16-byte rows
+template <int NB>
+using ColOp = mg::Operand<false, NB, 8>;  // i-contiguous, 16-byte rows
+
+// Shared memory of each product stage: fc1 and fc2 read both operands
+// k-contiguous; dln reads W1 transposed; the hidden stage runs one product
+// of each kind on one ring.
+template <class CF, int NB>
+constexpr size_t fc_smem() {
+  return mg::ring_bytes<CF, RowOp<1>, RowOp<NB>>();
+}
+
+template <class CF, int NB>
+constexpr size_t t_smem() {
+  return mg::ring_bytes<CF, RowOp<1>, ColOp<NB>>();
+}
+
+template <class CF, int NB>
+constexpr size_t hidden_smem() {
+  return fc_smem<CF, NB>() > t_smem<CF, NB>() ? fc_smem<CF, NB>() : t_smem<CF, NB>();
+}
+
+// Every stage of every tile fits the shared memory a block may have (the
+// hidden stage's ring is the larger of the two kinds).
+template <class CF>
+constexpr bool fits() {
+  return hidden_smem<CF, 1>() <= kMaxSmem && hidden_smem<CF, 3>() <= kMaxSmem;
+}
+static_assert(fits<TileS>() && fits<TileM>() && fits<TileL>(),
+              "a product tile's ring exceeds the shared memory a block may have");
+
+int tiles(int n, int t) { return (n + t - 1) / t; }
+
+// LayerNorm of one row xr, by one warp, float32 statistics: out[c] =
+// bf16((x - mu) * rstd * gamma + beta) for c < C, zero for C <= c < width
+// (C, width <= 32 NV).  The row is read once, into NV registers a lane, and
+// its sums taken from there.  Returns (mu, rstd).
+template <int NV, typename T>
+__device__ __forceinline__ float2 ln_row(const T* __restrict__ xr, int C,
+                                         const float* __restrict__ gamma,
+                                         const float* __restrict__ beta, bf16* out, int width) {
+  const int lane = threadIdx.x & 31;
+  float v[NV];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    v[i] = c < C ? to_f32(xr[c]) : 0.f;
+    s += v[i];
+  }
+  const float mu = warp_sum(s) / C;
+  float var = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float d = v[i] - mu;
+    if (lane + 32 * i < C) var = fmaf(d, d, var);
+  }
+  const float rs = rsqrtf(warp_sum(var) / C + kLnEps);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < width)
+      out[c] = __float2bfloat16(c < C ? (v[i] - mu) * rs * gamma[c] + beta[c] : 0.f);
+  }
+  return make_float2(mu, rs);
+}
+
+// Rows up to kMaxLnWidth; f(std::integral_constant<int, NV>{}) with NV, the
+// registers a lane of ln_row, the least of 4, 8, 12, 20 that holds width.
+constexpr int kMaxLnWidth = 640;
+
+template <class F>
+cudaError_t with_ln_width(int width, F f) {
+  if (width <= 128) return f(std::integral_constant<int, 4>{});
+  if (width <= 256) return f(std::integral_constant<int, 8>{});
+  if (width <= 384) return f(std::integral_constant<int, 12>{});
+  return f(std::integral_constant<int, kMaxLnWidth / 32>{});
+}
+
+// LayerNorm of rows [blockIdx.x * rpb, ...) of x, one warp per row: lnb
+// at row stride Cp, columns C .. Cp zero.  kBwd: also each row's mean and
+// rstd, dob = bf16(dp * dy) (row stride Cp, zero-padded), and this block's
+// db2 partial, the float32 do summed over its rows in row order, into
+// part[blockIdx.x][2C .. 3C).
+template <typename T, bool kBwd, int NV>
+__global__ void __launch_bounds__(kThreads)
+mlp_ln_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ beta, const float* __restrict__ dp,
+              const T* __restrict__ dy, bf16* __restrict__ lnb, bf16* __restrict__ dob,
+              float* __restrict__ mean, float* __restrict__ rstd, float* __restrict__ part,
+              int M, int C, int Cp, int tps, int rpb) {
+  const int row0 = blockIdx.x * rpb;
+  const int rows = min(rpb, M - row0);
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += kThreads / 32) {
+    const int row = row0 + r;
+    const float2 st =
+        ln_row<NV>(x + (size_t)row * C, C, gamma, beta, lnb + (size_t)row * Cp, Cp);
+    if constexpr (kBwd) {
+      const float scale = dp[row / tps];
+      const T* dr = dy + (size_t)row * C;
+      bf16* dor = dob + (size_t)row * Cp;
+      for (int c = lane; c < Cp; c += 32)
+        dor[c] = __float2bfloat16(c < C ? scale * to_f32(dr[c]) : 0.f);
+      if (lane == 0) {
+        mean[row] = st.x;
+        rstd[row] = st.y;
+      }
+    }
+  }
+  if constexpr (kBwd) {
+    float* pv = part + (size_t)blockIdx.x * 3 * C + 2 * C;
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const int row = row0 + r;
+        s += dp[row / tps] * to_f32(dy[(size_t)row * C + c]);
+      }
+      pv[c] = s;
+    }
+  }
+}
+
+// Forward at narrow widths in float32 (the plan's choice at C <= 160):
+// the first version's single-block form, one block per BM rows, LayerNorm
+// into a bf16 tile, fc1 + GELU hidden tile by hidden tile into a bf16 g
+// tile, fc2 + residual to y; the float32 weights, small enough to stay
+// in L1/L2, are read from there and split into their bf16 terms in
+// registers (fused_common.cuh `mma_tile`, `wpair_row`), so no term arrays
+// are staged.  At C = 78 on an NVIDIA H100 it takes 0.35 ms of device time
+// (b = 32) where the staged three-stage form, three weight terms per slice
+// at one block per SM, took 0.41 (PERF.md).
 template <int BM>
-size_t fwd_smem(int C, int Hd) {
+size_t f32_rows_smem(int C, int Hd) {
   return (size_t)BM * (C + Hd) * sizeof(bf16);
 }
 
-constexpr int kBwdRows = 64;
-
-size_t bwd_smem(int C) {
-  // lnb and dob tiles, mean and rstd, the column sums of the two row halves
-  return (size_t)kBwdRows * C * 2 * sizeof(bf16) + kBwdRows * 2 * sizeof(float) +
-         2 * kBN * sizeof(float);
-}
-
-template <typename T, int BM>
+template <int BM>
 __global__ void __launch_bounds__(kThreads)
-mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, const T* __restrict__ w1,
-               const float* __restrict__ b1, const T* __restrict__ w2,
-               const float* __restrict__ b2, const float* __restrict__ dp, T* __restrict__ y,
-               int M, int C, int Hd, int tps) {
-  constexpr int TM = BM / 16, NW = Terms<T>::n;
+mlp_fwd_f32_rows_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, const float* __restrict__ w1,
+                        const float* __restrict__ b1, const float* __restrict__ w2,
+                        const float* __restrict__ b2, const float* __restrict__ dp,
+                        float* __restrict__ y, int M, int C, int Hd, int tps) {
+  constexpr int TM = BM / 16, NW = 3;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ln = reinterpret_cast<bf16*>(smem);  // (BM, C)
   bf16* g = ln + (size_t)BM * C;             // (BM, Hd)
@@ -108,190 +267,355 @@ mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
         const int n = n0 + tile_col(j);
         if (m < rows && n < C) {
           const size_t o = (size_t)r * C + n;
-          y[o] = from_f32<T>(to_f32(x[o]) + dp[r / tps] * (acc[i][j] + b2[n]));
+          y[o] = x[o] + dp[r / tps] * (acc[i][j] + b2[n]);
         }
       }
     }
   }
 }
 
-// The row stage of the backward.  w1 is the (Hd, C) weight the forward
-// reads; w1_io (C, Hd) and w2_io (Hd, C) are the weights in the (in, out)
-// layout, whose rows are the columns the backward's products need.
-// part: this block's partial vector,
-// [dgamma C | dbeta C | db1 Hd | db2 C].  lnb_g, dob_g (M, C), gb_g, dhb_g
-// (M, Hd) bf16 and dln_g (M, C) float32 are scratch this kernel writes and
-// (dhb_g, dln_g) reads back.
+// Forward (2): g = bf16(gelu(lnb W1^T + b1)), one (BM, BN) tile of the
+// (M, Hd) output per block.
+template <class CF, int NB>
+__global__ void __launch_bounds__(CF::threads)
+mlp_fc1_kernel(const bf16* __restrict__ lnb, const bf16* __restrict__ w1,
+               const float* __restrict__ b1, bf16* __restrict__ g, int M, int Cp, int Hd) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n0 = blockIdx.x * CF::BN, m0 = blockIdx.y * CF::BM;
+  mg::Acc<CF> acc;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  mg::tile_product<CF>(acc, RowOp<1>{lnb, Cp, 0, M, Cp},
+                       RowOp<NB>{w1, Cp, (long long)Hd * Cp, Hd, Cp}, Cp, m0, n0, ring);
+  mg::store_tile(acc, ring, g + (size_t)m0 * Hd + n0, Hd, M - m0, Hd - n0,
+                 [&](int, int c, float v0, float v1) {
+                   const int n = min(n0 + c, Hd - 2);  // columns past Hd are not stored
+                   return make_float2(gelu_tanh(v0 + b1[n]), gelu_tanh(v1 + b1[n + 1]));
+                 });
+}
+
+// Forward (3): y = x + dp[r / tps] * (g W2^T + b2), one (BM, BN) tile of
+// the (M, C) output per block.
+template <class CF, int NB, typename T>
+__global__ void __launch_bounds__(CF::threads)
+mlp_fc2_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w2,
+               const float* __restrict__ b2, const T* __restrict__ x,
+               const float* __restrict__ dp, T* __restrict__ y, int M, int C, int Hd, int tps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n0 = blockIdx.x * CF::BN, m0 = blockIdx.y * CF::BM;
+  mg::Acc<CF> acc;
+  mg::tile_product<CF>(acc, RowOp<1>{g, Hd, 0, M, Hd},
+                       RowOp<NB>{w2, Hd, (long long)C * Hd, C, Hd}, Hd, m0, n0,
+                       reinterpret_cast<bf16*>(smem));
+#pragma unroll
+  for (int mi = 0; mi < CF::MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < CF::NT8; ++ni) {
+      const int n = n0 + mg::acc_col<CF>(ni, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + mg::acc_row<CF>(mi, 2 * h);
+        if (m < M && n < C) {
+          const size_t o = (size_t)m * C + n;
+          const float s = dp[m / tps];
+          mg::store2(y + o, to_f32(x[o]) + s * (acc.v[mi][ni][2 * h] + b2[n]),
+                     to_f32(x[o + 1]) + s * (acc.v[mi][ni][2 * h + 1] + b2[n + 1]));
+        }
+      }
+    }
+}
+
+// Backward (b): h = lnb W1^T + b1 and dg = dob W2 on one (BM, BN) tile of
+// the (M, Hd) hidden; gb = bf16(gelu(h)), dh = dg * gelu'(h), dhb =
+// bf16(dh); this row tile's db1 partial, dh summed over its rows, into
+// part_hid[blockIdx.y][n0 ..): per thread over its rows, then over the 8
+// row groups of the warp in a fixed shuffle tree, then over the WM row
+// groups of warps in order.
+template <class CF, int NB>
+__global__ void __launch_bounds__(CF::threads)
+mlp_bwd_hidden_kernel(const bf16* __restrict__ lnb, const bf16* __restrict__ dob,
+                      const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+                      const float* __restrict__ b1, bf16* __restrict__ gb,
+                      bf16* __restrict__ dhb, float* __restrict__ part_hid, int M, int C,
+                      int Cp, int Hd) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  constexpr int BN = CF::BN;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * CF::BM;
+  mg::Acc<CF> ah, ad;
+  mg::tile_product<CF>(ah, RowOp<1>{lnb, Cp, 0, M, Cp},
+                       RowOp<NB>{w1, Cp, (long long)Hd * Cp, Hd, Cp}, Cp, m0, n0, ring);
+  // W2 (C, Hd) as B (k = its row, n = its column): read transposed.
+  mg::tile_product<CF>(ad, RowOp<1>{dob, Cp, 0, M, Cp},
+                       ColOp<NB>{w2, Hd, (long long)C * Hd, Hd, C}, Cp, m0, n0, ring);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // ad becomes dh = dg * gelu'(h), ah becomes gelu(h); then both tiles go
+  // out through the free ring, and dh's column sums through red.
+#pragma unroll
+  for (int ni = 0; ni < CF::NT8; ++ni) {
+    const int n = min(n0 + mg::acc_col<CF>(ni, 0), Hd - 2);  // past Hd: not stored
+#pragma unroll
+    for (int mi = 0; mi < CF::MT; ++mi)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float hv = ah.v[mi][ni][e] + b1[n + (e & 1)];
+        ah.v[mi][ni][e] = gelu_tanh(hv);
+        ad.v[mi][ni][e] *= gelu_tanh_grad(hv);
+      }
+  }
+  const auto same = [](int, int, float v0, float v1) { return make_float2(v0, v1); };
+  mg::store_tile(ah, ring, gb + (size_t)m0 * Hd + n0, Hd, M - m0, Hd - n0, same);
+  mg::store_tile(ad, ring, dhb + (size_t)m0 * Hd + n0, Hd, M - m0, Hd - n0, same);
+  float* red = reinterpret_cast<float*>(smem);  // [WM][BN]
+#pragma unroll
+  for (int ni = 0; ni < CF::NT8; ++ni) {
+    float cs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int mi = 0; mi < CF::MT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (m0 + mg::acc_row<CF>(mi, 2 * h) < M) {
+          cs[0] += ad.v[mi][ni][2 * h];
+          cs[1] += ad.v[mi][ni][2 * h + 1];
+        }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], 4);
+      cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], 8);
+      cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], 16);
+      if ((lane >> 2) == 0) red[(warp % CF::WM) * BN + mg::acc_col<CF>(ni, e)] = cs[e];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < BN; c += CF::threads) {
+    if (n0 + c < Hd) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < CF::WM; ++w) s += red[w * BN + c];
+      part_hid[(size_t)blockIdx.y * Hd + n0 + c] = s;
+    }
+  }
+}
+
+// Backward (c), first half: dln = dhb W1 (float32), one (BM, BN) tile of
+// the (M, C) output per block; W1 (Hd, Cp) as B (k = its row): read
+// transposed.
+template <class CF, int NB>
+__global__ void __launch_bounds__(CF::threads)
+mlp_bwd_dln_kernel(const bf16* __restrict__ dhb, const bf16* __restrict__ w1,
+                   float* __restrict__ dln, int M, int C, int Cp, int Hd) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n0 = blockIdx.x * CF::BN, m0 = blockIdx.y * CF::BM;
+  mg::Acc<CF> acc;
+  mg::tile_product<CF>(acc, RowOp<1>{dhb, Hd, 0, M, Hd},
+                       ColOp<NB>{w1, Cp, (long long)Hd * Cp, Cp, Hd}, Hd, m0, n0,
+                       reinterpret_cast<bf16*>(smem));
+#pragma unroll
+  for (int mi = 0; mi < CF::MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < CF::NT8; ++ni) {
+      const int n = n0 + mg::acc_col<CF>(ni, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + mg::acc_row<CF>(mi, 2 * h);
+        if (m < M && n < C)
+          mg::store2(dln + (size_t)m * C + n, acc.v[mi][ni][2 * h], acc.v[mi][ni][2 * h + 1]);
+      }
+    }
+}
+
+// Backward (c), second half, rows [blockIdx.x * rpb, ...): the LayerNorm
+// backward, dx, and this block's dgamma and dbeta partials into
+// part[blockIdx.x][0 .. 2C).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-mlp_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, const T* __restrict__ w1,
-                    const T* __restrict__ w1_io, const float* __restrict__ b1,
-                    const T* __restrict__ w2_io, const float* __restrict__ dp,
-                    const T* __restrict__ dy, T* dx, bf16* lnb_g, bf16* dob_g, bf16* gb_g,
-                    bf16* dhb_g, float* dln_g, float* part, int M, int C, int Hd, int tps) {
-  constexpr int BM = kBwdRows, TM = BM / 16, NW = Terms<T>::n;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* lnb = reinterpret_cast<bf16*>(smem);  // (BM, C)
-  bf16* dob = lnb + (size_t)BM * C;           // (BM, C)
-  float* mean = reinterpret_cast<float*>(dob + (size_t)BM * C);
-  float* rstd = mean + BM;
-  float* red = rstd + BM;  // (2, kBN): column sums of the two row halves
-  const int row0 = blockIdx.x * BM;
-  const int rows = min(BM, M - row0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* pv = part + (size_t)blockIdx.x * (3 * C + Hd);
+mlp_bwd_ln_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                  const float* __restrict__ gamma, const float* __restrict__ dln,
+                  const float* __restrict__ mean, const float* __restrict__ rstd,
+                  T* __restrict__ dx, float* __restrict__ part, int M, int C, int rpb) {
+  const int row0 = blockIdx.x * rpb;
   const size_t base = (size_t)row0 * C;
-  const size_t hbase = (size_t)row0 * Hd;
-  bf16* dhb_t = dhb_g + hbase;
-
-  layernorm_rows(x + base, rows, C, gamma, beta, lnb, lnb_g + base, mean, rstd);
-  // do = dp * dy, its bf16 rounding, and db2 over this block's rows.
-  for (int c = tid; c < C; c += kThreads) {
-    float s = 0.f;
-    for (int m = 0; m < rows; ++m) {
-      const int r = row0 + m;
-      const float d = dp[r / tps] * to_f32(dy[(size_t)r * C + c]);
-      const bf16 b = __float2bfloat16(d);
-      dob[m * C + c] = b;
-      dob_g[(size_t)r * C + c] = b;
-      s += d;
-    }
-    pv[2 * C + Hd + c] = s;
-  }
-  __syncthreads();
-
-  float ah[TM][kTN], ad[TM][kTN];
-  for (int n0 = 0; n0 < Hd; n0 += kBN) {
-    // h = lnb W1^T + b1 and dg = dob W2 on the same (rows, 64) tile
-    mma_tile<BM, NW>(
-        ah, C, [&](int m, int k) { return pair_row(lnb, m < rows ? m : -1, C, k, C); },
-        [&](int n, int k, uint32_t (&o)[NW]) {
-          wpair_row(w1, n0 + n < Hd ? n0 + n : -1, C, k, C, o);
-        });
-    mma_tile<BM, NW>(
-        ad, C, [&](int m, int k) { return pair_row(dob, m < rows ? m : -1, C, k, C); },
-        [&](int n, int k, uint32_t (&o)[NW]) {
-          wpair_row(w2_io, n0 + n < Hd ? n0 + n : -1, C, k, C, o);
-        });
-    float cs[kTN] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = tile_row<BM>(i);
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int n = n0 + tile_col(j);
-        if (m < rows && n < Hd) {
-          const float h = ah[i][j] + b1[n];
-          const float dh = ad[i][j] * gelu_tanh_grad(h);
-          gb_g[hbase + (size_t)m * Hd + n] = __float2bfloat16(gelu_tanh(h));
-          dhb_t[(size_t)m * Hd + n] = __float2bfloat16(dh);
-          cs[j] += dh;
-        }
-      }
-    }
-    // db1: this thread's rows, then the 8 row groups of the warp in a fixed
-    // shuffle tree, then the two row halves in order.
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      cs[j] += __shfl_xor_sync(0xffffffffu, cs[j], 4);
-      cs[j] += __shfl_xor_sync(0xffffffffu, cs[j], 8);
-      cs[j] += __shfl_xor_sync(0xffffffffu, cs[j], 16);
-      if ((lane >> 2) == 0) red[(warp & 1) * kBN + tile_col(j)] = cs[j];
-    }
-    __syncthreads();
-    if (tid < kBN && n0 + tid < Hd) pv[2 * C + n0 + tid] = red[tid] + red[kBN + tid];
-    __syncthreads();
-  }
-
-  for (int n0 = 0; n0 < C; n0 += kBN) {  // dln = dhb W1
-    mma_tile<BM, NW>(
-        ah, Hd, [&](int m, int k) { return pair_row(dhb_t, m < rows ? m : -1, Hd, k, Hd); },
-        [&](int n, int k, uint32_t (&o)[NW]) {
-          wpair_row(w1_io, n0 + n < C ? n0 + n : -1, Hd, k, Hd, o);
-        });
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = tile_row<BM>(i);
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int n = n0 + tile_col(j);
-        if (m < rows && n < C) dln_g[base + (size_t)m * C + n] = ah[i][j];
-      }
-    }
-  }
-  __syncthreads();
-
-  layernorm_bwd_rows(x + base, dy + base, dln_g + base, mean, rstd, gamma, rows, C, dx + base,
-                     pv, pv + C);
+  float* pv = part + (size_t)blockIdx.x * 3 * C;
+  layernorm_bwd_rows(x + base, dy + base, dln + base, mean + row0, rstd + row0, gamma,
+                     min(rpb, M - row0), C, dx + base, pv, pv + C);
 }
 
-template <typename T, int BM>
-cudaError_t launch_fwd(const void* x, const float* gamma, const float* beta, const void* w1,
-                       const float* b1, const void* w2, const float* b2, const float* dp,
-                       void* y, int M, int C, int Hd, int tps, cudaStream_t stream) {
-  const size_t smem = fwd_smem<BM>(C, Hd);
-  cudaError_t err = allow_smem(mlp_fwd_kernel<T, BM>, smem);
-  if (err != cudaSuccess) return err;
-  mlp_fwd_kernel<T, BM><<<(M + BM - 1) / BM, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), gamma, beta, static_cast<const T*>(w1), b1,
-      static_cast<const T*>(w2), b2, dp, static_cast<T*>(y), M, C, Hd, tps);
+// Launch kernel on a (column tiles, row tiles) grid of the tile CF with
+// smem bytes of shared memory.
+template <class CF, class K, class... Args>
+cudaError_t launch_tiles(K kernel, size_t smem, int rows, int cols, cudaStream_t stream,
+                         Args... args) {
+  const cudaError_t opt = allow_smem(kernel, smem);
+  if (opt != cudaSuccess) return opt;
+  kernel<<<dim3(tiles(cols, CF::BN), tiles(rows, CF::BM)), CF::threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
+// A weight as the caller passes it: element (r, c) of its (out, in) view
+// at p[r * sr + c * sc].
+struct Weight {
+  const void* p;
+  int sr, sc;
+};
+
+// W1 and W2 as the products read them, (Hd, Cp) and (C, Hd) term arrays
+// (term stride Hd * Cp and C * Hd): a bf16 weight as the wrapper staged it
+// (contiguous, W1's rows padded); a float32 one split into wterms, three
+// (Hd, Cp) terms of W1 then three (C, Hd) of W2.
 template <typename T>
-cudaError_t fwd(const void* x, const float* gamma, const float* beta, const void* w1,
-                const float* b1, const void* w2, const float* b2, const float* dp, void* y, int M,
-                int C, int Hd, int tps, cudaStream_t stream) {
-  if (fwd_smem<64>(C, Hd) <= (size_t)kMaxSmem)
-    return launch_fwd<T, 64>(x, gamma, beta, w1, b1, w2, b2, dp, y, M, C, Hd, tps, stream);
-  if (fwd_smem<32>(C, Hd) <= (size_t)kMaxSmem)
-    return launch_fwd<T, 32>(x, gamma, beta, w1, b1, w2, b2, dp, y, M, C, Hd, tps, stream);
-  return cudaErrorInvalidValue;
+cudaError_t stage_weights(const Weight& w1, const Weight& w2, int C, int Cp, int Hd,
+                          bf16* wterms, const bf16*& w1s, const bf16*& w2s,
+                          cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    if (w1.sr != Cp || w1.sc != 1 || w2.sr != Hd || w2.sc != 1) return cudaErrorInvalidValue;
+    w1s = static_cast<const bf16*>(w1.p);
+    w2s = static_cast<const bf16*>(w2.p);
+    return cudaSuccess;
+  } else {
+    w1s = wterms;
+    w2s = wterms + 3 * (size_t)Hd * Cp;
+    const cudaError_t err = launch_split_weights(static_cast<const float*>(w1.p), w1.sr, w1.sc,
+                                                 Hd, C, Cp, wterms, stream);
+    if (err != cudaSuccess) return err;
+    return launch_split_weights(static_cast<const float*>(w2.p), w2.sr, w2.sc, C, Hd, Hd,
+                                wterms + 3 * (size_t)Hd * Cp, stream);
+  }
+}
+
+// tile: the plan's tile ids of (fc1, fc2) forward, (hidden, dln) backward;
+// single: the float32 single-block form in place of the three stages.
+template <typename T>
+cudaError_t fwd(const T* x, const float* gamma, const float* beta, const Weight& w1_in,
+                const float* b1, const Weight& w2_in, const float* b2, const float* dp, T* y,
+                bf16* lnb, bf16* g, bf16* wterms, int M, int C, int Cp, int Hd, int tps,
+                int rpb, const int (&tile)[2], bool single, cudaStream_t stream) {
+  constexpr int NB = Terms<T>::n;
+  if constexpr (sizeof(T) == 4) {
+    if (single) {  // the float32 weights as they are, (Hd, C) and (C, Hd) contiguous
+      const size_t smem = f32_rows_smem<64>(C, Hd);
+      if (smem > (size_t)kMaxSmem || w1_in.sr != C || w1_in.sc != 1 || w2_in.sr != Hd ||
+          w2_in.sc != 1)
+        return cudaErrorInvalidValue;
+      const cudaError_t opt = allow_smem(mlp_fwd_f32_rows_kernel<64>, smem);
+      if (opt != cudaSuccess) return opt;
+      mlp_fwd_f32_rows_kernel<64><<<tiles(M, 64), kThreads, smem, stream>>>(
+          x, gamma, beta, static_cast<const float*>(w1_in.p), b1,
+          static_cast<const float*>(w2_in.p), b2, dp, y, M, C, Hd, tps);
+      return cudaGetLastError();
+    }
+  } else if (single) {
+    return cudaErrorInvalidValue;
+  }
+  const bf16 *w1, *w2;
+  cudaError_t err = stage_weights<T>(w1_in, w2_in, C, Cp, Hd, wterms, w1, w2, stream);
+  if (err != cudaSuccess) return err;
+  err = with_ln_width(Cp, [&](auto nv) {
+    mlp_ln_kernel<T, false, decltype(nv)::value><<<tiles(M, rpb), kThreads, 0, stream>>>(
+        x, gamma, beta, nullptr, nullptr, lnb, nullptr, nullptr, nullptr, nullptr, M, C, Cp, 1,
+        rpb);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  err = with_tile(tile[0], [&](auto cf) {
+    using CF = decltype(cf);
+    return launch_tiles<CF>(mlp_fc1_kernel<CF, NB>, fc_smem<CF, NB>(), M, Hd, stream,
+                                   (const bf16*)lnb, w1, b1, g, M, Cp, Hd);
+  });
+  if (err != cudaSuccess) return err;
+  return with_tile(tile[1], [&](auto cf) {
+    using CF = decltype(cf);
+    return launch_tiles<CF>(mlp_fc2_kernel<CF, NB, T>, fc_smem<CF, NB>(), M, C, stream,
+                            (const bf16*)g, w2, b2, x, dp, y, M, C, Hd, tps);
+  });
 }
 
 template <typename T>
-cudaError_t bwd(const void* x, const float* gamma, const float* beta, const void* w1,
-                const void* w1_io, const float* b1, const void* w2_io, const float* dp,
-                const void* dy, void* dx,
+cudaError_t bwd(const T* x, const float* gamma, const float* beta, const Weight& w1_in,
+                const float* b1, const Weight& w2_in, const float* dp, const T* dy, T* dx,
                 float* vec, float* dw1, float* dw2, bf16* lnb, bf16* dob, bf16* gb, bf16* dhb,
-                float* dln, float* vec_part, float* atb_part, int M, int C, int Hd, int tps,
-                int s1, int s2, cudaStream_t stream) {
-  const size_t smem = bwd_smem(C);
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(mlp_bwd_rows_kernel<T>, smem);
+                float* dln, float* stats, float* part_rows, float* part_hid, float* atb_part,
+                bf16* wterms, int M, int C, int Cp, int Hd, int tps, int rpb,
+                const int (&tile)[2], int s1, int s2, cudaStream_t stream) {
+  constexpr int NB = Terms<T>::n;
+  float* mean = stats;
+  float* rstd = stats + M;
+  const int blocks = tiles(M, rpb);
+  const bf16 *w1, *w2;
+  cudaError_t err = stage_weights<T>(w1_in, w2_in, C, Cp, Hd, wterms, w1, w2, stream);
   if (err != cudaSuccess) return err;
-  const int blocks = (M + kBwdRows - 1) / kBwdRows;
-  mlp_bwd_rows_kernel<T><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), gamma, beta, static_cast<const T*>(w1),
-      static_cast<const T*>(w1_io), b1, static_cast<const T*>(w2_io), dp,
-      static_cast<const T*>(dy), static_cast<T*>(dx), lnb, dob, gb, dhb, dln, vec_part, M, C,
-      Hd, tps);
+  err = with_ln_width(Cp, [&](auto nv) {
+    mlp_ln_kernel<T, true, decltype(nv)::value><<<blocks, kThreads, 0, stream>>>(
+        x, gamma, beta, dp, dy, lnb, dob, mean, rstd, part_rows, M, C, Cp, tps, rpb);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  int hidden_rows = 0;  // rows of the hidden stage's tiles: part_hid's row count
+  err = with_tile(tile[0], [&](auto cf) {
+    using CF = decltype(cf);
+    hidden_rows = CF::BM;
+    return launch_tiles<CF>(mlp_bwd_hidden_kernel<CF, NB>, hidden_smem<CF, NB>(), M, Hd,
+                            stream, (const bf16*)lnb, (const bf16*)dob, w1, w2, b1, gb, dhb,
+                            part_hid, M, C, Cp, Hd);
+  });
+  if (err != cudaSuccess) return err;
+  err = with_tile(tile[1], [&](auto cf) {
+    using CF = decltype(cf);
+    return launch_tiles<CF>(mlp_bwd_dln_kernel<CF, NB>, t_smem<CF, NB>(), M, C, stream,
+                            (const bf16*)dhb, w1, dln, M, C, Cp, Hd);
+  });
+  if (err != cudaSuccess) return err;
+  mlp_bwd_ln_kernel<T><<<blocks, kThreads, 0, stream>>>(x, dy, gamma, dln, mean, rstd, dx,
+                                                        part_rows, M, C, rpb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // dW1 (Hd, C) = dhb^T lnb;  dW2 (C, Hd) = dob^T gb
-  err = launch_atb(dhb, Hd, lnb, C, dw1, atb_part, M, Hd, C, s1, stream);
+  err = launch_atb(dhb, Hd, lnb, Cp, dw1, atb_part, M, Hd, C, s1, stream);
   if (err != cudaSuccess) return err;
-  err = launch_atb(dob, C, gb, Hd, dw2, atb_part, M, C, Hd, s2, stream);
+  err = launch_atb(dob, Cp, gb, Hd, dw2, atb_part, M, C, Hd, s2, stream);
   if (err != cudaSuccess) return err;
-  return launch_colsum(vec_part, vec, blocks, 3 * C + Hd, stream);
+  // vec = [dgamma | dbeta | db2] over row blocks, then db1 over row tiles
+  err = launch_colsum(part_rows, vec, blocks, 3 * C, stream);
+  if (err != cudaSuccess) return err;
+  return launch_colsum(part_hid, vec + 3 * C, tiles(M, hidden_rows), Hd, stream);
+}
+
+bool bad_shape(int M, int C, int Cp, int Hd, int tps, int rpb) {
+  return M <= 0 || C <= 0 || C % 2 || Cp < C || Cp % 8 || Cp > kMaxLnWidth || Hd <= 0 ||
+         Hd % 8 || tps <= 0 || rpb <= 0 || tiles(M, TileS::BM) > 65535;
+}
+
+bool bad_tile(const int (&tile)[2]) {
+  return tile[0] < 0 || tile[0] > 2 || tile[1] < 0 || tile[1] > 2;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, y and the weights).  Returns the
-// launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (x, y).  w1, w2: the weights in their
+// (out, in) views, (Hd, C) and (C, Hd), element (r, c) at p[r * sr + c *
+// sc]: bf16 ones as the wrapper stages them, contiguous with W1's rows
+// padded to Cp (sr = Cp, Hd; sc = 1); float32 ones in any layout, split
+// into wterms (3 * (Hd * Cp + C * Hd) bf16 on the card), or, for the
+// single-block form, contiguous (sr = C, Hd; sc = 1) and read as they are.
+// Scratch on the card: lnb (M, Cp), g (M, Hd) bf16 (unused by the
+// single-block form, as is wterms).  rpb: rows per block of the LayerNorm
+// stage; tile1, tile2: the tile ids (0-2) of fc1 and fc2; single: 1 for
+// the float32 single-block form.  Returns the launches' cudaError_t.
 int ipe_fused_mlp_fwd(const void* x, const void* gamma, const void* beta, const void* w1,
                       const void* b1, const void* w2, const void* b2, const void* dp, void* y,
-                      int M, int C, int Hd, int tps, int dtype, void* stream) {
-  if (M <= 0 || C <= 0 || Hd <= 0 || tps <= 0) return (int)cudaErrorInvalidValue;
+                      void* lnb, void* g, void* wterms, int M, int C, int Cp, int Hd, int tps,
+                      int rpb, int tile1, int tile2, int single, int w1_sr, int w1_sc,
+                      int w2_sr, int w2_sc, int dtype, void* stream) {
+  const int tile[2] = {tile1, tile2};
+  if (bad_shape(M, C, Cp, Hd, tps, rpb) || bad_tile(tile)) return (int)cudaErrorInvalidValue;
+  const Weight wa{w1, w1_sr, w1_sc}, wb{w2, w2_sr, w2_sc};
   auto f = [&](auto tag) {
     using T = decltype(tag);
-    return fwd<T>(x, static_cast<const float*>(gamma), static_cast<const float*>(beta), w1,
-                  static_cast<const float*>(b1), w2, static_cast<const float*>(b2),
-                  static_cast<const float*>(dp), y, M, C, Hd, tps,
+    return fwd<T>(static_cast<const T*>(x), static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta), wa, static_cast<const float*>(b1), wb,
+                  static_cast<const float*>(b2), static_cast<const float*>(dp),
+                  static_cast<T*>(y), static_cast<bf16*>(lnb), static_cast<bf16*>(g),
+                  static_cast<bf16*>(wterms), M, C, Cp, Hd, tps, rpb, tile, single != 0,
                   static_cast<cudaStream_t>(stream));
   };
   if (dtype == 0) return (int)f(float{});
@@ -299,36 +623,36 @@ int ipe_fused_mlp_fwd(const void* x, const void* gamma, const void* beta, const 
   return (int)cudaErrorInvalidValue;
 }
 
-// Rows per block of the backward's row stage (the partial vectors are one
-// per block), or 0 when a (C, Hd) does not fit in shared memory.
-int ipe_fused_mlp_bwd_rows_per_block(int C, int Hd) {
-  return (C > 0 && Hd > 0 && bwd_smem(C) <= (size_t)kMaxSmem) ? kBwdRows : 0;
-}
-
-// w1 (Hd, C) as in the forward; w1_io (C, Hd) and w2_io (Hd, C): the
-// weights in the (in, out) layout.  Scratch, all on the card: lnb, dob
-// (M, C) and gb, dhb (M, Hd) bf16; dln (M, C) float32; vec_part
-// (ceil(M / rows_per_block), 3C + Hd) float32; atb_part max(s1, s2) * Hd * C
-// float32.  Outputs: dx (M, C) in the dtype; vec = [dgamma C | dbeta C |
-// db1 Hd | db2 C], dw1 (Hd, C), dw2 (C, Hd) float32.  s1, s2: row chunks of
-// the dW1 and dW2 reductions.
+// w1, w2 (with their strides) and wterms as in the forward.  Scratch, all
+// on the card: lnb, dob (M, Cp) and gb, dhb (M, Hd) bf16; dln (M, C),
+// stats (2, M) (each row's LayerNorm mean, rstd), part_rows (ceil(M /
+// rpb), 3C), part_hid (row tiles of stage (b), Hd) and atb_part max(s1,
+// s2) * Hd * C float32.  Outputs: dx (M, C) in the dtype; vec = [dgamma C
+// | dbeta C | db2 C | db1 Hd], dw1 (Hd, C), dw2 (C, Hd) float32.  rpb:
+// rows per block of the LayerNorm stages; tileh, tiled: the tile ids of
+// stages (b) and (c); s1, s2: row chunks of the dW1 and dW2 reductions.
 int ipe_fused_mlp_bwd(const void* x, const void* gamma, const void* beta, const void* w1,
-                      const void* w1_io, const void* b1, const void* w2_io, const void* dp,
-                      const void* dy, void* dx, void* vec, void* dw1, void* dw2, void* lnb,
-                      void* dob, void* gb, void* dhb, void* dln, void* vec_part, void* atb_part,
-                      int M, int C, int Hd, int tps, int s1, int s2, int dtype, void* stream) {
-  if (M <= 0 || C <= 0 || Hd <= 0 || tps <= 0 || s1 <= 0 || s2 <= 0)
+                      const void* b1, const void* w2, const void* dp, const void* dy, void* dx,
+                      void* vec, void* dw1, void* dw2, void* lnb, void* dob, void* gb, void* dhb,
+                      void* dln, void* stats, void* part_rows, void* part_hid, void* atb_part,
+                      void* wterms, int M, int C, int Cp, int Hd, int tps, int rpb, int tileh,
+                      int tiled, int s1, int s2, int w1_sr, int w1_sc, int w2_sr, int w2_sc,
+                      int dtype, void* stream) {
+  const int tile[2] = {tileh, tiled};
+  if (bad_shape(M, C, Cp, Hd, tps, rpb) || bad_tile(tile) || s1 <= 0 || s2 <= 0)
     return (int)cudaErrorInvalidValue;
+  const Weight wa{w1, w1_sr, w1_sc}, wb{w2, w2_sr, w2_sc};
   auto f = [&](auto tag) {
     using T = decltype(tag);
-    return bwd<T>(x, static_cast<const float*>(gamma), static_cast<const float*>(beta), w1,
-                  w1_io, static_cast<const float*>(b1), w2_io, static_cast<const float*>(dp),
-                  dy, dx,
+    return bwd<T>(static_cast<const T*>(x), static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta), wa, static_cast<const float*>(b1), wb,
+                  static_cast<const float*>(dp), static_cast<const T*>(dy), static_cast<T*>(dx),
                   static_cast<float*>(vec), static_cast<float*>(dw1), static_cast<float*>(dw2),
                   static_cast<bf16*>(lnb), static_cast<bf16*>(dob), static_cast<bf16*>(gb),
-                  static_cast<bf16*>(dhb), static_cast<float*>(dln),
-                  static_cast<float*>(vec_part), static_cast<float*>(atb_part), M, C, Hd, tps,
-                  s1, s2, static_cast<cudaStream_t>(stream));
+                  static_cast<bf16*>(dhb), static_cast<float*>(dln), static_cast<float*>(stats),
+                  static_cast<float*>(part_rows), static_cast<float*>(part_hid),
+                  static_cast<float*>(atb_part), static_cast<bf16*>(wterms), M, C, Cp, Hd, tps,
+                  rpb, tile, s1, s2, static_cast<cudaStream_t>(stream));
   };
   if (dtype == 0) return (int)f(float{});
   if (dtype == 1) return (int)f(bf16{});

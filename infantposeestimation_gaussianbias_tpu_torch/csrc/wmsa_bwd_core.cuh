@@ -160,16 +160,6 @@ __device__ __forceinline__ void split(float x, float y, uint32_t (&o)[NT]) {
   }
 }
 
-// x as NT bf16 terms, each the rounding of what the terms before it left.
-template <int NT>
-__device__ __forceinline__ void split1(float x, bf16 (&o)[NT]) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    o[i] = __float2bfloat16(x);
-    x -= __bfloat162float(o[i]);
-  }
-}
-
 // acc0 (n tile n0) and acc1 (n0 + 8) += A B over the term pairs i + j < L;
 // b[j] holds B term j's fragments of both tiles as b_rows / b_cols load them.
 template <int NA, int NB, int L>

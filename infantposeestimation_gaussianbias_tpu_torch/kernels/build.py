@@ -131,11 +131,9 @@ def load() -> ctypes.CDLL:
             ctypes.c_float, i, i, p]
         lib.ipe_window_msa_bwd.restype = i
         f = ctypes.c_float
-        lib.ipe_fused_mlp_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
+        lib.ipe_fused_mlp_fwd.argtypes = [p] * 12 + [i] * 14 + [p]
         lib.ipe_fused_mlp_fwd.restype = i
-        lib.ipe_fused_mlp_bwd_rows_per_block.argtypes = [i, i]
-        lib.ipe_fused_mlp_bwd_rows_per_block.restype = i
-        lib.ipe_fused_mlp_bwd.argtypes = [p] * 20 + [i] * 7 + [p]
+        lib.ipe_fused_mlp_bwd.argtypes = [p] * 22 + [i] * 15 + [p]
         lib.ipe_fused_mlp_bwd.restype = i
         lib.ipe_fused_attn_fwd.argtypes = [p] * 10 + [i] * 7 + [f, i, p]
         lib.ipe_fused_attn_fwd.restype = i

@@ -44,10 +44,12 @@ dtype, dW in the weight's dtype, everything else float32.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 from .window_msa import MAX_HEAD_DIM, MAX_TOKENS, bwd_windows_per_block
@@ -64,9 +66,14 @@ _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _GELU_C = 0.044715
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Output tiles of the weight-gradient reduction (csrc/fused_common.cuh).
-_ATB_TILE = 64
+_ATB_TILE = 128
 # Weight-gradient blocks per SM that the split of the row sum aims at.
 _ATB_BLOCKS_PER_SM = 2
+# K5's product tiles (csrc/fused_mlp.cu TileS, TileM, TileL; plan ids 0-2):
+# (rows, columns) of one block's output tile.
+MLP_TILES = ((64, 64), (64, 128), (128, 128))
+# bf16 terms per weight element by dtype code: float32 3, bf16 1.
+_TERMS = {0: 3, 1: 1}
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -279,6 +286,19 @@ def _vec(v: torch.Tensor, n: int, dev, what: str) -> torch.Tensor:
     return v.reshape(n).float().contiguous()
 
 
+def _scratch(dev, *nbytes: int) -> tuple:
+    """One allocation holding buffers of the given sizes, each 256-byte
+    aligned: (the allocation, which the caller keeps until its launches are
+    queued, and each buffer's address)."""
+    offsets, total = [], 0
+    for n in nbytes:
+        offsets.append(total)
+        total += -(-n // 256) * 256
+    buf = torch.empty((max(total, 1),), dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    return buf, [base + o for o in offsets]
+
+
 def _check_x(x: torch.Tensor, dims: int) -> None:
     if x.dim() != dims or not x.is_contiguous() or x.shape[-1] % 2:
         raise ValueError(f"x must be a contiguous {dims}-d tensor of even "
@@ -313,6 +333,100 @@ def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+def mlp_blocks(M: int, n: int, tile: int) -> int:
+    """Blocks of a K5 product stage over an (M, n) output in tile ``tile``
+    of ``MLP_TILES``, one output tile per block."""
+    bm, bn = MLP_TILES[tile]
+    return -(-M // bm) * -(-n // bn)
+
+
+def _mlp_tile(M: int, n: int, sm_count: int, largest: int = 2) -> int:
+    """The largest tile, up to ``largest``, whose grid over (M, n) holds one
+    wave of ``sm_count`` blocks; the smallest where none does."""
+    for tile in range(largest, 0, -1):
+        if mlp_blocks(M, n, tile) >= sm_count:
+            return tile
+    return 0
+
+
+@functools.lru_cache(maxsize=256)
+def mlp_plan(M: int, C: int, hidden: int, sm_count: int,
+             terms: int = 1) -> dict:
+    """What K5's launches take and its scratch needs (csrc/fused_mlp.cu) on
+    M rows of width C, ``terms`` bf16 terms per weight (1 bf16, 3 float32).
+    Cached: the wrappers call it per launch; callers do not change it.
+
+    ``width``: C rounded up to 8, the row stride of lnb, dob and W1's
+    padded rows (16-byte rows for cp.async and ldmatrix).  ``fc1``,
+    ``fc2`` (forward), ``hidden`` (backward stage (b)) and ``dln`` (stage
+    (c)): each product stage's tile id in ``MLP_TILES`` (``_mlp_tile``; the
+    hidden stage, which holds two accumulator sets, at most the 64 x 128
+    one).  ``single``: in float32 at C <= 160 (hrformer_base's b0 and b1),
+    the forward's single-block form (``mlp_fwd_f32_rows_kernel``, one block
+    per 64 rows, the float32 weights read from L1/L2), where the staged
+    stages, three weight terms a slice at one block per SM, do not beat it.
+    ``rows_per_block``: the LayerNorm stages' rows per block (8 to 64, as
+    many as keep one block per SM).  ``atb_splits``: the row chunks of dW1
+    and dW2.  Partial rows: ``part_rows`` [dgamma | dbeta | db2] per
+    LayerNorm block, ``part_hidden`` db1 per row tile of the hidden stage.
+
+    At every hrformer_base branch (C 78-624, hidden 4C) at b = 32 and 64,
+    window 7 and 8 (M >= 2,048) and 132 SMs, every stage but one holds at
+    least one wave of 132 blocks (tests/test_torch_fused_mlp_plan.py): the
+    fixed-order column sums of the partial rows, ceil(width / 32) blocks
+    over at most a few thousand rows, a few microseconds, where more
+    blocks would only add partial rows.  Shared memory is the kernels'
+    own: csrc/fused_mlp.cu asserts at compile time that every tile fits."""
+    if C % 2 or C > 640 or hidden % 8:
+        raise ValueError(f"K5 takes an even C <= 640 and hidden % 8 == 0, "
+                         f"got C={C}, hidden={hidden}")
+    if -(-M // MLP_TILES[0][0]) > 65535:
+        raise ValueError(f"K5 takes at most {65535 * MLP_TILES[0][0]} rows, "
+                         f"got {M}")
+    rpb = max(8, min(64, M // sm_count // 8 * 8))
+    plan = dict(width=-(-C // 8) * 8, rows_per_block=rpb,
+                fc1=_mlp_tile(M, hidden, sm_count),
+                fc2=_mlp_tile(M, C, sm_count),
+                hidden=_mlp_tile(M, hidden, sm_count, largest=1),
+                dln=_mlp_tile(M, C, sm_count),
+                single=terms == 3 and C <= 160,
+                atb_splits=(atb_splits(hidden, C, M, sm_count),
+                            atb_splits(C, hidden, M, sm_count)))
+    plan["part_rows"] = (-(-M // rpb), 3 * C)
+    plan["part_hidden"] = (-(-M // MLP_TILES[plan["hidden"]][0]), hidden)
+    return plan
+
+
+def mlp_weight_rows(w: torch.Tensor, width: int) -> torch.Tensor:
+    """A bf16 (R, K) weight in K5's (out, in) layout (any strides) as the
+    (R, width) rows its staged products read, contiguous, columns K ..
+    width zero: itself, no copy, when it is contiguous and K == width.  A
+    float32 weight is split into its bf16 terms on the card instead
+    (csrc/fused_common.cuh ``split_weights_kernel``)."""
+    if w.dtype != torch.bfloat16:
+        raise ValueError(f"mlp_weight_rows takes a bf16 weight, got {w.dtype}")
+    K = w.shape[1]
+    return (w if K == width else F.pad(w, (0, width - K))).contiguous()
+
+
+def _mlp_weights(w1, w2, C: int, hidden: int, width: int, single: bool,
+                 dev) -> tuple:
+    """K5's weights as its C entries take them, from the JAX-layout (in,
+    out) ones: ((W1 (hidden, C) view, its strides), (W2 (C, hidden) view,
+    its strides)).  bf16: padded contiguous rows (``mlp_weight_rows``; no
+    copy for the transposed view of an nn.Linear weight whose rows need no
+    padding).  float32: the views as they are, which the card splits into
+    terms, or, for the single-block form, contiguous."""
+    _check_weight(w1, C, hidden, dev)
+    _check_weight(w2, hidden, C, dev)
+    w1t, w2t = w1.t(), w2.t()
+    if w1.dtype == torch.bfloat16:
+        w1t, w2t = mlp_weight_rows(w1t, width), mlp_weight_rows(w2t, hidden)
+    elif single:
+        w1t, w2t = w1t.contiguous(), w2t.contiguous()
+    return (w1t, w1t.stride()), (w2t, w2t.stride())
+
+
 def fused_mlp_half_fwd(x2, gamma, beta, w1, b1, w2, b2, dp,
                        tps: int) -> torch.Tensor:
     """K5 forward: (M, C) rows -> (M, C), see the module doc."""
@@ -326,18 +440,26 @@ def fused_mlp_half_fwd(x2, gamma, beta, w1, b1, w2, b2, dp,
     dev = x2.device
     code = _code(x2, (w1, w2))
     _check_dp(dp, -(-M // tps))
-    w1t, w2t = _out_in(w1, C, hidden, dev), _out_in(w2, hidden, C, dev)
+    plan = mlp_plan(M, C, hidden, _sms(dev), _TERMS[code])
+    width, single = plan["width"], plan["single"]
+    (w1t, s1), (w2t, s2) = _mlp_weights(w1, w2, C, hidden, width, single, dev)
     g, bt = _vec(gamma, C, dev, "gamma"), _vec(beta, C, dev, "beta")
     b1v, b2v = _vec(b1, hidden, dev, "b1"), _vec(b2, C, dev, "b2")
     dpv = _vec(dp, dp.numel(), dev, "dp")
     y = torch.empty_like(x2)
+    # scratch of the three-stage form: bf16 lnb (M, width), g (M, hidden)
+    # and, for float32 weights, their terms
+    buf, ptrs = ((None, [None] * 3) if single else _scratch(
+        dev, 2 * M * width, 2 * M * hidden,
+        0 if code else 2 * 3 * hidden * (width + C)))
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.ipe_fused_mlp_fwd(
             x2.data_ptr(), g.data_ptr(), bt.data_ptr(), w1t.data_ptr(),
             b1v.data_ptr(), w2t.data_ptr(), b2v.data_ptr(), dpv.data_ptr(),
-            y.data_ptr(), M, C, hidden, tps, code,
-            torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), *ptrs, M, C, width, hidden, tps,
+            plan["rows_per_block"], plan["fc1"], plan["fc2"], int(single),
+            *s1, *s2, code, torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "fused_mlp_fwd launch")
     MLP_LAUNCHES += 1
     return y
@@ -346,8 +468,8 @@ def fused_mlp_half_fwd(x2, gamma, beta, w1, b1, w2, b2, dp,
 def fused_mlp_half_bwd(x2, gamma, beta, w1, b1, w2, b2, dp, dy, tps: int):
     """K5 backward: (dx, dgamma, dbeta, dw1, db1, dw2, db2), see the module
     doc.  Weight gradients are summed over row chunks and the chunks added
-    in a fixed order: the result does not depend on how blocks are
-    scheduled."""
+    in a fixed order, and so are the partial rows of the vectors: the result
+    does not depend on how blocks are scheduled."""
     global MLP_BWD_LAUNCHES
     if not build.on_card(x2, "fused half-block"):
         return fused_mlp_half_bwd_reference(x2, gamma, beta, w1, b1, w2, b2,
@@ -359,44 +481,43 @@ def fused_mlp_half_bwd(x2, gamma, beta, w1, b1, w2, b2, dp, dy, tps: int):
     dev = x2.device
     code = _code(x2, (w1, w2))
     _check_dp(dp, -(-M // tps))
-    w1t = _out_in(w1, C, hidden, dev)
-    w1_io, w2_io = _in_out(w1, C, hidden, dev), _in_out(w2, hidden, C, dev)
+    plan = mlp_plan(M, C, hidden, _sms(dev), _TERMS[code])
+    width = plan["width"]
+    (w1t, st1), (w2t, st2) = _mlp_weights(w1, w2, C, hidden, width, False,
+                                          dev)
     g, bt = _vec(gamma, C, dev, "gamma"), _vec(beta, C, dev, "beta")
     b1v = _vec(b1, hidden, dev, "b1")
     dpv = _vec(dp, dp.numel(), dev, "dp")
-    lib = build.load()
-    rows_per_block = lib.ipe_fused_mlp_bwd_rows_per_block(C, hidden)
-    if rows_per_block <= 0:
-        raise ValueError(f"fused_mlp_bwd takes no C={C}, hidden={hidden}")
-    blocks = -(-M // rows_per_block)
-    sms = _sms(dev)
-    s1 = atb_splits(hidden, C, M, sms)
-    s2 = atb_splits(C, hidden, M, sms)
-    bf = dict(dtype=torch.bfloat16, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    lnb, dob = torch.empty((M, C), **bf), torch.empty((M, C), **bf)
-    gb, dhb = torch.empty((M, hidden), **bf), torch.empty((M, hidden), **bf)
-    dln = torch.empty((M, C), **f32)
-    vec_part = torch.empty((blocks, 3 * C + hidden), **f32)
-    atb_part = torch.empty((max(s1, s2) * hidden * C,), **f32)
+    s1, s2 = plan["atb_splits"]
+    # scratch: bf16 lnb, dob (M, width) and gb, dhb (M, hidden); float32 dln
+    # (M, C), stats (2, M), the partial rows and the dW chunk partials; for
+    # float32 weights, their bf16 terms
+    buf, ptrs = _scratch(
+        dev, 2 * M * width, 2 * M * width, 2 * M * hidden, 2 * M * hidden,
+        4 * M * C, 8 * M, 4 * math.prod(plan["part_rows"]),
+        4 * math.prod(plan["part_hidden"]), 4 * max(s1, s2) * hidden * C,
+        0 if code else 2 * 3 * hidden * (width + C))
     dx = torch.empty_like(x2)
-    vec = torch.empty((3 * C + hidden,), **f32)
-    dw1t = torch.empty((hidden, C), **f32)
-    dw2t = torch.empty((C, hidden), **f32)
+    # float32 outputs: [dgamma | dbeta | db2 | db1], dW1 (hidden, C), dW2
+    # (C, hidden)
+    out = torch.empty((3 * C + hidden + 2 * hidden * C,), dtype=torch.float32,
+                      device=dev)
+    nvec = 3 * C + hidden
+    lib = build.load()
     with torch.cuda.device(dev):
         err = lib.ipe_fused_mlp_bwd(
             x2.data_ptr(), g.data_ptr(), bt.data_ptr(), w1t.data_ptr(),
-            w1_io.data_ptr(), b1v.data_ptr(), w2_io.data_ptr(), dpv.data_ptr(),
-            dy.data_ptr(), dx.data_ptr(), vec.data_ptr(), dw1t.data_ptr(),
-            dw2t.data_ptr(), lnb.data_ptr(), dob.data_ptr(), gb.data_ptr(),
-            dhb.data_ptr(), dln.data_ptr(), vec_part.data_ptr(),
-            atb_part.data_ptr(), M, C, hidden, tps, s1, s2, code,
-            torch.cuda.current_stream().cuda_stream)
+            b1v.data_ptr(), w2t.data_ptr(), dpv.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), out.data_ptr(), out.data_ptr() + 4 * nvec,
+            out.data_ptr() + 4 * (nvec + hidden * C), *ptrs, M, C, width,
+            hidden, tps, plan["rows_per_block"], plan["hidden"], plan["dln"],
+            s1, s2, *st1, *st2, code, torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "fused_mlp_bwd launch")
     MLP_BWD_LAUNCHES += 1
-    dgamma, dbeta, db1, db2 = vec.split([C, C, hidden, C])
-    return (dx, dgamma, dbeta, dw1t.t().to(w1.dtype), db1,
-            dw2t.t().to(w2.dtype), db2)
+    dgamma, dbeta, db2, db1, dw1t, dw2t = out.split(
+        [C, C, C, hidden, hidden * C, hidden * C])
+    return (dx, dgamma, dbeta, dw1t.view(hidden, C).t().to(w1.dtype), db1,
+            dw2t.view(C, hidden).t().to(w2.dtype), db2)
 
 
 def _check_attn(xw, rpe, num_heads, geom):
