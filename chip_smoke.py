@@ -13,7 +13,7 @@ Phases, in order; any failure exits non-zero:
      (TF32 off) at atol 1e-4, bf16 at atol/rtol 2e-2; median kernel,
      plain and SDPA times and the bound;
   3. K2 (CUDA W-MSA backward, on the tensor-core core of
-     csrc/wmsa_bwd_core.cuh) against its plain version at every training
+     csrc/wmsa_core.cuh) against its plain version at every training
      shape at batch 32 (hrformer_base's four branches, hrformer_small's
      branch 0, window 8), float32 and bf16, dqkv and dbias; median kernel,
      plain and SDPA-backward times and the bound; at three odd row widths
@@ -43,8 +43,10 @@ Phases, in order; any failure exits non-zero:
      dbeta, each weight and bias gradient, drpe); kernel, plain and
      stock-PyTorch chain (LayerNorm, F.linear, SDPA or tanh GELU) times
      and the bound; at b0 and b3 (bf16,
-     window 7, the training batch) ``[k4bwd-split]``, ``[k5fwd-split]`` and
-     ``[k5bwd-split]`` lines, as phase 3's, of one K4 backward (stages (a)
+     window 7, the training batch) ``[k4fwd-split]``, ``[k4bwd-split]``,
+     ``[k5fwd-split]`` and ``[k5bwd-split]`` lines, as phase 3's, of one
+     K4 forward (the weights' rows, (a) LayerNorm, (b) the attention per
+     (chunk, head), (c) proj + residual), one K4 backward (stages (a)
      LayerNorm, (b) the core per (chunk, head), (c) dln and the LayerNorm
      backward, (d) the weight-gradient and partial-row reductions, and the
      wrapper's copies), one K5 forward (LayerNorm, fc1, fc2) and one K5
@@ -66,7 +68,9 @@ Phases, in order; any failure exits non-zero:
  11. K6 (CUDA 3x3 weight gradient) against its plain version at every
      stride-1 3x3 conv shape of hrnet_w32 + fusion (found with hooks) at
      b=32, float32 and bf16; kernel, plain and cuDNN
-     (torch.nn.grad.conv2d_weight) times and the bound;
+     (torch.nn.grad.conv2d_weight) times and the bound; at the b0 (64x48
+     32->32) and b3 (8x6 256->256) shapes in bf16 a ``[k6-split]`` line
+     (the band kernel, the partials' sum);
  12. HRNet-W32 serving: PoseInference(Config()) (heatmap head, quarter
      decode) and the fusion head, their BatchNorm statistics calibrated
      by train-mode forwards on seeded crops, serve batches of 1, 3 and 8
@@ -115,18 +119,24 @@ Phases, in order; any failure exits non-zero:
      and 44 K2 launches per rank through K3, the same state on every rank.
  20. only with ``--parent DIR`` (DIR a checkout of the parent commit, e.g.
      from ``git archive``): K2 and K4's backward at every training shape
-     of phases 3 and 7, K5's forward at every hrformer_base branch at
-     b = 64 and 32 and its backward at b = 32 (window 7, float32 and bf16),
-     and the bf16 b = 32 steps of phases 6 and 9 (step ms, device ms, peak
-     memory), the parent's against this checkout's, each in a fresh
+     of phases 3 and 7, K4's forward at every hrformer_base branch at
+     b = 64 and 32, window 7 and 8, K5's forward at every branch at b = 64
+     and 32 and its backward at b = 32 (window 7; all float32 and bf16),
+     K6 at every hrnet_w32 3x3 shape of phase 11 (b = 32, float32 and
+     bf16), the bf16 b = 32 steps of phases 6 and 9 (step ms, device ms,
+     peak memory) and one fused (IPE_FUSED_BLOCK=1) served bf16 batch of
+     32 with flip (batch ms, device ms, K4 launches), the parent's against
+     this checkout's, each in a fresh
      subprocess that imports its checkout's package and builds its
      kernels, in turns: parent, change, change, parent (``[parent]``
-     lines); the K2 and K4-backward records take the parent's b0 bf16 ms
-     as ``parent_ms`` and this checkout's, timed the same way, as
+     lines); the K2, K4 and K6 records take the parent's ms at the record
+     shape (b0 bf16; K4's forward at b = 64, K6 64x48 32->32) as
+     ``parent_ms`` and this checkout's, timed the same way, as
      ``fresh_ms``, the K5 records the same at b3 bf16 b = 32, its worst
      branch (``parent_shape``; all null without ``--parent``).
 The ranks import no JAX (each asserts it).
-Every phase's seconds and the whole run's are printed.Each fused phase sets IPE_FUSED_BLOCK itself and restores it after.  The
+Every phase's seconds and the whole run's are printed.  Each fused phase
+sets IPE_FUSED_BLOCK itself and restores it after.  The
 last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -147,7 +157,7 @@ import torch
 import torch.nn.functional as F
 
 F32_ATOL = 1e-4           # float32 inputs, products exact or in split-bf16
-                          # terms (csrc/wmsa_bwd_core.cuh); order differs
+                          # terms (csrc/wmsa_core.cuh); order differs
 BF16_TOL = 2e-2           # a few bf16 ulps on the output cast
 # K2's dbias is float32 in both dtypes and sums dS over up to 2,240
 # windows in another order than the plain version: relative 1e-4.
@@ -468,6 +478,13 @@ def _mangled_kernel(line: str) -> str:
     vec = re.search(r"atb_kernelILi(\d+)E", line)
     if vec:  # the weight-gradient reduction's copy width
         name += f" <{2 * int(vec.group(1))}-byte copies>"
+    core = re.search(r"attn_fwd_core_kernelILi(\d+)ELi(\d+)E", line)
+    if core:  # K4's forward stage (b): its qkv tile width, weight terms
+        name += f" <64x{core.group(1)} qkv tile, {core.group(2)} term(s)>"
+    band = re.search(r"wgrad_band_kernelILi(\d+)ELi(\d+)E", line)
+    if band:  # K6's bf16 kernel: its tile, its copy width
+        name += (f" <32x{band.group(1)} tile, {2 * int(band.group(2))}-byte "
+                 f"copies>")
     targ = re.search(r"_kernelI(f|13__nv_bfloat16)", line)
     if targ:  # a template's element type
         name += " (float)" if targ.group(1) == "f" else " (bf16)"
@@ -938,6 +955,8 @@ def phase_fused_kernels() -> dict:
                            and dt == torch.bfloat16
                            and label in ("base b0", "base b3"))
             if split_shape:
+                log_split("k4fwd-split", shape,
+                          lambda: fb.fused_attn_half_fwd(*aa, heads, geom))
                 log_split("k5fwd-split", shape,
                           lambda: fb.fused_mlp_half_fwd(*ma, a["tps"]))
             if train:
@@ -1443,10 +1462,10 @@ def phase_k7() -> dict:
     return record
 
 
-def hrnet_conv3x3_shapes(head: str = "fusion") -> list:
+def hrnet_conv3x3_shapes(head: str = "fusion", device: str = "cuda") -> list:
     """(H, W, Ci, Co) of every distinct stride-1 3x3 conv of hrnet_w32 +
     ``head`` at 256x192, in the order the forward meets them (hooks on a
-    forward at b=1)."""
+    forward at b=1 on ``device``)."""
     from infantposeestimation_gaussianbias_tpu_torch import Config
     from infantposeestimation_gaussianbias_tpu_torch.models import (
         build_model)
@@ -1455,7 +1474,7 @@ def hrnet_conv3x3_shapes(head: str = "fusion") -> list:
 
     cfg = Config()
     cfg.model.head_type = head
-    model = build_model(cfg, "cuda")
+    model = build_model(cfg, device)
     shapes = []
 
     def hook(mod, inp, out):
@@ -1468,7 +1487,7 @@ def hrnet_conv3x3_shapes(head: str = "fusion") -> list:
                and m.stride == (1, 1)]
     W, H = cfg.data.input_size
     with torch.no_grad():
-        model(torch.zeros((1, H, W, 3), device="cuda"))
+        model(torch.zeros((1, H, W, 3), device=device))
     for h in handles:
         h.remove()
     return shapes
@@ -1524,6 +1543,10 @@ def phase_k6() -> tuple:
                 f"(|dW| max {big:.3e}) kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                 f"bound_ms={b_ms:.4f} ({b_by})")
+            if ((H, W, Ci, Co) in ((64, 48, 32, 32), (8, 6, 256, 256))
+                    and dt == torch.bfloat16):
+                log_split("k6-split", shape,
+                          lambda: cw.conv3x3_wgrad(x, dy))
             if (H, W, Ci, Co) == (64, 48, 32, 32) and dt == torch.bfloat16:
                 record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bound_ms=b_ms, bound_by=b_by, shape=shape)
@@ -2553,15 +2576,46 @@ def phase_grid_training(smi: str) -> dict:
 # -- phase 20 (with --parent): this checkout's backward kernels and steps
 # against the parent commit's, in turns ------------------------------------------
 
+def fused_serve_times(smi: str) -> dict:
+    """One fused (IPE_FUSED_BLOCK=1) served bf16 batch of 32 frames with
+    flip through hrformer_base: the median batch ms over 8 batches after 3
+    warm-up, the device ms of one batch (torch.profiler, two batches) and
+    its K4 forward launches."""
+    from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
+                                                              get_variant)
+
+    inf = PoseInference(get_variant("hrformer_base"), device="cuda")
+    frames, bboxes = make_requests(32, seed=2)
+    with fused_blocks("1"):
+        for _ in range(3):
+            inf.predict_batch(frames, bboxes)
+        times = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            inf.predict_batch(frames, bboxes)
+            times.append(time.perf_counter() - t0)
+        reset_launches()
+        inf.predict_batch(frames, bboxes)
+        k4 = launches()["k4"]
+        batch_ms = float(np.median(times)) * 1e3
+        prof = profile_steps(lambda: inf.predict_batch(frames, bboxes),
+                             batch_ms, tag="times-serve-fused", what="batch")
+    return dict(batch_ms=batch_ms, device_ms=prof["device_ms"], k4=k4)
+
+
 def bwd_times(smi: str) -> dict:
     """Median ms of K2 at every training shape of phase 3, of K4's
-    backward at every training shape of phase 7, of K5's forward at every
-    hrformer_base branch at b = 64 and 32 and of its backward at b = 32
-    (window 7; float32 and bf16), and the bf16 b = 32 steps of phases 6
-    (unfused) and 9 (fused): step ms, device ms, peak memory.  Runs whichever package ``sys.path`` finds first, so
-    that a parent commit's checkout can be timed by the same code."""
+    backward at every training shape of phase 7, of K4's forward at every
+    hrformer_base branch at b = 64 and 32, window 7 and 8, of K5's forward
+    at every branch at b = 64 and 32 and of its backward at b = 32 (window
+    7; all float32 and bf16), of K6 at every hrnet_w32 3x3 shape at b = 32
+    (float32 and bf16); the bf16 b = 32 steps of phases 6 (unfused) and 9
+    (fused): step ms, device ms, peak memory; and one fused served bf16
+    batch (``fused_serve_times``).  Runs whichever package ``sys.path``
+    finds first, so that a parent commit's checkout can be timed by the
+    same code."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
-        fused_block as fb, window_msa)
+        conv_wgrad as cw, fused_block as fb, window_msa)
 
     g = torch.Generator(device="cuda").manual_seed(11)
     kernels = {}
@@ -2585,6 +2639,13 @@ def bwd_times(smi: str) -> dict:
                     lambda: fb.fused_attn_half_bwd(*aa, dy, heads, geom),
                     warmup=2, runs=10)
                 del a, aa, dy
+                for B in (SERVE_BATCH, TRAIN_BATCH):
+                    a = _half_inputs(Hm, Wm, C, heads, B, dt, g, ws)
+                    aa, geom = _attn_args(a), a["geom"]
+                    kernels[f"k4fwd {tag} b={B} {name}"] = cuda_median_ms(
+                        lambda: fb.fused_attn_half_fwd(*aa, heads, geom),
+                        warmup=2, runs=10)
+                    del a, aa
         for B in (SERVE_BATCH, TRAIN_BATCH):
             for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
                 a = _half_inputs(Hm, Wm, C, heads, B, dt, g)
@@ -2597,6 +2658,14 @@ def bwd_times(smi: str) -> dict:
                         lambda: fb.fused_mlp_half_bwd(*ma, dy2, tps),
                         warmup=2, runs=10)
                 del a, ma, dy2
+    for H, W, Ci, Co in hrnet_conv3x3_shapes():
+        x32 = torch.randn(TRAIN_BATCH, H, W, Ci, device="cuda", generator=g)
+        dy32 = torch.randn(TRAIN_BATCH, H, W, Co, device="cuda", generator=g)
+        for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x, dy = x32.to(dt), dy32.to(dt)
+            kernels[f"k6 {H}x{W} {Ci}->{Co} {name}"] = cuda_median_ms(
+                lambda: cw.conv3x3_wgrad(x, dy), runs=10)
+        del x32, dy32, x, dy
     n = K1_CALLS_PER_FORWARD
     steps = {}
     for flag, tag, want in (
@@ -2606,6 +2675,7 @@ def bwd_times(smi: str) -> dict:
             r = train_bf16(smi, hrformer_cfg(), f"times-{tag}", want)
         steps[tag] = {k: r[k] for k in ("step_ms", "device_ms", "peak_gib")}
         torch.cuda.empty_cache()
+    steps["serve_fused"] = fused_serve_times(smi)
     return dict(kernels=kernels, steps=steps)
 
 
@@ -2616,7 +2686,7 @@ def phase_parent(parent: str) -> dict:
     returns per key the means {"parent_ms", "ms"} and the steps of both."""
     here = os.path.dirname(os.path.abspath(__file__))
 
-    def run(root: str) -> dict:
+    def run(root: str, side: str, profile: bool = False) -> dict:
         proc = subprocess.run(
             [sys.executable, os.path.join(here, "chip_smoke.py"),
              "--bwd-times", "--package-root", os.path.abspath(root)],
@@ -2624,9 +2694,15 @@ def phase_parent(parent: str) -> dict:
         if proc.returncode:
             log(proc.stdout[-4000:], proc.stderr[-4000:])
             raise RuntimeError(f"timing {root} failed ({proc.returncode})")
-        return json.loads(proc.stdout.strip().splitlines()[-1])
+        lines = proc.stdout.strip().splitlines()
+        if profile:  # the served batch's device time by kernel
+            for line in lines:
+                if "times-serve-fused" in line:
+                    log(f"[parent] {side}: {line}")
+        return json.loads(lines[-1])
 
-    p1, c1, c2, p2 = run(parent), run(here), run(here), run(parent)
+    p1, c1 = run(parent, "parent", True), run(here, "change", True)
+    c2, p2 = run(here, "change"), run(parent, "parent")
     kernels = {}
     for key in p1["kernels"]:
         ps = [r["kernels"][key] for r in (p1, p2)]
@@ -2636,14 +2712,15 @@ def phase_parent(parent: str) -> dict:
             f"{cs[0]:.4f}/{cs[1]:.4f} ms, change/parent "
             f"{kernels[key]['ms'] / kernels[key]['parent_ms']:.3f}")
     steps = {}
-    for tag in ("unfused", "fused"):
+    for tag, values in p1["steps"].items():
         steps[tag] = {}
-        for k in ("step_ms", "device_ms", "peak_gib"):
+        what = "served batch" if tag.startswith("serve") else "step"
+        for k in values:
             ps = [r["steps"][tag][k] for r in (p1, p2)]
             cs = [r["steps"][tag][k] for r in (c1, c2)]
             steps[tag][k] = dict(parent=float(np.mean(ps)),
                                  change=float(np.mean(cs)))
-            log(f"[parent] bf16 b={TRAIN_BATCH} {tag} step {k}: parent "
+            log(f"[parent] bf16 b={TRAIN_BATCH} {tag} {what} {k}: parent "
                 f"{ps[0]:.4f}/{ps[1]:.4f}, change {cs[0]:.4f}/{cs[1]:.4f}")
     return dict(kernels=kernels, steps=steps)
 
@@ -2666,8 +2743,9 @@ def main(argv: list) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="DIR",
                         help="a checkout of the parent commit (git archive): "
-                        "phase 20 times its K2, K4 backward, K5 and bf16 "
-                        "steps against this checkout's, in turns")
+                        "phase 20 times its K2, K4, K5, K6, bf16 steps and "
+                        "fused served batch against this checkout's, in "
+                        "turns")
     parser.add_argument("--bwd-times", action="store_true",
                         help=argparse.SUPPRESS)  # phase 20's subprocess
     parser.add_argument("--package-root", help=argparse.SUPPRESS)
@@ -2762,11 +2840,13 @@ def main(argv: list) -> int:
              "fresh_ms", "parent_shape")
     # The redesigned kernels, from phase 20 of this call (null without
     # --parent): the parent commit's ms and this checkout's, both timed the
-    # same way in fresh processes (``ms`` is phase 3's or 7's, timed in this
-    # process), K2 and K4's backward at the record shape, K5 at its worst
+    # same way in fresh processes (``ms`` is phase 3's, 7's or 11's, timed
+    # in this process), K2, K4 and K6 at the record shape, K5 at its worst
     # branch (``parent_shape``).
     for rec, key in ((k2, "k2 base b0 bf16"),
+                     (k45["attn_fwd"], "k4fwd base b0 b=64 bf16"),
                      (k45["attn_bwd"], "k4bwd base b0 bf16"),
+                     (k6, "k6 64x48 32->32 bf16"),
                      (k45["mlp_fwd"], "k5fwd base b3 b=32 bf16"),
                      (k45["mlp_bwd"], "k5bwd base b3 b=32 bf16")):
         for out, src in (("parent_ms", "parent_ms"), ("fresh_ms", "ms")):

@@ -24,16 +24,32 @@
 // What bounds it: qkv and proj are 8 * N * C^2 FLOPs per window and the
 // attention core 4 * H * N^2 * hd more, against 2 * N * C * sizeof(T) bytes
 // of rows: ~4C FLOP per byte in bf16, above the H100's ridge for bf16
-// tensor cores (~295) at every hrformer_base width but C = 78.  The qkv,
-// proj and gradient products run on the tensor cores (mma.sync m16n8k16,
-// bf16 x bf16 -> f32, fused_common.cuh), and so does the backward's
-// attention core (wmsa_bwd_core.cuh); the forward's attention core stays
-// float32 FMAs on the CUDA cores.
+// tensor cores (~295) at every hrformer_base width but C = 78.  Every
+// product runs on the tensor cores (mma.sync m16n8k16, bf16 x bf16 -> f32):
+// the qkv, proj and gradient products, and the attention core of both
+// directions (wmsa_core.cuh).
 //
-// Forward: one block per window; LN per row by one warp into a bf16 ln
-// tile; per head, the (N, 3 hd) qkv slice by a tile product, the masked
-// bias rows, float32 scores and softmax (one warp per row) and P v into a
-// bf16 o tile; then proj + bias + DropPath residual straight to y.
+// Forward.  A first version ran it in one block per window that walked
+// the H heads in turn, its qkv and proj products on fused_common.cuh's
+// unstaged `mma_tile` and its attention core in float32 FMAs on the CUDA
+// cores: 1.10 ms at hrformer_base b0 (bf16, b = 64), and at b3 64-128
+// blocks of 16 heads each for 132 SMs (an NVIDIA H100, PERF.md).  Now
+// three stages, each parallel over what it needs:
+//   (a) one block per window: the LayerNorm into bf16 ln rows of width Cp
+//       (C rounded up to 8, zero-padded; K5's LayerNorm stage);
+//   (b) one block of 4 warps per (chunk of windows, head), the chunks as
+//       the backward's stage (b) sizes them: per window, q, k and v of the
+//       head as one staged tile product (mlp_gemm.cuh) of the window's ln
+//       rows with the head's 3 hd rows of Wqkv, plus the bias (only the
+//       bias for a pad token), stored as two bf16 terms; then the forward
+//       core (wmsa_core.cuh `attention_fwd`: S, the softmax and O = P v on
+//       the tensor cores, P in registers) writes bf16(o) to the head's
+//       columns of ob (M, Cp);
+//   (c) y = x + dp * (ob Wproj^T + bproj) over (row tile x column tile):
+//       K5's fc2 stage (fused_common.cuh `mlp_fc2_kernel`).
+// The weights go to the products as bf16 rows of width Cp once per call
+// (attn_weights_kernel): Wqkv's rows head-major, so that a head's q, k
+// and v rows are one operand, and a float32 weight as its three bf16 terms.
 //
 // Backward.  A first version ran it in one block per window that walked
 // the H heads in turn with the float32 attention core on the CUDA cores:
@@ -46,7 +62,7 @@
 //   (b) one block of 4 warps per (chunk of windows, head), as K2's grid:
 //       per window, q, k, v and do_h by tensor-core products from the ln
 //       and dpob rows, split into two bf16 terms in shared memory; then the
-//       shared core (csrc/wmsa_bwd_core.cuh) on the tensor cores, which
+//       shared core (csrc/wmsa_core.cuh) on the tensor cores, which
 //       writes bf16(o) and bf16(dqkv valid) and keeps dS's drpe share and
 //       the dbqkv column sums on chip for the whole chunk: one partial row
 //       per chunk instead of a (6C + H N^2) vector per window;
@@ -66,11 +82,9 @@
 #include <math_constants.h>
 
 #include "fused_common.cuh"
-#include "wmsa_bwd_core.cuh"
+#include "wmsa_core.cuh"
 
 namespace {
-
-using ipe::odd_stride;
 
 constexpr int kMaxN = 64;
 constexpr int kMaxHd = 64;
@@ -98,148 +112,170 @@ __device__ void valid_tokens(const Geometry& g, int w, float* valid) {
   }
 }
 
-// The (N, 3 hd) qkv slice of head h into q, k, v (row stride ldq): the
-// tile product of the bf16 ln rows with rows j*C + h*hd + d of Wqkv, plus
-// bias; an invalid token gets the bias row.  q is scaled when q_scale != 1.
-template <typename T>
-__device__ void head_qkv(const Geometry& g, int h, const bf16* ln, const T* __restrict__ wqkv,
-                         const float* __restrict__ bqkv, const float* valid, float q_scale,
-                         float* q, float* k, float* v, int ldq) {
-  constexpr int NW = Terms<T>::n;
-  const int N = g.N, C = g.C, hd = g.hd;
-  float acc[4][kTN];
-  for (int n0 = 0; n0 < 3 * hd; n0 += kBN) {
-    mma_tile<64, NW>(
-        acc, C, [&](int m, int kk) { return pair_row(ln, m < N ? m : -1, C, kk, C); },
-        [&](int n, int kk, uint32_t (&o)[NW]) {
-          const int j = n0 + n;
-          const int part = j / hd;
-          wpair_row(wqkv, j < 3 * hd ? part * C + h * hd + j - part * hd : -1, C, kk, C, o);
-        });
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = tile_row<64>(i);
-#pragma unroll
-      for (int jj = 0; jj < kTN; ++jj) {
-        const int j = n0 + tile_col(jj);
-        if (m < N && j < 3 * hd) {
-          const int part = j / hd, d = j - part * hd;
-          const float b = bqkv[part * C + h * hd + d];
-          const float val = valid[m] != 0.f ? acc[i][jj] + b : b;
-          if (part == 0) q[m * ldq + d] = val * q_scale;
-          else if (part == 1) k[m * ldq + d] = val;
-          else v[m * ldq + d] = val;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// s[i][j] = sum_d q[i][d] * k[j][d] + rpe_h[i][j] (q scaled by the caller).
-__device__ void scores(int N, int hd, const float* q, const float* k, int ldq,
-                       const float* __restrict__ rpe_h, float* s, int lds) {
-  for (int idx = threadIdx.x; idx < N * N; idx += kThreads) {
-    const int i = idx / N, j = idx - (idx / N) * N;
-    const float* qi = q + i * ldq;
-    const float* kj = k + j * ldq;
-    float a = 0.f;
-    for (int d = 0; d < hd; ++d) a = fmaf(qi[d], kj[d], a);
-    s[i * lds + j] = a + rpe_h[idx];
-  }
-  __syncthreads();
-}
-
-// Row softmax in place, one warp per row: p = exp(s - max) / sum.
-__device__ void softmax_rows(int N, float* s, int lds) {
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x >> 5; i < N; i += kThreads / 32) {
-    float* si = s + i * lds;
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < N; j += 32) m = fmaxf(m, si[j]);
-    m = ipe::warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(si[j] - m);
-      si[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < N; j += 32) si[j] = si[j] / sum;
-  }
-  __syncthreads();
-}
-
-// Bytes of shared memory before the float32 tiles: `tiles` bf16 (N, C)
-// tiles, rounded up to 16 bytes.
-__host__ __device__ size_t float_offset(const Geometry& g, int tiles) {
-  return ((size_t)tiles * g.N * g.C * sizeof(bf16) + 15) / 16 * 16;
-}
-
-size_t fwd_smem(const Geometry& g) {
-  const int ldq = odd_stride(g.hd), lds = odd_stride(g.N);
-  return float_offset(g, 2) + sizeof(float) * ((size_t)3 * g.N * ldq + (size_t)g.N * lds + g.N);
-}
-
+// The weights as the forward's products read them, bf16 rows of width Cp
+// (columns C .. Cp zero), NT = Terms<T>::n terms: out = [Wqkv's 3C rows,
+// head-major (row h 3hd + part hd + d holds Wqkv row part C + h hd + d),
+// term t at t * 3C * Cp | Wproj's C rows, term t at 3 NT C Cp + t C Cp].
+// wqkv (3C, C) and wproj (C, C) in the (out, in) layout.  One thread per
+// element, along the rows: both sides coalesce.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                const float* __restrict__ beta, const T* __restrict__ wqkv,
-                const float* __restrict__ bqkv, const float* __restrict__ rpe,
-                const T* __restrict__ wproj, const float* __restrict__ bproj,
-                const float* __restrict__ dp, T* __restrict__ y, Geometry g, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int N = g.N, C = g.C, hd = g.hd;
-  const int ldq = odd_stride(hd), lds = odd_stride(N);
-  constexpr int NW = Terms<T>::n;
-  bf16* ln = reinterpret_cast<bf16*>(smem);                          // (N, C)
-  bf16* ob = ln + (size_t)N * C;                                     // (N, C)
-  float* q = reinterpret_cast<float*>(smem + float_offset(g, 2));    // (N, ldq) each
-  float* k = q + N * ldq;
-  float* v = k + N * ldq;
-  float* s = v + N * ldq;                                            // (N, lds)
-  float* valid = s + N * lds;                                        // (N)
-  const int w = blockIdx.x;
-  const size_t base = (size_t)w * N * C;
-
-  valid_tokens(g, w, valid);
-  layernorm_rows(x + base, N, C, gamma, beta, ln, nullptr, nullptr, nullptr);
-  __syncthreads();
-
-  for (int h = 0; h < g.H; ++h) {
-    head_qkv(g, h, ln, wqkv, bqkv, valid, scale, q, k, v, ldq);
-    scores(N, hd, q, k, ldq, rpe + (size_t)h * N * N, s, lds);
-    softmax_rows(N, s, lds);
-    for (int idx = threadIdx.x; idx < N * hd; idx += kThreads) {  // o = P v
-      const int i = idx / hd, d = idx - (idx / hd) * hd;
-      const float* pi = s + i * lds;
-      float a = 0.f;
-      for (int j = 0; j < N; ++j) a = fmaf(pi[j], v[j * ldq + d], a);
-      ob[i * C + h * hd + d] = __float2bfloat16(a);
-    }
-    __syncthreads();
+attn_weights_kernel(const T* __restrict__ wqkv, const T* __restrict__ wproj, int C, int Cp,
+                    int hd, bf16* __restrict__ out) {
+  constexpr int NT = Terms<T>::n;
+  const int r = blockIdx.y, c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= Cp) return;
+  const bool qkv = r < 3 * C;
+  const int rr = qkv ? r : r - 3 * C;
+  const int h = rr / (3 * hd), j = rr - h * 3 * hd, part = j / hd;
+  const T* src = qkv ? wqkv + (size_t)(part * C + h * hd + j - part * hd) * C : wproj + (size_t)rr * C;
+  const size_t rows = qkv ? 3 * C : C;
+  bf16* dst = (qkv ? out : out + (size_t)NT * 3 * C * Cp) + (size_t)rr * Cp + c;
+  float x = c < C ? to_f32(src[c]) : 0.f;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const bf16 b = __float2bfloat16(x);
+    dst[t * rows * Cp] = b;
+    x -= bf(b);
   }
+}
 
-  const float scale_w = dp[w / g.nwin];
-  float acc[4][kTN];
-  for (int n0 = 0; n0 < C; n0 += kBN) {  // y = x + dp * (ob Wproj^T + bproj)
-    mma_tile<64, NW>(
-        acc, C, [&](int m, int kk) { return pair_row(ob, m < N ? m : -1, C, kk, C); },
-        [&](int n, int kk, uint32_t (&o)[NW]) {
-          wpair_row(wproj, n0 + n < C ? n0 + n : -1, C, kk, C, o);
-        });
+// Stage (b)'s qkv product: the window's N <= 64 ln rows x the head's 3 hd
+// <= BN rows of Wqkv, 4 warps as 2 x 2 (the core's 4 warps), k slices of
+// 64 (bf16) or 32 (float32 weights: three terms a slice) in a ring of 2.
+template <int BN, int NB>
+using QkvTile = mg::Cfg<64, BN, NB == 1 ? 64 : 32, 2, 2, 2>;
+static_assert(QkvTile<128, 1>::threads == wcore::kThreads, "the core's warps run the product");
+
+// f(integral_constant<BN>) for the least qkv tile width that holds 3 hd.
+template <class F>
+cudaError_t with_qkv_width(int hd, F f) {
+  if (3 * hd <= 128) return f(std::integral_constant<int, 128>{});
+  if (3 * hd <= 192) return f(std::integral_constant<int, 192>{});
+  return cudaErrorInvalidValue;
+}
+
+// Blocks of stage (b) an SM may hold by shared memory (fwd_core_smem): 4
+// for the bf16 128-wide tile, 3 for the others but float32's 192-wide
+// one (2); the registers are capped to let as many run.
+template <int BN, int NB>
+constexpr int fwd_core_blocks() {
+  return BN == 128 && NB == 1 ? 4 : 3;
+}
+
+// Stage (b)'s shared memory: the product's ring, which q, k and v (two
+// bf16 terms each, (N, operand_ld)) reuse once it is done | zero row |
+// per column j of the product's tile, where its q, k or v element goes
+// in that operand area (or -1) and its bias.
+template <int BN, int NB>
+__host__ __device__ size_t fwd_core_operands_bytes(const Geometry& g) {
+  const size_t ring = mg::ring_bytes<QkvTile<BN, NB>, RowOp<1>, RowOp<NB>>();
+  const size_t opnd = sizeof(bf16) * 3 * 2 * (size_t)g.N * wcore::operand_ld(g.hd);
+  return ring > opnd ? ring : opnd;
+}
+
+template <int BN, int NB>
+size_t fwd_core_smem(const Geometry& g) {
+  return fwd_core_operands_bytes<BN, NB>(g) + sizeof(bf16) * wcore::kZeroRow +
+         (sizeof(short) + sizeof(float)) * BN;
+}
+
+// Stage (b), block (chunk, h) over the windows [chunk*wpb, (chunk+1)*wpb):
+// per window, q, k, v = lnb Wqkv_h^T + bqkv (the bias row for a pad token)
+// as two bf16 terms each, then the forward core writes bf16(o) to this
+// head's columns of ob_g (row stride Cp); the blocks of the last head also
+// zero ob's columns C .. Cp.  wqkv: the head-major rows of
+// attn_weights_kernel, term stride wterm.
+template <int BN, int NB>
+__global__ void __launch_bounds__(wcore::kThreads, (fwd_core_blocks<BN, NB>()))
+attn_fwd_core_kernel(const bf16* __restrict__ lnb_g, const bf16* __restrict__ wqkv,
+                     long long wterm, const float* __restrict__ bqkv,
+                     const float* __restrict__ rpe, bf16* __restrict__ ob_g, Geometry g, int Cp,
+                     float scale, int nW, int wpb) {
+  using CF = QkvTile<BN, NB>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int N = g.N, C = g.C, hd = g.hd, H = g.H, hd3 = 3 * hd;
+  const int ld = wcore::operand_ld(hd), term = N * ld, pd = wcore::pad16(hd);
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* opnd = ring;  // q, k, v once the product is done with the ring
+  bf16* zrow = reinterpret_cast<bf16*>(smem + fwd_core_operands_bytes<BN, NB>(g));
+  float* col_bias = reinterpret_cast<float*>(zrow + wcore::kZeroRow);  // (BN)
+  short* col_at = reinterpret_cast<short*>(col_bias + BN);              // (BN)
+  const int chunk = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const float* rpe_h = rpe + (size_t)h * N * N;
+  const bf16* w_h = wqkv + (size_t)h * hd3 * Cp;
+  for (int i = tid; i < wcore::kZeroRow; i += wcore::kThreads) zrow[i] = __float2bfloat16(0.f);
+  for (int j = tid; j < BN; j += wcore::kThreads) {
+    const int part = j / hd, d = j - part * hd;
+    col_at[j] = j < hd3 ? part * 2 * term + d : -1;
+    col_bias[j] = j < hd3 ? bqkv[part * C + h * hd + d] : 0.f;
+  }
+  // This thread's accumulator rows (tokens) as (row, column) in a window.
+  int tok_r[CF::MT][2], tok_c[CF::MT][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = tile_row<64>(i);
+  for (int mi = 0; mi < CF::MT; ++mi)
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int n = n0 + tile_col(j);
-        if (m < N && n < C) {
-          const size_t o = base + (size_t)m * C + n;
-          y[o] = from_f32<T>(to_f32(x[o]) + scale_w * (acc[i][j] + bproj[n]));
-        }
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = mg::acc_row<CF>(mi, 2 * hh);
+      tok_r[mi][hh] = r / g.ws;
+      tok_c[mi][hh] = r - tok_r[mi][hh] * g.ws;
     }
+
+  const int w_end = min(nW, (chunk + 1) * wpb);
+  for (int w = chunk * wpb; w < w_end; ++w) {
+    const size_t row0 = (size_t)w * N;
+    mg::Acc<CF> acc;
+    mg::tile_product<CF>(acc, RowOp<1>{lnb_g + row0 * Cp, Cp, 0, N, Cp},
+                         RowOp<NB>{w_h, Cp, wterm, hd3, Cp}, Cp, 0, 0, ring);
+    // The head dim's padding columns [hd, pd) of q's and k's terms: zero
+    // (S sums over them; O's columns past hd, which v's feed, are not
+    // stored).
+    for (int i = tid; i < 4 * N; i += wcore::kThreads) {
+      bf16* row = opnd + (i / N) * term + (i % N) * ld;
+      int c = hd;
+      for (; c < pd && c % 8; ++c) row[c] = __float2bfloat16(0.f);
+      for (; c < pd; c += 8) *reinterpret_cast<uint4*>(row + c) = make_uint4(0, 0, 0, 0);
+    }
+    // q, k, v = the product + bias (the bias alone for a pad token), as
+    // two bf16 terms each.
+    const int wl = w % g.nwin, wr = wl / g.nww;
+    const int y0 = wr * g.ws, x0 = (wl - wr * g.nww) * g.ws;
+#pragma unroll
+    for (int mi = 0; mi < CF::MT; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = mg::acc_row<CF>(mi, 2 * hh);
+        if (r >= N) continue;
+        const bool in = y0 + tok_r[mi][hh] < g.Himg && x0 + tok_c[mi][hh] < g.Wimg;
+#pragma unroll
+        for (int ni = 0; ni < CF::NT8; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = mg::acc_col<CF>(ni, e), at = col_at[j];
+            if (at >= 0) {
+              const float x = in ? acc.v[mi][ni][2 * hh + e] + col_bias[j] : col_bias[j];
+              const bf16 t0 = __float2bfloat16(x);
+              opnd[at + r * ld] = t0;
+              opnd[at + term + r * ld] = __float2bfloat16(x - bf(t0));
+            }
+          }
+      }
+    __syncthreads();
+    if (threadIdx.x >> 5 < (N + 15) >> 4) {
+      auto operand = [&](int part) { return wcore::Operand{opnd + part * 2 * term, ld, term}; };
+      bf16* ob_w = ob_g + row0 * Cp + h * hd;
+      float s[8][4];
+      wcore::attention_fwd<2, true>(
+          operand(0), operand(1), operand(2), N, hd, scale,
+          [&](int i, int j) { return __ldg(rpe_h + i * N + j); }, zrow, s,
+          [&](int i, int d, float x0, float x1, bool two) {
+            wcore::store_pair(ob_w + (size_t)i * Cp + d, x0, x1, two);
+          });
+    }
+    if (h == H - 1)
+      for (int i = tid; i < N * (Cp - C); i += wcore::kThreads)
+        ob_g[(row0 + i / (Cp - C)) * Cp + C + i % (Cp - C)] = __float2bfloat16(0.f);
+    __syncthreads();  // the operands read before the next window's product
   }
 }
 
@@ -338,7 +374,7 @@ size_t core_smem(const Geometry& g) {
 // Stage (b), block (chunk, h) over the windows [chunk*wpb, (chunk+1)*wpb):
 // per window, q, k, v = lnb Wqkv_h^T + bqkv (the bias row for a pad token)
 // and do_h = dpob Wproj[:, head h] on the tensor cores, one warp per 16
-// rows, stored as two bf16 terms each; then the core (csrc/wmsa_bwd_core.cuh)
+// rows, stored as two bf16 terms each; then the core (csrc/wmsa_core.cuh)
 // writes bf16(o) and bf16(dqkv valid) to this head's columns of ob_g and
 // dqkvv_g and adds dS to the chunk's drpe.  Last, the chunk's partial
 // row, chunk_part[chunk] = [dbqkv 3C | drpe H*N*N], gets this head's
@@ -509,19 +545,46 @@ attn_bwd_lnb_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                      rstd_g + (size_t)w * N, gamma, N, C, dx + base, pv, pv + C);
 }
 
+// The forward: (1) the weights' rows, (a) LayerNorm, (b) attention per
+// (chunk, head), (c) proj + residual.  Scratch on the card: lnb, ob (M, Cp)
+// bf16, wterms NT * 4C * Cp bf16.  tile: the plan's tile id of stage (c).
 template <typename T>
-cudaError_t fwd(const void* x, const float* gamma, const float* beta, const void* wqkv,
-                const float* bqkv, const float* rpe, const void* wproj, const float* bproj,
-                const float* dp, void* y, int nW, const Geometry& g, float scale,
+cudaError_t fwd(const T* x, const float* gamma, const float* beta, const T* wqkv,
+                const float* bqkv, const float* rpe, const T* wproj, const float* bproj,
+                const float* dp, T* y, bf16* lnb, bf16* ob, bf16* wterms, int nW,
+                const Geometry& g, int Cp, float scale, int wpb, int tile,
                 cudaStream_t stream) {
-  const size_t smem = fwd_smem(g);
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(attn_fwd_kernel<T>, smem);
+  constexpr int NB = Terms<T>::n;
+  const int M = nW * g.N, C = g.C;
+  attn_weights_kernel<T><<<dim3(tiles(Cp, kThreads), 4 * C), kThreads, 0, stream>>>(
+      wqkv, wproj, C, Cp, g.hd, wterms);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_fwd_kernel<T><<<nW, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), gamma, beta, static_cast<const T*>(wqkv), bqkv, rpe,
-      static_cast<const T*>(wproj), bproj, dp, static_cast<T*>(y), g, scale);
-  return cudaGetLastError();
+  err = with_ln_width(Cp, [&](auto nv) {
+    mlp_ln_kernel<T, false, decltype(nv)::value><<<nW, kThreads, 0, stream>>>(
+        x, gamma, beta, nullptr, nullptr, lnb, nullptr, nullptr, nullptr, nullptr, M, C, Cp, 1,
+        g.N);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  err = with_qkv_width(g.hd, [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    const size_t smem = fwd_core_smem<BN, NB>(g);
+    if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+    const cudaError_t opt = allow_smem(attn_fwd_core_kernel<BN, NB>, smem);
+    if (opt != cudaSuccess) return opt;
+    attn_fwd_core_kernel<BN, NB><<<dim3(tiles(nW, wpb), g.H), wcore::kThreads, smem, stream>>>(
+        lnb, wterms, (long long)3 * C * Cp, bqkv, rpe, ob, g, Cp, scale, nW, wpb);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  const bf16* wproj_terms = wterms + (size_t)NB * 3 * C * Cp;
+  return with_tile(tile, [&](auto cf) {
+    using CF = decltype(cf);
+    return launch_tiles<CF>(mlp_fc2_kernel<CF, NB, T>, fc_smem<CF, NB>(), M, C, stream,
+                            (const bf16*)ob, wproj_terms, bproj, x, dp, y, M, C, Cp,
+                            g.N * g.nwin);
+  });
 }
 
 template <typename T>
@@ -598,21 +661,30 @@ bool bad_shape(int nW, int N, int C, int H, int Himg, int Wimg, int ws) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, y and the weights).  scale is
-// hd^-0.5 rounded to float32 by the caller.  Returns the launch's
-// cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (x, y and the weights).  wqkv (3C, C)
+// and wproj (C, C) in the (out, in) layout.  Scratch on the card: lnb, ob
+// (nW * N, Cp) bf16 and wterms (3 for float32, else 1) * 4C * Cp bf16, Cp
+// = C rounded up to 8.  wpb: windows per block of stage (b); tile: the
+// tile id (0-2) of stage (c).  scale is hd^-0.5 rounded to float32 by the
+// caller.  Returns the launches' cudaError_t.
 int ipe_fused_attn_fwd(const void* x, const void* gamma, const void* beta, const void* wqkv,
                        const void* bqkv, const void* rpe, const void* wproj, const void* bproj,
-                       const void* dp, void* y, int nW, int N, int C, int H, int Himg, int Wimg,
-                       int ws, float scale, int dtype, void* stream) {
-  if (bad_shape(nW, N, C, H, Himg, Wimg, ws)) return (int)cudaErrorInvalidValue;
+                       const void* dp, void* y, void* lnb, void* ob, void* wterms, int nW,
+                       int N, int C, int H, int Himg, int Wimg, int ws, int Cp, int wpb,
+                       int tile, float scale, int dtype, void* stream) {
+  if (bad_shape(nW, N, C, H, Himg, Wimg, ws) || C % 2 || Cp < C || Cp % 8 ||
+      Cp > kMaxLnWidth || wpb <= 0 || tile < 0 || tile > 2 || tiles(nW * N, TileS::BM) > 65535)
+    return (int)cudaErrorInvalidValue;
   const Geometry g = make_geometry(N, C, H, Himg, Wimg, ws);
   auto f = [&](auto tag) {
     using T = decltype(tag);
-    return fwd<T>(x, static_cast<const float*>(gamma), static_cast<const float*>(beta), wqkv,
-                  static_cast<const float*>(bqkv), static_cast<const float*>(rpe), wproj,
-                  static_cast<const float*>(bproj), static_cast<const float*>(dp), y, nW, g,
-                  scale, static_cast<cudaStream_t>(stream));
+    return fwd<T>(static_cast<const T*>(x), static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta), static_cast<const T*>(wqkv),
+                  static_cast<const float*>(bqkv), static_cast<const float*>(rpe),
+                  static_cast<const T*>(wproj), static_cast<const float*>(bproj),
+                  static_cast<const float*>(dp), static_cast<T*>(y), static_cast<bf16*>(lnb),
+                  static_cast<bf16*>(ob), static_cast<bf16*>(wterms), nW, g, Cp, scale, wpb,
+                  tile, static_cast<cudaStream_t>(stream));
   };
   if (dtype == 0) return (int)f(float{});
   if (dtype == 1) return (int)f(bf16{});

@@ -1,7 +1,9 @@
 // Device pieces shared by the fused half-block kernels (csrc/fused_mlp.cu,
 // csrc/fused_attn.cu): a block-level tile product on the tensor cores,
 // LayerNorm forward and backward over a block's rows, the tanh GELU, the
-// split of float32 weights into bf16 terms once per call, and the two
+// split of float32 weights into bf16 terms once per call, the row stages
+// of K5 that K4's forward runs too (LayerNorm rows, the staged product
+// with a residual epilogue), and the two
 // deterministic reductions of the backward (weight gradients as
 // A^T B over the rows, on the staged tile product of mlp_gemm.cuh, and
 // fixed-order sums of per-block partial vectors).
@@ -21,6 +23,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "ipe_common.cuh"
 #include "mlp_gemm.cuh"
@@ -295,6 +298,173 @@ cudaError_t launch_split_weights(const float* w, int sr, int sc, int R, int K, i
       w, sr, sc, R, K, width, out);
   return cudaGetLastError();
 }
+
+// The row stages that K5 (csrc/fused_mlp.cu) and K4's forward
+// (csrc/fused_attn.cu) share: the LayerNorm of rows into bf16 rows padded
+// to 16 bytes, and the staged tile product with a DropPath residual
+// epilogue (K5's fc2; K4's proj: y = x + dp * (ob Wproj^T + bproj)).
+
+// The product tiles the host plan chooses from, per stage (plan ids 0-2):
+// rows x columns x k slice, warps as rows x columns, slices in flight.
+using TileS = mg::Cfg<64, 64, 64, 2, 2, 3>;    // 4 warps of 32 x 32
+using TileM = mg::Cfg<64, 128, 64, 2, 4, 3>;   // 8 warps of 32 x 32
+using TileL = mg::Cfg<128, 128, 64, 2, 4, 3>;  // 8 warps of 64 x 32
+
+// f(CF{}) for the tile of plan id `tile`.
+template <class F>
+cudaError_t with_tile(int tile, F f) {
+  if (tile == 0) return f(TileS{});
+  if (tile == 1) return f(TileM{});
+  if (tile == 2) return f(TileL{});
+  return cudaErrorInvalidValue;
+}
+
+template <int NB>
+using RowOp = mg::Operand<true, NB, 8>;  // k-contiguous, 16-byte rows
+template <int NB>
+using ColOp = mg::Operand<false, NB, 8>;  // i-contiguous, 16-byte rows
+
+template <class CF, int NB>
+constexpr size_t fc_smem() {
+  return mg::ring_bytes<CF, RowOp<1>, RowOp<NB>>();
+}
+
+
+int tiles(int n, int t) { return (n + t - 1) / t; }
+
+// LayerNorm of one row xr, by one warp, float32 statistics: out[c] =
+// bf16((x - mu) * rstd * gamma + beta) for c < C, zero for C <= c < width
+// (C, width <= 32 NV).  The row is read once, into NV registers a lane, and
+// its sums taken from there.  Returns (mu, rstd).
+template <int NV, typename T>
+__device__ __forceinline__ float2 ln_row(const T* __restrict__ xr, int C,
+                                         const float* __restrict__ gamma,
+                                         const float* __restrict__ beta, bf16* out, int width) {
+  const int lane = threadIdx.x & 31;
+  float v[NV];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    v[i] = c < C ? to_f32(xr[c]) : 0.f;
+    s += v[i];
+  }
+  const float mu = warp_sum(s) / C;
+  float var = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float d = v[i] - mu;
+    if (lane + 32 * i < C) var = fmaf(d, d, var);
+  }
+  const float rs = rsqrtf(warp_sum(var) / C + kLnEps);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < width)
+      out[c] = __float2bfloat16(c < C ? (v[i] - mu) * rs * gamma[c] + beta[c] : 0.f);
+  }
+  return make_float2(mu, rs);
+}
+
+// Rows up to kMaxLnWidth; f(std::integral_constant<int, NV>{}) with NV, the
+// registers a lane of ln_row, the least of 4, 8, 12, 20 that holds width.
+constexpr int kMaxLnWidth = 640;
+
+template <class F>
+cudaError_t with_ln_width(int width, F f) {
+  if (width <= 128) return f(std::integral_constant<int, 4>{});
+  if (width <= 256) return f(std::integral_constant<int, 8>{});
+  if (width <= 384) return f(std::integral_constant<int, 12>{});
+  return f(std::integral_constant<int, kMaxLnWidth / 32>{});
+}
+
+// LayerNorm of rows [blockIdx.x * rpb, ...) of x, one warp per row: lnb
+// at row stride Cp, columns C .. Cp zero.  kBwd: also each row's mean and
+// rstd, dob = bf16(dp * dy) (row stride Cp, zero-padded), and this block's
+// db2 partial, the float32 do summed over its rows in row order, into
+// part[blockIdx.x][2C .. 3C).
+template <typename T, bool kBwd, int NV>
+__global__ void __launch_bounds__(kThreads)
+mlp_ln_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ beta, const float* __restrict__ dp,
+              const T* __restrict__ dy, bf16* __restrict__ lnb, bf16* __restrict__ dob,
+              float* __restrict__ mean, float* __restrict__ rstd, float* __restrict__ part,
+              int M, int C, int Cp, int tps, int rpb) {
+  const int row0 = blockIdx.x * rpb;
+  const int rows = min(rpb, M - row0);
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += kThreads / 32) {
+    const int row = row0 + r;
+    const float2 st =
+        ln_row<NV>(x + (size_t)row * C, C, gamma, beta, lnb + (size_t)row * Cp, Cp);
+    if constexpr (kBwd) {
+      const float scale = dp[row / tps];
+      const T* dr = dy + (size_t)row * C;
+      bf16* dor = dob + (size_t)row * Cp;
+      for (int c = lane; c < Cp; c += 32)
+        dor[c] = __float2bfloat16(c < C ? scale * to_f32(dr[c]) : 0.f);
+      if (lane == 0) {
+        mean[row] = st.x;
+        rstd[row] = st.y;
+      }
+    }
+  }
+  if constexpr (kBwd) {
+    float* pv = part + (size_t)blockIdx.x * 3 * C + 2 * C;
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const int row = row0 + r;
+        s += dp[row / tps] * to_f32(dy[(size_t)row * C + c]);
+      }
+      pv[c] = s;
+    }
+  }
+}
+
+// Forward (3): y = x + dp[r / tps] * (g W2^T + b2), one (BM, BN) tile of
+// the (M, C) output per block.
+template <class CF, int NB, typename T>
+__global__ void __launch_bounds__(CF::threads)
+mlp_fc2_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w2,
+               const float* __restrict__ b2, const T* __restrict__ x,
+               const float* __restrict__ dp, T* __restrict__ y, int M, int C, int Hd, int tps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n0 = blockIdx.x * CF::BN, m0 = blockIdx.y * CF::BM;
+  mg::Acc<CF> acc;
+  mg::tile_product<CF>(acc, RowOp<1>{g, Hd, 0, M, Hd},
+                       RowOp<NB>{w2, Hd, (long long)C * Hd, C, Hd}, Hd, m0, n0,
+                       reinterpret_cast<bf16*>(smem));
+#pragma unroll
+  for (int mi = 0; mi < CF::MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < CF::NT8; ++ni) {
+      const int n = n0 + mg::acc_col<CF>(ni, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + mg::acc_row<CF>(mi, 2 * h);
+        if (m < M && n < C) {
+          const size_t o = (size_t)m * C + n;
+          const float s = dp[m / tps];
+          mg::store2(y + o, to_f32(x[o]) + s * (acc.v[mi][ni][2 * h] + b2[n]),
+                     to_f32(x[o + 1]) + s * (acc.v[mi][ni][2 * h + 1] + b2[n + 1]));
+        }
+      }
+    }
+}
+
+
+// Launch kernel on a (column tiles, row tiles) grid of the tile CF with
+// smem bytes of shared memory.
+template <class CF, class K, class... Args>
+cudaError_t launch_tiles(K kernel, size_t smem, int rows, int cols, cudaStream_t stream,
+                         Args... args) {
+  const cudaError_t opt = allow_smem(kernel, smem);
+  if (opt != cudaSuccess) return opt;
+  kernel<<<dim3(tiles(cols, CF::BN), tiles(rows, CF::BM)), CF::threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 
 // out[e] = sum over r < rows of part[r * width + e], for e < width, in a
 // fixed order: thread (ry, cx) of a block sums rows ry, ry + 8, ... of

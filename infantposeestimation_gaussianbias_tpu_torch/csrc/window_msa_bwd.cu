@@ -16,7 +16,7 @@
 //   dout (nW, N, C) in T;  dqkv (nW, N, 3C) in T, head h at columns h*hd,
 //   C + h*hd and 2C + h*hd;  dbias (H, N, N) float32.
 //   Float32 inputs and accumulation; the products in split-bf16 terms as
-//   csrc/wmsa_bwd_core.cuh states (P and dS in two terms, ~2^-17
+//   csrc/wmsa_core.cuh states (P and dS in two terms, ~2^-17
 //   relative), within 1e-4 of the plain version's float32 maths; dqkv is
 //   cast once to T (round to nearest even).
 //
@@ -29,7 +29,7 @@
 // element, and shared-memory bandwidth set its pace (0.89 of 0.90 ms of
 // device time at b0 was that kernel on an NVIDIA H100, PERF.md).  Now:
 //   * the attention maths is the shared tensor-core core
-//     (csrc/wmsa_bwd_core.cuh), 4 warps on one (window, head);
+//     (csrc/wmsa_core.cuh), 4 warps on one (window, head);
 //   * grid (chunks, H), 128 threads: block (c, h) walks the windows
 //     [c*wpb, (c+1)*wpb) of head h, two stages deep: the next window's q,
 //     k, v and dO rows stream into a staging buffer with cp.async while
@@ -61,7 +61,7 @@
 
 #include <cstdint>
 
-#include "wmsa_bwd_core.cuh"
+#include "wmsa_core.cuh"
 
 namespace {
 
@@ -74,7 +74,7 @@ constexpr int kMaxN = wcore::kMaxN;
 constexpr int kMaxHd = wcore::kMaxHd;
 
 // bf16 terms of the core's operands: a bf16 input is exact in one, a float
-// one takes three (csrc/wmsa_bwd_core.cuh, Numerics).
+// one takes three (csrc/wmsa_core.cuh, Numerics).
 template <typename T>
 constexpr int kTerms = sizeof(T) == 2 ? 1 : 3;
 

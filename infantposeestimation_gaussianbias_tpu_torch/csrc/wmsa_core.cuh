@@ -1,31 +1,39 @@
-// The W-MSA attention backward of one (window, head) on the tensor cores,
-// shared by K2 (csrc/window_msa_bwd.cu, which replaces `_qkv_vjp_bwd` of
-// infantposeestimation_gaussianbias_tpu/ops/pallas/window_msa.py:422) and
-// by K4's backward (csrc/fused_attn.cu, which replaces `_attn_half_bwd` of
-// ops/pallas/fused_block.py:590).
+// The W-MSA attention of one (window, head) on the tensor cores: the
+// forward (`attention_fwd`: S, the row softmax, O = P v), shared by K4's
+// forward (csrc/fused_attn.cu, which replaces `_attn_half_fwd_kernel` of
+// infantposeestimation_gaussianbias_tpu/ops/pallas/fused_block.py:511) and
+// by the backward's recompute, and the backward (`attention_bwd`), shared
+// by K2 (csrc/window_msa_bwd.cu, which replaces `_qkv_vjp_bwd` of
+// ops/pallas/window_msa.py:422) and by K4's backward (`_attn_half_bwd` of
+// fused_block.py:590).  The forward's bf16(o) and the backward's
+// recomputed one come from the same code, bit for bit.  A caller stages
+// its q, k, v (and dO) as the operand tiles below; only that staging
+// differs between callers (K1's flat qkv layout can call it the same way).
 //
 // Contract, for N <= 64 tokens and a head dim hd <= 64, with q, k, v and dO
 // (N, hd) operands in shared memory and scale = hd^-0.5:
-//   S  = scale * q k^T + bias;  P = softmax(S) by rows   (recomputed)
+//   S  = scale * q k^T + bias;  P = softmax(S) by rows;  O = P v
 //   dP = dO v^T;  dS = P o (dP - rowsum(dP o P))
-//   dQ = scale * dS k;  dK = scale * dS^T q;  dV = P^T dO;  (K4) O = P v
+//   dQ = scale * dS k;  dK = scale * dS^T q;  dV = P^T dO
 //   dbias += dS (float32, summed by the caller over its windows).
 //
 // What bounded the float32 versions it replaces: one thread per output
 // element, every FMA with two shared-memory reads, ~10 N^2 hd FMAs per
-// (window, head) on the CUDA cores: shared-memory bandwidth set the pace.
-// Here the five products (six with O) are bf16 `mma.sync.m16n8k16` with
-// float32 accumulation on 64 x 48 tiles (N padded to a multiple of 16, hd
-// to a multiple of 16), their operands loaded with `ldmatrix` (plain or
+// (window, head) on the CUDA cores (the forward ~2 N^2 hd, one block per
+// window walking all heads): shared-memory bandwidth set the pace.
+// Here the products are bf16 `mma.sync.m16n8k16` with float32
+// accumulation on 64 x 48 tiles (N padded to a multiple of 16, hd to a
+// multiple of 16), their operands loaded with `ldmatrix` (plain or
 // transposed: one instruction per 16 x 16 fragment).  The padding is zero
 // (columns stored as zeros, rows >= N read from a zero row), -inf in the
-// softmax, and reaches no output.  One warp holds 16 rows of S and dP in
-// its accumulators, takes the row softmax and dS there with quad shuffles,
-// and feeds its dS accumulators straight back as the A operand of dQ (and
-// P of O), as FlashAttention-2's backward does.  dV and dK sum over the
-// rows, which four warps hold: P and then dS go through one shared bf16
-// exchange tile pair (their two terms; never a float32 tile, never device
-// memory), and each warp reads its 16 columns back transposed.
+// softmax, and reaches no output.  One warp holds 16 rows of S in its
+// accumulators, takes the row softmax there with quad shuffles and feeds
+// P straight back as the A operand of O = P v (FlashAttention-2's
+// forward); the backward does the same with dP and dS for dQ.  dV and dK
+// sum over the rows, which four warps hold: P and then dS go through one
+// shared bf16 exchange tile pair (their two terms; never a float32 tile,
+// never device memory), and each warp reads its 16 columns back
+// transposed.
 //
 // Numerics: the float32 semantics of the plain versions.  A float32
 // operand is split into bf16 terms x = t0 + t1 (+ t2), each product of
@@ -33,20 +41,23 @@
 // the term pairs (i, j) with i + j < L.  Inputs exact in bf16 (K2's q, k,
 // v, dO in a bf16 model) take one term.  K2's float32 inputs take three
 // (S and dP keep 6 pairs, L = 3: S to ~2^-24, so dbias, summed over
-// thousands of windows, holds 1e-4); K4's recomputed float32 q, k, v, dO
-// take two (3 pairs).  P and dS take two terms (2^-17 relative) and their
-// products L = 2: three pairs.  The softmax takes __expf (relative error
-// ~2^-21) and one reciprocal per row.  tests/test_torch_wmsa_bwd_core.py
-// holds the emulation of these products (kernels/window_msa.py) against
+// thousands of windows, holds 1e-4); K4's float32 q, k, v, dO (forward and
+// backward) take two (3 pairs).  P and dS take two terms (2^-17 relative)
+// and their products L = 2: three pairs.  The softmax takes __expf
+// (relative error ~2^-21) and one reciprocal per row.
+// tests/test_torch_wmsa_bwd_core.py and tests/test_torch_wmsa_fwd_core.py
+// hold the emulations of these products (kernels/window_msa.py) against
 // the plain versions' float32 maths.
 //
 // Layout: a block of kThreads = 128 threads (4 warps) runs the core on one
-// (window, head) at a time; the caller synchronises before it (its
-// operands written) and the core ends past a barrier (its shared memory
-// free).  S and dP are computed one after the other (the softmax between)
-// so that one product's fragments are live at a time.  Every sum runs in a
-// fixed order, so the result is deterministic and does not depend on which
-// other heads or windows share the launch.
+// (window, head) at a time, warp w on rows 16 w ..; the caller
+// synchronises before it (its operands written).  `attention_bwd` ends
+// past a barrier (its shared memory free); `attention_fwd` only reads
+// shared memory, and the caller synchronises before it overwrites the
+// operands.  S and dP are computed one after the other (the softmax
+// between) so that one product's fragments are live at a time.  Every sum
+// runs in a fixed order, so the result is deterministic and does not
+// depend on which other heads or windows share the launch.
 #pragma once
 
 #include <cstdint>
@@ -315,6 +326,91 @@ __device__ __forceinline__ void store_dbias(const float (&dbias)[8][4], int N, f
     }
 }
 
+// The forward of one (window, head) on this warp's 16 rows i0 = 16 warp
+// (an active warp: i0 < N); see the header.  NI: bf16 terms of the q, k, v
+// operands.  bias(i, j): the float32 bias of S.  Leaves P in s (the
+// accumulator layout [n8 tile][e]: rows i0 + g, i0 + g + 8, columns
+// nt * 8 + 2t (+1); zero where masked).  kWithO: O = P v, P taken from s
+// as two bf16 terms (never through shared memory) and v in min(NI, 2),
+// and out(row, col, x0, x1, two) for O's valid element pairs as emit
+// gives them.  Reads shared memory only.
+template <int NI, bool kWithO, class BF, class OF>
+__device__ __forceinline__ void attention_fwd(const Operand& q, const Operand& k,
+                                              const Operand& v, int N, int hd, float scale,
+                                              BF bias, const bf16* zrow, float (&s)[8][4],
+                                              OF out) {
+  constexpr int NB = NI < 2 ? NI : 2;  // v's terms in the product with P
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int steps = (N + 15) >> 4;    // k16 steps over the tokens
+  const int ntn = 2 * steps;          // n8 tiles over the tokens
+  const int dsteps = pad16(hd) >> 4;  // k16 steps over the head dim
+  const int i0 = warp * 16;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+  // S = q k^T over the head dim.
+  for (int kk = 0; kk < dsteps; ++kk) {
+    uint32_t aq[NI][4];
+#pragma unroll
+    for (int x = 0; x < NI; ++x) a_rows(aq[x], q.p + x * q.term, q.ld, N, zrow, i0, kk * 16);
+#pragma unroll
+    for (int np = 0; np < kMaxN / 16; ++np) {
+      if (np < steps) {
+        uint32_t bk[NI][4];
+#pragma unroll
+        for (int x = 0; x < NI; ++x)
+          b_rows(bk[x], k.p + x * k.term, k.ld, N, zrow, np * 16, kk * 16);
+        mma_pair<NI, NI, NI>(s[2 * np], s[2 * np + 1], aq, bk);
+      }
+    }
+  }
+  // Row softmax on rows i0 + g (e < 2) and i0 + g + 8 (e >= 2); a row is
+  // held by the 4 lanes of a quad.
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + 8 * (e >> 1), j = nt * 8 + 2 * t + (e & 1);
+      const float x = (nt < ntn && i < N && j < N) ? scale * s[nt][e] + bias(i, j)
+                                                    : -CUDART_INF_F;
+      s[nt][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = s[nt][e] == -CUDART_INF_F ? 0.f : __expf(s[nt][e] - mx[e >> 1]);
+      s[nt][e] = x;
+      sum[e >> 1] += x;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    sum[r] = sum[r] > 0.f ? 1.f / sum[r] : 0.f;  // a row of padding has none
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] *= sum[e >> 1];
+  if constexpr (kWithO) {
+    float acc[8][4];
+    tokens_product<NB>(acc, steps, dsteps, N, v, zrow,
+                       [&](int kk, uint32_t (&a)[2][4]) { a_from_acc(s, kk, a); });
+    emit(acc, i0, N, hd, 2 * dsteps, 1.f, nullptr, out);
+  }
+}
+
 // The core on one (window, head); see the header.  NI: bf16 terms of the
 // q, k, v, dO operands.  bias(i, j): the float32 bias of S.  add_ds(nt, e,
 // i, j, x): adds dS[i][j] = x, accumulator element [nt][e] of this thread,
@@ -342,67 +438,17 @@ __device__ void attention_bwd(const Operand& q, const Operand& k, const Operand&
   float s[8][4], dp[8][4], acc[8][4];
 
   if (active) {
+    // S, the row softmax and (K4) O = P v, then dP = dO v^T: one product's
+    // fragments live at a time.
+    attention_fwd<NI, kWithO>(q, k, v, N, hd, scale, bias, zrow, s,
+                              [&](int m, int c, float x0, float x1, bool two) {
+                                out(3, m, c, x0, x1, two);
+                              });
+    float d[2] = {0.f, 0.f};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    // S = q k^T over the head dim, then the row softmax, then dP = dO v^T:
-    // one product's fragments live at a time.
-    for (int kk = 0; kk < dsteps; ++kk) {
-      uint32_t aq[NI][4];
-#pragma unroll
-      for (int x = 0; x < NI; ++x) a_rows(aq[x], q.p + x * q.term, q.ld, N, zrow, i0, kk * 16);
-#pragma unroll
-      for (int np = 0; np < kMaxN / 16; ++np) {
-        if (np < steps) {
-          uint32_t bk[NI][4];
-#pragma unroll
-          for (int x = 0; x < NI; ++x)
-            b_rows(bk[x], k.p + x * k.term, k.ld, N, zrow, np * 16, kk * 16);
-          mma_pair<NI, NI, NI>(s[2 * np], s[2 * np + 1], aq, bk);
-        }
-      }
-    }
-    // Row softmax on rows i0 + g (e < 2) and i0 + g + 8 (e >= 2); a row is
-    // held by the 4 lanes of a quad.
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = i0 + g + 8 * (e >> 1), j = nt * 8 + 2 * t + (e & 1);
-        const float x = (nt < ntn && i < N && j < N) ? scale * s[nt][e] + bias(i, j)
-                                                      : -CUDART_INF_F;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float sum[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[nt][e] == -CUDART_INF_F ? 0.f : __expf(s[nt][e] - mx[e >> 1]);
-        s[nt][e] = x;
-        sum[e >> 1] += x;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      sum[r] = sum[r] > 0.f ? 1.f / sum[r] : 0.f;  // a row of padding has none
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] *= sum[e >> 1];
-        dp[nt][e] = 0.f;
-      }
+      for (int e = 0; e < 4; ++e) dp[nt][e] = 0.f;
     for (int kk = 0; kk < dsteps; ++kk) {
       uint32_t ad[NI][4];
 #pragma unroll
@@ -440,18 +486,7 @@ __device__ void attention_bwd(const Operand& q, const Operand& k, const Operand&
         if (i < N && j < N) add_ds(nt, e, i, j, ds);
       }
     to_exchange(s, xch, i0, N, ntn);
-    // Row products: O = P v (K4) from this warp's own rows of the
-    // exchange (so that P's accumulators are free), dQ = scale dS k from
-    // the accumulators.
-    if (kWithO) {
-      __syncwarp();
-      tokens_product<NB>(acc, steps, dsteps, N, v, zrow, [&](int kk, uint32_t (&a)[2][4]) {
-        a_rows(a[0], xch, kXLd, N, zrow, i0, kk * 16);
-        a_rows(a[1], xch + N * kXLd, kXLd, N, zrow, i0, kk * 16);
-      });
-      emit(acc, i0, N, hd, ntd, 1.f, nullptr,
-           [&](int m, int c, float x0, float x1, bool two) { out(3, m, c, x0, x1, two); });
-    }
+    // dQ = scale dS k from the accumulators.
     tokens_product<NB>(acc, steps, dsteps, N, k, zrow,
                        [&](int kk, uint32_t (&a)[2][4]) { a_from_acc(dp, kk, a); });
     emit(acc, i0, N, hd, ntd, scale, my_colsum,

@@ -135,14 +135,14 @@ def load() -> ctypes.CDLL:
         lib.ipe_fused_mlp_fwd.restype = i
         lib.ipe_fused_mlp_bwd.argtypes = [p] * 22 + [i] * 15 + [p]
         lib.ipe_fused_mlp_bwd.restype = i
-        lib.ipe_fused_attn_fwd.argtypes = [p] * 10 + [i] * 7 + [f, i, p]
+        lib.ipe_fused_attn_fwd.argtypes = [p] * 13 + [i] * 10 + [f, i, p]
         lib.ipe_fused_attn_fwd.restype = i
         lib.ipe_fused_attn_bwd.argtypes = ([p] * 24 + [i] * 7 + [f]
                                            + [i] * 4 + [p])
         lib.ipe_fused_attn_bwd.restype = i
         lib.ipe_residual_chain.argtypes = [p] * 6 + [i] * 7 + [p]
         lib.ipe_residual_chain.restype = i
-        lib.ipe_conv3x3_wgrad.argtypes = [p] * 4 + [i] * 7 + [p]
+        lib.ipe_conv3x3_wgrad.argtypes = [p] * 4 + [i] * 10 + [p]
         lib.ipe_conv3x3_wgrad.restype = i
         lib.ipe_cuda_error_string.argtypes = [i]
         lib.ipe_cuda_error_string.restype = ctypes.c_char_p

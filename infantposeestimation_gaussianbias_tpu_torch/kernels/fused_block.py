@@ -24,7 +24,9 @@ Contract, the TPU kernels' maths:
     float32 model through this path is not pure float32 maths;
   * the attention scores, softmax and P·V stay float32; q is scaled by
     hd^-0.5 (rounded to float32) before q·k^T, and dk takes the unscaled q
-    with the scale applied after;
+    with the scale applied after (the CUDA kernels take these products in
+    split-bf16 terms on the tensor cores, csrc/wmsa_core.cuh, within the
+    bounds chip_smoke.py states);
   * GELU is the tanh form;
   * window padding: a token outside the (H, W) map enters attention as the
     qkv bias row (the reference zero-pads the normalised map); dWqkv and
@@ -52,7 +54,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .window_msa import MAX_HEAD_DIM, MAX_TOKENS, bwd_windows_per_block
+from .window_msa import (K4_CORE_TERMS, MAX_HEAD_DIM, MAX_TOKENS,
+                         attention_fwd_core_emulation, bwd_windows_per_block)
 
 # Kernel launches since the last reset, one per wrapper call that launches
 # (a backward's reduction passes count with it), nowhere else.
@@ -205,6 +208,32 @@ def fused_attn_half_reference(xw, gamma, beta, wqkv, bqkv, rpe, wproj, bproj,
     po = _bf16(o) @ wproj.float() + bproj.float()
     scale = _row_scale(dp, nW, window_geometry(geom)[0])[:, :, None]
     return (xw.float() + scale * po).to(xw.dtype)
+
+
+def fused_attn_half_fwd_emulation(xw, gamma, beta, wqkv, bqkv, rpe, wproj,
+                                  bproj, dp, num_heads: int,
+                                  geom: Tuple[int, int, int]) -> torch.Tensor:
+    """K4's staged forward (csrc/fused_attn.cu) in plain PyTorch, on the
+    CPU: (a) the LayerNorm into bf16 rows; (b) per head, q, k, v = lnb
+    Wqkv_h + bqkv (the bias row for a pad token), then the forward core's
+    split-bf16 arithmetic (``attention_fwd_core_emulation``, q, k, v in
+    ``K4_CORE_TERMS`` terms), rounded to bf16; (c) y = x + dp * (ob Wproj
+    + bproj).  The weights enter as they are: a float32 weight's three bf16
+    terms sum to it exactly and each product of terms is exact.  For the
+    tests only: no model path runs it."""
+    nW, N, C = xw.shape
+    hd = C // num_heads
+    x = xw.float()
+    ln, _, _ = _layernorm(x, gamma.float(), beta.float())
+    b = bqkv.float()
+    qkv = torch.where(valid_tokens(nW, N, geom, xw.device),
+                      _bf16(ln) @ wqkv.float() + b, b)
+    q, k, v = qkv.reshape(nW, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    o = attention_fwd_core_emulation(q, k, v, rpe.float(), K4_CORE_TERMS)
+    ob = _bf16(o.permute(0, 2, 1, 3).reshape(nW, N, C))
+    po = ob @ wproj.float() + bproj.float()
+    scale = _row_scale(dp, nW, window_geometry(geom)[0])[:, :, None]
+    return (x + scale * po).to(xw.dtype)
 
 
 def fused_attn_half_bwd_reference(xw, gamma, beta, wqkv, bqkv, rpe, wproj,
@@ -542,6 +571,30 @@ def _check_attn(xw, rpe, num_heads, geom):
     return nW, N, C, hd, nwin
 
 
+@functools.lru_cache(maxsize=256)
+def attn_fwd_plan(nW: int, N: int, C: int, num_heads: int,
+                  sm_count: int) -> dict:
+    """What K4's forward launches take and its scratch needs
+    (csrc/fused_attn.cu).  Cached: the wrapper calls it per launch.
+
+    ``width``: C rounded up to 8, the row stride of the bf16 ln and o rows
+    and of the weights' rows as the products read them (16-byte rows).
+    ``wpb``: stage (b) runs one block per (chunk of ``wpb`` windows,
+    head), chunked as the backward's stage (b) (``bwd_windows_per_block``:
+    about four blocks per SM, a wave of 528 blocks on 132 SMs at every
+    hrformer_base branch at b = 32 and 64).
+    ``proj``: stage (c)'s tile id in ``MLP_TILES`` over the (nW N, C)
+    output, K5's rule (``_mlp_tile``)."""
+    if C % 2 or C > 640:
+        raise ValueError(f"K4 takes an even C <= 640, got C={C}")
+    M = nW * N
+    if -(-M // MLP_TILES[0][0]) > 65535:
+        raise ValueError(f"K4 takes at most {65535 * MLP_TILES[0][0]} rows, "
+                         f"got {M}")
+    wpb = bwd_windows_per_block(nW, num_heads, sm_count)
+    return dict(width=-(-C // 8) * 8, wpb=wpb, proj=_mlp_tile(M, C, sm_count))
+
+
 def fused_attn_half_fwd(xw, gamma, beta, wqkv, bqkv, rpe, wproj, bproj, dp,
                         num_heads: int, geom: Tuple[int, int, int]
                         ) -> torch.Tensor:
@@ -554,19 +607,26 @@ def fused_attn_half_fwd(xw, gamma, beta, wqkv, bqkv, rpe, wproj, bproj, dp,
     dev = xw.device
     code = _code(xw, (wqkv, wproj))
     _check_dp(dp, nW // nwin)
+    plan = attn_fwd_plan(nW, N, C, num_heads, _sms(dev))
+    width = plan["width"]
     wq, wp = _out_in(wqkv, C, 3 * C, dev), _out_in(wproj, C, C, dev)
     g, bt = _vec(gamma, C, dev, "gamma"), _vec(beta, C, dev, "beta")
     bq, bp = _vec(bqkv, 3 * C, dev, "bqkv"), _vec(bproj, C, dev, "bproj")
     dpv = _vec(dp, dp.numel(), dev, "dp")
     y = torch.empty_like(xw)
+    M = nW * N
+    # scratch: bf16 ln and o rows (M, width), the weights' bf16 rows (terms)
+    buf, ptrs = _scratch(dev, 2 * M * width, 2 * M * width,
+                         2 * _TERMS[code] * 4 * C * width)
     H, W, ws = geom
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.ipe_fused_attn_fwd(
             xw.data_ptr(), g.data_ptr(), bt.data_ptr(), wq.data_ptr(),
             bq.data_ptr(), rpe.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-            dpv.data_ptr(), y.data_ptr(), nW, N, C, num_heads, H, W, ws,
-            float(hd ** -0.5), code, torch.cuda.current_stream().cuda_stream)
+            dpv.data_ptr(), y.data_ptr(), *ptrs, nW, N, C, num_heads, H, W,
+            ws, width, plan["wpb"], plan["proj"], float(hd ** -0.5), code,
+            torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "fused_attn_fwd launch")
     ATTN_LAUNCHES += 1
     return y

@@ -10,9 +10,10 @@ card and the plain PyTorch versions ``*_reference`` for tensors on the
 CPU; on any other device, or for a CUDA tensor the kernel does not take,
 they raise.  ``window_attention`` joins the two in a
 ``torch.autograd.Function``: K1 forward, K2 backward.  K2's attention
-maths is the tensor-core core of ``csrc/wmsa_bwd_core.cuh``, which K4's
-backward shares; ``attention_bwd_core_emulation`` repeats its split-bf16
-products in plain PyTorch for the tests (no model path runs it).
+maths is the tensor-core core of ``csrc/wmsa_core.cuh``, which K4's
+forward and backward share; ``attention_fwd_core_emulation`` and
+``attention_bwd_core_emulation`` repeat its split-bf16 products in plain
+PyTorch for the tests (no model path runs them).
 
 Contract, as ops/msa.py ``window_attention`` on the flat layout:
   qkv  (nW, N, 3C), columns [q heads | k heads | v heads], float32 or bf16;
@@ -151,12 +152,13 @@ def window_attention_qkv_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor,
     return dqkv.to(qkv.dtype), ds.sum(dim=0).to(bias.dtype)
 
 
-# -- the tensor-core attention backward core (csrc/wmsa_bwd_core.cuh) ------------
+# -- the tensor-core attention core (csrc/wmsa_core.cuh) ----------------------
 
 # The core's tile unit: tokens and the head dim are padded to multiples of it.
 CORE_TILE = 16
 # bf16 terms of the core's operands: K2's q, k, v, dO by dtype (exact in one
-# term in bf16); K4's recomputed float32 q, k, v, do_h; P and dS.
+# term in bf16); K4's float32 q, k, v (forward and backward) and do_h; P
+# and dS.
 K2_CORE_TERMS = {torch.bfloat16: 1, torch.float32: 3}
 K4_CORE_TERMS = 2
 PS_TERMS = 2
@@ -193,31 +195,60 @@ def split_product(a: torch.Tensor, b: torch.Tensor, na: int, nb: int,
     return out
 
 
-def attention_bwd_core_emulation(q: torch.Tensor, k: torch.Tensor,
-                                 v: torch.Tensor, do: torch.Tensor,
-                                 bias: torch.Tensor, terms: int,
-                                 with_o: bool = False) -> tuple:
-    """The core's arithmetic in plain PyTorch, on the CPU: (..., N, hd)
-    float32 q, k, v, do (per head), bias (H, N, N) float32, q, k, v, do in
-    ``terms`` bf16 terms (S and dP keep the term pairs i + j < terms), P
-    and dS in ``PS_TERMS`` (their products keep i + j < PS_TERMS), tiles
-    padded as ``core_padding`` pads them with the padding masked out of the
-    softmax.  Returns (dq, dk, dv, dbias = sum of dS over the leading
-    dimension, o or None).  For the tests only: no model path runs it."""
-    N, hd = q.shape[-2:]
+def _pad_core(t: torch.Tensor) -> torch.Tensor:
+    """(..., N, hd) -> the core's zero-padded float32 tile."""
+    N, hd = t.shape[-2:]
     Np, hdp = core_padding(N, hd)
+    return torch.nn.functional.pad(t.float(), (0, hdp - hd, 0, Np - N))
+
+
+def _core_probs(qp: torch.Tensor, kp: torch.Tensor, bias: torch.Tensor,
+                N: int, hd: int, terms: int) -> torch.Tensor:
+    """P of the padded tiles as the core forms it: S = scale q k^T over
+    ``terms`` bf16 terms (pairs i + j < terms) + bias, the softmax with the
+    padding masked out (a padded row all zero)."""
+    Np = qp.shape[-2]
     scale = torch.tensor(hd ** -0.5, dtype=torch.float32)
-
-    def pad(t: torch.Tensor) -> torch.Tensor:
-        return torch.nn.functional.pad(t.float(), (0, hdp - hd, 0, Np - N))
-
-    qp, kp, vp, dop = (pad(t) for t in (q, k, v, do))
     s = scale * split_product(qp, kp.transpose(-2, -1), terms, terms, terms)
     s[..., :N, :N] += bias.float()
     valid = torch.zeros(Np, Np, dtype=torch.bool)
     valid[:N, :N] = True
     p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
-    p = torch.nan_to_num(p, nan=0.0)  # padded rows: every entry masked
+    return torch.nan_to_num(p, nan=0.0)  # padded rows: every entry masked
+
+
+def attention_fwd_core_emulation(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, bias: torch.Tensor,
+                                 terms: int) -> torch.Tensor:
+    """The forward core's arithmetic (csrc/wmsa_core.cuh
+    ``attention_fwd``) in plain PyTorch, on the CPU: (..., N, hd) float32
+    q, k, v (per head), bias (H, N, N) float32; q, k, v in ``terms`` bf16
+    terms (S keeps the pairs i + j < terms), P in ``PS_TERMS`` and O = P v
+    keeping the pairs i + j < PS_TERMS, tiles padded as ``core_padding``
+    pads them.  Returns O (float32, before any rounding of the caller's).
+    For the tests only: no model path runs it."""
+    N, hd = q.shape[-2:]
+    p = _core_probs(_pad_core(q), _pad_core(k), bias, N, hd, terms)
+    o = split_product(p, _pad_core(v), PS_TERMS, terms, PS_TERMS)
+    return o[..., :N, :hd]
+
+
+def attention_bwd_core_emulation(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, do: torch.Tensor,
+                                 bias: torch.Tensor, terms: int,
+                                 with_o: bool = False) -> tuple:
+    """The backward core's arithmetic in plain PyTorch, on the CPU:
+    (..., N, hd) float32 q, k, v, do (per head), bias (H, N, N) float32,
+    q, k, v, do in ``terms`` bf16 terms (S and dP keep the term pairs i +
+    j < terms), P and dS in ``PS_TERMS`` (their products keep i + j <
+    PS_TERMS), tiles padded as ``core_padding`` pads them with the padding
+    masked out of the softmax.  Returns (dq, dk, dv, dbias = sum of dS over
+    the leading dimension, o or None; o as the forward core's).  For the
+    tests only: no model path runs it."""
+    N, hd = q.shape[-2:]
+    qp, kp, vp, dop = (_pad_core(t) for t in (q, k, v, do))
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32)
+    p = _core_probs(qp, kp, bias, N, hd, terms)
     dp = split_product(dop, vp.transpose(-2, -1), terms, terms, terms)
     ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
     ps = (PS_TERMS, terms, PS_TERMS)

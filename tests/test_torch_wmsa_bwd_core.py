@@ -1,5 +1,5 @@
 """PyTorch port, the tensor-core W-MSA backward core that K2 and K4's
-backward share (csrc/wmsa_bwd_core.cuh): its split-bf16 arithmetic,
+backward share (csrc/wmsa_core.cuh): its split-bf16 arithmetic,
 emulated in plain PyTorch (``window_msa.attention_bwd_core_emulation``),
 against the float32 plain versions, and the Python side of the kernels'
 geometry.
