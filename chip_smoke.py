@@ -7,11 +7,14 @@ Phases, in order; any failure exits non-zero:
   0. device: refuse to run without CUDA; print the card's name and power
      limit (nvidia-smi), torch and CUDA versions;
   1. build every kernel from csrc/ (kernels/build.py) and time the build;
-  2. K1 (CUDA W-MSA forward) against its plain PyTorch version on the card,
+  2. K1 (CUDA W-MSA forward, on the tensor-core forward core of
+     csrc/wmsa_core.cuh) against its plain PyTorch version on the card,
      at every hrformer_base branch shape at batch 64 (32 crops x flip), at
      hrformer_small's branch 0, at window 8 and without bias; float32
-     (TF32 off) at atol 1e-4, bf16 at atol/rtol 2e-2; median kernel,
-     plain and SDPA times and the bound;
+     (TF32 off) at atol 1e-4, bf16 at atol/rtol 2e-2; the last head alone
+     (a head range, as K3 launches it) equal to the whole launch's columns
+     bit for bit; median kernel, plain and SDPA times and the bound; at
+     b0 and b3 (bf16, b = 32) a ``[k1-split]`` line, as phase 3's;
   3. K2 (CUDA W-MSA backward, on the tensor-core core of
      csrc/wmsa_core.cuh) against its plain version at every training
      shape at batch 32 (hrformer_base's four branches, hrformer_small's
@@ -89,12 +92,13 @@ Phases, in order; any failure exits non-zero:
      version at every K1 shape at b = 64, with and without bias, float32
      and bf16; kernel, plain, SDPA (batch H, mask bias[h]) ms and bound;
      then the window-major entry point (relayout copies + K1-hm) fed from
-     the flat qkv against K1 on it, with the time of each;
- 15. K8 (CUDA phase ablation of K1): every variant and windows-per-block
-     value against its plain version, ``full`` at one window per block
-     bit for bit against K1; the port's probe ``main()`` at its default
-     shape and at hrformer_base b0-b3 (b = 64): each variant's ms, bound
-     and plain ms, and K1's phase shares (staging, products, softmax);
+     the flat qkv equal to K1 on it bit for bit, with the time of each;
+ 15. K8 (CUDA phase ablation of K1's first, CUDA-core body): every
+     variant and windows-per-block value against its plain version,
+     ``full`` against K1 within the bf16 bound; the port's probe
+     ``main()`` at its default shape and at hrformer_base b0-b3 (b = 64):
+     each variant's ms, bound and plain ms, and the body's phase shares
+     (staging, products, softmax);
  16. analysis: ``benchmark_model`` for Config() and hrformer_base (bf16,
      b = 32; K1 44 launches per HRFormer forward, none for HRNet);
      saliency (44 K1 and 44 K2 launches), Grad-CAM and occlusion on
@@ -118,19 +122,23 @@ Phases, in order; any failure exits non-zero:
      global BatchNorm statistics); a bf16 step at global b = 32, 44 K1
      and 44 K2 launches per rank through K3, the same state on every rank.
  20. only with ``--parent DIR`` (DIR a checkout of the parent commit, e.g.
-     from ``git archive``): K2 and K4's backward at every training shape
+     from ``git archive``): K1 and K1-hm at every BRANCH_SHAPES row at
+     b = 64 and 32, K1 on K3's rank-0 head range at hrformer_base's
+     branches (b = 32), K2 and K4's backward at every training shape
      of phases 3 and 7, K4's forward at every hrformer_base branch at
      b = 64 and 32, window 7 and 8, K5's forward at every branch at b = 64
      and 32 and its backward at b = 32 (window 7; all float32 and bf16),
      K6 at every hrnet_w32 3x3 shape of phase 11 (b = 32, float32 and
      bf16), the bf16 b = 32 steps of phases 6 and 9 (step ms, device ms,
-     peak memory) and one fused (IPE_FUSED_BLOCK=1) served bf16 batch of
-     32 with flip (batch ms, device ms, K4 launches), the parent's against
+     peak memory) and one fused (IPE_FUSED_BLOCK=1) and one unfused served
+     bf16 batch of 32 with flip (batch ms, device ms, K4 and K1
+     launches), the parent's against
      this checkout's, each in a fresh
      subprocess that imports its checkout's package and builds its
      kernels, in turns: parent, change, change, parent (``[parent]``
-     lines); the K2, K4 and K6 records take the parent's ms at the record
-     shape (b0 bf16; K4's forward at b = 64, K6 64x48 32->32) as
+     lines); the K1, K1-hm, K2, K4 and K6 records take the parent's ms at
+     the record shape (b0 bf16; K1, K1-hm and K4's forward at b = 64, K6
+     64x48 32->32) as
      ``parent_ms`` and this checkout's, timed the same way, as
      ``fresh_ms``, the K5 records the same at b3 bf16 b = 32, its worst
      branch (``parent_shape``; all null without ``--parent``).
@@ -361,10 +369,11 @@ def cuda_median_ms(fn, warmup: int = 3, runs: int = 25) -> float:
 
 def _kernel_name(name: str) -> str:
     """A profiler's kernel name without return type, namespace and
-    arguments: ``atb_kernel``, ``core_kernel<bf16>``."""
-    name = name.replace("(anonymous namespace)::", "")
-    name = name.removeprefix("void ").split("(")[0]
-    return name.replace("__nv_bfloat16", "bf16")
+    arguments: ``atb_kernel``, ``core_kernel<bf16>``,
+    ``window_msa_fwd_kernel<bf16, Layout 0>``."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    name = re.sub(r"\((\w+)\)(\d+)", r"\1 \2", name)  # (Layout)0
+    return name.split("(")[0].replace("__nv_bfloat16", "bf16")
 
 
 def launch_split(fn, runs: int = 7) -> list:
@@ -485,6 +494,9 @@ def _mangled_kernel(line: str) -> str:
     if band:  # K6's bf16 kernel: its tile, its copy width
         name += (f" <32x{band.group(1)} tile, {2 * int(band.group(2))}-byte "
                  f"copies>")
+    layout = re.search(r"window_msa_fwd_kernelI.*?6LayoutE(\d)E", line)
+    if layout:  # K1 (flat qkv) or K1-hm (head-major)
+        name += " <flat qkv>" if layout.group(1) == "0" else " <head-major>"
     targ = re.search(r"_kernelI(f|13__nv_bfloat16)", line)
     if targ:  # a template's element type
         name += " (float)" if targ.group(1) == "f" else " (bf16)"
@@ -514,6 +526,10 @@ def phase_k1() -> dict:
         for dt in (torch.float32, torch.bfloat16):
             qkv = qkv32.to(dt)
             out = window_msa.window_attention_qkv(qkv, bias, H)
+            # the last head alone (K3's head range): its columns of the
+            # whole launch bit for bit, zeros elsewhere
+            last = window_msa.window_attention_qkv(qkv, bias, H,
+                                                   heads=(H - 1, 1))
             torch.cuda.synchronize()
             ref = window_msa.window_attention_qkv_reference(qkv, bias, H)
             err = (out.float() - ref.float()).abs().max().item()
@@ -522,6 +538,9 @@ def phase_k1() -> dict:
             else:
                 torch.testing.assert_close(out.float(), ref.float(),
                                            atol=BF16_TOL, rtol=BF16_TOL)
+            cut = (H - 1) * hd
+            assert torch.equal(last[..., cut:], out[..., cut:]), label
+            assert not last[..., :cut].any(), label
             worst = max(worst, err)
             ms = cuda_median_ms(
                 lambda: window_msa.window_attention_qkv(qkv, bias, H))
@@ -542,12 +561,23 @@ def phase_k1() -> dict:
             log(f"[k1] {label:16s} nW={nW:5d} N={N} H={H:2d} hd={hd} "
                 f"{name:4s} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={b_ms:.4f} ({b_by})")
+                f"bound_ms={b_ms:.4f} ({b_by}); head {H - 1} alone bit for "
+                f"bit")
             if label == "base b0" and dt == torch.bfloat16:
                 record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bound_ms=b_ms, bound_by=b_by,
                               shape=f"nW={nW},N={N},H={H},hd={hd},bf16")
     record["max_abs_err"] = worst
+    # device time of one call by kernel at the training and served-pass
+    # batch (32 crops), b0 and b3
+    for label, w, N, H, hd in BRANCH_SHAPES:
+        if label in ("base b0", "base b3"):
+            nW = TRAIN_BATCH * w
+            qkv = torch.randn(nW, N, 3 * H * hd, device="cuda", generator=g,
+                              dtype=torch.bfloat16)
+            bias = torch.randn(H, N, N, device="cuda", generator=g)
+            log_split("k1-split", f"{label} nW={nW} bf16",
+                      lambda: window_msa.window_attention_qkv(qkv, bias, H))
     return record
 
 
@@ -1841,8 +1871,9 @@ def relayout_vs_flat() -> dict:
     the output back to (nW, N, C)) against K1 on the flat qkv at every
     BRANCH_SHAPES row at b = 64, float32 and bf16: the card's reading of
     the TPU finding that the relayout copies cost more than the fusion
-    saved (window_msa.py:232-235).  K1-hm's launches on this path are the
-    record's count."""
+    saved (window_msa.py:232-235).  The path equals K1 bit for bit (one
+    kernel, two stagings of the same operands).  K1-hm's launches on this
+    path are the record's count."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import window_msa
 
     def wm_path(qkv, bias, H):
@@ -1869,9 +1900,7 @@ def relayout_vs_flat() -> dict:
         flat = window_msa.window_attention_qkv(qkv, bias, H)
         torch.cuda.synchronize()
         same = torch.equal(out, flat)
-        tol = F32_ATOL if qkv.dtype == torch.float32 else BF16_TOL
-        torch.testing.assert_close(out.float(), flat.float(), atol=tol,
-                                   rtol=tol)
+        assert same, f"window-major path is not K1 bit for bit at {label}"
         nW, N, C3 = qkv.shape
         qh, kh, vh = (qkv.view(nW, N, 3, H, C3 // 3 // H)[:, :, i]
                       .permute(2, 0, 1, 3).contiguous() for i in range(3))
@@ -1903,11 +1932,12 @@ def k8_flops(variant: str, nW: int, N: int, H: int, hd: int) -> float:
 
 
 def phase_k8() -> dict:
-    """K8: every variant of the plan against its plain version, ``full`` at
-    one window per block bit for bit against K1; then the port's probe
-    ``main()`` at its default shape and at hrformer_base b0-b3 at b = 64
-    (launches counted over those runs: the probe captures its launches in
-    CUDA graphs, so a graph's replays add none), K1's phase shares, the
+    """K8: every variant of the plan against its plain version, ``full``
+    against K1 within BF16_TOL (K8's body is K1's first design, no longer
+    K1's code); then the port's probe ``main()`` at its default shape and
+    at hrformer_base b0-b3 at b = 64 (launches counted over those runs:
+    the probe captures its launches in CUDA graphs, so a graph's replays
+    add none), the phase shares of K8's body, the
     bound and the plain version's time of each variant, and each variant's
     device time per launch beside the probe's time."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
@@ -1945,11 +1975,15 @@ def phase_k8() -> dict:
             else:
                 torch.testing.assert_close(out.float(), ref.float(),
                                            atol=BF16_TOL, rtol=BF16_TOL)
-            if variant == "full" and wpb == 1:
-                assert torch.equal(out, k1), "full is not K1 bit for bit"
+            if variant == "full":
+                # K8's body is K1's first design, no longer K1's code: the
+                # two agree within the bf16 bound, not bit for bit
+                torch.testing.assert_close(out.float(), k1.float(),
+                                           atol=BF16_TOL, rtol=BF16_TOL)
             worst = max(worst, err)
+            vs_k1 = (out.float() - k1.float()).abs().max().item()
             log(f"[k8] {label:8s} {variant:8s} wpb={wpb} max_abs_err={err:.3e}"
-                + (f" bit-equal to K1: {torch.equal(out, k1)}"
+                + (f" vs K1 {vs_k1:.3e} (bit-equal: {torch.equal(out, k1)})"
                    if variant == "full" else ""))
     reset_launches()
     runs = []
@@ -1988,7 +2022,7 @@ def phase_k8() -> dict:
             f"{shares['staging']:.4f} ms, products {shares['products']:.4f}, "
             f"softmax {shares['softmax']:.4f}, full {f:.4f}, packslim "
             f"(G={G}) {ms.get(('packslim', G), float('nan')):.4f}; "
-            f"{sets} sets K1's time")
+            f"{sets} sets the time of K8's body (K1's first design)")
         log(f"[k8-bounds] {label:8s} " + " ".join(
             f"{v}={bounds[v]:.4f}/plain {plain[v]:.4f}"
             for v in ablate.VARIANTS))
@@ -2576,17 +2610,18 @@ def phase_grid_training(smi: str) -> dict:
 # -- phase 20 (with --parent): this checkout's backward kernels and steps
 # against the parent commit's, in turns ------------------------------------------
 
-def fused_serve_times(smi: str) -> dict:
-    """One fused (IPE_FUSED_BLOCK=1) served bf16 batch of 32 frames with
-    flip through hrformer_base: the median batch ms over 8 batches after 3
-    warm-up, the device ms of one batch (torch.profiler, two batches) and
-    its K4 forward launches."""
+def serve_times(smi: str, flag: str) -> dict:
+    """One served bf16 batch of 32 frames with flip through hrformer_base
+    under IPE_FUSED_BLOCK=flag ("1" fused, "0" unfused): the median batch
+    ms over 8 batches after 3 warm-up, the device ms of one batch
+    (torch.profiler, two batches) and its K4 and K1 launches."""
     from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
                                                               get_variant)
 
     inf = PoseInference(get_variant("hrformer_base"), device="cuda")
     frames, bboxes = make_requests(32, seed=2)
-    with fused_blocks("1"):
+    tag = "times-serve-" + ("fused" if flag == "1" else "unfused")
+    with fused_blocks(flag):
         for _ in range(3):
             inf.predict_batch(frames, bboxes)
         times = []
@@ -2596,11 +2631,12 @@ def fused_serve_times(smi: str) -> dict:
             times.append(time.perf_counter() - t0)
         reset_launches()
         inf.predict_batch(frames, bboxes)
-        k4 = launches()["k4"]
+        got = launches()
         batch_ms = float(np.median(times)) * 1e3
         prof = profile_steps(lambda: inf.predict_batch(frames, bboxes),
-                             batch_ms, tag="times-serve-fused", what="batch")
-    return dict(batch_ms=batch_ms, device_ms=prof["device_ms"], k4=k4)
+                             batch_ms, tag=tag, what="batch")
+    return dict(batch_ms=batch_ms, device_ms=prof["device_ms"], k4=got["k4"],
+                k1=got["k1"])
 
 
 def bwd_times(smi: str) -> dict:
@@ -2609,9 +2645,12 @@ def bwd_times(smi: str) -> dict:
     hrformer_base branch at b = 64 and 32, window 7 and 8, of K5's forward
     at every branch at b = 64 and 32 and of its backward at b = 32 (window
     7; all float32 and bf16), of K6 at every hrnet_w32 3x3 shape at b = 32
-    (float32 and bf16); the bf16 b = 32 steps of phases 6 (unfused) and 9
-    (fused): step ms, device ms, peak memory; and one fused served bf16
-    batch (``fused_serve_times``).  Runs whichever package ``sys.path``
+    (float32 and bf16); K1 and K1-hm at every BRANCH_SHAPES row at b = 64
+    and 32, and K1 on the head range of K3's rank 0 (b = 32, half the
+    windows and heads) at hrformer_base's branches (float32 and bf16); the
+    bf16 b = 32 steps of phases 6 (unfused) and 9 (fused): step ms, device
+    ms, peak memory; and one fused and one unfused served bf16 batch
+    (``serve_times``).  Runs whichever package ``sys.path``
     finds first, so that a parent commit's checkout can be timed by the
     same code."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
@@ -2619,6 +2658,30 @@ def bwd_times(smi: str) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(11)
     kernels = {}
+    for label, w, N, H, hd in BRANCH_SHAPES:
+        for B in (SERVE_BATCH, TRAIN_BATCH):
+            nW, C = B * w, H * hd
+            qkv32 = torch.randn(nW, N, 3 * C, device="cuda", generator=g)
+            bias = torch.randn(H, N, N, device="cuda", generator=g)
+            for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                qkv = qkv32.to(dt)
+                qh, kh, vh = (qkv.view(nW, N, 3, H, hd)[:, :, i]
+                              .permute(2, 0, 1, 3).contiguous()
+                              for i in range(3))
+                kernels[f"k1 {label} b={B} {name}"] = cuda_median_ms(
+                    lambda: window_msa.window_attention_qkv(qkv, bias, H))
+                kernels[f"k1hm {label} b={B} {name}"] = cuda_median_ms(
+                    lambda: window_msa.window_attention_hm(qh, kh, vh, bias))
+                if B == TRAIN_BATCH and label.count(" ") == 1 \
+                        and label.startswith("base"):
+                    # K3's forward on rank 0 of the 2 x 2 grid (phase 17):
+                    # half the batch, the first half of the heads
+                    half, hl = qkv[:nW // GRID[0]].contiguous(), H // GRID[1]
+                    kernels[f"k3fwd {label} {name}"] = cuda_median_ms(
+                        lambda: window_msa.window_attention_qkv(
+                            half, bias, H, (0, hl)))
+                del qkv, qh, kh, vh
+            del qkv32
     for label, w, N, H, hd in BRANCH_SHAPES:
         nW, C = TRAIN_BATCH * w, H * hd
         qkv32 = torch.randn(nW, N, 3 * C, device="cuda", generator=g)
@@ -2675,7 +2738,8 @@ def bwd_times(smi: str) -> dict:
             r = train_bf16(smi, hrformer_cfg(), f"times-{tag}", want)
         steps[tag] = {k: r[k] for k in ("step_ms", "device_ms", "peak_gib")}
         torch.cuda.empty_cache()
-    steps["serve_fused"] = fused_serve_times(smi)
+    steps["serve_fused"] = serve_times(smi, "1")
+    steps["serve_unfused"] = serve_times(smi, "0")
     return dict(kernels=kernels, steps=steps)
 
 
@@ -2695,9 +2759,9 @@ def phase_parent(parent: str) -> dict:
             log(proc.stdout[-4000:], proc.stderr[-4000:])
             raise RuntimeError(f"timing {root} failed ({proc.returncode})")
         lines = proc.stdout.strip().splitlines()
-        if profile:  # the served batch's device time by kernel
+        if profile:  # the served batches' device time by kernel
             for line in lines:
-                if "times-serve-fused" in line:
+                if "times-serve-" in line:
                     log(f"[parent] {side}: {line}")
         return json.loads(lines[-1])
 
@@ -2743,9 +2807,9 @@ def main(argv: list) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="DIR",
                         help="a checkout of the parent commit (git archive): "
-                        "phase 20 times its K2, K4, K5, K6, bf16 steps and "
-                        "fused served batch against this checkout's, in "
-                        "turns")
+                        "phase 20 times its K1, K1-hm, K2, K4, K5, K6, bf16 "
+                        "steps and served batches against this checkout's, "
+                        "in turns")
     parser.add_argument("--bwd-times", action="store_true",
                         help=argparse.SUPPRESS)  # phase 20's subprocess
     parser.add_argument("--package-root", help=argparse.SUPPRESS)
@@ -2840,10 +2904,13 @@ def main(argv: list) -> int:
              "fresh_ms", "parent_shape")
     # The redesigned kernels, from phase 20 of this call (null without
     # --parent): the parent commit's ms and this checkout's, both timed the
-    # same way in fresh processes (``ms`` is phase 3's, 7's or 11's, timed
-    # in this process), K2, K4 and K6 at the record shape, K5 at its worst
-    # branch (``parent_shape``).
-    for rec, key in ((k2, "k2 base b0 bf16"),
+    # same way in fresh processes (``ms`` is phase 2's, 3's, 7's, 11's or
+    # 14's, timed in this process), K1, K1-hm, K2, K4 and K6 at the record
+    # shape, K5 at its worst branch (``parent_shape``); K3's forward (K1 on
+    # rank 0's head range) as ``k1_parent_ms`` and ``k1_fresh_ms``.
+    for rec, key in ((k1, "k1 base b0 b=64 bf16"),
+                     (k1hm, "k1hm base b0 b=64 bf16"),
+                     (k2, "k2 base b0 bf16"),
                      (k45["attn_fwd"], "k4fwd base b0 b=64 bf16"),
                      (k45["attn_bwd"], "k4bwd base b0 bf16"),
                      (k6, "k6 64x48 32->32 bf16"),
@@ -2893,7 +2960,11 @@ def main(argv: list) -> int:
                     "grid_train_rank0": grid_train["launches"]}, k3),
              sources=[source + "window_msa.cu", source + "window_msa_bwd.cu"],
              allreduce_ms=k3["allreduce_ms"], k1_ms=k3["k1_ms"],
-             k2_ms=k3["k2_ms"]),
+             k2_ms=k3["k2_ms"],
+             k1_parent_ms=(parent["kernels"]["k3fwd base b0 bf16"]
+                           ["parent_ms"] if parent else None),
+             k1_fresh_ms=(parent["kernels"]["k3fwd base b0 bf16"]["ms"]
+                          if parent else None)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,8 @@
 
 namespace {
 
+using ipe::allow_smem;
+using ipe::kMaxSmem;
 using ipe::from_f32;
 using ipe::to_f32;
 using ipe::warp_sum;
@@ -38,7 +40,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;        // every fused kernel runs 256 threads: 8 warps
 constexpr int kBN = 64;              // columns of one output tile
 constexpr int kTN = 4;               // accumulators per thread and row pair
-constexpr int kMaxSmem = 232448;     // bytes of shared memory a block may opt in to
 constexpr float kLnEps = 1e-5f;
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr float kGeluC = 0.044715f;
@@ -249,14 +250,6 @@ __device__ void layernorm_bwd_rows(const T* x, const T* dy, const float* dln,
   }
 }
 
-// Opt a kernel in to `bytes` of dynamic shared memory (needed above 48 KB)
-// on the current device: before every launch, since the setting belongs to
-// the device's context.
-template <class K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
 
 // A float32 weight as the three bf16 term arrays of the tensor-core
 // products: out[t][r][c] (3 x R x width) is the bf16 rounding of what

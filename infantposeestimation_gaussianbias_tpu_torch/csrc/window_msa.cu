@@ -1,35 +1,58 @@
-// Fused window multi-head self-attention forward (W-MSA core) for Hopper.
+// K1 and K1-hm: fused window multi-head self-attention forward (W-MSA
+// core) for Hopper.
 //
-// Replaces the TPU kernel `window_attention_pallas_qkv` in
-// infantposeestimation_gaussianbias_tpu/ops/pallas/window_msa.py (bodies
-// `_attn_qkv_kernel` and `_attn_qkv_kernel_packed`; the packed variant is
-// an MXU-shaping device with the same result, so one kernel covers both).
+// K1 replaces the TPU kernel `window_attention_pallas_qkv` in
+// infantposeestimation_gaussianbias_tpu/ops/pallas/window_msa.py:222
+// (bodies `_attn_qkv_kernel` and `_attn_qkv_kernel_packed`; the packed
+// variant is an MXU-shaping device with the same result, so one kernel
+// covers both).  K1-hm replaces `window_attention_pallas_hm`
+// (window_msa.py:50, body `_attn_kernel`): the same maths on head-major
+// operands.
 //
 // Contract (ops/msa.py `window_attention` on the flat qkv layout):
 //   qkv  (nW, N, 3C) in T (float or bf16), columns [q heads | k heads | v heads];
 //        head h reads columns h*hd, C + h*hd and 2C + h*hd at row stride 3C.
-//   bias (H, N, N) float32, or null for no bias.
+//   bias (H, N, N) float32, or null for no bias (the same as zeros).
 //   out  (nW, N, C) in T; head h writes columns h*hd at row stride C.
 //   For each (window, head): out = softmax(hd^-0.5 * q k^T + bias[h]) v,
-//   all maths in float32, the output cast once to T (round to nearest even).
+//   float32 accumulation, the output cast once to T (round to nearest
+//   even).  K1-hm: q, k, v and out (H, nW, N, hd), read and written in
+//   place.
 //
 // What bounds it: one (window, head) pair does about 4*N^2*hd FLOPs
 // (0.37 MFLOP at N=49, hd=39) against about 4*N*hd*sizeof(T) bytes of
 // device traffic (~15 KB in bf16), some 25 FLOP/byte, far under the
-// ~295 FLOP/byte at which the H100's bf16 tensor cores become the limit.
-// The kernel is bandwidth-bound, so the design reads every qkv byte once,
-// keeps the N x N score tile in shared memory and never writes scores to
-// device memory.  The bias tile (H*N*N*4 bytes, at most 256 KB) is re-read
-// by every window from L2, where it stays resident.
-//
-// Design (a simple, correct first version):
-//   * one thread block per (window, head): grid (nW, H), 128 threads;
-//   * q (pre-scaled), k and v of that head loaded once into shared memory
-//     as float32, rows padded to an odd stride so that threads reading
-//     different rows of one column hit different banks;
-//   * scores: one thread per (i, j) entry, dot product over hd;
-//   * softmax: one warp per row, max and sum by warp shuffles;
-//   * p v: one thread per (i, d) output element, normalised by 1/rowsum.
+// ~295 FLOP/byte at which the H100's bf16 tensor cores become the limit:
+// device memory bounds it (0.0409 ms at hrformer_base b0, b = 64, bf16).
+// The first design (one block per (window, head), q, k, v as float32 in
+// shared memory, one thread per score and per output element on the CUDA
+// cores; its body survives in csrc/window_msa_body.cuh for K8) spent most
+// of its time in those products: shared-memory bandwidth set its pace,
+// at ~17x its bound.  Now:
+//   * the maths is the tensor-core forward core that K4's forward and
+//     the backward's recompute share (csrc/wmsa_core.cuh `attention_fwd`:
+//     bf16 `mma.sync` with float32 accumulation, S and the row softmax in
+//     registers, P fed back as the A operand of O = P v);
+//   * grid (chunks, H), 128 threads: block (c, h) walks the windows
+//     [c*wpb, (c+1)*wpb) of head h (wpb from the host plan,
+//     kernels/window_msa.py `fwd_plan`: about 4 blocks per SM, as K2),
+//     two stages deep: the next window's q, k, v rows stream into a
+//     staging buffer as whole 16-byte units (cp.async) while this window
+//     computes, and are converted into the core's operand tiles once it
+//     is done (csrc/wmsa_stage.cuh, K2's staging);
+//   * head h's (N, N) bias tile is staged in shared memory once per
+//     block, for all its windows;
+//   * O's element pairs go from the accumulators to device memory, cast
+//     once to T.
+// Numerics: bf16 q, k, v are one exact bf16 term; float32 ones two (S
+// keeps the term pairs i + j < 2), P two, and O = P v the pairs i + j < 2:
+// within 1e-4 of the plain version's float32 maths at every hrformer
+// shape (tests/test_torch_k1_core.py: one term is ~1e-2 off, a third
+// changes next to nothing, since P and v keep two).  Every sum of a
+// (window, head) runs in a fixed order and reads nothing of another
+// window or head, so the result does not depend on wpb, on the chunk or on
+// the head range (K3's shard equals K1 bit for bit), and K1-hm equals K1
+// bit for bit on the same q, k, v.
 // N <= 64 and hd <= 64 are runtime values (hd = 39 for HRFormer-Base is
 // ragged); the Python wrapper rejects anything larger.
 //
@@ -39,81 +62,166 @@
 // by h0*hd columns, bias by h0 N x N tiles).  The kernel's row strides stay
 // 3C and C of the full width, so it reads this rank's heads of the full
 // (nW, N, 3C) qkv in place and writes their columns of a full-width
-// (nW, N, C) output: no slice copy, and K1's instantiation is unchanged.
-//
-// The body lives in window_msa_body.cuh.  This file instantiates it twice:
-// K1 on the flat qkv layout, and K1-hm, which replaces
-// `window_attention_pallas_hm` (window_msa.py:50, body `_attn_kernel`):
-// the same maths on head-major (H, nW, N, hd) q, k, v, read in place, with
-// an (H, nW, N, hd) output.  Same grid, same bound.
+// (nW, N, C) output: no slice copy.
 
-#include "window_msa_body.cuh"
+#include <cstdint>
+
+#include "wmsa_stage.cuh"
 
 namespace {
 
-using ipe::wmsa::kMaxHd;
-using ipe::wmsa::kMaxN;
-using ipe::wmsa::kThreads;
-using ipe::wmsa::Layout;
-using ipe::wmsa::Phase;
-using ipe::wmsa::smem_bytes;
+using wcore::bf16;
+using wcore::kThreads;
 
+constexpr int kMaxN = wcore::kMaxN;
+constexpr int kMaxHd = wcore::kMaxHd;
+
+// Where a window's q, k, v rows of one head lie, and its output's.
+//   kFlatQkv:   `a` is the (nW, N, 3C) qkv (moved to the launch's first
+//               head), out (nW, N, C);
+//   kHeadMajor: `a`, `b`, `c` are q, k, v (H, nW, N, hd), out likewise.
+enum class Layout { kFlatQkv, kHeadMajor };
+
+// bf16 terms of the core's q, k, v operands (csrc/wmsa_core.cuh, Numerics).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_msa_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                      T* __restrict__ out, int N, int H, int hd, float scale) {
-  ipe::wmsa::attend<T, Layout::kFlatQkv, Phase::kFull, 1>(
-      qkv, nullptr, nullptr, bias, out, gridDim.x, N, H, hd, scale, nullptr);
+constexpr int kTerms = sizeof(T) == 2 ? 1 : 2;
+
+// zero row | operands: 3 x kTerms (N, operand_ld) bf16 tiles | staging: 3
+// (N, row_words) word tiles | bias (N, N) float32.  The zero row, the
+// operands and the staging are whole 16-byte units.
+template <typename T>
+__host__ __device__ __forceinline__ size_t zeroed_bytes(int N, int hd) {
+  return sizeof(bf16) * (wcore::kZeroRow + 3 * kTerms<T> * (size_t)N * wcore::operand_ld(hd));
 }
 
-// K1-hm: the same body on head-major (H, nW, N, hd) q, k, v.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_msa_hm_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const float* __restrict__ bias,
-                         T* __restrict__ out, int N, int H, int hd, float scale) {
-  ipe::wmsa::attend<T, Layout::kHeadMajor, Phase::kFull, 1>(
-      q, k, v, bias, out, gridDim.x, N, H, hd, scale, nullptr);
+__host__ __device__ __forceinline__ size_t stage_bytes(int N, int hd) {
+  return sizeof(uint32_t) * 3 * (size_t)N * wstage::row_words<T>(hd);
 }
 
-// Heads [h0, h0 + Hl) of H: grid (nW, Hl) at pointers moved by h0 heads.
 template <typename T>
-cudaError_t launch(const void* qkv, const float* bias, void* out, int nW, int N,
-                   int H, int h0, int Hl, int hd, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(N, hd, 1);
-  static bool opted_in = false;
-  cudaError_t err = ipe::wmsa::opt_in(window_msa_fwd_kernel<T>, smem,
-                                      smem_bytes(kMaxN, kMaxHd, 1), opted_in);
+__host__ __device__ __forceinline__ size_t smem_bytes(int N, int hd) {
+  return zeroed_bytes<T>(N, hd) + stage_bytes<T>(N, hd) + sizeof(float) * (size_t)N * N;
+}
+
+// Blocks per SM the registers are bounded for: 4 in bf16, whose shared
+// memory (~40 KB at hrformer_base b0) allows 5; 3 in float32 (~67 KB).
+template <typename T, Layout L>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 4 : 3)
+window_msa_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                      const T* __restrict__ c, const float* __restrict__ bias,
+                      T* __restrict__ out, int nW, int N, int C, int hd, float scale,
+                      int wpb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NI = kTerms<T>;
+  constexpr bool kFlat = L == Layout::kFlatQkv;
+  bf16* zrow = reinterpret_cast<bf16*>(smem);
+  bf16* opnd = zrow + wcore::kZeroRow;
+  const int ld = wcore::operand_ld(hd);
+  const int term = N * ld;
+  uint32_t* stage = reinterpret_cast<uint32_t*>(smem + zeroed_bytes<T>(N, hd));
+  float* bias_s = reinterpret_cast<float*>(smem + zeroed_bytes<T>(N, hd) + stage_bytes<T>(N, hd));
+
+  // C: the row width of the flat output, and a third of qkv's; h: the
+  // head of this block within the launch.
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5;
+
+  // Zeros: the zero row and the operands (their padding columns stay zero:
+  // windows write the columns < hd), and the bias tile without a bias.
+  {
+    uint4* z = reinterpret_cast<uint4*>(smem);
+    const int units = (int)(zeroed_bytes<T>(N, hd) / 16);
+    for (int i = tid; i < units; i += kThreads) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  if (bias)
+    wstage::issue_words(bias_s, bias + (size_t)h * N * N, N * N);  // with window 0's group
+  else
+    for (int i = tid; i < N * N; i += kThreads) bias_s[i] = 0.f;
+
+  // Window w's q, k and v tiles of head h in device memory, and its output.
+  auto tiles = [&](int w, wstage::Tile<T> (&t)[3]) {
+    if constexpr (kFlat) {
+#pragma unroll
+      for (int s = 0; s < 3; ++s)
+        t[s] = {a + (size_t)w * N * 3 * C + s * C + h * hd, 3 * (size_t)C};
+    } else {
+      const size_t at = ((size_t)h * nW + w) * N * hd;
+      t[0] = {a + at, (size_t)hd};
+      t[1] = {b + at, (size_t)hd};
+      t[2] = {c + at, (size_t)hd};
+    }
+  };
+  const int ldo = kFlat ? C : hd;
+  wstage::Tile<T> src[3];
+
+  const int w_begin = blockIdx.x * wpb;
+  const int w_end = min(nW, w_begin + wpb);
+  tiles(w_begin, src);
+  wstage::issue(src, stage, N, hd);
+  for (int w = w_begin; w < w_end; ++w) {
+    wstage::cp_async_wait_all();
+    __syncthreads();  // window w staged (the first time: the bias and the zeros too)
+    tiles(w, src);
+    wstage::convert<T, NI>(src, stage, opnd, N, hd, ld, term);
+    __syncthreads();  // the stage is free, the operands written
+    if (w + 1 < w_end) {  // in flight while this window computes
+      tiles(w + 1, src);
+      wstage::issue(src, stage, N, hd);
+    }
+    if (warp < (N + 15) / 16) {
+      auto operand = [&](int s) { return wcore::Operand{opnd + s * NI * term, ld, term}; };
+      T* o = kFlat ? out + (size_t)w * N * C + h * hd : out + ((size_t)h * nW + w) * N * hd;
+      float p[8][4];
+      wcore::attention_fwd<NI, true>(
+          operand(0), operand(1), operand(2), N, hd, scale,
+          [&](int i, int j) { return bias_s[i * N + j]; }, zrow, p,
+          [&](int i, int d, float x0, float x1, bool two) {
+            wcore::store_pair(o + (size_t)i * ldo + d, x0, x1, two);
+          });
+    }
+    // The next iteration's first barrier keeps its conversion off these
+    // operands until every warp has read them.
+  }
+}
+
+template <typename T, Layout L>
+cudaError_t launch(const T* a, const T* b, const T* c, const float* bias, T* out, int nW,
+                   int N, int C, int Hl, int hd, float scale, int wpb, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(N, hd);
+  if (smem > (size_t)ipe::kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = ipe::allow_smem(window_msa_fwd_kernel<T, L>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(nW, Hl);
+  const int chunks = (nW + wpb - 1) / wpb;
+  window_msa_fwd_kernel<T, L><<<dim3(chunks, Hl), kThreads, smem, stream>>>(
+      a, b, c, bias, out, nW, N, C, hd, scale, wpb);
+  return cudaGetLastError();
+}
+
+// K1: heads [h0, h0 + Hl) of H, at pointers moved by h0 heads.
+template <typename T>
+cudaError_t launch_flat(const void* qkv, const float* bias, void* out, int nW, int N, int H,
+                        int h0, int Hl, int hd, float scale, int wpb, cudaStream_t stream) {
+  const int C = H * hd;
   const size_t col = (size_t)h0 * hd;
-  window_msa_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv) + col,
-      bias ? bias + (size_t)h0 * N * N : nullptr, static_cast<T*>(out) + col,
-      N, H, hd, scale);
-  return cudaGetLastError();
+  const T* x = static_cast<const T*>(qkv);
+  return launch<T, Layout::kFlatQkv>(
+      x + col, nullptr, nullptr, bias ? bias + (size_t)h0 * N * N : nullptr,
+      static_cast<T*>(out) + col, nW, N, C, Hl, hd, scale, wpb, stream);
 }
 
 template <typename T>
-cudaError_t launch_hm(const void* q, const void* k, const void* v,
-                      const float* bias, void* out, int nW, int N, int H,
-                      int hd, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(N, hd, 1);
-  static bool opted_in = false;
-  cudaError_t err = ipe::wmsa::opt_in(window_msa_hm_fwd_kernel<T>, smem,
-                                      smem_bytes(kMaxN, kMaxHd, 1), opted_in);
-  if (err != cudaSuccess) return err;
-  dim3 grid(nW, H);
-  window_msa_hm_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), N, H, hd, scale);
-  return cudaGetLastError();
+cudaError_t launch_hm(const void* q, const void* k, const void* v, const float* bias,
+                      void* out, int nW, int N, int H, int hd, float scale, int wpb,
+                      cudaStream_t stream) {
+  return launch<T, Layout::kHeadMajor>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                       static_cast<const T*>(v), bias, static_cast<T*>(out), nW,
+                                       N, H * hd, H, hd, scale, wpb, stream);
 }
 
-bool bad_sizes(int nW, int N, int H, int hd) {
+bool bad_sizes(int nW, int N, int H, int hd, int wpb) {
   return nW <= 0 || N <= 0 || N > kMaxN || hd <= 0 || hd > kMaxHd || H <= 0 ||
-         H > 65535;
+         H > 65535 || wpb <= 0;
 }
 
 }  // namespace
@@ -123,18 +231,18 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  scale is hd^-0.5, rounded to float32 by
 // the caller as the plain version rounds it.  Computes heads [h0, h0 + Hl)
 // of the H in qkv (h0 = 0, Hl = H: all) and writes only their columns of
-// out.  Returns the launch's cudaError_t.
+// out.  wpb: windows per block.  Returns the launch's cudaError_t.
 int ipe_window_msa_fwd(const void* qkv, const void* bias, void* out, int nW, int N,
-                       int H, int h0, int Hl, int hd, float scale, int dtype,
+                       int H, int h0, int Hl, int hd, float scale, int wpb, int dtype,
                        void* stream) {
-  if (bad_sizes(nW, N, H, hd) || h0 < 0 || Hl <= 0 || h0 + Hl > H)
+  if (bad_sizes(nW, N, H, hd, wpb) || h0 < 0 || Hl <= 0 || h0 + Hl > H)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   if (dtype == 0)
-    return (int)launch<float>(qkv, b, out, nW, N, H, h0, Hl, hd, scale, st);
+    return (int)launch_flat<float>(qkv, b, out, nW, N, H, h0, Hl, hd, scale, wpb, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(qkv, b, out, nW, N, H, h0, Hl, hd, scale, st);
+    return (int)launch_flat<bf16>(qkv, b, out, nW, N, H, h0, Hl, hd, scale, wpb, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -142,14 +250,14 @@ int ipe_window_msa_fwd(const void* qkv, const void* bias, void* out, int nW, int
 // (null: no bias, the same as zeros).
 int ipe_window_msa_hm_fwd(const void* q, const void* k, const void* v,
                           const void* bias, void* out, int nW, int N, int H,
-                          int hd, float scale, int dtype, void* stream) {
-  if (bad_sizes(nW, N, H, hd)) return (int)cudaErrorInvalidValue;
+                          int hd, float scale, int wpb, int dtype, void* stream) {
+  if (bad_sizes(nW, N, H, hd, wpb)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   if (dtype == 0)
-    return (int)launch_hm<float>(q, k, v, b, out, nW, N, H, hd, scale, st);
+    return (int)launch_hm<float>(q, k, v, b, out, nW, N, H, hd, scale, wpb, st);
   if (dtype == 1)
-    return (int)launch_hm<__nv_bfloat16>(q, k, v, b, out, nW, N, H, hd, scale, st);
+    return (int)launch_hm<bf16>(q, k, v, b, out, nW, N, H, hd, scale, wpb, st);
   return (int)cudaErrorInvalidValue;
 }
 

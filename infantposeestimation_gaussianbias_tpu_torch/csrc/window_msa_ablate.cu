@@ -1,4 +1,4 @@
-// K8: in-kernel phase ablation of the W-MSA forward (K1) for Hopper.
+// K8: in-kernel phase ablation of a W-MSA forward body for Hopper.
 //
 // Replaces the TPU probe's kernels in
 // infantposeestimation_gaussianbias_tpu/tools/probe_wmsa_ablate.py
@@ -6,11 +6,13 @@
 // `_kernel_softonly`, `_kernel_packslim`, and K1's `_attn_qkv_kernel` as
 // `full`).  Each variant streams the same bf16 (nW, N, 3C) qkv through the
 // same grid and differs only in the body, so that time differences name
-// the phase that sets K1's time:
+// the phase that sets the body's time.  The body is K1's first, CUDA-core
+// design (csrc/window_msa_body.cuh), kept here after K1 moved to the
+// tensor cores:
 //   0 empty     staging only: q, k, v into shared memory, out = q;
 //   1 gemmonly  the two products, no bias, no softmax (p = 0.01 * s);
 //   2 softonly  the softmax on a broadcast score tile, no products;
-//   3 full      K1's body itself (bit for bit K1 at one window per block);
+//   3 full      the whole body (K1's maths; no longer K1's code);
 //   4 packslim  G windows stacked into G*N rows: all (G*N)^2 scores, the
 //               masked packed bias (-1e30 off the diagonal blocks), softmax,
 //               (G*N, G*N) x (G*N, hd) PV.
@@ -36,7 +38,6 @@ using ipe::to_f32;
 using ipe::wmsa::kMaxHd;
 using ipe::wmsa::kMaxN;
 using ipe::wmsa::kThreads;
-using ipe::wmsa::Layout;
 using ipe::wmsa::Phase;
 using bf16 = __nv_bfloat16;
 
@@ -48,8 +49,7 @@ __global__ void __launch_bounds__(kThreads)
 ablate_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
               bf16* __restrict__ out, int nW, int N, int H, int hd, float scale,
               float* sink) {
-  ipe::wmsa::attend<bf16, Layout::kFlatQkv, P, WPB>(
-      qkv, nullptr, nullptr, bias, out, nW, N, H, hd, scale, sink);
+  ipe::wmsa::attend<bf16, P, WPB>(qkv, bias, out, nW, N, H, hd, scale, sink);
 }
 
 size_t packslim_smem_bytes(int N, int hd, int wpb, int G) {
@@ -150,16 +150,13 @@ packslim_kernel(const bf16* __restrict__ qkv, const float* __restrict__ pbias,
 }
 
 // The most shared memory a block may opt in to on the current device
-// (232,448 bytes on the H100), asked once.
+// (232,448 bytes on the H100).
 int max_smem() {
-  static int most = -1;
-  if (most < 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev) != cudaSuccess)
-      most = 0;
-  }
+  int dev = 0, most = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return 0;
   return most;
 }
 
@@ -169,9 +166,7 @@ cudaError_t launch(const bf16* qkv, const float* bias, bf16* out, int nW,
                    cudaStream_t stream) {
   const size_t smem = ipe::wmsa::smem_bytes(N, hd, WPB);
   if (smem > (size_t)max_smem()) return cudaErrorInvalidValue;
-  static bool opted_in = false;
-  cudaError_t err = ipe::wmsa::opt_in(ablate_kernel<P, WPB>, smem,
-                                      (size_t)max_smem(), opted_in);
+  cudaError_t err = ipe::allow_smem(ablate_kernel<P, WPB>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((nW + WPB - 1) / WPB, H);
   ablate_kernel<P, WPB><<<grid, kThreads, smem, stream>>>(qkv, bias, out, nW, N,
@@ -198,9 +193,7 @@ cudaError_t launch_packslim(const bf16* qkv, const float* pbias, bf16* out,
   if (G < 1 || G > kMaxPack || wpb < G || wpb % G) return cudaErrorInvalidValue;
   const size_t smem = packslim_smem_bytes(N, hd, wpb, G);
   if (smem > (size_t)max_smem()) return cudaErrorInvalidValue;
-  static bool opted_in = false;
-  cudaError_t err =
-      ipe::wmsa::opt_in(packslim_kernel, smem, (size_t)max_smem(), opted_in);
+  cudaError_t err = ipe::allow_smem(packslim_kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((nW + wpb - 1) / wpb, H);
   packslim_kernel<<<grid, kThreads, smem, stream>>>(qkv, pbias, out, nW, N, H,

@@ -1,33 +1,32 @@
-// The body of the W-MSA forward (K1), shared by K1 (csrc/window_msa.cu), its
-// head-major twin K1-hm (same file) and the phase ablation K8
-// (csrc/window_msa_ablate.cu).
+// The CUDA-core body of the W-MSA forward that K8's phase ablation
+// (csrc/window_msa_ablate.cu) instantiates: K1's first design, kept
+// for K8 only.  K1 and K1-hm themselves now run on the tensor-core core
+// (csrc/window_msa.cu, csrc/wmsa_core.cuh), so K8's `full` variant is no
+// longer K1's code: it is this body, held against its plain version and
+// against K1 within the bf16 bound.
 //
-// `attend<T, Layout, P, WPB>` computes, for WPB consecutive windows of one
-// head, out = softmax(hd^-0.5 * q k^T + bias[h]) v in float32 and casts the
-// output once to T.  Two template axes:
-//   * Layout says where a (window, token, head) row of q, k, v and out lies:
-//     kFlatQkv reads the (nW, N, 3C) qkv projection, columns
-//     [q heads | k heads | v heads], and writes (nW, N, C); kHeadMajor reads
-//     separate (H, nW, N, hd) q, k, v and writes (H, nW, N, hd).  Both are
-//     read in place: no relayout copy.
-//   * Phase compiles phases of the body out (K8):
-//       kFull     K1 itself: stage (q pre-scaled), scores + bias, softmax, PV;
-//       kEmpty    stage q, k, v unscaled, write out = q;
-//       kGemmOnly stage (q pre-scaled), p = 0.01 * q k^T (no bias, no
-//                 softmax), out = p v;
-//       kSoftOnly stage unscaled, s_ij = q_i0 + bias[0]_ij (the probe adds
-//                 head 0's bias to every head), p = softmax(s),
-//                 out = q * sum_j p_ij: no products.
-//     kEmpty and kSoftOnly leave k and v (and most of q) unread after
-//     staging; nvcc would drop those loads, so their values go into a
-//     checksum written only when `sink` is not null (the host always passes
-//     null).  The loads stay; the output does not change.
+// `attend<T, P, WPB>` computes, for WPB consecutive windows of one head,
+// out = softmax(hd^-0.5 * q k^T + bias[h]) v in float32 and casts the
+// output once to T, reading the (nW, N, 3C) qkv projection in place
+// (columns [q heads | k heads | v heads]) and writing (nW, N, C).
+// Phase compiles phases of the body out:
+//   kFull     the whole body: stage (q pre-scaled), scores + bias, softmax,
+//             PV;
+//   kEmpty    stage q, k, v unscaled, write out = q;
+//   kGemmOnly stage (q pre-scaled), p = 0.01 * q k^T (no bias, no
+//             softmax), out = p v;
+//   kSoftOnly stage unscaled, s_ij = q_i0 + bias[0]_ij (the probe adds
+//             head 0's bias to every head), p = softmax(s),
+//             out = q * sum_j p_ij: no products.
+// kEmpty and kSoftOnly leave k and v (and most of q) unread after staging;
+// nvcc would drop those loads, so their values go into a checksum written
+// only when `sink` is not null (the host always passes null).  The loads
+// stay; the output does not change.
 // WPB windows per block share the block's 128 threads; a window past nW
 // is staged as zeros and its output dropped (the TPU pads nW to its block).
-// With kFlatQkv, WPB = 1 and kFull every statement reduces to K1's
-// (`if constexpr` and constant folding), so that K1's instantiation is the
-// code it was before this header existed (the same SASS, instruction for
-// instruction; PERF.md, Findings).
+// The design: q, k, v as float32 in odd-stride shared rows, one thread per
+// score (hd FMAs from shared memory), a warp per softmax row, one thread
+// per output element (N FMAs from shared memory).
 
 #pragma once
 
@@ -54,12 +53,6 @@ __host__ __forceinline__ size_t smem_bytes(int N, int hd, int wpb) {
   return sizeof(float) * smem_floats_per_window(N, hd) * wpb;
 }
 
-// Where a (window, token, head) row of q, k, v and out lies.
-//   kFlatQkv:   `a` is the (nW, N, 3C) qkv, head h at columns h*hd, C + h*hd
-//               and 2C + h*hd of a row; out (nW, N, C), head h at h*hd.
-//   kHeadMajor: `a`, `b`, `c` are q, k, v (H, nW, N, hd); out likewise.
-enum class Layout { kFlatQkv, kHeadMajor };
-
 // (local window, row, column) of flat index idx over WPB x rows x cols, and
 // the index within the window (idx itself when WPB = 1).
 template <int WPB>
@@ -76,18 +69,14 @@ __device__ __forceinline__ void split3(int idx, int rows, int cols, int& wl,
   c = idx - r * cols;
 }
 
-// One block: windows blockIdx.x * WPB .. + WPB - 1 of head blockIdx.y.  The
-// statements follow K1's original kernel one for one, so that the flat,
-// one-window, full instantiation compiles to K1's code.
-template <typename T, Layout LAYOUT, Phase P, int WPB>
+// One block: windows blockIdx.x * WPB .. + WPB - 1 of head blockIdx.y of
+// the (nW, N, 3C) qkv `a`.
+template <typename T, Phase P, int WPB>
 __device__ __forceinline__ void attend(const T* __restrict__ a,
-                                       const T* __restrict__ b,
-                                       const T* __restrict__ c,
                                        const float* __restrict__ bias,
                                        T* __restrict__ out, int nW, int N,
                                        int H, int hd, float scale,
                                        float* sink) {
-  constexpr bool kFlat = LAYOUT == Layout::kFlatQkv;
   constexpr bool kScaled = P == Phase::kFull || P == Phase::kGemmOnly;
   constexpr bool kKeepAlive = P == Phase::kEmpty || P == Phase::kSoftOnly;
   extern __shared__ float smem[];
@@ -107,9 +96,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ a,
 
   // Stage q/k/v of these windows; neighbouring threads read neighbouring
   // columns of one row.
-  const T* base = kFlat ? a + (size_t)w0 * N * 3 * C + h * hd
-                        : a + ((size_t)h * nW + w0) * N * hd;
-  const size_t hm_offset = ((size_t)h * nW + w0) * N * hd;
+  const T* base = a + (size_t)w0 * N * 3 * C + h * hd;
   for (int idx = tid; idx < WPB * N * hd; idx += kThreads) {
     int wl, n, d, rem;
     split3<WPB>(idx, N, hd, wl, n, d, rem);
@@ -118,24 +105,13 @@ __device__ __forceinline__ void attend(const T* __restrict__ a,
       q[r * ldq + d] = k[r * ldq + d] = v[r * ldq + d] = 0.f;
       continue;
     }
-    float qf, kf, vf;
-    if constexpr (kFlat) {
-      const T* row = base + (size_t)r * 3 * C + d;
-      qf = to_f32(row[0]);
-      q[r * ldq + d] = kScaled ? qf * scale : qf;
-      kf = to_f32(row[C]);
-      k[r * ldq + d] = kf;
-      vf = to_f32(row[2 * C]);
-      v[r * ldq + d] = vf;
-    } else {
-      const size_t at = hm_offset + (size_t)r * hd + d;
-      qf = to_f32(a[at]);
-      q[r * ldq + d] = kScaled ? qf * scale : qf;
-      kf = to_f32(b[at]);
-      k[r * ldq + d] = kf;
-      vf = to_f32(c[at]);
-      v[r * ldq + d] = vf;
-    }
+    const T* row = base + (size_t)r * 3 * C + d;
+    const float qf = to_f32(row[0]);
+    q[r * ldq + d] = kScaled ? qf * scale : qf;
+    const float kf = to_f32(row[C]);
+    k[r * ldq + d] = kf;
+    const float vf = to_f32(row[2 * C]);
+    v[r * ldq + d] = vf;
     if constexpr (kKeepAlive) check += qf + kf + vf;
   }
   if constexpr (kKeepAlive) {
@@ -202,8 +178,8 @@ __device__ __forceinline__ void attend(const T* __restrict__ a,
   // Output row i, column d; neighbouring threads write neighbouring columns
   // of one output row.  kFull: sum_j p_ij v_jd / rowsum; kGemmOnly:
   // sum_j p_ij v_jd; kSoftOnly: q_id * sum_j p_ij; kEmpty: q_id.
-  T* obase = kFlat ? out + (size_t)w0 * N * C + h * hd : out + hm_offset;
-  const int ldo = kFlat ? C : hd;
+  T* obase = out + (size_t)w0 * N * C + h * hd;
+  const int ldo = C;
   for (int idx = tid; idx < WPB * N * hd; idx += kThreads) {
     int wl, i, d, rem;
     split3<WPB>(idx, N, hd, wl, i, d, rem);
@@ -225,17 +201,6 @@ __device__ __forceinline__ void attend(const T* __restrict__ a,
       obase[(size_t)r * ldo + d] = from_f32<T>(q[r * ldq + d]);
     }
   }
-}
-
-// Above 48 KB a block may use dynamic shared memory only after opting in;
-// opt in once per kernel, for the most that kernel can ask for.
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem, size_t most, bool& done) {
-  if (smem <= 48 * 1024 || done) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
-  if (err == cudaSuccess) done = true;
-  return err;
 }
 
 }  // namespace wmsa

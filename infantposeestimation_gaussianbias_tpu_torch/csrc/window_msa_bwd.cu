@@ -35,9 +35,10 @@
 //     k, v and dO rows stream into a staging buffer with cp.async while
 //     this window computes on the operand tiles, and are converted into
 //     them (bf16 stays bf16; float32 becomes three bf16 terms) once it is
-//     done.  The copies are 4-byte words: a head's columns start at h*hd
-//     elements, only 2-byte aligned at hd = 39 (no 16-byte copies, no
-//     TMA); the conversion shifts a row that starts mid-word;
+//     done (csrc/wmsa_stage.cuh, which K1 shares).  A head's columns start
+//     at h*hd elements, only 2-byte aligned at hd = 39: a row is copied as
+//     the 16-byte units that hold it, and the conversion shifts it to its
+//     first element;
 //   * registers bounded for 4 blocks (16 warps) per SM in bf16, whose
 //     shared memory (~52 KB at b0) allows that many;
 //   * dbias: each thread adds dS of the block's windows at its own (i, j)
@@ -61,7 +62,7 @@
 
 #include <cstdint>
 
-#include "wmsa_core.cuh"
+#include "wmsa_stage.cuh"
 
 namespace {
 
@@ -72,17 +73,12 @@ using wcore::kThreads;
 constexpr int kReduceThreads = 256;
 constexpr int kMaxN = wcore::kMaxN;
 constexpr int kMaxHd = wcore::kMaxHd;
+using wstage::row_words;
 
 // bf16 terms of the core's operands: a bf16 input is exact in one, a float
 // one takes three (csrc/wmsa_core.cuh, Numerics).
 template <typename T>
 constexpr int kTerms = sizeof(T) == 2 ? 1 : 3;
-
-// 4-byte words of one staged row: a bf16 row may start mid-word.
-template <typename T>
-__host__ __device__ __forceinline__ int row_words(int hd) {
-  return sizeof(T) == 2 ? (hd + 2) / 2 : hd;
-}
 
 // exchange | zero row | operands: 4 x kTerms (N, operand_ld) bf16 tiles |
 // staging: 4 (N, row_words) word tiles.
@@ -97,49 +93,28 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int N, int hd) {
          sizeof(uint32_t) * 4 * (size_t)N * row_words<T>(hd);
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Element shift (0 or 1) of a row's first element within its 4-byte word.
-template <typename T>
-__device__ __forceinline__ int word_shift(const T* p) {
-  return sizeof(T) == 2 ? (int)((reinterpret_cast<uintptr_t>(p) >> 1) & 1) : 0;
-}
-
 // Blocks per SM the registers are bounded for: 4 fit the bf16 kernel's
 // shared memory, 2 the float one's.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 4 : 2)
 window_msa_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
                       const T* __restrict__ dout, T* __restrict__ dqkv,
-                      float* __restrict__ partial, const T* qkv_end, const T* dout_end,
-                      int nW, int N, int H, int C, int hd, float scale, int wpb) {
+                      float* __restrict__ partial, int nW, int N, int H, int C, int hd,
+                      float scale, int wpb) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int NI = kTerms<T>;
-  constexpr int kPer = 4 / sizeof(T);  // elements per word
   bf16* xch = reinterpret_cast<bf16*>(smem);
   bf16* zrow = reinterpret_cast<bf16*>(smem + wcore::exchange_bytes(N));
   bf16* opnd = reinterpret_cast<bf16*>(smem + operands_offset(N));
   const int ld = wcore::operand_ld(hd);
   const int term = N * ld;
   uint32_t* stage = reinterpret_cast<uint32_t*>(opnd + 4 * NI * term);
-  const int lw = row_words<T>(hd);
 
   // H: the heads of this launch (gridDim.y); C: the row width of dout, and
   // a third of qkv's and dqkv's.
   const int chunk = blockIdx.x;
   const int h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const float* bias_h = bias + (size_t)h * N * N;
 
   // Zeros: the zero row and the operands' padding columns (windows write
@@ -147,66 +122,14 @@ window_msa_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   for (int i = tid; i < wcore::kZeroRow + 4 * NI * term; i += kThreads)
     zrow[i] = __float2bfloat16(0.f);  // the operands follow the zero row
 
-  // Tile s (0 q, 1 k, 2 v, 3 dO) of window w: its head's first element of
-  // row 0 in device memory; rows are row_stride(s) elements apart.
-  auto tile_ptr = [&](int w, int s) -> const T* {
-    return s < 3 ? qkv + (size_t)w * N * 3 * C + s * C + h * hd
-                 : dout + (size_t)w * N * C + h * hd;
-  };
-  auto row_stride = [&](int s) -> size_t { return s < 3 ? 3 * (size_t)C : C; };
-  // Stage window w's four tiles: cp.async of 4-byte words, warp per row,
-  // lane per word; a word that would reach past a tensor's end (a bf16
-  // row ending there on a word's lower half) is copied by hand.
-  auto issue = [&](int w) {
+  // Window w's four tiles (0 q, 1 k, 2 v, 3 dO) of head h in device memory.
+  auto tiles = [&](int w, wstage::Tile<T> (&t)[4]) {
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const T* base = tile_ptr(w, s);
-      const T* end = s < 3 ? qkv_end : dout_end;
-      for (int r = warp; r < N; r += wcore::kWarps) {
-        const T* e = base + r * row_stride(s);
-        const int words = (word_shift(e) + hd + kPer - 1) / kPer;
-        const uint32_t* src = reinterpret_cast<const uint32_t*>(
-            reinterpret_cast<uintptr_t>(e) & ~static_cast<uintptr_t>(3));
-        uint32_t* dst = stage + (s * N + r) * lw;
-        for (int i = lane; i < words; i += 32) {
-          if (reinterpret_cast<const char*>(src + i + 1) <= reinterpret_cast<const char*>(end))
-            cp_async4(dst + i, src + i);
-          else
-            dst[i] = *reinterpret_cast<const unsigned short*>(src + i);
-        }
-      }
-    }
-    cp_async_commit();
+    for (int s = 0; s < 3; ++s)
+      t[s] = {qkv + (size_t)w * N * 3 * C + s * C + h * hd, 3 * (size_t)C};
+    t[3] = {dout + (size_t)w * N * C + h * hd, (size_t)C};
   };
-  // The staged rows of window w as the operands' bf16 terms, a pair of
-  // columns (one 4-byte word of each term tile) per lane.
-  auto convert = [&](int w) {
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const T* base = tile_ptr(w, s);
-      for (int r = warp; r < N; r += wcore::kWarps) {
-        const uint32_t* raw = stage + (s * N + r) * lw;
-        uint32_t* dst = reinterpret_cast<uint32_t*>(opnd + s * NI * term + r * ld);
-        for (int c2 = lane; 2 * c2 < hd; c2 += 32) {
-          if constexpr (NI == 1) {
-            // bf16: element d at raw element shift + d
-            const int sh = word_shift(base + r * row_stride(s));
-            const int words = (sh + hd + 1) / 2;
-            uint32_t x = raw[c2];
-            if (sh) x = __byte_perm(x, c2 + 1 < words ? raw[c2 + 1] : 0u, 0x5432);
-            if (2 * c2 + 1 >= hd) x &= 0xffffu;
-            dst[c2] = x;
-          } else {
-            const float* f = reinterpret_cast<const float*>(raw);
-            uint32_t u[NI];
-            wcore::split<NI>(f[2 * c2], 2 * c2 + 1 < hd ? f[2 * c2 + 1] : 0.f, u);
-#pragma unroll
-            for (int i = 0; i < NI; ++i) dst[i * (term / 2) + c2] = u[i];
-          }
-        }
-      }
-    }
-  };
+  wstage::Tile<T> src[4];
 
   float dbias[8][4];
 #pragma unroll
@@ -216,13 +139,18 @@ window_msa_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
 
   const int w_begin = chunk * wpb;
   const int w_end = min(nW, w_begin + wpb);
-  issue(w_begin);
+  tiles(w_begin, src);
+  wstage::issue(src, stage, N, hd);
   for (int w = w_begin; w < w_end; ++w) {
-    cp_async_wait_all();
+    wstage::cp_async_wait_all();
     __syncthreads();  // window w staged (and, the first time, the zeros)
-    convert(w);
+    tiles(w, src);
+    wstage::convert<T, NI>(src, stage, opnd, N, hd, ld, term);
     __syncthreads();  // the stage is free, the operands written
-    if (w + 1 < w_end) issue(w + 1);  // in flight while this window computes
+    if (w + 1 < w_end) {  // in flight while this window computes
+      tiles(w + 1, src);
+      wstage::issue(src, stage, N, hd);
+    }
 
     auto operand = [&](int s) { return wcore::Operand{opnd + s * NI * term, ld, term}; };
     T* obase = dqkv + (size_t)w * N * 3 * C + h * hd;
@@ -256,16 +184,8 @@ cudaError_t launch(const void* qkv, const float* bias, const void* dout, void* d
                    float* dbias, float* partial, int nW, int N, int H, int h0,
                    int Hl, int hd, float scale, int wpb, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(N, hd);
-  // Above 48 KB a block may use dynamic shared memory only after opting in;
-  // set the attribute once per instantiation, for the largest shape.
-  static bool opted_in = false;
-  if (smem > 48 * 1024 && !opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(window_msa_bwd_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem_bytes<T>(kMaxN, kMaxHd));
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
+  cudaError_t err = ipe::allow_smem(window_msa_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
   const int chunks = (nW + wpb - 1) / wpb;
   const size_t col = (size_t)h0 * hd;
   const size_t tile = (size_t)h0 * N * N;
@@ -273,9 +193,9 @@ cudaError_t launch(const void* qkv, const float* bias, const void* dout, void* d
   const T* q = static_cast<const T*>(qkv);
   const T* g = static_cast<const T*>(dout);
   window_msa_bwd_kernel<T><<<dim3(chunks, Hl), kThreads, smem, stream>>>(
-      q + col, bias + tile, g + col, static_cast<T*>(dqkv) + col, partial,
-      q + (size_t)nW * N * 3 * C, g + (size_t)nW * N * C, nW, N, Hl, C, hd, scale, wpb);
-  cudaError_t err = cudaGetLastError();
+      q + col, bias + tile, g + col, static_cast<T*>(dqkv) + col, partial, nW, N, Hl, C, hd,
+      scale, wpb);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int entries = Hl * N * N;
   dbias_reduce_kernel<<<(entries + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0,

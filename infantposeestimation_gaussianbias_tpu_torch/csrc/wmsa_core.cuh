@@ -1,14 +1,17 @@
 // The W-MSA attention of one (window, head) on the tensor cores: the
-// forward (`attention_fwd`: S, the row softmax, O = P v), shared by K4's
-// forward (csrc/fused_attn.cu, which replaces `_attn_half_fwd_kernel` of
-// infantposeestimation_gaussianbias_tpu/ops/pallas/fused_block.py:511) and
-// by the backward's recompute, and the backward (`attention_bwd`), shared
-// by K2 (csrc/window_msa_bwd.cu, which replaces `_qkv_vjp_bwd` of
+// forward (`attention_fwd`: S, the row softmax, O = P v), shared by K1 and
+// K1-hm (csrc/window_msa.cu, which replace `window_attention_pallas_qkv`
+// and `window_attention_pallas_hm` of
+// infantposeestimation_gaussianbias_tpu/ops/pallas/window_msa.py:222 and
+// :50), by K4's forward (csrc/fused_attn.cu, which replaces
+// `_attn_half_fwd_kernel` of ops/pallas/fused_block.py:511) and by the
+// backward's recompute, and the backward (`attention_bwd`), shared by K2
+// (csrc/window_msa_bwd.cu, which replaces `_qkv_vjp_bwd` of
 // ops/pallas/window_msa.py:422) and by K4's backward (`_attn_half_bwd` of
 // fused_block.py:590).  The forward's bf16(o) and the backward's
 // recomputed one come from the same code, bit for bit.  A caller stages
 // its q, k, v (and dO) as the operand tiles below; only that staging
-// differs between callers (K1's flat qkv layout can call it the same way).
+// differs between callers (K1, K1-hm and K2 through csrc/wmsa_stage.cuh).
 //
 // Contract, for N <= 64 tokens and a head dim hd <= 64, with q, k, v and dO
 // (N, hd) operands in shared memory and scale = hd^-0.5:
@@ -41,13 +44,13 @@
 // the term pairs (i, j) with i + j < L.  Inputs exact in bf16 (K2's q, k,
 // v, dO in a bf16 model) take one term.  K2's float32 inputs take three
 // (S and dP keep 6 pairs, L = 3: S to ~2^-24, so dbias, summed over
-// thousands of windows, holds 1e-4); K4's float32 q, k, v, dO (forward and
-// backward) take two (3 pairs).  P and dS take two terms (2^-17 relative)
-// and their products L = 2: three pairs.  The softmax takes __expf
-// (relative error ~2^-21) and one reciprocal per row.
-// tests/test_torch_wmsa_bwd_core.py and tests/test_torch_wmsa_fwd_core.py
-// hold the emulations of these products (kernels/window_msa.py) against
-// the plain versions' float32 maths.
+// thousands of windows, holds 1e-4); K1's and K4's float32 q, k, v (and
+// K4's dO, forward and backward) take two (3 pairs).  P and dS take two
+// terms (2^-17 relative) and their products L = 2: three pairs.  The
+// softmax takes __expf (relative error ~2^-21) and one reciprocal per row.
+// tests/test_torch_wmsa_bwd_core.py, tests/test_torch_wmsa_fwd_core.py and
+// tests/test_torch_k1_core.py hold the emulations of these products
+// (kernels/window_msa.py) against the plain versions' float32 maths.
 //
 // Layout: a block of kThreads = 128 threads (4 warps) runs the core on one
 // (window, head) at a time, warp w on rows 16 w ..; the caller

@@ -117,10 +117,10 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ipe_window_msa_fwd.argtypes = [p, p, p] + [i] * 6 + [
-            ctypes.c_float, i, p]
+            ctypes.c_float, i, i, p]
         lib.ipe_window_msa_fwd.restype = i
         lib.ipe_window_msa_hm_fwd.argtypes = [p] * 5 + [i] * 4 + [
-            ctypes.c_float, i, p]
+            ctypes.c_float, i, i, p]
         lib.ipe_window_msa_hm_fwd.restype = i
         lib.ipe_window_msa_ablate.argtypes = [i, p, p, p, i, i, i, i,
                                               ctypes.c_float, i, i, p, p]

@@ -9,11 +9,16 @@ and ``window_attention_qkv_bwd`` run the CUDA kernels of
 card and the plain PyTorch versions ``*_reference`` for tensors on the
 CPU; on any other device, or for a CUDA tensor the kernel does not take,
 they raise.  ``window_attention`` joins the two in a
-``torch.autograd.Function``: K1 forward, K2 backward.  K2's attention
-maths is the tensor-core core of ``csrc/wmsa_core.cuh``, which K4's
-forward and backward share; ``attention_fwd_core_emulation`` and
-``attention_bwd_core_emulation`` repeat its split-bf16 products in plain
-PyTorch for the tests (no model path runs them).
+``torch.autograd.Function``: K1 forward, K2 backward.  K1's and K2's
+attention maths is the tensor-core core of ``csrc/wmsa_core.cuh``, which
+K4's forward and backward share, on operands staged per (chunk of
+windows, head) by ``csrc/wmsa_stage.cuh``; ``fwd_plan`` and
+``bwd_windows_per_block`` size their chunks.
+``attention_fwd_core_emulation`` and ``attention_bwd_core_emulation``
+repeat the core's split-bf16 products in plain PyTorch, and
+``window_attention_qkv_emulation`` and ``window_attention_hm_emulation``
+K1's and K1-hm's walk over their grids, for the tests (no model path runs
+them).
 
 Contract, as ops/msa.py ``window_attention`` on the flat layout:
   qkv  (nW, N, 3C), columns [q heads | k heads | v heads], float32 or bf16;
@@ -23,10 +28,11 @@ Contract, as ops/msa.py ``window_attention`` on the flat layout:
   maths in float32.
 
 K1-hm, ``window_attention_hm``, ports ``window_attention_pallas_hm``
-(window_msa.py:50-91): K1's body (``csrc/window_msa_body.cuh``) on
-head-major q, k, v (H, nW, N, hd), read in place, out (H, nW, N, hd) in
-v's dtype; bias None is zeros.  ``window_attention_wm`` ports the
-window-major wrapper ``window_attention_pallas`` (:94-106): relayouts to
+(window_msa.py:50-91): K1's kernel with head-major staging, q, k, v (H,
+nW, N, hd) read in place, out (H, nW, N, hd) in v's dtype; bias None is
+zeros.  It equals K1 bit for bit on the same q, k, v.
+``window_attention_wm`` ports the window-major wrapper
+``window_attention_pallas`` (:94-106): relayouts to
 head-major, K1-hm, and a transpose back, as the JAX wrapper does.  The
 TPU tiling knob ``block_windows`` has no counterpart.  No model path
 runs K1-hm.
@@ -162,6 +168,10 @@ CORE_TILE = 16
 K2_CORE_TERMS = {torch.bfloat16: 1, torch.float32: 3}
 K4_CORE_TERMS = 2
 PS_TERMS = 2
+# K1's and K1-hm's q, k, v by dtype: two terms of a float32 hold F32_ATOL
+# (one does not; a third changes next to nothing, since P and v keep two:
+# tests/test_torch_k1_core.py).
+K1_CORE_TERMS = {torch.bfloat16: 1, torch.float32: 2}
 
 
 def core_padding(N: int, hd: int) -> Tuple[int, int]:
@@ -262,6 +272,56 @@ def attention_bwd_core_emulation(q: torch.Tensor, k: torch.Tensor,
             None if o is None else crop(o))
 
 
+def window_attention_qkv_emulation(qkv: torch.Tensor,
+                                   bias: Optional[torch.Tensor],
+                                   num_heads: int, wpb: int,
+                                   heads: Heads = None) -> torch.Tensor:
+    """K1 as its kernel computes it, in plain PyTorch on the CPU: block
+    (chunk c, head h) takes windows [c wpb, (c + 1) wpb) of head h through
+    the forward core's split-bf16 arithmetic
+    (``attention_fwd_core_emulation``, q, k, v in K1_CORE_TERMS[dtype]
+    terms; no bias is a zero tile) and writes the head's columns, cast once
+    to qkv's dtype.  ``heads=(h0, Hl)``: those heads only, into a
+    zero-filled output, as K1's head range.  For the tests only: no model
+    path runs it."""
+    nW, N, C3 = qkv.shape
+    C = C3 // 3
+    hd = C // num_heads
+    h0, hl = (0, num_heads) if heads is None else heads
+    terms = K1_CORE_TERMS[qkv.dtype]
+    out = torch.zeros(nW, N, C, dtype=qkv.dtype)
+    for c0 in range(0, nW, wpb):
+        rows = qkv[c0:c0 + wpb].float()
+        for h in range(h0, h0 + hl):
+            q, k, v = (rows[..., t * C + h * hd:t * C + (h + 1) * hd]
+                       for t in range(3))
+            o = attention_fwd_core_emulation(
+                q, k, v, torch.zeros(N, N) if bias is None else bias[h],
+                terms)
+            out[c0:c0 + wpb, :, h * hd:(h + 1) * hd] = o.to(qkv.dtype)
+    return out
+
+
+def window_attention_hm_emulation(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  bias: Optional[torch.Tensor],
+                                  wpb: int) -> torch.Tensor:
+    """K1-hm as its kernel computes it (``window_attention_qkv_emulation``
+    on head-major (H, nW, N, hd) q, k, v; out likewise).  For the tests
+    only: no model path runs it."""
+    H, nW, N, hd = q.shape
+    terms = K1_CORE_TERMS[q.dtype]
+    out = torch.empty_like(v)
+    for h in range(H):
+        for c0 in range(0, nW, wpb):
+            w = slice(c0, c0 + wpb)
+            o = attention_fwd_core_emulation(
+                q[h, w].float(), k[h, w].float(), v[h, w].float(),
+                torch.zeros(N, N) if bias is None else bias[h], terms)
+            out[h, w] = o.to(v.dtype)
+    return out
+
+
 def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int,
            heads: Heads = None) -> tuple[int, int, int, int, int, int]:
     """(nW, N, hd, dtype code, h0, Hl) of a valid K1/K2 call; raises
@@ -293,6 +353,12 @@ def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int,
     return nW, N, hd, _DTYPE_CODES[qkv.dtype], h0, hl
 
 
+def _fwd_wpb(nW: int, N: int, hd: int, heads: int, x: torch.Tensor) -> int:
+    """K1's windows per block for ``heads`` heads on x's card."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return fwd_plan(nW, N, hd, heads, x.dtype, sms)["wpb"]
+
+
 def window_attention_qkv(qkv: torch.Tensor, bias: Optional[torch.Tensor],
                          num_heads: int, heads: Heads = None) -> torch.Tensor:
     """K1, fused W-MSA: (nW, N, 3C) qkv -> (nW, N, C), see the module doc.
@@ -306,13 +372,14 @@ def window_attention_qkv(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     out = (torch.empty(shape, dtype=qkv.dtype, device=qkv.device)
            if heads is None else
            torch.zeros(shape, dtype=qkv.dtype, device=qkv.device))
+    wpb = _fwd_wpb(nW, N, hd, hl, qkv)
     lib = build.load()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ipe_window_msa_fwd(
             qkv.data_ptr(), None if bias is None else bias.data_ptr(),
             out.data_ptr(), nW, N, num_heads, h0, hl, hd, float(hd ** -0.5),
-            code, stream)
+            wpb, code, stream)
     build.check(lib, err, "window_msa_fwd launch")
     LAUNCHES += 1
     SHARDED_LAUNCHES += heads is not None
@@ -369,13 +436,14 @@ def window_attention_hm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return window_attention_hm_reference(q, k, v, bias)
     H, nW, N, hd = _check_hm(q, k, v, bias)
     out = torch.empty_like(v)
+    wpb = _fwd_wpb(nW, N, hd, H, q)
     lib = build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ipe_window_msa_hm_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), nW, N,
-            H, hd, float(hd ** -0.5), _DTYPE_CODES[q.dtype], stream)
+            H, hd, float(hd ** -0.5), wpb, _DTYPE_CODES[q.dtype], stream)
     build.check(lib, err, "window_msa_hm_fwd launch")
     HM_LAUNCHES += 1
     return out
@@ -388,6 +456,41 @@ def window_attention_wm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window_attention_pallas`` does."""
     qa, ka, va = (x.transpose(0, 1).contiguous() for x in (q, k, v))
     return window_attention_hm(qa, ka, va, bias).transpose(0, 1)
+
+
+# Bytes of shared memory a block may opt in to on the H100 (csrc/
+# ipe_common.cuh kMaxSmem), and the bytes of one SM that its resident
+# blocks share (1 KB of each block's is the system's).
+MAX_SMEM = 232448
+SM_SMEM = 233472
+# Blocks per SM that K1's registers are bounded for, by dtype
+# (``__launch_bounds__`` in csrc/window_msa.cu).
+_FWD_REG_BLOCKS = {torch.bfloat16: 4, torch.float32: 3}
+
+
+def fwd_smem_bytes(N: int, hd: int, dtype: torch.dtype) -> int:
+    """Shared memory of one K1 (or K1-hm) block, as csrc/window_msa.cu
+    reckons it: the zero row, q, k and v as K1_CORE_TERMS bf16 term tiles
+    of (N, pad16(hd) + 8), the staging of q, k and v rows as the 16-byte
+    units a row of hd elements can touch, and the (N, N) float32 bias
+    tile."""
+    terms = K1_CORE_TERMS[dtype]
+    ld = core_padding(N, hd)[1] + 8
+    units = 1 + ((hd - 1) * torch.finfo(dtype).bits // 8 + 15) // 16
+    return 2 * (72 + 3 * terms * N * ld) + 16 * 3 * N * units + 4 * N * N
+
+
+def fwd_plan(nW: int, N: int, hd: int, num_heads: int, dtype: torch.dtype,
+             sm_count: int) -> dict:
+    """K1's grid for ``num_heads`` heads of nW windows: ``wpb`` windows per
+    block as K2's (``bwd_windows_per_block``: about four blocks per SM),
+    ``chunks`` of them per head, each block's ``smem`` and the
+    ``blocks_per_sm`` that registers and shared memory allow."""
+    wpb = bwd_windows_per_block(nW, num_heads, sm_count)
+    smem = fwd_smem_bytes(N, hd, dtype)
+    return dict(wpb=wpb, chunks=-(-nW // wpb), smem=smem,
+                blocks_per_sm=min(_FWD_REG_BLOCKS[dtype],
+                                  SM_SMEM // (smem + 1024)))
 
 
 def bwd_windows_per_block(nW: int, num_heads: int, sm_count: int) -> int:

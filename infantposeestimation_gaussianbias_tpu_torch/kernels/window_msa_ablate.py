@@ -1,9 +1,10 @@
-"""K8: the phase ablation of K1, the W-MSA forward.
+"""K8: the phase ablation of a W-MSA forward body.
 
 Ports the kernels of the TPU probe
 ``infantposeestimation_gaussianbias_tpu/tools/probe_wmsa_ablate.py``
 (``run_variant``'s pallas_call, :143-175).  ``window_attention_ablate``
-runs one variant of K1's body (``csrc/window_msa_ablate.cu``) on a bf16
+runs one variant of the body (``csrc/window_msa_ablate.cu``; K1's first,
+CUDA-core design, ``csrc/window_msa_body.cuh``) on a bf16
 (nW, N, 3C) qkv tensor and returns (nW, N, C) bf16; on the CPU it takes
 the variant's plain PyTorch version, ``ablate_reference``.  The variants
 and their maths, the probe's exactly:
@@ -13,7 +14,8 @@ and their maths, the probe's exactly:
   softonly  s = the unscaled q[..., 0] broadcast over the N keys + bias[0]
             (the probe adds head 0's bias to every head), p = softmax(s),
             o = q * sum_j p;
-  full      K1 (at one window per block, K1 bit for bit);
+  full      the whole body: K1's maths, no longer K1's code (K1 runs on
+            the tensor cores), so it agrees with K1 within the bf16 bound;
   packslim  G = ``pack_factor(H, C, N)`` windows stacked into G*N rows:
             all (G*N)^2 scores + the packed bias, softmax, then PV.  It
             takes ``packed_bias(bias, G)`` (H, G*N, G*N), -1e30 off the
@@ -164,7 +166,7 @@ def _check(variant: str, qkv: torch.Tensor, bias: torch.Tensor,
 def window_attention_ablate(variant: str, qkv: torch.Tensor,
                             bias: torch.Tensor, num_heads: int,
                             windows_per_block: int = 1) -> torch.Tensor:
-    """K8: one variant of K1's body on bf16 (nW, N, 3C) qkv and float32
+    """K8: one variant of the body on bf16 (nW, N, 3C) qkv and float32
     (H, N, N) bias (packslim: the packed bias) -> (nW, N, C) bf16, see the
     module doc."""
     global ABLATE_LAUNCHES

@@ -1,15 +1,16 @@
-"""In-kernel phase ablation of the W-MSA forward K1 on the card (K8).
+"""In-kernel phase ablation of a W-MSA forward body on the card (K8).
 
     python -m infantposeestimation_gaussianbias_tpu_torch.tools.probe_wmsa_ablate
 
 Port of infantposeestimation_gaussianbias_tpu/tools/probe_wmsa_ablate.py.
 The variants (kernels/window_msa_ablate.py) stream the same bf16
-(nW, N, 3C) qkv through the same grid and differ only in the body:
+(nW, N, 3C) qkv through the same grid and differ only in the body, K1's
+first (CUDA-core) design, which K1 itself no longer runs:
 
   empty    staging only: q, k, v into shared memory, out = q;
   gemmonly the two products, no bias and no softmax;
   softonly the softmax on a broadcast score tile, no products;
-  full     K1 itself;
+  full     the whole body (K1's maths, not K1's tensor-core code);
   packslim G windows stacked into G*N rows: all (G*N)^2 scores, the masked
            packed bias, softmax, PV.
 
