@@ -64,10 +64,14 @@ Phases, in order; any failure exits non-zero:
      K5 forward and backward per step, no K1 or K2, a falling loss, step
      time, images/s, peak memory and the profile by kernel; one bf16 step
      at window 8, 44 launches of each, finite terms;
- 10. K7 (CUDA fused residual chain) against its plain version at every
-     hrnet_w32 branch shape at the served batch 32, float32 (TF32 off) and
+ 10. K7 (CUDA fused residual chain; bf16 weights on the halo-staged
+     tensor-core conv) against its plain version at every hrnet_w32 and
+     hrnet_w48 branch shape at the served batch 32, float32 (TF32 off) and
      bf16; kernel, plain and stock-chain (four eval BasicBlocks: cuDNN
-     convs and BatchNorm) times and the bound;
+     convs and BatchNorm) times, the bound and the bf16 plan; at hrnet_w32's
+     branches in bf16 a ``[k7-split]`` line (the chain's launches and
+     device ms per call) and the stock chain's device ms; every branch
+     also at b = 1 and 2 in bf16 (the plan's input-channel parts);
  11. K6 (CUDA 3x3 weight gradient) against its plain version at every
      stride-1 3x3 conv shape of hrnet_w32 + fusion (found with hooks) at
      b=32, float32 and bf16; kernel, plain and cuDNN
@@ -93,12 +97,12 @@ Phases, in order; any failure exits non-zero:
      and bf16; kernel, plain, SDPA (batch H, mask bias[h]) ms and bound;
      then the window-major entry point (relayout copies + K1-hm) fed from
      the flat qkv equal to K1 on it bit for bit, with the time of each;
- 15. K8 (CUDA phase ablation of K1's first, CUDA-core body): every
-     variant and windows-per-block value against its plain version,
-     ``full`` against K1 within the bf16 bound; the port's probe
-     ``main()`` at its default shape and at hrformer_base b0-b3 (b = 64):
-     each variant's ms, bound and plain ms, and the body's phase shares
-     (staging, products, softmax);
+ 15. K8 (CUDA phase ablation of K1's kernel: its phases compiled out,
+     and packslim): every variant and windows-per-block value against its
+     plain version (``empty`` equal), ``full`` equal to K1 bit for bit;
+     the port's probe ``main()`` at its default shape and at
+     hrformer_base b0-b3 (b = 64): each variant's ms, bound and plain ms,
+     and K1's phase shares (staging, products, softmax);
  16. analysis: ``benchmark_model`` for Config() and hrformer_base (bf16,
      b = 32; K1 44 launches per HRFormer forward, none for HRNet);
      saliency (44 K1 and 44 K2 launches), Grad-CAM and occlusion on
@@ -129,19 +133,25 @@ Phases, in order; any failure exits non-zero:
      b = 64 and 32, window 7 and 8, K5's forward at every branch at b = 64
      and 32 and its backward at b = 32 (window 7; all float32 and bf16),
      K6 at every hrnet_w32 3x3 shape of phase 11 (b = 32, float32 and
-     bf16), the bf16 b = 32 steps of phases 6 and 9 (step ms, device ms,
+     bf16), K7 at every hrnet_w32 branch (b = 32, float32 and bf16), K8's
+     five variants at the probe's default shape and hrformer_base b0 (b =
+     64) at 1 and 4 windows per block (packslim at G), the bf16 b = 32
+     steps of phases 6 and 9 (step ms, device ms,
      peak memory) and one fused (IPE_FUSED_BLOCK=1) and one unfused served
      bf16 batch of 32 with flip (batch ms, device ms, K4 and K1
      launches), the parent's against
      this checkout's, each in a fresh
      subprocess that imports its checkout's package and builds its
      kernels, in turns: parent, change, change, parent (``[parent]``
-     lines); the K1, K1-hm, K2, K4 and K6 records take the parent's ms at
-     the record shape (b0 bf16; K1, K1-hm and K4's forward at b = 64, K6
-     64x48 32->32) as
-     ``parent_ms`` and this checkout's, timed the same way, as
-     ``fresh_ms``, the K5 records the same at b3 bf16 b = 32, its worst
-     branch (``parent_shape``; all null without ``--parent``).
+     lines); the K1, K1-hm, K2, K4, K6, K7 and K8 records take the
+     parent's ms at the record shape (b0 bf16; K1, K1-hm and K4's forward
+     at b = 64, K6 64x48 32->32, K7 hrnet_w32 b0 at b = 32, K8 ``full`` at
+     the probe's default shape) as ``parent_ms`` and this checkout's,
+     timed the same way, as ``fresh_ms``, the K5 records the same at b3
+     bf16 b = 32, its worst branch (``parent_shape``; all null without
+     ``--parent``); and the outputs of K1, K1-hm, K2 and K4 at
+     hrformer_base b0 (b = 32, float32 and bf16) must hash the same in
+     the parent and this checkout (``[parent] bits`` lines).
 The ranks import no JAX (each asserts it).
 Every phase's seconds and the whole run's are printed.  Each fused phase
 sets IPE_FUSED_BLOCK itself and restores it after.  The
@@ -239,6 +249,13 @@ HRNET_MAPS = [
     ("w32 b1", 32, 24, 64),
     ("w32 b2", 16, 12, 128),
     ("w32 b3", 8, 6, 256),
+]
+# hrnet_w48's branches, the same maps at 48/96/192/384 channels.
+HRNET_W48_MAPS = [
+    ("w48 b0", 64, 48, 48),
+    ("w48 b1", 32, 24, 96),
+    ("w48 b2", 16, 12, 192),
+    ("w48 b3", 8, 6, 384),
 ]
 HRNET_SERVE_BATCH = 32
 # BasicBlock chains per hrnet_w32 forward: 1*2 + 4*3 + 3*4 branches.
@@ -494,9 +511,17 @@ def _mangled_kernel(line: str) -> str:
     if band:  # K6's bf16 kernel: its tile, its copy width
         name += (f" <32x{band.group(1)} tile, {2 * int(band.group(2))}-byte "
                  f"copies>")
-    layout = re.search(r"window_msa_fwd_kernelI.*?6LayoutE(\d)E", line)
-    if layout:  # K1 (flat qkv) or K1-hm (head-major)
+    layout = re.search(r"window_msa_fwd_kernelI.*?6LayoutE(\d)E(?:Li(\d)E)?",
+                       line)
+    if layout:  # K1 (flat qkv) or K1-hm (head-major); K8's phases
         name += " <flat qkv>" if layout.group(1) == "0" else " <head-major>"
+        phase = ("full", "empty", "gemmonly", "softonly")[
+            int(layout.group(2) or 0)]
+        name += "" if phase == "full" else f" <{phase}>"
+    tc = re.search(r"conv_tc_kernelILi(\d+)ELb([01])E", line)
+    if tc:  # K7's bf16 conv: its slab width, its weights whole or a ring
+        name += (f" <TCO {tc.group(1)}, "
+                 f"{'whole slab' if tc.group(2) == '1' else 'ring'}>")
     targ = re.search(r"_kernelI(f|13__nv_bfloat16)", line)
     if targ:  # a template's element type
         name += " (float)" if targ.group(1) == "f" else " (bf16)"
@@ -1440,15 +1465,18 @@ def _chain_bound(x: torch.Tensor, w: torch.Tensor, n: int):
 
 
 def phase_k7() -> dict:
-    """K7 against its plain version at every hrnet_w32 branch shape at the
-    served batch, float32 and bf16; kernel, plain and stock-chain times
-    (four eval BasicBlocks) and the bound."""
+    """K7 against its plain version at every hrnet_w32 and hrnet_w48
+    branch shape at the served batch, float32 and bf16; kernel, plain and
+    stock-chain times (four eval BasicBlocks) and the bound; at hrnet_w32's
+    branches in bf16 a ``[k7-split]`` line (the conv launches' device ms
+    per chain call) and the stock chain's device ms beside its event ms."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
         residual_block as rb)
 
     g = torch.Generator(device="cuda").manual_seed(10)
     record, worst, worst_rel = None, 0.0, 0.0
-    for label, H, W, C in HRNET_MAPS:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, H, W, C in HRNET_MAPS + HRNET_W48_MAPS:
         x32 = torch.randn(HRNET_SERVE_BATCH, H, W, C, device="cuda",
                           generator=g)
         for dt in (torch.float32, torch.bfloat16):
@@ -1474,20 +1502,66 @@ def phase_k7() -> dict:
             if dt == torch.float32:  # the same function, no roundings
                 assert rel_stock <= rel_tol, (label, rel_stock)
             worst, worst_rel = max(worst, err), max(worst_rel, rel)
-            ms = cuda_median_ms(lambda: rb.fused_residual_chain(x, w, ab, 4))
+            runs = 25 if label.startswith("w32") else 10
+            ms = cuda_median_ms(lambda: rb.fused_residual_chain(x, w, ab, 4),
+                                runs=runs)
             plain_ms = cuda_median_ms(
-                lambda: rb.fused_residual_chain_reference(x, w, ab, 4))
-            lib_ms = cuda_median_ms(stock)
+                lambda: rb.fused_residual_chain_reference(x, w, ab, 4),
+                runs=runs)
+            lib_ms = cuda_median_ms(stock, runs=runs)
             b_ms, b_by = _chain_bound(x, w, 4)
             name = "f32" if dt == torch.float32 else "bf16"
             shape = f"{label} b={HRNET_SERVE_BATCH} {H}x{W}x{C} {name}"
+            plan = (rb.chain_plan(HRNET_SERVE_BATCH, H, W, C, sms)
+                    if dt == torch.bfloat16 else None)
             log(f"[k7] {shape}: max_abs_err={err:.3e} rel={rel:.2e} "
                 f"(vs stock chain rel {rel_stock:.2e}) kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={b_ms:.4f} ({b_by})")
+                f"bound_ms={b_ms:.4f} ({b_by})"
+                + ("" if plan is None else
+                   f"; plan rows={plan['rows']} slots={plan['slots']} "
+                   f"tco={plan['tco']} parts={plan['parts']} "
+                   f"whole={plan['whole']} blocks={plan['blocks']} "
+                   f"smem={plan['smem']}"))
+            dev_ms = stock_dev_ms = None
+            if label.startswith("w32") and dt == torch.bfloat16:
+                split = log_split("k7-split", shape,
+                                  lambda: rb.fused_residual_chain(x, w, ab, 4))
+                # the 8 conv launches of a chain at their mean device time
+                # (a record the profiler drops does not lower it)
+                conv = [(n, t) for name, n, t in split
+                        if name.startswith("conv_tc_kernel")]
+                dev_ms = (8 * sum(t for _, t in conv)
+                          / max(sum(n for n, _ in conv), 1e-9))
+                stock_split = launch_split(stock)
+                stock_dev_ms = sum(t for *_, t in stock_split)
+                log(f"[k7-split] {shape}: stock chain {stock_dev_ms:.4f} ms "
+                    f"device in {sum(n for _, n, _ in stock_split):g} "
+                    f"launches (event {lib_ms:.4f} ms); K7 {dev_ms:.4f} ms "
+                    f"device (event {ms:.4f} ms)")
             if label == "w32 b0" and dt == torch.bfloat16:
                 record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=b_ms, bound_by=b_by, shape=shape)
+                              bound_ms=b_ms, bound_by=b_by, shape=shape,
+                              device_ms=dev_ms,
+                              library_device_ms=stock_dev_ms)
+        # a served frame (b = 1, 2 with flip): the plan's finest tilings
+        # and its input-channel parts, bf16
+        blocks = _random_blocks(C, torch.bfloat16, g)
+        w, ab = rb.pack_basic_block_params(blocks, dtype=torch.bfloat16)
+        for B in (1, SMALL_BATCH):
+            x = x32[:B].to(torch.bfloat16).contiguous()
+            out = rb.fused_residual_chain(x, w, ab, 4)
+            torch.cuda.synchronize()
+            err, rel, big = _err(
+                out, rb.fused_residual_chain_reference(x, w, ab, 4))
+            rel_tol, local_tol = K7_TOL[torch.bfloat16]
+            assert rel <= rel_tol and err <= local_tol * big, (
+                label, B, rel, err, big)
+            plan = rb.chain_plan(B, H, W, C, sms)
+            log(f"[k7] {label} b={B} {H}x{W}x{C} bf16: max_abs_err="
+                f"{err:.3e} rel={rel:.2e}; plan rows={plan['rows']} "
+                f"slots={plan['slots']} tco={plan['tco']} "
+                f"parts={plan['parts']} blocks={plan['blocks']}")
     record.update(max_abs_err=worst, max_rel_err=worst_rel)
     return record
 
@@ -1933,13 +2007,12 @@ def k8_flops(variant: str, nW: int, N: int, H: int, hd: int) -> float:
 
 def phase_k8() -> dict:
     """K8: every variant of the plan against its plain version, ``full``
-    against K1 within BF16_TOL (K8's body is K1's first design, no longer
-    K1's code); then the port's probe ``main()`` at its default shape and
-    at hrformer_base b0-b3 at b = 64 (launches counted over those runs:
-    the probe captures its launches in CUDA graphs, so a graph's replays
-    add none), the phase shares of K8's body, the
-    bound and the plain version's time of each variant, and each variant's
-    device time per launch beside the probe's time."""
+    equal to K1 bit for bit (K1's own kernel); then the port's probe
+    ``main()`` at its default shape and at hrformer_base b0-b3 at b = 64
+    (launches counted over those runs: the probe captures its launches in
+    CUDA graphs, so a graph's replays add none), the phase shares of K1's
+    kernel, the bound and the plain version's time of each variant, and
+    each variant's device time per launch beside the probe's time."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
         window_msa, window_msa_ablate as ablate)
     from infantposeestimation_gaussianbias_tpu_torch.tools import (
@@ -1955,10 +2028,12 @@ def phase_k8() -> dict:
         return (ablate.packed_bias(bias, ablate.pack_factor(H, C, N))
                 if variant == "packslim" else bias)
 
-    # The kernel's own shared-memory reckoning: 8 windows of 49 tokens at
-    # hd 32 need 233,632 bytes, more than a block's 232,448.
-    assert (not ablate.fits("full", 49, 32, 8)
-            and ablate.fits("full", 49, 32, 4))
+    # The kernel's own shared-memory reckoning: a block stages one window
+    # (packslim one group of G) at a time, so every windows-per-block value
+    # fits at 49 tokens and hd 32 (K1's ~40 KB; packslim's 196 rows ~94 KB).
+    assert all(ablate.fits("full", 49, 32, wpb)
+               for wpb in ablate.WINDOWS_PER_BLOCK)
+    assert ablate.fits("packslim", 49, 32, 4, 4)
     worst = 0.0
     for label, shape in shapes:
         nW, N, C, H = (int(v) for v in shape.split(","))
@@ -1975,11 +2050,8 @@ def phase_k8() -> dict:
             else:
                 torch.testing.assert_close(out.float(), ref.float(),
                                            atol=BF16_TOL, rtol=BF16_TOL)
-            if variant == "full":
-                # K8's body is K1's first design, no longer K1's code: the
-                # two agree within the bf16 bound, not bit for bit
-                torch.testing.assert_close(out.float(), k1.float(),
-                                           atol=BF16_TOL, rtol=BF16_TOL)
+            if variant == "full":  # K1's own instantiation
+                assert torch.equal(out, k1), (label, wpb)
             worst = max(worst, err)
             vs_k1 = (out.float() - k1.float()).abs().max().item()
             log(f"[k8] {label:8s} {variant:8s} wpb={wpb} max_abs_err={err:.3e}"
@@ -2022,7 +2094,7 @@ def phase_k8() -> dict:
             f"{shares['staging']:.4f} ms, products {shares['products']:.4f}, "
             f"softmax {shares['softmax']:.4f}, full {f:.4f}, packslim "
             f"(G={G}) {ms.get(('packslim', G), float('nan')):.4f}; "
-            f"{sets} sets the time of K8's body (K1's first design)")
+            f"{sets} sets the time of K1's kernel")
         log(f"[k8-bounds] {label:8s} " + " ".join(
             f"{v}={bounds[v]:.4f}/plain {plain[v]:.4f}"
             for v in ablate.VARIANTS))
@@ -2729,6 +2801,7 @@ def bwd_times(smi: str) -> dict:
             kernels[f"k6 {H}x{W} {Ci}->{Co} {name}"] = cuda_median_ms(
                 lambda: cw.conv3x3_wgrad(x, dy), runs=10)
         del x32, dy32, x, dy
+    kernels.update(k7_k8_times(g))
     n = K1_CALLS_PER_FORWARD
     steps = {}
     for flag, tag, want in (
@@ -2740,7 +2813,107 @@ def bwd_times(smi: str) -> dict:
         torch.cuda.empty_cache()
     steps["serve_fused"] = serve_times(smi, "1")
     steps["serve_unfused"] = serve_times(smi, "0")
-    return dict(kernels=kernels, steps=steps)
+    return dict(kernels=kernels, steps=steps, digests=kernel_digests())
+
+
+# K8's shapes in phase 20: the probe's default and hrformer_base b0 at
+# b = 64 ("nW,N,C,H"), and the windows per block both the parent (K1's
+# first body, which fits 4 windows of 49 tokens at hd 32 and 39 but not 8)
+# and this checkout take; packslim at G.
+K8_TIMED_SHAPES = [("default", "8960,49,32,1"), ("base b0", "4480,49,78,2")]
+K8_TIMED_WPB = (1, 4)
+
+
+def k7_k8_times(g) -> dict:
+    """Phase 20's K7 and K8 keys: K7 (4 blocks) at every hrnet_w32 branch
+    at b = 32, float32 and bf16 (median event ms); K8's five variants at
+    K8_TIMED_SHAPES, each at K8_TIMED_WPB windows per block (packslim at
+    G), timed as the probe times them (CUDA-graph replays, ms)."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        residual_block as rb, window_msa_ablate as ablate)
+    from infantposeestimation_gaussianbias_tpu_torch.tools import (
+        probe_wmsa_ablate as probe)
+
+    out = {}
+    for label, H, W, C in HRNET_MAPS:
+        x32 = torch.randn(HRNET_SERVE_BATCH, H, W, C, device="cuda",
+                          generator=g)
+        for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            w, ab = rb.pack_basic_block_params(_random_blocks(C, dt, g), dt)
+            x = x32.to(dt)
+            out[f"k7 {label} b={HRNET_SERVE_BATCH} {name}"] = cuda_median_ms(
+                lambda: rb.fused_residual_chain(x, w, ab, 4), runs=15)
+    for label, shape in K8_TIMED_SHAPES:
+        nW, N, C, H = (int(v) for v in shape.split(","))
+        qkv, bias = probe.make_inputs(nW, N, C, H, "cuda")
+        G = ablate.pack_factor(H, C, N)
+        pbias = ablate.packed_bias(bias, G)
+        for variant in ablate.VARIANTS:
+            for wpb in ((G,) if variant == "packslim" else K8_TIMED_WPB):
+                b = pbias if variant == "packslim" else bias
+                sec = probe.chained_time(
+                    lambda: ablate.window_attention_ablate(variant, qkv, b,
+                                                           H, wpb),
+                    qkv.device)
+                out[f"k8 {label} {variant}@{wpb}"] = 1e3 * sec
+    return out
+
+
+def kernel_digests() -> dict:
+    """sha256 of the outputs of K1, K1-hm, K2 and K4 (forward and backward)
+    at hrformer_base b0, b = 32, float32 and bf16, on inputs from a seeded
+    generator: phase 20 holds the parent's against this checkout's, since
+    this checkout's kernels share csrc/wmsa_core.cuh and K1's kernel with
+    K8.  Each is taken twice; where the two differ (a kernel whose bits
+    are not reproducible in one process) the key holds None, and phase 20
+    reports it instead of comparing."""
+    import hashlib
+
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        fused_block as fb, window_msa)
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        return h.hexdigest()[:16]
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    _, w, N, H, hd = BRANCH_SHAPES[0]
+    _, Hm, Wm, C, heads = BASE_MAPS[0]
+    nW = TRAIN_BATCH * w
+    qkv32 = torch.randn(nW, N, 3 * H * hd, device="cuda", generator=g)
+    dout32 = torch.randn(nW, N, H * hd, device="cuda", generator=g)
+    bias = torch.randn(H, N, N, device="cuda", generator=g)
+    out = {}
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        qkv, dout = qkv32.to(dt), dout32.to(dt)
+        qh, kh, vh = (qkv.view(nW, N, 3, H, hd)[:, :, i].permute(2, 0, 1, 3)
+                      .contiguous() for i in range(3))
+        a = _half_inputs(Hm, Wm, C, heads, TRAIN_BATCH, dt, g)
+        aa, dy, geom = _attn_args(a), a["dy"], a["geom"]
+        calls = {
+            "k1": lambda: window_msa.window_attention_qkv(qkv, bias, H),
+            "k1hm": lambda: window_msa.window_attention_hm(qh, kh, vh, bias),
+            "k2": lambda: window_msa.window_attention_qkv_bwd(qkv, bias,
+                                                              dout, H),
+            "k4fwd": lambda: fb.fused_attn_half_fwd(*aa, heads, geom),
+            "k4bwd": lambda: fb.fused_attn_half_bwd(*aa, dy, heads, geom),
+        }
+        for key, fn in calls.items():
+            first, again = digest(*_tensors(fn())), digest(*_tensors(fn()))
+            out[f"{key} {name}"] = first if first == again else None
+    return out
+
+
+def _tensors(x) -> list:
+    """The tensors of a kernel wrapper's result, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for item in x for t in _tensors(item)]
+    return []
 
 
 def phase_parent(parent: str) -> dict:
@@ -2775,6 +2948,14 @@ def phase_parent(parent: str) -> dict:
         log(f"[parent] {key}: parent {ps[0]:.4f}/{ps[1]:.4f} ms, change "
             f"{cs[0]:.4f}/{cs[1]:.4f} ms, change/parent "
             f"{kernels[key]['ms'] / kernels[key]['parent_ms']:.3f}")
+    for key, want in p1["digests"].items():
+        got = [r["digests"].get(key) for r in (p2, c1, c2)]
+        log(f"[parent] bits {key}: parent {want}, change {got[1]}")
+        if want is None or None in got:
+            log(f"[parent] bits {key}: not reproducible in one process; "
+                "not compared")
+        else:
+            assert got == [want] * 3, (key, want, got)
     steps = {}
     for tag, values in p1["steps"].items():
         steps[tag] = {}
@@ -2807,9 +2988,9 @@ def main(argv: list) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="DIR",
                         help="a checkout of the parent commit (git archive): "
-                        "phase 20 times its K1, K1-hm, K2, K4, K5, K6, bf16 "
-                        "steps and served batches against this checkout's, "
-                        "in turns")
+                        "phase 20 times its K1, K1-hm, K2, K4, K5, K6, K7, "
+                        "K8, bf16 steps and served batches against this "
+                        "checkout's, in turns")
     parser.add_argument("--bwd-times", action="store_true",
                         help=argparse.SUPPRESS)  # phase 20's subprocess
     parser.add_argument("--package-root", help=argparse.SUPPRESS)
@@ -2901,13 +3082,14 @@ def main(argv: list) -> int:
             "library_ms", "shape")
     extra = ("max_rel_err", "variants_ms", "variants_bound_ms",
              "variants_plain_ms", "variants_device_ms", "parent_ms",
-             "fresh_ms", "parent_shape")
+             "fresh_ms", "parent_shape", "device_ms", "library_device_ms")
     # The redesigned kernels, from phase 20 of this call (null without
     # --parent): the parent commit's ms and this checkout's, both timed the
-    # same way in fresh processes (``ms`` is phase 2's, 3's, 7's, 11's or
-    # 14's, timed in this process), K1, K1-hm, K2, K4 and K6 at the record
-    # shape, K5 at its worst branch (``parent_shape``); K3's forward (K1 on
-    # rank 0's head range) as ``k1_parent_ms`` and ``k1_fresh_ms``.
+    # same way in fresh processes (``ms`` is phase 2's, 3's, 7's, 10's,
+    # 11's, 14's or 15's, timed in this process), K1, K1-hm, K2, K4, K6, K7
+    # and K8 at the record shape, K5 at its worst branch
+    # (``parent_shape``); K3's forward (K1 on rank 0's head range) as
+    # ``k1_parent_ms`` and ``k1_fresh_ms``.
     for rec, key in ((k1, "k1 base b0 b=64 bf16"),
                      (k1hm, "k1hm base b0 b=64 bf16"),
                      (k2, "k2 base b0 bf16"),
@@ -2915,7 +3097,9 @@ def main(argv: list) -> int:
                      (k45["attn_bwd"], "k4bwd base b0 bf16"),
                      (k6, "k6 64x48 32->32 bf16"),
                      (k45["mlp_fwd"], "k5fwd base b3 b=32 bf16"),
-                     (k45["mlp_bwd"], "k5bwd base b3 b=32 bf16")):
+                     (k45["mlp_bwd"], "k5bwd base b3 b=32 bf16"),
+                     (k7, f"k7 w32 b0 b={HRNET_SERVE_BATCH} bf16"),
+                     (k8["record"], "k8 default full@1")):
         for out, src in (("parent_ms", "parent_ms"), ("fresh_ms", "ms")):
             rec[out] = parent["kernels"][key][src] if parent else None
         rec["parent_shape"] = key

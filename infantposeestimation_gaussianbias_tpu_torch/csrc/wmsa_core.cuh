@@ -329,6 +329,13 @@ __device__ __forceinline__ void store_dbias(const float (&dbias)[8][4], int N, f
     }
 }
 
+// What attention_fwd computes.  kAttend: the attention (every caller but
+// K8).  K8's phase ablation (csrc/window_msa_ablate.cu, the TPU probe's
+// bodies) compiles parts of it out: kGemmOnly, the two products alone (P
+// = 0.01 scale q k^T, no bias, no softmax); kSoftOnly, the softmax alone
+// (S = q[i][0] + bias(i, j), unscaled, no product; O = q * rowsum(P)).
+constexpr int kAttend = 0, kGemmOnly = 1, kSoftOnly = 2;
+
 // The forward of one (window, head) on this warp's 16 rows i0 = 16 warp
 // (an active warp: i0 < N); see the header.  NI: bf16 terms of the q, k, v
 // operands.  bias(i, j): the float32 bias of S.  Leaves P in s (the
@@ -336,8 +343,8 @@ __device__ __forceinline__ void store_dbias(const float (&dbias)[8][4], int N, f
 // nt * 8 + 2t (+1); zero where masked).  kWithO: O = P v, P taken from s
 // as two bf16 terms (never through shared memory) and v in min(NI, 2),
 // and out(row, col, x0, x1, two) for O's valid element pairs as emit
-// gives them.  Reads shared memory only.
-template <int NI, bool kWithO, class BF, class OF>
+// gives them.  Reads shared memory only.  kMode: see above.
+template <int NI, bool kWithO, int kMode = kAttend, class BF, class OF>
 __device__ __forceinline__ void attention_fwd(const Operand& q, const Operand& k,
                                               const Operand& v, int N, int hd, float scale,
                                               BF bias, const bf16* zrow, float (&s)[8][4],
@@ -353,60 +360,109 @@ __device__ __forceinline__ void attention_fwd(const Operand& q, const Operand& k
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-  // S = q k^T over the head dim.
-  for (int kk = 0; kk < dsteps; ++kk) {
-    uint32_t aq[NI][4];
+  // q's element (i, c): the sum of its terms.
+  auto q_at = [&](int i, int c) {
+    float x = 0.f;
 #pragma unroll
-    for (int x = 0; x < NI; ++x) a_rows(aq[x], q.p + x * q.term, q.ld, N, zrow, i0, kk * 16);
+    for (int n = 0; n < NI; ++n) x += __bfloat162float(q.p[n * q.term + i * q.ld + c]);
+    return x;
+  };
+  if constexpr (kMode == kSoftOnly) {
+    // S = q[i][0] broadcast over the keys.
 #pragma unroll
-    for (int np = 0; np < kMaxN / 16; ++np) {
-      if (np < steps) {
-        uint32_t bk[NI][4];
+    for (int e = 0; e < 4; e += 2) {
+      const int i = i0 + g + 4 * e;
+      const float x = i < N ? q_at(i, 0) : 0.f;
 #pragma unroll
-        for (int x = 0; x < NI; ++x)
-          b_rows(bk[x], k.p + x * k.term, k.ld, N, zrow, np * 16, kk * 16);
-        mma_pair<NI, NI, NI>(s[2 * np], s[2 * np + 1], aq, bk);
+      for (int nt = 0; nt < 8; ++nt) s[nt][e] = s[nt][e + 1] = x;
+    }
+  } else {
+    // S = q k^T over the head dim.
+    for (int kk = 0; kk < dsteps; ++kk) {
+      uint32_t aq[NI][4];
+#pragma unroll
+      for (int x = 0; x < NI; ++x) a_rows(aq[x], q.p + x * q.term, q.ld, N, zrow, i0, kk * 16);
+#pragma unroll
+      for (int np = 0; np < kMaxN / 16; ++np) {
+        if (np < steps) {
+          uint32_t bk[NI][4];
+#pragma unroll
+          for (int x = 0; x < NI; ++x)
+            b_rows(bk[x], k.p + x * k.term, k.ld, N, zrow, np * 16, kk * 16);
+          mma_pair<NI, NI, NI>(s[2 * np], s[2 * np + 1], aq, bk);
+        }
       }
     }
   }
-  // Row softmax on rows i0 + g (e < 2) and i0 + g + 8 (e >= 2); a row is
-  // held by the 4 lanes of a quad.
-  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  if constexpr (kMode == kGemmOnly) {
+    // P = 0.01 scale S, zero where masked.
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = i0 + g + 8 * (e >> 1), j = nt * 8 + 2 * t + (e & 1);
-      const float x = (nt < ntn && i < N && j < N) ? scale * s[nt][e] + bias(i, j)
-                                                    : -CUDART_INF_F;
-      s[nt][e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + 8 * (e >> 1), j = nt * 8 + 2 * t + (e & 1);
+        s[nt][e] = (nt < ntn && i < N && j < N) ? 0.01f * (scale * s[nt][e]) : 0.f;
+      }
+  } else {
+    // Row softmax on rows i0 + g (e < 2) and i0 + g + 8 (e >= 2); a row is
+    // held by the 4 lanes of a quad.
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + 8 * (e >> 1), j = nt * 8 + 2 * t + (e & 1);
+        const float x = (nt < ntn && i < N && j < N)
+                            ? (kMode == kSoftOnly ? s[nt][e] : scale * s[nt][e]) + bias(i, j)
+                            : -CUDART_INF_F;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     }
-  float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[nt][e] == -CUDART_INF_F ? 0.f : __expf(s[nt][e] - mx[e >> 1]);
+        s[nt][e] = x;
+        sum[e >> 1] += x;
+      }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = s[nt][e] == -CUDART_INF_F ? 0.f : __expf(s[nt][e] - mx[e >> 1]);
-      s[nt][e] = x;
-      sum[e >> 1] += x;
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      sum[r] = sum[r] > 0.f ? 1.f / sum[r] : 0.f;  // a row of padding has none
     }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-    sum[r] = sum[r] > 0.f ? 1.f / sum[r] : 0.f;  // a row of padding has none
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] *= sum[e >> 1];
   }
+  if constexpr (kWithO && kMode == kSoftOnly) {
+    // O = q * rowsum(P), no product.
+    float ps[2] = {0.f, 0.f};
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] *= sum[e >> 1];
-  if constexpr (kWithO) {
+      for (int e = 0; e < 4; ++e) ps[e >> 1] += s[nt][e];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+    }
+    for (int c = 2 * t; c < hd; c += 8)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = i0 + g + 8 * r;
+        const bool two = c + 1 < hd;
+        if (i < N) out(i, c, q_at(i, c) * ps[r], two ? q_at(i, c + 1) * ps[r] : 0.f, two);
+      }
+  } else if constexpr (kWithO) {
     float acc[8][4];
     tokens_product<NB>(acc, steps, dsteps, N, v, zrow,
                        [&](int kk, uint32_t (&a)[2][4]) { a_from_acc(s, kk, a); });

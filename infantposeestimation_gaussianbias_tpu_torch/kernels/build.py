@@ -123,7 +123,7 @@ def load() -> ctypes.CDLL:
             ctypes.c_float, i, i, p]
         lib.ipe_window_msa_hm_fwd.restype = i
         lib.ipe_window_msa_ablate.argtypes = [i, p, p, p, i, i, i, i,
-                                              ctypes.c_float, i, i, p, p]
+                                              ctypes.c_float, i, i, p]
         lib.ipe_window_msa_ablate.restype = i
         lib.ipe_window_msa_ablate_fits.argtypes = [i] * 5
         lib.ipe_window_msa_ablate_fits.restype = i
@@ -140,7 +140,7 @@ def load() -> ctypes.CDLL:
         lib.ipe_fused_attn_bwd.argtypes = ([p] * 24 + [i] * 7 + [f]
                                            + [i] * 4 + [p])
         lib.ipe_fused_attn_bwd.restype = i
-        lib.ipe_residual_chain.argtypes = [p] * 6 + [i] * 7 + [p]
+        lib.ipe_residual_chain.argtypes = [p] * 9 + [i] * 12 + [p]
         lib.ipe_residual_chain.restype = i
         lib.ipe_conv3x3_wgrad.argtypes = [p] * 4 + [i] * 10 + [p]
         lib.ipe_conv3x3_wgrad.restype = i

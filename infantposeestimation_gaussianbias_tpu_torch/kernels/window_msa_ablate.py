@@ -1,33 +1,39 @@
-"""K8: the phase ablation of a W-MSA forward body.
+"""K8: the phase ablation of the W-MSA forward.
 
 Ports the kernels of the TPU probe
 ``infantposeestimation_gaussianbias_tpu/tools/probe_wmsa_ablate.py``
 (``run_variant``'s pallas_call, :143-175).  ``window_attention_ablate``
-runs one variant of the body (``csrc/window_msa_ablate.cu``; K1's first,
-CUDA-core design, ``csrc/window_msa_body.cuh``) on a bf16
-(nW, N, 3C) qkv tensor and returns (nW, N, C) bf16; on the CPU it takes
-the variant's plain PyTorch version, ``ablate_reference``.  The variants
-and their maths, the probe's exactly:
+runs one variant (``csrc/window_msa_ablate.cu``) on a bf16 (nW, N, 3C)
+qkv tensor and returns (nW, N, C) bf16; on the CPU it takes the
+variant's plain PyTorch version, ``ablate_reference``.  empty, gemmonly,
+softonly and full are K1's own kernel (``csrc/window_msa_fwd.cuh``) with
+phases compiled out, so their times split K1's.  The variants and their
+maths, the probe's exactly:
 
-  empty     out = q columns [:C] (q, k, v are staged and read as K1 does);
+  empty     out = q columns [:C] (q, k, v are staged and converted as K1
+            stages them);
   gemmonly  s = (hd^-1/2 q) k^T, p = 0.01 s (no bias, no softmax), o = p v;
   softonly  s = the unscaled q[..., 0] broadcast over the N keys + bias[0]
             (the probe adds head 0's bias to every head), p = softmax(s),
             o = q * sum_j p;
-  full      the whole body: K1's maths, no longer K1's code (K1 runs on
-            the tensor cores), so it agrees with K1 within the bf16 bound;
+  full      K1 itself (its instantiation of the same kernel): equal to
+            ``window_msa.window_attention_qkv`` bit for bit;
   packslim  G = ``pack_factor(H, C, N)`` windows stacked into G*N rows:
-            all (G*N)^2 scores + the packed bias, softmax, then PV.  It
-            takes ``packed_bias(bias, G)`` (H, G*N, G*N), -1e30 off the
-            diagonal blocks, which the caller builds once, as the probe's
+            all (G*N)^2 scores + the packed bias, softmax, then PV, taken
+            64 query rows at a time against key blocks of 64 with an online
+            softmax (``packslim_emulation`` repeats that order).  It takes
+            ``packed_bias(bias, G)`` (H, G*N, G*N), -1e30 off the diagonal
+            blocks, which the caller builds once, as the probe's
             ``run_variant`` does.
 
 ``windows_per_block`` (1, 2, 4 or 8; packslim a multiple of G) is the
 card's counterpart of the probe's ``GB``: how many windows one block
-stages at once.  nW need not divide by it: the windows past nW are zeros
-whose outputs are dropped, as the TPU pads nW to GB.  ``packfull``, the
-probe's packed block-diagonal body, is K1's packed body, which K1 computes
-as one kernel (the probe's ``main()`` never runs it).
+takes, staging one window (packslim: one group of G) at a time while the
+one before it computes.  nW need not divide by it: the windows past nW
+are zeros whose outputs are dropped, as the TPU pads nW to GB.
+``packfull``, the probe's packed block-diagonal body, is K1's packed
+body, which K1 computes as one kernel (the probe's ``main()`` never runs
+it).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .window_msa import MAX_HEAD_DIM, MAX_TOKENS
+from .window_msa import MAX_HEAD_DIM, MAX_TOKENS, split_product
 
 VARIANTS = ("empty", "gemmonly", "softonly", "full", "packslim")
 WINDOWS_PER_BLOCK = (1, 2, 4, 8)
@@ -43,6 +49,9 @@ WINDOWS_PER_BLOCK = (1, 2, 4, 8)
 ABLATE_LAUNCHES = 0
 
 MAX_PACK = 8
+# packslim's query rows a pass (4 warps x 16) and keys a block.
+PACK_QUERY_ROWS = 64
+PACK_KEY_BLOCK = 64
 
 
 def pack_factor(num_heads: int, C: int, N: int) -> int:
@@ -124,6 +133,49 @@ def ablate_reference(variant: str, qkv: torch.Tensor, bias: torch.Tensor,
     raise ValueError(f"unknown variant {variant!r}; known: {VARIANTS}")
 
 
+def packslim_emulation(qkv: torch.Tensor, pbias: torch.Tensor,
+                       num_heads: int) -> torch.Tensor:
+    """packslim as its kernel computes it, in plain PyTorch on the CPU: per
+    (group of G windows, head), PACK_QUERY_ROWS query rows at a time
+    against PACK_KEY_BLOCK keys at a time, S = scale q k^T + the packed
+    bias, the online softmax (running row max m and sum l; O and l
+    rescaled by exp(m_old - m_new) at each block), P v with P in two bf16
+    terms, O / l cast once to bf16; windows past nW are zeros.  For the
+    tests only: no model path runs it."""
+    nW, N, C3 = qkv.shape
+    C = C3 // 3
+    hd = C // num_heads
+    G = pack_factor(num_heads, C, N)
+    GN = G * N
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32)
+    pad = -nW % G
+    q, k, v = (torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+               .reshape(-1, G, num_heads, N, hd).transpose(1, 2)
+               .reshape(-1, num_heads, GN, hd)
+               for x in _split(qkv, num_heads))
+    bias = pbias.float()
+    out = torch.empty_like(q)
+    for r0 in range(0, GN, PACK_QUERY_ROWS):
+        rs = slice(r0, r0 + PACK_QUERY_ROWS)
+        n = min(GN, r0 + PACK_QUERY_ROWS) - r0
+        m = torch.full(q.shape[:2] + (n,), float("-inf"))
+        l = torch.zeros_like(m)
+        o = torch.zeros(q.shape[:2] + (n, hd))
+        for kb in range(0, GN, PACK_KEY_BLOCK):
+            ks = slice(kb, kb + PACK_KEY_BLOCK)
+            s = scale * (q[:, :, rs] @ k[:, :, ks].transpose(-2, -1)) \
+                + bias[:, rs, ks]
+            mx = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - mx)
+            p = torch.exp(s - mx[..., None])
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + split_product(p, v[:, :, ks], 2, 1, 2)
+            m = mx
+        out[:, :, rs] = o / l[..., None]
+    o = out.reshape(-1, num_heads, G, N, hd).transpose(1, 2)
+    return _merge(o.reshape(-1, num_heads, N, hd)[:nW], qkv.dtype)
+
+
 def _check(variant: str, qkv: torch.Tensor, bias: torch.Tensor,
            num_heads: int, windows_per_block: int) -> tuple:
     if variant not in VARIANTS:
@@ -181,7 +233,7 @@ def window_attention_ablate(variant: str, qkv: torch.Tensor,
         err = lib.ipe_window_msa_ablate(
             VARIANTS.index(variant), qkv.data_ptr(), bias.data_ptr(),
             out.data_ptr(), nW, N, num_heads, hd, float(hd ** -0.5),
-            windows_per_block, G, None, stream)
+            windows_per_block, G, stream)
     build.check(lib, err, f"window_msa_ablate ({variant}) launch")
     ABLATE_LAUNCHES += 1
     return out

@@ -3,9 +3,9 @@
     python -m infantposeestimation_gaussianbias_tpu_torch.tools.ablate_k1
 
 Copies this package into ``_build/k1_ablation/`` (git-ignored) with K1's
-kernel (csrc/window_msa.cu) patched to read a mode from the environment
-variable ``IPE_K1_ABLATE`` at each launch, builds the copy's kernels and
-times K1 in each mode:
+kernel (csrc/window_msa_fwd.cuh) patched to read a mode from the
+environment variable ``IPE_K1_ABLATE`` at each launch, builds the copy's
+kernels and times K1 in each mode:
 
   full        the kernel as it is;
   no-core     the staging copies and the conversion, no core, no output;
@@ -47,8 +47,9 @@ RUNS = 7
 ENV = "IPE_K1_ABLATE"
 PACKAGE = Path(__file__).resolve().parent.parent
 
-# (text of csrc/window_msa.cu, its replacement): the mode read at launch,
-# passed to the kernel, and tested around the loop's phases.
+# The kernel's source, and (text of it, its replacement): the mode read at
+# launch, passed to the kernel, and tested around the loop's phases.
+SOURCE = "csrc/window_msa_fwd.cuh"
 _PATCHES = [
     ("#include <cstdint>\n", "#include <cstdint>\n#include <cstdlib>\n"),
     ("                      T* __restrict__ out, int nW, int N, int C, int hd, float scale,\n"
@@ -68,7 +69,8 @@ _PATCHES = [
      "    if (again && !(mode & 4)) wstage::convert<T, NI>(src, stage, opnd, N, hd, ld, term);\n"
      "    __syncthreads();\n"
      "    if (w + 1 < w_end && !(mode & 2)) {\n"),
-    ("    if (warp < (N + 15) / 16) {", "    if (!(mode & 1) && warp < (N + 15) / 16) {"),
+    ("    } else if (warp < (N + 15) / 16) {",
+     "    } else if (!(mode & 1) && warp < (N + 15) / 16) {"),
     ("      a, b, c, bias, out, nW, N, C, hd, scale, wpb);",
      "      a, b, c, bias, out, nW, N, C, hd, scale, wpb,\n"
      "      getenv(\"" + ENV + "\") ? atoi(getenv(\"" + ENV + "\")) : 0);"),
@@ -78,16 +80,18 @@ _PATCHES = [
 def patched_copy(root: Path) -> Path:
     """This package copied under ``root`` with K1's kernel patched; returns
     the directory to put first on ``sys.path``.  Raises if the kernel's
-    text no longer holds a patched line."""
+    text no longer holds a patched line.  K8's phases (csrc/
+    window_msa_ablate.cu) instantiate the same kernel, so the copy's K8
+    takes the mode too; only K1 is timed."""
     shutil.rmtree(root, ignore_errors=True)
     dst = root / PACKAGE.name
     shutil.copytree(PACKAGE, dst,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    src = dst / "csrc" / "window_msa.cu"
+    src = dst / SOURCE
     text = src.read_text()
     for old, new in _PATCHES:
         if text.count(old) != 1:
-            raise RuntimeError(f"csrc/window_msa.cu no longer holds {old!r}")
+            raise RuntimeError(f"{SOURCE} no longer holds {old!r}")
         text = text.replace(old, new)
     src.write_text(text)
     return root

@@ -4,13 +4,13 @@
 
 Port of infantposeestimation_gaussianbias_tpu/tools/probe_wmsa_ablate.py.
 The variants (kernels/window_msa_ablate.py) stream the same bf16
-(nW, N, 3C) qkv through the same grid and differ only in the body, K1's
-first (CUDA-core) design, which K1 itself no longer runs:
+(nW, N, 3C) qkv through the same grid and differ only in the body; the
+first four are K1's own kernel with phases compiled out:
 
   empty    staging only: q, k, v into shared memory, out = q;
   gemmonly the two products, no bias and no softmax;
   softonly the softmax on a broadcast score tile, no products;
-  full     the whole body (K1's maths, not K1's tensor-core code);
+  full     K1 itself;
   packslim G windows stacked into G*N rows: all (G*N)^2 scores, the masked
            packed bias, softmax, PV.
 
@@ -24,7 +24,8 @@ windows per block, on the bias packed once before it is timed.
 Env: PROBE_SHAPE "nW,N,C,H" (default 8960,49,32,1: hrformer_small
 branch 0 at 128 crops), PROBE_GB, the windows per block of ``gemmonly``
 and ``softonly`` and the first of the sweep (default 1; the sweep adds
-2, 4 and 8 where the block fits the card's shared memory).  Inputs from
+2, 4 and 8 where the block fits the card's shared memory, as every value
+does since a block stages one window at a time).  Inputs from
 ``numpy.random.RandomState(0)``: qkv bf16, bias float32.
 """
 
