@@ -25,7 +25,8 @@ Phases, in order; any failure exits non-zero:
      ``[k2-split]`` line: the launches and device ms per call of each
      kernel (the window kernel, the dbias reduction), the totals of seven
      calls under one torch.profiler over seven;
-  4. serving: PoseInference(hrformer_base) with seeded weights serves
+  4. serving: PoseInference(hrformer_base) with seeded weights (its
+     default serving, BN-folded) serves
      batches of 1, 3 and 8 uint8 frames; K1 must launch 88 times per
      flip-tested batch; then float32 on the card against the port on the
      CPU (plain path), same weights and frames;
@@ -78,8 +79,10 @@ Phases, in order; any failure exits non-zero:
      (torch.nn.grad.conv2d_weight) times and the bound; at the b0 (64x48
      32->32) and b3 (8x6 256->256) shapes in bf16 a ``[k6-split]`` line
      (the band kernel, the partials' sum);
- 12. HRNet-W32 serving: PoseInference(Config()) (heatmap head, quarter
-     decode) and the fusion head, their BatchNorm statistics calibrated
+ 12. HRNet-W32 serving: PoseInference(Config(), fold=False) (heatmap
+     head, quarter decode; unfolded, since the calibration and K7's hooks
+     read the BatchNorms; phase 21 serves it folded) and the fusion head,
+     their BatchNorm statistics calibrated
      by train-mode forwards on seeded crops, serve batches of 1, 3 and 8
      frames through no kernel of the HRFormer path; float32 card against
      CPU;
@@ -152,6 +155,37 @@ Phases, in order; any failure exits non-zero:
      ``--parent``); and the outputs of K1, K1-hm, K2 and K4 at
      hrformer_base b0 (b = 32, float32 and bf16) must hash the same in
      the parent and this checkout (``[parent] bits`` lines).
+ 21. BN-fold serving: hrnet_w32 + heatmap (Config(), BatchNorm
+     calibrated as in phase 12) and hrformer_base + fusion (BatchNorm
+     perturbed), b = 32 with flip: float32 folded against unfolded on the
+     card (heatmaps FOLD_F32_REL_TOL, keypoints KEYPOINT_ATOL_PX off decode
+     ties) and folded on the card against folded on the CPU (phase 4's
+     bounds); bf16 folded against unfolded and against float32 (bound:
+     the unfolded bf16 model's own distance from float32 plus
+     FOLD_BF16_REL_TOL), K1 88
+     launches a folded hrformer_base batch and none for HRNet, batch ms
+     and a profile (device ms, kernels, idle share) folded and unfolded;
+ 22. the HTTP server (cli.serve.make_server on 127.0.0.1), hrformer_base +
+     fusion, folded: float32, 8 concurrent .npy requests of 480x640 frames,
+     each answer against predict_batch of that frame alone (1e-2 px off
+     ties, scores 1e-4); bf16, max_batch 32, 64 requests from 16 client
+     threads (every answer 200, K1 launches 88 x the dispatched batches,
+     requests/s, p50/p99 latency, /healthz) and 16 requests from 8
+     threads under IPE_FUSED_BLOCK=1 (K4 and K5 88 x batches); a request
+     with a 1 ms deadline answers 504; a full queue (depth 1, the card held
+     by a gate) answers 503 with Retry-After;
+ 23. predict_stream, hrformer_base bf16 folded: 4 batches of 32 uint8
+     crops and one of 5, two in flight: every batch equal bit for bit to
+     crops_pipeline on the same crops (the prefetch's copy is ordered
+     before the compute that reads it), K1 88 launches a batch, crops/s;
+ 24. graft_entry.entry (the twin of __graft_entry__.entry): the example's
+     shapes, float32 coords and scores card against CPU from one set of
+     weights (BatchNorm calibrated), one bf16 call finite;
+ 25. temporal_smooth (gaussian, moving average, One-Euro),
+     postprocess_predictions, nms_pose, the rotated affine matrices,
+     transform_points and crop_and_normalize(rots=...) on card tensors
+     against the CPU (float32, POST_RTOL; the rotated crop ROT_CROP_ATOL).
+Phases 21-25 run after 19 and before 20.
 The ranks import no JAX (each asserts it).
 Every phase's seconds and the whole run's are printed.  Each fused phase
 sets IPE_FUSED_BLOCK itself and restores it after.  The
@@ -760,10 +794,11 @@ def _unsure_keypoints(hm: torch.Tensor, head: str) -> np.ndarray:
 
 
 def compare_f32_serving(sd, frames, bboxes, tag: str, hm_tol: float,
-                        kp_tol: float, cfg32=None) -> None:
+                        kp_tol: float, cfg32=None, fold=None) -> None:
     """float32 serving (hrformer_base unless ``cfg32`` says otherwise) from
     the state dict ``sd`` on the card against the port's plain path on the
-    CPU: 3 frames' heatmaps (flip-averaged) and keypoints."""
+    CPU: 3 frames' heatmaps (flip-averaged) and keypoints.  ``fold``:
+    PoseInference's (None, the default, folds where the model allows)."""
     from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
                                                               get_variant)
     from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
@@ -772,9 +807,9 @@ def compare_f32_serving(sd, frames, bboxes, tag: str, hm_tol: float,
         cfg32 = get_variant("hrformer_base")
         cfg32.model.compute_dtype = "float32"
     assert cfg32.model.compute_dtype == "float32"
-    gpu = PoseInference(cfg32, state_dict=sd, device="cuda")
+    gpu = PoseInference(cfg32, state_dict=sd, device="cuda", fold=fold)
     cpu = PoseInference(cfg32, state_dict={k: v.cpu() for k, v in sd.items()},
-                        device="cpu")
+                        device="cpu", fold=fold)
     n = 3
     k_gpu, s_gpu = gpu.predict_batch(frames[:n], bboxes[:n])
     k_cpu, s_cpu = cpu.predict_batch(frames[:n], bboxes[:n])
@@ -1696,7 +1731,8 @@ def phase_hrnet_serving(smi: str) -> dict:
     for head in ("heatmap", "fusion"):
         cfg = hrnet_cfg(head)
         assert cfg.eval.flip_test and cfg.eval.decode == "quarter"
-        inf = PoseInference(cfg, device="cuda")
+        # unfolded: the calibration and K7's hooks read the BatchNorms
+        inf = PoseInference(cfg, device="cuda", fold=False)
         calibrate_batch_stats(inf.model, cfg)
         reset_launches()
         for n in (1, 3, 8):
@@ -1710,7 +1746,7 @@ def phase_hrnet_serving(smi: str) -> dict:
         cfg32 = hrnet_cfg(head, "float32")
         compare_f32_serving(inf.model.state_dict(), frames, bboxes,
                             f"hrnet-serve {head}", HEATMAP_ATOL,
-                            KEYPOINT_ATOL_PX, cfg32)
+                            KEYPOINT_ATOL_PX, cfg32, fold=False)
         out[head] = phase_throughput(inf, smi, f"hrnet-{head}-throughput")
         frames32, bboxes32 = make_requests(32, seed=2)
         out[head].update(profile_steps(
@@ -2679,6 +2715,562 @@ def phase_grid_training(smi: str) -> dict:
                 first_step_ms=r0["step_ms"], loss=r0["bf16"]["total_loss"])
 
 
+# -- phases 21-25: the serving path's surfaces (BN-fold serving, the HTTP
+# server, the stream, the graft entry twin, post-processing and the rotated
+# crop) -----------------------------------------------------------------------
+
+# Folded against unfolded float32 serving on the card (TF32 off): the same
+# affine applied once to the weights (W * a in float32) instead of to each
+# conv output; float32 roundings of each conv's sum apart (~1e-6 of a
+# layer's scale).  Relative to the heatmaps' largest magnitude.
+FOLD_F32_REL_TOL = 1e-4
+# Folded against unfolded bf16: folding rounds W * a to bf16 once and adds
+# b inside the conv's float32 accumulation, where the unfolded model
+# rounds each conv's output to bf16 before its bf16 affine (x * a + b).
+# Each bf16 model strays from the float32 one by its own roundings, and
+# through HRNet-W32's ~300 convs on random weights with calibrated
+# statistics that is far more than bf16's 2^-8 of the heatmaps' largest
+# magnitude (~2e-1 for both, measured on the H100: the heatmaps' scale,
+# ~0.14, is small against the residual chains' maps).  So the two bf16
+# models are held to each other and to float32 by how far the unfolded
+# one (the path served before the fold) strays: on each of |folded -
+# unfolded| and |folded - float32| (heatmaps, relative to the largest
+# magnitude) the unfolded model's distance from float32, plus
+# FOLD_BF16_REL_TOL, the bound of fused against unfused bf16
+# (FUSED_VS_UNFUSED_TOL).
+FOLD_BF16_REL_TOL = FUSED_VS_UNFUSED_TOL
+# Smoothers and post-processing, card against CPU, float32: elementwise
+# maths and short sums in another order; relative to the largest value.
+POST_RTOL = 1e-5
+# The rotated crop, card against CPU: cos, sin and the sample positions
+# one float32 ulp apart (~6e-5 px at 640 px), times steps of up to 255
+# between neighbouring pixels, over the normalisation's std * 255 (~57).
+ROT_CROP_ATOL = 2e-4
+SERVER_TIMEOUT_S = 120.0
+
+
+def perturb_bn(model, seed: int) -> None:
+    """Seeded BatchNorm parameters and statistics away from the identity
+    (weight 1 +- 0.1, bias and running mean N(0, 0.1), running variance in
+    [0.75, 1.25)), so that folding moves every conv."""
+    from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
+        BatchNorm)
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                C = m.num_features
+                m.weight.copy_(1 + 0.1 * torch.randn(C, generator=g))
+                m.bias.copy_(0.1 * torch.randn(C, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(C, generator=g))
+                m.running_var.copy_(0.75 + 0.5 * torch.rand(C, generator=g))
+
+
+def fold_models():
+    """[(label, head, cfg(dtype), float state dict on the card)]:
+    hrnet_w32 + heatmap (Config()), BatchNorm calibrated as in phase 12,
+    and hrformer_base + fusion, BatchNorm perturbed (perturb_bn)."""
+    from infantposeestimation_gaussianbias_tpu_torch import get_variant
+    from infantposeestimation_gaussianbias_tpu_torch.models import (
+        build_model)
+
+    def hrformer(dtype: str = "bfloat16"):
+        cfg = get_variant("hrformer_base")
+        cfg.model.compute_dtype = dtype
+        return cfg
+
+    out = []
+    for label, head, make in (("hrnet_w32", "heatmap",
+                               lambda d="bfloat16": hrnet_cfg("heatmap", d)),
+                              ("hrformer_base", "fusion", hrformer)):
+        model = build_model(make(), "cuda")
+        if label == "hrnet_w32":
+            calibrate_batch_stats(model, make())
+        else:
+            perturb_bn(model, seed=22)
+        out.append((label, head, make, {k: v.clone() for k, v in
+                                        model.state_dict().items()}))
+        del model
+    return out
+
+
+def flip_heatmaps_of(inf, frames, bboxes) -> torch.Tensor:
+    """The flip-averaged heatmaps that ``inf`` decodes for these frames."""
+    from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
+
+    cfg = inf.cfg
+    centers = (bboxes[:, :2] + bboxes[:, 2:]) / 2
+    scales = (bboxes[:, 2:] - bboxes[:, :2]) * cfg.data.bbox_padding
+    with torch.inference_mode():
+        crops = affine.crop_and_normalize(
+            torch.from_numpy(frames).to(inf.device),
+            torch.from_numpy(centers).to(inf.device),
+            torch.from_numpy(scales).to(inf.device), cfg.data.input_size)
+        hm = inf.model(crops)["heatmaps"]
+        hm_f = decode.flip_heatmaps(
+            inf.model(torch.flip(crops, [2]))["heatmaps"], inf._flip_index)
+        return ((hm + hm_f) * 0.5).float()
+
+
+def rel_max(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |a - ref| over max |ref|."""
+    return ((a - ref).abs().max() / ref.abs().max()).item()
+
+
+def fold_against_unfolded(pair: dict, frames, bboxes, head: str) -> tuple:
+    """(heatmaps' max difference relative to their largest magnitude,
+    keypoints' max difference off decode ties in px, keypoints left out,
+    the heatmaps {fold: flip-averaged heatmaps}) of the folded (True) and
+    unfolded (False) PoseInference in ``pair``."""
+    hms = {f: flip_heatmaps_of(inf, frames, bboxes) for f, inf in
+           pair.items()}
+    rel = rel_max(hms[True], hms[False])
+    unsure = _unsure_keypoints(hms[False], head) | _unsure_keypoints(
+        hms[True], head)
+    kp = {f: inf.predict_batch(frames, bboxes)[0] for f, inf in pair.items()}
+    keep = ~unsure
+    assert keep.any()
+    kp_err = float(np.abs(kp[True] - kp[False])[keep].max())
+    return rel, kp_err, int(unsure.sum()), hms
+
+
+def timed_batches(inf, frames, bboxes, warmup: int = 1, runs: int = 5
+                  ) -> float:
+    """Median wall ms of ``runs`` predict_batch calls after ``warmup``."""
+    for _ in range(warmup):
+        inf.predict_batch(frames, bboxes)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        inf.predict_batch(frames, bboxes)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_fold(smi: str) -> dict:
+    """BN-fold serving on the card: hrnet_w32 + heatmap and hrformer_base +
+    fusion at b = 32 with flip.  Float32: folded against unfolded on the
+    card, and the card's folded against the port's folded on the CPU
+    (compare_f32_serving).  bf16: folded against unfolded and against the
+    float32 heatmaps, within the unfolded model's own distance from them
+    plus FOLD_BF16_REL_TOL; K1 launches of each served batch (88 for
+    hrformer_base, none for HRNet), batch ms and a profile of each."""
+    from infantposeestimation_gaussianbias_tpu_torch import PoseInference
+    from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
+        BatchNorm)
+
+    frames, bboxes = make_requests(32, seed=21)
+    out = {}
+    for label, head, make, sd in fold_models():
+        cfg32 = make("float32")
+        pair = {f: PoseInference(cfg32, state_dict=sd, device="cuda",
+                                 fold=f) for f in (False, True)}
+        assert pair[True].fold and not any(
+            isinstance(m, BatchNorm) for m in pair[True].model.modules())
+        rel, kp_err, left, hm32 = fold_against_unfolded(pair, frames[:4],
+                                                        bboxes[:4], head)
+        log(f"[fold] {label} f32 folded vs unfolded on the card, 4 frames: "
+            f"heatmaps {rel:.3e} of their largest, keypoints {kp_err:.3e} "
+            f"px (left out {left} of {4 * 17} on a decode tie)")
+        assert rel <= FOLD_F32_REL_TOL and kp_err <= KEYPOINT_ATOL_PX
+        compare_f32_serving(pair[True].model.state_dict(), frames, bboxes,
+                            f"fold {label}", HEATMAP_ATOL, KEYPOINT_ATOL_PX,
+                            cfg32)
+        del pair
+        cfg = make()
+        pair = {f: PoseInference(cfg, state_dict=sd, device="cuda", fold=f)
+                for f in (False, True)}
+        rel, kp_err, left, hm16 = fold_against_unfolded(pair, frames[:4],
+                                                        bboxes[:4], head)
+        to32 = {f: rel_max(hm16[f], hm32[True]) for f in (False, True)}
+        bound = to32[False] + FOLD_BF16_REL_TOL
+        log(f"[fold] {label} bf16 folded vs unfolded: heatmaps {rel:.3e} of "
+            f"their largest, keypoints {kp_err:.3e} px apart off ties; from "
+            f"the float32 model's heatmaps: folded {to32[True]:.3e}, "
+            f"unfolded {to32[False]:.3e} (bound on both differences "
+            f"{bound:.3e}: unfolded's own + {FOLD_BF16_REL_TOL})")
+        assert rel <= bound and to32[True] <= bound
+        want_k1 = 2 * K1_CALLS_PER_FORWARD if head == "fusion" else 0
+        out[label] = {}
+        for f, inf in pair.items():
+            reset_launches()
+            kpts, scores = inf.predict_batch(frames, bboxes)
+            got = launches()
+            assert np.isfinite(kpts).all() and np.isfinite(scores).all()
+            assert got == dict(no_launches(), k1=want_k1), got
+            ms = timed_batches(inf, frames, bboxes)
+            side = "folded" if f else "unfolded"
+            prof = profile_steps(lambda: inf.predict_batch(frames, bboxes),
+                                 ms, tag=f"fold-{label}-{side}", what="batch")
+            out[label][side] = dict(batch_ms=ms, k1=got["k1"], **prof)
+        del pair
+        fo, un = out[label]["folded"], out[label]["unfolded"]
+        log(f"[fold] {label} bf16 b=32 flip: folded {fo['device_ms']:.2f} ms "
+            f"device in {fo['kernels_per_step']} kernels, "
+            f"{fo['batch_ms']:.1f} ms a batch; unfolded {un['device_ms']:.2f} ms device in "
+            f"{un['kernels_per_step']} kernels, {un['batch_ms']:.1f} ms; K1 "
+            f"{fo['k1']} launches a folded batch; on {smi}")
+    return out
+
+
+class CountedInference:
+    """A PoseInference that records each batch it dispatches and, with a
+    ``gate``, holds every batch until the gate opens (a saturated card)."""
+
+    def __init__(self, inf, gate=None):
+        self._inf = inf
+        self.gate = gate
+        self.batches: list = []
+
+    def __getattr__(self, name):
+        return getattr(self._inf, name)
+
+    def predict_batch(self, frames, bboxes):
+        if self.gate is not None:
+            self.gate.wait(SERVER_TIMEOUT_S)
+        self.batches.append(len(frames))
+        return self._inf.predict_batch(frames, bboxes)
+
+
+def post_npy(base: str, frame: np.ndarray, bbox=None,
+             timeout: float = SERVER_TIMEOUT_S) -> tuple:
+    """POST one frame as .npy to ``base``/predict: (status, payload,
+    headers)."""
+    import io
+    import urllib.error
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.save(buf, frame)
+    query = "" if bbox is None else "?bbox=" + ",".join(
+        repr(float(v)) for v in bbox)
+    req = urllib.request.Request(base + "/predict" + query,
+                                 data=buf.getvalue(),
+                                 headers={"Content-Type": "application/x-npy"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+@contextlib.contextmanager
+def serving(inf, **kw):
+    """make_server on 127.0.0.1 (an ephemeral port) in a thread: yields
+    (base URL, batcher); shuts down, and waits for in-flight batches, on
+    leaving."""
+    import threading
+
+    from infantposeestimation_gaussianbias_tpu_torch.cli.serve import (
+        make_server)
+
+    srv, batcher = make_server(inf, host="127.0.0.1", port=0, **kw)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}", batcher
+    finally:
+        srv.shutdown()
+        batcher.stop()
+        batcher._pool.shutdown(wait=True)
+        srv.server_close()
+        thread.join(timeout=10)
+        torch.cuda.synchronize()
+
+
+def burst(base: str, frames, bboxes, n: int, threads: int) -> tuple:
+    """``n`` requests (frame i % len(frames)) from ``threads`` client
+    threads at once: (responses, latencies in s, wall s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    results, lat = [None] * n, [0.0] * n
+
+    def call(i):
+        t0 = time.perf_counter()
+        j = i % len(frames)
+        results[i] = post_npy(base, frames[j], bboxes[j])
+        lat[i] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(call, range(n)))
+    return results, lat, time.perf_counter() - t0
+
+
+def phase_server(smi: str) -> tuple:
+    """The HTTP server (cli.serve.make_server) on hrformer_base + fusion,
+    folded.  Float32: 8 concurrent requests, each answer against
+    predict_batch of that frame alone.  bf16, max_batch 32: 64 requests
+    from 16 client threads, every answer 200, K1 launches 88 x the
+    dispatched batches, requests/s and p50/p99 latency, /healthz; the same
+    burst's 16 requests under IPE_FUSED_BLOCK=1 (K4 and K5 88 x batches);
+    504 for a request past its deadline; 503 with Retry-After from a full
+    queue.  Returns (record, the bf16 PoseInference)."""
+    import threading
+    import urllib.request
+
+    from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
+                                                              get_variant)
+
+    cfg32 = get_variant("hrformer_base")
+    cfg32.model.compute_dtype = "float32"
+    inf32 = CountedInference(PoseInference(cfg32, device="cuda"))
+    assert inf32.fold
+    frames, bboxes = make_requests(8, seed=23)
+    with serving(inf32, max_batch=8, window_ms=20.0) as (base, _):
+        results, _, _ = burst(base, frames, bboxes, 8, 8)
+    assert all(r[0] == 200 for r in results), [r[:2] for r in results]
+    server_batches = list(inf32.batches)
+    alone = [inf32.predict_batch(frames[i:i + 1], bboxes[i:i + 1])
+             for i in range(8)]
+    unsure = np.concatenate([_unsure_keypoints(flip_heatmaps_of(
+        inf32, frames[i:i + 1], bboxes[i:i + 1]), "fusion")
+        for i in range(8)])
+    kp = np.stack([np.asarray(r[1]["keypoints"]) for r in results])
+    sc = np.stack([np.asarray(r[1]["scores"]) for r in results])
+    k_alone = np.concatenate([a[0] for a in alone])
+    s_alone = np.concatenate([a[1] for a in alone])
+    keep = ~unsure
+    kp_err = float(np.abs(kp - k_alone)[keep].max())
+    s_err = float(np.abs(sc - s_alone).max())
+    log(f"[server] f32 folded, 8 concurrent requests in batches "
+        f"{server_batches}: answers vs predict_batch of each frame "
+        f"alone, keypoints {kp_err:.3e} px (answers rounded to 0.01; left "
+        f"out {int(unsure.sum())} of {unsure.size} on a decode tie), scores "
+        f"{s_err:.3e} (rounded to 1e-4)")
+    assert keep.any() and kp_err <= KEYPOINT_ATOL_PX and s_err <= 1e-4
+    del inf32
+
+    inf = CountedInference(PoseInference(get_variant("hrformer_base"),
+                                         device="cuda"))
+    assert inf.fold and inf.cfg.model.compute_dtype == "bfloat16"
+    frames, bboxes = make_requests(16, seed=24)
+    for n in (1, 2, 4, 8, 16, 32):  # every bucket's plans, before timing
+        inf.predict_batch(np.resize(frames, (n, *frames.shape[1:])),
+                          np.resize(bboxes, (n, 4)))
+    out = {}
+    with serving(inf, max_batch=32, window_ms=5.0) as (base, _):
+        for flag, n, threads in (("0", 64, 16), ("1", 16, 8)):
+            with fused_blocks(flag):
+                inf.batches.clear()
+                reset_launches()
+                results, lat, wall = burst(base, frames, bboxes, n, threads)
+                torch.cuda.synchronize()
+                got = launches()
+            assert all(r[0] == 200 for r in results), [r[:2] for r in results]
+            b = len(inf.batches)
+            per = 2 * K1_CALLS_PER_FORWARD * b
+            want = (dict(no_launches(), k1=per) if flag == "0" else
+                    dict(no_launches(), k4=per, k5=per))
+            assert got == want, (got, inf.batches)
+            assert sum(inf.batches) == n
+            p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
+            out[flag] = dict(requests=n, client_threads=threads,
+                             requests_per_s=n / wall, p50_ms=p50, p99_ms=p99,
+                             batches=list(inf.batches), launches=got)
+            log(f"[server] bf16 folded max_batch 32, IPE_FUSED_BLOCK={flag}: "
+                f"{n} requests of 480x640 .npy frames from {threads} client "
+                f"threads in {wall:.2f} s: {n / wall:.1f} requests/s, "
+                f"latency p50 {p50:.1f} ms p99 {p99:.1f} ms; {b} batches "
+                f"{inf.batches}; launches K1 {got['k1']} K4 {got['k4']} K5 "
+                f"{got['k5']}; on {smi}")
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok" and health["fold"] is True, health
+    # a request past its deadline: 504
+    with serving(inf, max_batch=32, window_ms=0.0,
+                 request_timeout=1e-3) as (base, _):
+        status, payload, _ = post_npy(base, frames[0], bboxes[0])
+    log(f"[server] a request with a 1 ms deadline: {status} {payload}")
+    assert status == 504, (status, payload)
+    # a full queue: 503 with Retry-After, the card held by a gate
+    gate = threading.Event()
+    gated = CountedInference(inf._inf, gate)
+    with serving(gated, max_batch=1, window_ms=0.0, depth=1,
+                 queue_depth=1) as (base, _):
+        results = [None] * 8
+
+        def call(i):
+            results[i] = post_npy(base, frames[i], bboxes[i])
+
+        clients = [threading.Thread(target=call, args=(i,))
+                   for i in range(8)]
+        for c in clients:
+            c.start()
+        deadline = time.monotonic() + 30
+        while (not any(r and r[0] == 503 for r in results)
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        gate.set()
+        for c in clients:
+            c.join(timeout=SERVER_TIMEOUT_S)
+    codes = [r[0] for r in results]
+    shed = [r for r in results if r[0] == 503]
+    log(f"[server] queue depth 1, one batch in flight, 8 requests at once: "
+        f"status codes {codes}; Retry-After "
+        f"{[r[2].get('Retry-After') for r in shed]}")
+    assert shed and 200 in codes and set(codes) <= {200, 503}, codes
+    assert all(r[2].get("Retry-After") for r in shed)
+    record = dict(out["0"], fused=out["1"], serve_http_k1=out["0"][
+        "launches"]["k1"], serve_http_k4=out["1"]["launches"]["k4"],
+        serve_http_k5=out["1"]["launches"]["k5"], card=smi)
+    return record, inf._inf
+
+
+def stream_batches(sizes, seed: int) -> list:
+    """Seeded batches of uint8 crops at 256x192 with centres and scales,
+    the eval loader's contract."""
+    rng = np.random.RandomState(seed)
+    return [{"image_u8": rng.randint(0, 256, (n, 256, 192, 3)).astype(
+                np.uint8),
+             "center": rng.uniform(100, 500, (n, 2)).astype(np.float32),
+             "scale": rng.uniform(150, 400, (n, 2)).astype(np.float32)}
+            for n in sizes]
+
+
+def phase_stream(inf, smi: str) -> dict:
+    """predict_stream on hrformer_base bf16 (folded): 4 batches of 32 uint8
+    crops and one of 5, two in flight; every yielded batch equal bit for
+    bit to the same crops through crops_pipeline, K1 88 launches a
+    batch."""
+    sizes = (32, 32, 32, 32, 5)
+    batches = stream_batches(sizes, seed=25)
+    list(inf.predict_stream(iter(stream_batches((32, 5), seed=26))))  # plans
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = list(inf.predict_stream(iter(batches), max_in_flight=2))
+    wall = time.perf_counter() - t0
+    counts = launches()
+    assert counts == dict(no_launches(),
+                          k1=2 * K1_CALLS_PER_FORWARD * len(sizes)), counts
+    assert len(got) == len(sizes)
+    for b, (c, s) in zip(batches, got):
+        rc, rs = inf.crops_pipeline(*(torch.from_numpy(b[k]).cuda() for k in
+                                      ("image_u8", "center", "scale")))
+        assert c.shape == (len(b["center"]), 17, 2)
+        np.testing.assert_array_equal(c, rc.cpu().numpy())
+        np.testing.assert_array_equal(s, rs.cpu().numpy())
+    crops = sum(sizes)
+    log(f"[stream] bf16 folded predict_stream, batches {list(sizes)}, two in "
+        f"flight: every batch equal bit for bit to crops_pipeline on the "
+        f"same crops; K1 {counts['k1']} launches; {crops} crops in "
+        f"{wall * 1e3:.1f} ms, {crops / wall:.1f} crops/s; on {smi}")
+    return dict(k1=counts["k1"], crops_per_s=crops / wall, batches=sizes,
+                card=smi)
+
+
+def phase_graft() -> dict:
+    """graft_entry.entry on the card: the example's shapes; float32 coords
+    and scores of 4 seeded images against entry("cpu") from the same
+    weights (HRNet's BatchNorm calibrated as in phase 12), KEYPOINT_ATOL_PX
+    off decode ties and 1e-4 of the largest score; one bf16 call finite."""
+    from infantposeestimation_gaussianbias_tpu_torch.graft_entry import (
+        entry, flagship_cfg)
+    from infantposeestimation_gaussianbias_tpu_torch.models import (
+        build_model)
+
+    cfg32 = flagship_cfg("float32")
+    model = build_model(cfg32, "cuda")
+    calibrate_batch_stats(model, cfg32)
+    sd = model.state_dict()
+    images = torch.randn((4, 256, 192, 3),
+                         generator=torch.Generator().manual_seed(27))
+    with torch.inference_mode():
+        unsure = _unsure_keypoints(model(images.cuda())["heatmaps"], "fusion")
+    fn, (example,) = entry("cuda", state_dict=sd, compute_dtype="float32")
+    assert example.shape == (4, 256, 192, 3) and example.is_cuda
+    c, s = fn(images.cuda())
+    assert c.shape == (4, 17, 2) and s.shape == (4, 17) and c.is_cuda
+    fn_cpu, _ = entry("cpu", state_dict={k: v.cpu() for k, v in sd.items()},
+                      compute_dtype="float32")
+    c_cpu, s_cpu = fn_cpu(images)
+    keep = ~unsure
+    kp_err = float((c.cpu() - c_cpu).abs().numpy()[keep].max())
+    s_err = ((s.cpu() - s_cpu).abs().max() / s_cpu.abs().max()).item()
+    fn16, _ = entry("cuda", state_dict=sd)
+    c16, s16 = fn16(images.cuda())
+    finite = bool(torch.isfinite(c16).all() and torch.isfinite(s16).all())
+    log(f"[graft] entry() hrnet_w32 + fusion 256x192: f32 card vs CPU, 4 "
+        f"images: coords {kp_err:.3e} heatmap px (left out "
+        f"{int(unsure.sum())} of {unsure.size} on a decode tie), scores "
+        f"{s_err:.3e} of the largest; bf16 call finite: {finite}")
+    assert keep.any() and kp_err <= KEYPOINT_ATOL_PX and s_err <= 1e-4
+    assert finite
+    return dict(coords_err=kp_err, scores_rel_err=s_err)
+
+
+def phase_postprocess() -> dict:
+    """The smoothers, postprocess_predictions, nms_pose and the rotated
+    crop on card tensors against the same calls on the CPU (float32)."""
+    from infantposeestimation_gaussianbias_tpu_torch import postprocess
+    from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
+
+    g = torch.Generator().manual_seed(28)
+    errs = {}
+
+    def check(name, card, cpu, tol, scale=None):
+        card, cpu = card.cpu().float(), cpu.float()
+        scale = cpu.abs().max().item() if scale is None else scale
+        err = (card - cpu).abs().max().item()
+        errs[name] = err / max(scale, 1e-30)
+        assert err <= tol * max(scale, 1e-30), (name, err, scale)
+
+    t = torch.arange(64.0)[:, None, None]
+    traj = (300 + 40 * torch.sin(t / 7 + 6 * torch.rand((1, 17, 2),
+                                                         generator=g))
+            + 2 * torch.randn((64, 17, 2), generator=g))
+    for method in ("gaussian", "moving_average", "one_euro"):
+        check(f"temporal_smooth {method}",
+              decode.temporal_smooth(traj.cuda(), 5, method, fps=25.0),
+              decode.temporal_smooth(traj, 5, method, fps=25.0), POST_RTOL)
+    B, H, W, K = 32, 64, 48, 17
+    ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    peaks = torch.rand((B, 1, 1, K, 2), generator=g) * torch.tensor([W, H])
+    amp = 0.1 + 0.9 * torch.rand((B, 1, 1, K), generator=g)
+    hm = amp * torch.exp(-((xs[..., None] - peaks[..., 0]) ** 2
+                           + (ys[..., None] - peaks[..., 1]) ** 2) / 4.0)
+    hm = hm + 0.01 * torch.rand(hm.shape, generator=g)
+    meta = {"center": 100 + 300 * torch.rand((B, 2), generator=g),
+            "scale": 100 + 200 * torch.rand((B, 2), generator=g)}
+    outputs = {"heatmaps": hm, "coords": torch.rand((B, K, 2), generator=g)}
+    card = postprocess.postprocess_predictions(
+        {k: v.cuda() for k, v in outputs.items()},
+        {k: v.cuda() for k, v in meta.items()})
+    cpu = postprocess.postprocess_predictions(outputs, meta)
+    for k in ("preds", "maxvals"):
+        check(f"postprocess {k}", card[k], cpu[k], POST_RTOL)
+    assert torch.equal(card["mask"].cpu(), cpu["mask"])
+    pts = cpu["preds"]
+    kept, keep = postprocess.nms_pose(pts.cuda(), cpu["maxvals"].cuda(), 20.0)
+    kept_cpu, keep_cpu = postprocess.nms_pose(pts, cpu["maxvals"], 20.0)
+    assert torch.equal(keep.cpu(), keep_cpu)
+    assert 0 < keep_cpu.sum() < keep_cpu.numel()
+    check("nms_pose", kept, kept_cpu, POST_RTOL)
+    frames, bboxes = make_requests(8, seed=29)
+    centers = torch.from_numpy((bboxes[:, :2] + bboxes[:, 2:]) / 2)
+    scales = torch.from_numpy((bboxes[:, 2:] - bboxes[:, :2]) * 1.25)
+    rots = torch.linspace(-80.0, 80.0, 8)  # |rot| > 63 deg: the joint gather
+    mats = affine.get_affine_matrix(centers, scales, (192, 256), rots)
+    check("rotated matrices", affine.get_affine_matrix(
+        centers.cuda(), scales.cuda(), (192, 256), rots.cuda()), mats,
+        POST_RTOL)
+    pts = torch.rand((8, 17, 2), generator=g) * 640
+    check("transform_points", affine.transform_points(pts.cuda(),
+                                                      mats.cuda()),
+          affine.transform_points(pts, mats), POST_RTOL)
+    f = torch.from_numpy(frames)
+    check("rotated crop_and_normalize", affine.crop_and_normalize(
+        f.cuda(), centers.cuda(), scales.cuda(), (192, 256),
+        rots=rots.cuda()), affine.crop_and_normalize(
+        f, centers, scales, (192, 256), rots=rots), ROT_CROP_ATOL, scale=1.0)
+    log("[post] card vs CPU, float32, max error relative to the largest "
+        "value: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + " (the rotated crop's in normalised units)")
+    return errs
+
+
 # -- phase 20 (with --parent): this checkout's backward kernels and steps
 # against the parent commit's, in turns ------------------------------------------
 
@@ -2686,7 +3278,9 @@ def serve_times(smi: str, flag: str) -> dict:
     """One served bf16 batch of 32 frames with flip through hrformer_base
     under IPE_FUSED_BLOCK=flag ("1" fused, "0" unfused): the median batch
     ms over 8 batches after 3 warm-up, the device ms of one batch
-    (torch.profiler, two batches) and its K4 and K1 launches."""
+    (torch.profiler, two batches), its K4 and K1 launches, and whether
+    the checkout's default serving folds BatchNorm (``folded``: 1.0 or
+    0.0; a checkout without BN-fold serving reads 0.0)."""
     from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
                                                               get_variant)
 
@@ -2707,8 +3301,9 @@ def serve_times(smi: str, flag: str) -> dict:
         batch_ms = float(np.median(times)) * 1e3
         prof = profile_steps(lambda: inf.predict_batch(frames, bboxes),
                              batch_ms, tag=tag, what="batch")
+    # the parent's PoseInference has no fold; this checkout's folds
     return dict(batch_ms=batch_ms, device_ms=prof["device_ms"], k4=got["k4"],
-                k1=got["k1"])
+                k1=got["k1"], folded=float(getattr(inf, "fold", False)))
 
 
 def bwd_times(smi: str) -> dict:
@@ -2967,6 +3562,12 @@ def phase_parent(parent: str) -> dict:
                                  change=float(np.mean(cs)))
             log(f"[parent] bf16 b={TRAIN_BATCH} {tag} {what} {k}: parent "
                 f"{ps[0]:.4f}/{ps[1]:.4f}, change {cs[0]:.4f}/{cs[1]:.4f}")
+        if "folded" in values:
+            sides = {side: "folded" if steps[tag]["folded"][side] else
+                     "unfolded" for side in ("parent", "change")}
+            log(f"[parent] {tag}: the parent serves {sides['parent']}, this "
+                f"checkout {sides['change']} (its default, BN-fold): the "
+                f"served batches' difference includes the fold's")
     return dict(kernels=kernels, steps=steps)
 
 
@@ -3053,6 +3654,13 @@ def main(argv: list) -> int:
     k3 = timed("17 k3", phase_k3)
     grid_serve = timed("18 grid serving", phase_grid_serving, smi)
     grid_train = timed("19 grid training", phase_grid_training, smi)
+    fold = timed("21 fold", phase_fold, smi)
+    with fused_blocks("0"):
+        server, inf16 = timed("22 server", phase_server, smi)
+        stream = timed("23 stream", phase_stream, inf16, smi)
+    del inf16
+    graft = timed("24 graft entry", phase_graft)
+    post = timed("25 post-processing", phase_postprocess)
     parent = (timed("20 parent", phase_parent, args.parent)
               if args.parent else None)
     log(f"[fused] bf16 b=32 serving {fused_thr['crops_per_s']:.1f} crops/s "
@@ -3074,7 +3682,9 @@ def main(argv: list) -> int:
                     "k1_hm_relayout": k1hm["relayout"],
                     "k8_per_shape": k8["per_shape"], "analysis": analysis,
                     "fused_train_window8": fused_train["window8"],
-                    "grid_slice": grid_serve, "grid_train": grid_train}))
+                    "grid_slice": grid_serve, "grid_train": grid_train,
+                    "fold": fold, "server": server, "stream": stream,
+                    "graft_entry": graft, "post": post}))
     source = "infantposeestimation_gaussianbias_tpu_torch/csrc/"
     jax_pkg = "infantposeestimation_gaussianbias_tpu/"
     pallas = jax_pkg + "ops/pallas/"
@@ -3116,16 +3726,20 @@ def main(argv: list) -> int:
     log(json.dumps({"kernels": [
         entry("window_msa_fwd", "window_msa.cu", "window_msa.py:222",
               {"serve": serve_launches, "serve_auto": fused_serve["k1"],
-               "train": t["k1"], "analysis_saliency": sal["k1"]}, k1),
+               "train": t["k1"], "analysis_saliency": sal["k1"],
+               "serve_http": server["serve_http_k1"], "stream": stream["k1"]},
+              k1),
         entry("window_msa_bwd", "window_msa_bwd.cu", "window_msa.py:422",
               {"train": t["k2"], "analysis_saliency": sal["k2"]}, k2),
         entry("fused_attn_half_fwd", "fused_attn.cu", "fused_block.py:562",
-              {"serve_fused": fused_serve["k4"], "train_fused": ft["k4"]},
+              {"serve_fused": fused_serve["k4"], "train_fused": ft["k4"],
+               "serve_http": server["serve_http_k4"]},
               k45["attn_fwd"]),
         entry("fused_attn_half_bwd", "fused_attn.cu", "fused_block.py:608",
               {"train_fused": ft["k4b"]}, k45["attn_bwd"]),
         entry("fused_mlp_half_fwd", "fused_mlp.cu", "fused_block.py:220",
-              {"serve_fused": fused_serve["k5"], "train_fused": ft["k5"]},
+              {"serve_fused": fused_serve["k5"], "train_fused": ft["k5"],
+               "serve_http": server["serve_http_k5"]},
               k45["mlp_fwd"]),
         entry("fused_mlp_half_bwd", "fused_mlp.cu", "fused_block.py:260",
               {"train_fused": ft["k5b"]}, k45["mlp_bwd"]),

@@ -1,0 +1,81 @@
+"""Inference CLI: one image, a directory of images, or a video.
+
+Port of infantposeestimation_gaussianbias_tpu/cli/infer.py.
+
+    python -m infantposeestimation_gaussianbias_tpu_torch.cli.infer \
+        --variant hrnet_w32 --input img.jpg --output out.jpg
+    ... --input frames_dir/
+    ... --input video.mp4 --max-frames 64
+
+Images and videos are read with cv2.  ``--output`` on an image draws the
+skeleton (viz/skeleton.py).  A video's ``--output`` and
+``--clinical-report`` need the clinical figures (matplotlib), which are
+not ported yet, and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from .common import (add_config_args, add_serving_args, make_inference,
+                     resolve_config)
+
+CLINICAL_TODO = ("video --output and --clinical-report need viz/clinical.py, "
+                 "which is not ported yet: ROADMAP Queue 1 item 8")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Pose inference")
+    add_config_args(parser)
+    add_serving_args(parser)
+    parser.add_argument("--input", required=True,
+                        help="image file, directory, or video")
+    parser.add_argument("--output", default=None)
+    parser.add_argument("--bbox", type=float, nargs=4, default=None,
+                        metavar=("X1", "Y1", "X2", "Y2"))
+    parser.add_argument("--video", action="store_true")
+    parser.add_argument("--max-frames", type=int, default=None)
+    parser.add_argument("--clinical-report", default=None,
+                        help="write a clinical analysis figure (video mode; "
+                             "not ported: raises)")
+    args = parser.parse_args(argv)
+    cfg = resolve_config(args)
+    video = args.video or args.input.lower().endswith((".mp4", ".avi",
+                                                       ".mov"))
+    if video and (args.output or args.clinical_report):
+        raise NotImplementedError(CLINICAL_TODO)
+    infer = make_inference(args, cfg)
+    schema = cfg.data.keypoint_schema
+
+    if video:
+        traj, scores, fps = infer.predict_video(args.input,
+                                                max_frames=args.max_frames)
+        print(f"processed {len(traj)} frames @ {fps:.1f} fps")
+        return
+
+    if os.path.isdir(args.input):
+        for name, r in infer.predict_directory(args.input).items():
+            print(f"{name}: mean score {float(np.mean(r['scores'])):.3f}")
+        return
+
+    import cv2
+
+    img = cv2.imread(args.input)
+    if img is None:
+        raise SystemExit(f"cannot read {args.input}")
+    kpts, scores = infer.predict(cv2.cvtColor(img, cv2.COLOR_BGR2RGB),
+                                 args.bbox)
+    for name, (x, y), s in zip(schema.keypoint_names, kpts, scores):
+        print(f"{name:>16}: ({x:7.1f}, {y:7.1f})  score {s:.3f}")
+    if args.output:
+        from ..viz.skeleton import draw_skeleton
+
+        cv2.imwrite(args.output, draw_skeleton(img, kpts, scores, schema))
+        print(f"wrote {args.output}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,29 @@
-"""High-level inference API: batches of frames with boxes, or one image.
+"""High-level inference API: batches of frames with boxes, one image, a
+stream of crop batches, a directory of images, a video.
 
 Port of ``PoseInference`` in infantposeestimation_gaussianbias_tpu/
 inference.py: crop + normalise -> flip-tested forward -> decode (fusion
 decode for the fusion head; ``cfg.eval.decode`` for the heatmap head) ->
-back-projection, all on ``device`` for a whole batch of crops.  Serving
-runs eval-mode BatchNorm: the JAX package's BN-fold is the same maths
-with other roundings and is not ported.  Frames
-cross to the device as uint8, and every batch is padded to a power-of-two
-bucket by repeating its last row, with results trimmed back.
+back-projection, all on ``device`` for a whole batch of crops.
+
+Float serving folds BatchNorm into the convs by default wherever the
+architecture allows it (models/fold.py: hrnet/hrformer backbones, fusion
+or heatmap head, BatchNorm), as the JAX package does; ``fold=False``
+serves eval-mode BatchNorm.  The fold leaves the transformer blocks, and
+so the W-MSA kernels (K1, or K4/K5 under ``IPE_FUSED_BLOCK``), as they
+are.
+
+``predict_batch`` takes uint8 frames, which cross to the device as uint8;
+every batch is padded to a power-of-two bucket by repeating its last row,
+with results trimmed back, for the reason the JAX package pads: the
+micro-batcher (cli/serve.py) and the directory loop form batches of any
+size, and the kernels' launch plans are cached per batch size, so
+buckets bound their number.
+``predict_stream`` overlaps the host, the host-to-device copy
+(data/pipeline.py ``prefetch_to_device``) and the device on batches of
+uint8 crops.  ``predict_directory`` and ``predict_video`` are host loops
+over ``predict_batch`` that decode with the native loader (native/) or
+cv2.
 
 ``mesh`` (a parallel.ProcessGrid) serves over a process grid, as the JAX
 ``PoseInference(mesh=...)`` does over a device mesh: every rank is handed
@@ -20,15 +36,22 @@ are gathered, so every rank returns the whole trimmed result.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple
+import collections
+import os
+from typing import (Dict, Iterable, Iterator, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
-from .models import build_model, flip_inference, resolve_device
+from .models import (build_model, flip_inference, fold_state_dict,
+                     resolve_device, serving_mode_supported)
 from .ops import affine
 from .ops import decode as decode_ops
 from .parallel.mesh import TENSOR_PARALLEL_TODO, gather_data_rows, shard_batch
+
+GRID_STREAM_TODO = ("predict_stream over a process grid is not ported; "
+                    "serve each batch with predict_batch")
 
 
 def detect_persons(image: np.ndarray) -> list:
@@ -40,35 +63,48 @@ def detect_persons(image: np.ndarray) -> list:
 class PoseInference:
     """Pose predictor on ``device`` (the CUDA card unless the caller asks
     for ``"cpu"``).  Weights come from ``state_dict`` (the reference
-    checkpoint's naming) or, when it is None, from the seeded
-    initialisation of ``build_model`` (``cfg.train.seed``).  ``mesh``: a
-    ProcessGrid to serve over (see the module doc); the model then runs on
-    the grid's device.  ``tensor_parallel`` is not ported and raises."""
+    checkpoint's naming, float or already folded) or, when it is None,
+    from the seeded initialisation of ``build_model`` (``cfg.train.seed``).
+    ``fold``: None folds where ``serving_mode_supported`` says the
+    architecture can, True folds (or raises, as ``validate_serving_mode``),
+    False never does.  ``mesh``: a ProcessGrid to serve over (see the
+    module doc); the model then runs on the grid's device.
+    ``tensor_parallel`` is not ported and raises."""
+
+    quantize = False  # int8 serving is not ported (ROADMAP Queue 1 item 5)
 
     def __init__(self, cfg,
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 device="cuda", mesh=None, tensor_parallel: bool = False):
+                 device="cuda", mesh=None, tensor_parallel: bool = False,
+                 fold: Optional[bool] = None):
         if tensor_parallel:
             raise NotImplementedError(TENSOR_PARALLEL_TODO)
+        if fold is None:
+            fold = serving_mode_supported(cfg.model.backbone,
+                                          cfg.model.head_type,
+                                          cfg.model.norm, fold=True)
         self.cfg = cfg
+        self.fold = fold
         self.schema = cfg.data.keypoint_schema
         self.mesh = mesh
-        self.model = build_model(cfg, resolve_device(device), mesh)
+        self.model = build_model(cfg, resolve_device(device), mesh,
+                                 fold=fold)
         self.device = next(self.model.parameters()).device
         if state_dict is not None:
-            self.model.load_state_dict(state_dict, strict=True)
+            self.model.load_state_dict(
+                fold_state_dict(state_dict) if fold else state_dict,
+                strict=True)
         self._flip_index = torch.as_tensor(self.schema.flip_index(),
                                            device=self.device)
 
-    @torch.inference_mode()
-    def _pipeline(self, frames: torch.Tensor, centers: torch.Tensor,
-                  scales: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _forward_decode(self, crops: torch.Tensor, centers: torch.Tensor,
+                        scales: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Normalised crops -> flip-tested forward -> decode ->
+        back-projection to the source frames."""
         cfg = self.cfg
         W, H = cfg.data.input_size
         hm_w, hm_h = cfg.data.heatmap_size
-        crops = affine.crop_and_normalize(
-            frames, centers, scales, (W, H),
-            mean=cfg.data.pixel_mean, std=cfg.data.pixel_std)
         coords, scores = flip_inference(
             self.model, crops, self._flip_index, cfg.model.head_type,
             cfg.eval.decode, shift_heatmap=cfg.eval.shift_heatmap,
@@ -78,9 +114,33 @@ class PoseInference:
         coords = decode_ops.transform_preds(coords, centers, scales, (W, H))
         return coords, scores
 
+    @torch.inference_mode()
+    def _pipeline(self, frames: torch.Tensor, centers: torch.Tensor,
+                  scales: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        crops = affine.crop_and_normalize(
+            frames, centers, scales, cfg.data.input_size,
+            mean=cfg.data.pixel_mean, std=cfg.data.pixel_std)
+        return self._forward_decode(crops, centers, scales)
+
+    @torch.inference_mode()
+    def crops_pipeline(self, crops_u8: torch.Tensor, centers: torch.Tensor,
+                       scales: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The served pipeline on (B, H, W, 3) uint8 crops already at the
+        input size (``predict_stream``'s per-batch step): (x - mean * 255)
+        / (std * 255), then ``_forward_decode``.  Device tensors out."""
+        cfg = self.cfg
+        mean = torch.tensor(cfg.data.pixel_mean, dtype=torch.float32,
+                            device=self.device) * 255.0
+        std = torch.tensor(cfg.data.pixel_std, dtype=torch.float32,
+                           device=self.device) * 255.0
+        crops = (crops_u8.float() - mean) / std
+        return self._forward_decode(crops, centers.float(), scales.float())
+
     @staticmethod
     def _bucket_rows(n: int) -> int:
-        """Next power-of-two batch bucket."""
+        """Next power-of-two batch bucket (see the module doc)."""
         return 1 << max(0, int(n - 1).bit_length())
 
     def predict_batch(self, frames: np.ndarray, bboxes: np.ndarray
@@ -125,3 +185,120 @@ class PoseInference:
         kpts, scores = self.predict_batch(image[None],
                                           np.asarray(bbox, np.float32)[None])
         return kpts[0], scores[0]
+
+    def predict_stream(self, batches: Iterable[Mapping],
+                       max_in_flight: int = 2
+                       ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Overlapped serving of a stream of crop batches: dicts with
+        ``image_u8`` (B, H, W, 3) uint8 crops at the input size and
+        ``center``/``scale`` (B, 2) (the eval loader's contract).  A
+        thread copies up to ``max_in_flight`` batches ahead to the device
+        (``prefetch_to_device``); each batch's pipeline is queued on the
+        device at once and its results read ``max_in_flight`` batches
+        behind the front.  Yields (coords (B, K, 2) in source
+        coordinates, scores (B, K)) numpy arrays per batch, in order."""
+        from .data.pipeline import prefetch_to_device
+
+        if self.mesh is not None:
+            raise NotImplementedError(GRID_STREAM_TODO)
+        pending: collections.deque = collections.deque()
+        staged = prefetch_to_device(batches, size=max_in_flight,
+                                    keys=("image_u8", "center", "scale"),
+                                    device=self.device)
+        for batch in staged:
+            out = self.crops_pipeline(batch["image_u8"], batch["center"],
+                                      batch["scale"])
+            pending.append(out)
+            if len(pending) > max_in_flight:
+                c, s = pending.popleft()
+                yield c.cpu().numpy(), s.cpu().numpy()
+        while pending:
+            c, s = pending.popleft()
+            yield c.cpu().numpy(), s.cpu().numpy()
+
+    def predict_directory(self, directory: str,
+                          exts=(".jpg", ".jpeg", ".png"),
+                          batch_size: int = 32) -> Dict[str, Dict]:
+        """Every image in a directory, full-frame boxes; images of one
+        shape batch together up to ``batch_size``.  JPEG (and PNG, where
+        the native build has libpng) decode natively, the rest with cv2.
+        Returns {name: {"keypoints", "scores"}} in name order."""
+        import cv2
+
+        from . import native
+
+        use_native = native.available()
+        groups: Dict[tuple, list] = {}
+        for name in sorted(os.listdir(directory)):
+            lower = name.lower()
+            if not lower.endswith(exts):
+                continue
+            path = os.path.join(directory, name)
+            img = None
+            if use_native and (lower.endswith((".jpg", ".jpeg"))
+                               or (lower.endswith(".png")
+                                   and native.has_png())):
+                try:  # one pass straight to RGB
+                    with open(path, "rb") as f:
+                        img = native.decode_rgb(f.read())
+                except (ValueError, OSError):
+                    img = None  # a mislabelled format: cv2 below
+            if img is None:
+                img = cv2.imread(path)
+                if img is None:
+                    continue
+                img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+            groups.setdefault(img.shape, []).append((name, img))
+        results = {}
+        for shape, items in groups.items():
+            h, w = shape[:2]
+            bbox = np.array([0, 0, w, h], np.float32)
+            for i in range(0, len(items), batch_size):
+                chunk = items[i:i + batch_size]
+                kpts, scores = self.predict_batch(
+                    np.stack([im for _, im in chunk]),
+                    np.tile(bbox, (len(chunk), 1)))
+                for (name, _), k, s in zip(chunk, kpts, scores):
+                    results[name] = {"keypoints": k, "scores": s}
+        return {name: results[name] for name in sorted(results)}
+
+    def predict_video(self, video_path: str,
+                      temporal_smooth: Optional[bool] = None,
+                      max_frames: Optional[int] = None
+                      ) -> Tuple[np.ndarray, np.ndarray, float]:
+        """Per-frame full-image pose over a video (cv2), in batches of 32
+        frames, then ``cfg.temporal`` smoothing (on unless
+        ``temporal_smooth`` says otherwise) when the clip holds a window.
+        Returns (trajectory (T, K, 2), scores (T, K), fps)."""
+        import cv2
+
+        cap = cv2.VideoCapture(video_path)
+        fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+        frames = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+            if max_frames and len(frames) >= max_frames:
+                break
+        cap.release()
+        K = self.schema.num_keypoints
+        if not frames:
+            return np.zeros((0, K, 2)), np.zeros((0, K)), fps
+        arr = np.stack(frames)
+        h, w = arr.shape[1:3]
+        bboxes = np.tile(np.array([0, 0, w, h], np.float32), (len(arr), 1))
+        kpts, scores = [], []
+        for i in range(0, len(arr), 32):
+            k, s = self.predict_batch(arr[i:i + 32], bboxes[i:i + 32])
+            kpts.append(k)
+            scores.append(s)
+        traj, scores = np.concatenate(kpts), np.concatenate(scores)
+        tcfg = self.cfg.temporal
+        smooth = tcfg.enabled if temporal_smooth is None else temporal_smooth
+        if smooth and len(traj) >= tcfg.window_size:
+            traj = decode_ops.temporal_smooth(
+                torch.from_numpy(traj), tcfg.window_size, tcfg.method,
+                fps=fps).numpy()
+        return traj, scores, fps

@@ -1,13 +1,17 @@
-"""Models: HRNet and HRFormer backbones, the heatmap and fusion heads and
-their assembly."""
+"""Models: HRNet and HRFormer backbones, the heatmap and fusion heads,
+their assembly and the BN-fold serving transform."""
 
 from .heads import FusionHead, HeatmapHead
 from .hrformer import HRFormer, hrformer_base, hrformer_small
 from .hrnet import HRNet, hrnet_w32, hrnet_w48
+from .fold import fold_state_dict
 from .pose_estimator import (BACKBONES, PoseEstimator, build_model,
-                             decode_outputs, flip_inference, resolve_device)
+                             decode_outputs, flip_inference,
+                             multiscale_flip_inference, resolve_device,
+                             serving_mode_supported, validate_serving_mode)
 
 __all__ = ["BACKBONES", "FusionHead", "HRFormer", "HRNet", "HeatmapHead",
            "PoseEstimator", "build_model", "decode_outputs", "flip_inference",
-           "hrformer_base", "hrformer_small", "hrnet_w32", "hrnet_w48",
-           "resolve_device"]
+           "fold_state_dict", "hrformer_base", "hrformer_small", "hrnet_w32",
+           "hrnet_w48", "multiscale_flip_inference", "resolve_device",
+           "serving_mode_supported", "validate_serving_mode"]

@@ -47,23 +47,26 @@ class _SubpixelRefine(nn.Module):
 class FusionHead(nn.Module):
     """Shared trunk (2 x 3x3 conv-norm-ReLU) + heatmap / offset / variance
     branches (3x3 conv-norm-ReLU -> 1x1), variance through softplus, plus
-    the two decode logits."""
+    the two decode logits.  ``fold``: the BN-folded serving form of its
+    hidden ConvNorms (models/fold.py)."""
 
     def __init__(self, in_channels: int, num_keypoints: int,
                  hidden_dim: int = 256,
                  compute_dtype: torch.dtype = torch.float32,
-                 norm: str = "batchnorm"):
+                 norm: str = "batchnorm", fold: bool = False):
         super().__init__()
         h, K = hidden_dim, num_keypoints
         kw = dict(compute_dtype=compute_dtype)
+        ckw = dict(bias=fold, **kw)
         self.num_keypoints = K
         self.shared_layers = nn.Sequential(
-            Conv2d(in_channels, h, 3, **kw), make_norm(norm, h), nn.ReLU(),
-            Conv2d(h, h, 3, **kw), make_norm(norm, h), nn.ReLU())
+            Conv2d(in_channels, h, 3, **ckw), make_norm(norm, h, fold),
+            nn.ReLU(), Conv2d(h, h, 3, **ckw), make_norm(norm, h, fold),
+            nn.ReLU())
 
         def branch(width: int, out: int) -> nn.Sequential:
-            return nn.Sequential(Conv2d(h, width, 3, **kw),
-                                 make_norm(norm, width),
+            return nn.Sequential(Conv2d(h, width, 3, **ckw),
+                                 make_norm(norm, width, fold),
                                  nn.ReLU(), Conv2d(width, out, 1, bias=True,
                                                    **kw))
 

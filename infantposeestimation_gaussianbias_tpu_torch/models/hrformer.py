@@ -206,7 +206,7 @@ class HRFormerModule(nn.Module):
                  window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
                  drop_path_rate: float = 0.0, use_pallas: bool = False,
-                 norm: str = "batchnorm"):
+                 norm: str = "batchnorm", fold: bool = False):
         super().__init__()
         kw = dict(compute_dtype=compute_dtype)
         self.branches = nn.ModuleList([
@@ -217,7 +217,8 @@ class HRFormerModule(nn.Module):
             for c, h in zip(channels, heads)])
         self.num_drop_paths = (len(channels) * BLOCKS_PER_BRANCH
                                * HRFormerBlock.DROP_PATHS)
-        self.fuse_layers = make_fuse_layers(channels, compute_dtype, norm)
+        self.fuse_layers = make_fuse_layers(channels, compute_dtype, norm,
+                                            fold)
 
     def forward(self, xs: List[torch.Tensor],
                 keep: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
@@ -234,7 +235,9 @@ class HRFormerModule(nn.Module):
 
 
 class HRFormer(nn.Module):
-    """HRFormer backbone on NHWC images; returns the stride-4 features."""
+    """HRFormer backbone on NHWC images; returns the stride-4 features.
+    ``fold``: the BN-folded serving form of its convs (models/fold.py);
+    the transformer blocks have no BatchNorm and do not change."""
 
     def __init__(self, channels: Tuple[int, ...] = (78, 156, 312, 624),
                  num_heads: Tuple[int, ...] = (2, 4, 8, 16),
@@ -242,16 +245,19 @@ class HRFormer(nn.Module):
                  window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
                  drop_path_rate: float = 0.2, remat: bool = False,
-                 use_pallas: bool = False, norm: str = "batchnorm"):
+                 use_pallas: bool = False, norm: str = "batchnorm",
+                 fold: bool = False):
         super().__init__()
         self.channels = tuple(channels)
         self.drop_path_rate = drop_path_rate
         self.remat = remat
-        kw = dict(compute_dtype=compute_dtype, norm=norm)
-        self.conv1 = Conv2d(3, 64, 3, stride=2, compute_dtype=compute_dtype)
-        self.bn1 = make_norm(norm, 64)
-        self.conv2 = Conv2d(64, 64, 3, stride=2, compute_dtype=compute_dtype)
-        self.bn2 = make_norm(norm, 64)
+        kw = dict(compute_dtype=compute_dtype, norm=norm, fold=fold)
+        self.conv1 = Conv2d(3, 64, 3, stride=2, bias=fold,
+                            compute_dtype=compute_dtype)
+        self.bn1 = make_norm(norm, 64, fold)
+        self.conv2 = Conv2d(64, 64, 3, stride=2, bias=fold,
+                            compute_dtype=compute_dtype)
+        self.bn2 = make_norm(norm, 64, fold)
         self.layer1 = nn.Sequential(Bottleneck(64, 64, **kw),
                                     Bottleneck(256, 64, **kw))
         prev = [256]
@@ -301,18 +307,18 @@ class HRFormer(nn.Module):
 def hrformer_base(compute_dtype: torch.dtype = torch.float32,
                   window_size: int = 7, remat: bool = False,
                   use_pallas: bool = False,
-                  norm: str = "batchnorm") -> HRFormer:
+                  norm: str = "batchnorm", fold: bool = False) -> HRFormer:
     return HRFormer(channels=(78, 156, 312, 624), num_heads=(2, 4, 8, 16),
                     compute_dtype=compute_dtype, window_size=window_size,
                     drop_path_rate=0.2, remat=remat, use_pallas=use_pallas,
-                    norm=norm)
+                    norm=norm, fold=fold)
 
 
 def hrformer_small(compute_dtype: torch.dtype = torch.float32,
                    window_size: int = 7, remat: bool = False,
                    use_pallas: bool = False,
-                   norm: str = "batchnorm") -> HRFormer:
+                   norm: str = "batchnorm", fold: bool = False) -> HRFormer:
     return HRFormer(channels=(32, 64, 128, 256), num_heads=(1, 2, 4, 8),
                     compute_dtype=compute_dtype, window_size=window_size,
                     drop_path_rate=0.1, remat=remat, use_pallas=use_pallas,
-                    norm=norm)
+                    norm=norm, fold=fold)

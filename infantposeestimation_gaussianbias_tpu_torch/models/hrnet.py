@@ -45,14 +45,15 @@ class HRModule(nn.Module):
 
     def __init__(self, channels: Sequence[int],
                  compute_dtype: torch.dtype = torch.float32,
-                 norm: str = "batchnorm"):
+                 norm: str = "batchnorm", fold: bool = False):
         super().__init__()
         self.branches = nn.ModuleList([
             nn.Sequential(*[BasicBlock(c, compute_dtype=compute_dtype,
-                                       norm=norm)
+                                       norm=norm, fold=fold)
                             for _ in range(BLOCKS_PER_BRANCH)])
             for c in channels])
-        self.fuse_layers = make_fuse_layers(channels, compute_dtype, norm)
+        self.fuse_layers = make_fuse_layers(channels, compute_dtype, norm,
+                                            fold)
 
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         return fuse(self.fuse_layers,
@@ -60,7 +61,8 @@ class HRModule(nn.Module):
 
 
 class HRNet(nn.Module):
-    """HRNet backbone on NHWC images; returns the stride-4 features."""
+    """HRNet backbone on NHWC images; returns the stride-4 features.
+    ``fold``: the BN-folded serving form (models/fold.py)."""
 
     drop_path_rate = 0.0
     num_drop_paths = 0
@@ -68,17 +70,20 @@ class HRNet(nn.Module):
     def __init__(self, base_channels: int = 32,
                  stage_modules: Optional[Tuple[int, ...]] = None,
                  compute_dtype: torch.dtype = torch.float32,
-                 remat: bool = False, norm: str = "batchnorm"):
+                 remat: bool = False, norm: str = "batchnorm",
+                 fold: bool = False):
         super().__init__()
         C = base_channels
         self.channels = (C, 2 * C, 4 * C, 8 * C)
         self.remat = remat
         stage_modules = tuple(stage_modules or STAGE_MODULES)
-        kw = dict(compute_dtype=compute_dtype, norm=norm)
-        self.conv1 = Conv2d(3, 64, 3, stride=2, compute_dtype=compute_dtype)
-        self.bn1 = make_norm(norm, 64)
-        self.conv2 = Conv2d(64, 64, 3, stride=2, compute_dtype=compute_dtype)
-        self.bn2 = make_norm(norm, 64)
+        kw = dict(compute_dtype=compute_dtype, norm=norm, fold=fold)
+        self.conv1 = Conv2d(3, 64, 3, stride=2, bias=fold,
+                            compute_dtype=compute_dtype)
+        self.bn1 = make_norm(norm, 64, fold)
+        self.conv2 = Conv2d(64, 64, 3, stride=2, bias=fold,
+                            compute_dtype=compute_dtype)
+        self.bn2 = make_norm(norm, 64, fold)
         self.layer1 = nn.Sequential(Bottleneck(64, 64, **kw),
                                     *[Bottleneck(256, 64, **kw)
                                       for _ in range(3)])
@@ -115,13 +120,15 @@ class HRNet(nn.Module):
 
 def hrnet_w32(compute_dtype: torch.dtype = torch.float32, remat: bool = False,
               stage_modules: Optional[Tuple[int, ...]] = None,
-              norm: str = "batchnorm") -> HRNet:
+              norm: str = "batchnorm", fold: bool = False) -> HRNet:
     return HRNet(base_channels=32, stage_modules=stage_modules,
-                 compute_dtype=compute_dtype, remat=remat, norm=norm)
+                 compute_dtype=compute_dtype, remat=remat, norm=norm,
+                 fold=fold)
 
 
 def hrnet_w48(compute_dtype: torch.dtype = torch.float32, remat: bool = False,
               stage_modules: Optional[Tuple[int, ...]] = None,
-              norm: str = "batchnorm") -> HRNet:
+              norm: str = "batchnorm", fold: bool = False) -> HRNet:
     return HRNet(base_channels=48, stage_modules=stage_modules,
-                 compute_dtype=compute_dtype, remat=remat, norm=norm)
+                 compute_dtype=compute_dtype, remat=remat, norm=norm,
+                 fold=fold)

@@ -177,24 +177,27 @@ class GroupNorm(nn.GroupNorm):
 NORMS = {"batchnorm": BatchNorm, "groupnorm": GroupNorm}
 
 
-def make_norm(kind: str, channels: int) -> nn.Module:
+def make_norm(kind: str, channels: int, fold: bool = False) -> nn.Module:
     """The norm layer ``cfg.model.norm`` names: "batchnorm" or
     "groupnorm"; any other name raises, as the JAX package's ``Norm``
-    does."""
+    does.  ``fold``: the BN-folded serving form (models/fold.py), an
+    identity in the norm's place, whose conv carries the folded affine as
+    its bias."""
     if kind not in NORMS:
         raise ValueError(f"Unknown norm {kind!r}")
-    return NORMS[kind](channels)
+    return nn.Identity() if fold else NORMS[kind](channels)
 
 
 def conv_norm(in_channels: int, out_channels: int, kernel_size: int = 3,
               stride: int = 1, relu: bool = True,
               compute_dtype: torch.dtype = torch.float32,
-              norm: str = "batchnorm") -> nn.Sequential:
+              norm: str = "batchnorm", fold: bool = False) -> nn.Sequential:
     """Conv (bias-free) -> norm (-> ReLU), named 0/1(/2) as the
-    reference's ``Sequential`` blocks."""
+    reference's ``Sequential`` blocks; with ``fold`` a biased conv and an
+    identity (the JAX package's ``ConvNorm(fold=True)``)."""
     mods = [Conv2d(in_channels, out_channels, kernel_size, stride,
-                   compute_dtype=compute_dtype),
-            make_norm(norm, out_channels)]
+                   bias=fold, compute_dtype=compute_dtype),
+            make_norm(norm, out_channels, fold)]
     if relu:
         mods.append(nn.ReLU())
     return nn.Sequential(*mods)
@@ -203,17 +206,18 @@ def conv_norm(in_channels: int, out_channels: int, kernel_size: int = 3,
 class BasicBlock(nn.Module):
     """Two 3x3 conv-BN units with an identity residual: relu(bn1(conv1(x)))
     -> bn2(conv2(.)) -> relu(. + x), named as the reference's BasicBlock.
-    The float path of models/layers.py:193-222 of the JAX package."""
+    The float path of models/layers.py:193-222 of the JAX package;
+    ``fold`` as ``conv_norm``'s."""
 
     def __init__(self, features: int,
                  compute_dtype: torch.dtype = torch.float32,
-                 norm: str = "batchnorm"):
+                 norm: str = "batchnorm", fold: bool = False):
         super().__init__()
-        kw = dict(compute_dtype=compute_dtype)
+        kw = dict(bias=fold, compute_dtype=compute_dtype)
         self.conv1 = Conv2d(features, features, 3, **kw)
-        self.bn1 = make_norm(norm, features)
+        self.bn1 = make_norm(norm, features, fold)
         self.conv2 = Conv2d(features, features, 3, **kw)
-        self.bn2 = make_norm(norm, features)
+        self.bn2 = make_norm(norm, features, fold)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -222,24 +226,26 @@ class BasicBlock(nn.Module):
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 (x4) residual block with an optional 1x1
-    ``downsample`` on the skip when the channel count changes."""
+    ``downsample`` on the skip when the channel count changes; ``fold`` as
+    ``conv_norm``'s."""
 
     expansion = 4
 
     def __init__(self, in_channels: int, features: int,
                  compute_dtype: torch.dtype = torch.float32,
-                 norm: str = "batchnorm"):
+                 norm: str = "batchnorm", fold: bool = False):
         super().__init__()
         out = features * self.expansion
-        kw = dict(compute_dtype=compute_dtype)
+        kw = dict(bias=fold, compute_dtype=compute_dtype)
         self.conv1 = Conv2d(in_channels, features, 1, **kw)
-        self.bn1 = make_norm(norm, features)
+        self.bn1 = make_norm(norm, features, fold)
         self.conv2 = Conv2d(features, features, 3, **kw)
-        self.bn2 = make_norm(norm, features)
+        self.bn2 = make_norm(norm, features, fold)
         self.conv3 = Conv2d(features, out, 1, **kw)
-        self.bn3 = make_norm(norm, out)
+        self.bn3 = make_norm(norm, out, fold)
         self.downsample = (conv_norm(in_channels, out, 1, relu=False,
-                                     norm=norm, **kw)
+                                     compute_dtype=compute_dtype, norm=norm,
+                                     fold=fold)
                            if in_channels != out else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -274,12 +280,13 @@ def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor],
 
 def make_transition(prev: Sequence[int], cur: Sequence[int],
                     compute_dtype: torch.dtype = torch.float32,
-                    norm: str = "batchnorm") -> nn.ModuleList:
+                    norm: str = "batchnorm",
+                    fold: bool = False) -> nn.ModuleList:
     """Transition into a stage of ``cur`` branches from one of ``prev``: a
     3x3 ConvNorm where a branch's width changes (Identity where it does
     not), and a stride-2 3x3 ConvNorm from the lowest branch for each new
     one, wrapped in one more Sequential as in the reference."""
-    kw = dict(compute_dtype=compute_dtype, norm=norm)
+    kw = dict(compute_dtype=compute_dtype, norm=norm, fold=fold)
     trans = nn.ModuleList()
     for i, ch in enumerate(cur):
         if i < len(prev):
@@ -300,12 +307,13 @@ def apply_transition(trans: nn.ModuleList,
 
 def make_fuse_layers(channels: Sequence[int],
                      compute_dtype: torch.dtype = torch.float32,
-                     norm: str = "batchnorm") -> nn.ModuleList:
+                     norm: str = "batchnorm",
+                     fold: bool = False) -> nn.ModuleList:
     """All-pairs fuse layers of an exchange module: layer (i, j) is, for
     j > i, a 1x1 ConvNorm (upsampled in ``fuse``); for j == i the
     identity; for j < i a chain of stride-2 3x3 ConvNorms, ReLU on all but
     the last, which also changes the width."""
-    kw = dict(compute_dtype=compute_dtype, norm=norm)
+    kw = dict(compute_dtype=compute_dtype, norm=norm, fold=fold)
     n = len(channels)
     rows = nn.ModuleList()
     for i in range(n):

@@ -6,10 +6,14 @@ the HRNet and HRFormer backbones and the heatmap and fusion heads.
 averaged with the mirrored pass, while the fusion head's offsets and
 decode logits come from the unflipped pass.
 
-``build_model(cfg, device, grid)`` reads ``cfg.model.norm`` (BatchNorm or
-GroupNorm in every ConvNorm, as the JAX package) and, under a process grid
-(parallel/mesh.py), hands the grid to every WindowAttention and BatchNorm,
-as the JAX ``build_model(cfg, mesh=...)`` threads its mesh.
+``build_model(cfg, device, grid, fold)`` reads ``cfg.model.norm``
+(BatchNorm or GroupNorm in every ConvNorm, as the JAX package), under a
+process grid (parallel/mesh.py) hands the grid to every WindowAttention
+and BatchNorm, as the JAX ``build_model(cfg, mesh=...)`` threads its mesh,
+and with ``fold`` builds the BN-folded serving model (models/fold.py).
+``validate_serving_mode`` is the one check of which architectures fold.
+``multiscale_flip_inference`` is the JAX package's multi-scale + flip
+test-time augmentation.
 """
 
 from __future__ import annotations
@@ -20,10 +24,11 @@ import torch
 import torch.nn as nn
 
 from ..ops import decode as decode_ops
+from .fold import fold_state_dict
 from .heads import FusionHead, HeatmapHead
 from .hrformer import WindowAttention, hrformer_base, hrformer_small
 from .hrnet import hrnet_w32, hrnet_w48
-from .layers import BatchNorm
+from .layers import BatchNorm, resize_bilinear
 
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
     "hrnet_w32": hrnet_w32,
@@ -35,13 +40,49 @@ HEAD_TYPES = ("heatmap", "fusion")
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+INT8_TODO = ("int8 PTQ serving is not ported yet (ROADMAP Queue 1 item 5: "
+             "ops/quant.py and models/quantize.py)")
+
+
+def validate_serving_mode(backbone_name: str, head_type: str, norm: str,
+                          quant: bool = False, fold: bool = False) -> None:
+    """Raise ValueError unless the architecture supports BN-fold serving
+    (the JAX package's rule: hrnet/hrformer backbones, fusion/heatmap
+    heads, BatchNorm); ``quant`` raises NotImplementedError (int8 is not
+    ported)."""
+    if quant:
+        raise NotImplementedError(INT8_TODO)
+    if fold:
+        if not backbone_name.startswith(("hrnet", "hrformer")):
+            raise ValueError(
+                f"BN-fold serving supports hrnet/hrformer backbones, "
+                f"not {backbone_name!r}")
+        if head_type not in ("fusion", "heatmap"):
+            raise ValueError(
+                f"BN-fold serving supports fusion/heatmap heads, not "
+                f"{head_type!r}")
+        if norm != "batchnorm":
+            raise ValueError("BN-fold requires batchnorm ConvNorms")
+
+
+def serving_mode_supported(backbone_name: str, head_type: str, norm: str,
+                           quant: bool = False, fold: bool = False) -> bool:
+    """Boolean form of validate_serving_mode."""
+    try:
+        validate_serving_mode(backbone_name, head_type, norm, quant=quant,
+                              fold=fold)
+        return True
+    except ValueError:
+        return False
+
 
 class PoseEstimator(nn.Module):
     """Backbone + head.  NHWC images in, dict of NHWC maps out.
 
     A backbone whose name starts with ``hrnet`` takes ``stage_modules``;
     any other is an HRFormer and takes ``window_size`` and
-    ``use_pallas``."""
+    ``use_pallas``.  ``fold``: the BN-folded serving form, checked by
+    ``validate_serving_mode``."""
 
     def __init__(self, backbone_name: str = "hrnet_w32",
                  head_type: str = "heatmap", num_keypoints: int = 17,
@@ -49,8 +90,9 @@ class PoseEstimator(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  remat: bool = False, use_pallas: bool = False,
                  stage_modules: Optional[Tuple[int, ...]] = None,
-                 norm: str = "batchnorm"):
+                 norm: str = "batchnorm", fold: bool = False):
         super().__init__()
+        validate_serving_mode(backbone_name, head_type, norm, fold=fold)
         if backbone_name not in BACKBONES:
             raise ValueError(f"Unknown backbone {backbone_name!r}; "
                              f"known: {sorted(BACKBONES)}")
@@ -59,7 +101,8 @@ class PoseEstimator(nn.Module):
                              f"{head_type!r}")
         self.compute_dtype = compute_dtype
         self.head_type = head_type
-        kw = dict(compute_dtype=compute_dtype, remat=remat, norm=norm)
+        kw = dict(compute_dtype=compute_dtype, remat=remat, norm=norm,
+                  fold=fold)
         if backbone_name.startswith("hrnet"):
             kw.update(stage_modules=stage_modules)
         else:
@@ -68,7 +111,7 @@ class PoseEstimator(nn.Module):
         width = self.backbone.channels[0]
         self.head = (
             FusionHead(width, num_keypoints, hidden_dim,
-                       compute_dtype=compute_dtype, norm=norm)
+                       compute_dtype=compute_dtype, norm=norm, fold=fold)
             if head_type == "fusion" else
             HeatmapHead(width, num_keypoints, compute_dtype=compute_dtype))
 
@@ -92,13 +135,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_model(cfg, device="cuda", grid=None) -> PoseEstimator:
+def build_model(cfg, device="cuda", grid=None,
+                fold: bool = False) -> PoseEstimator:
     """PoseEstimator from a Config, with seeded weights (``cfg.train.seed``,
     see weights.init_weights), in eval mode on ``device``.  ``grid``: a
     parallel.ProcessGrid whose device is ``device``'s kind; the model is
     built on the grid's device, its W-MSA runs K3 over the grid and its
     train-mode BatchNorm statistics are global over the grid's data
-    group."""
+    group.  ``fold``: the BN-folded serving model (models/fold.py), its
+    weights the fold of the seeded float model's."""
     from ..weights import init_weights
 
     device = resolve_device(device)
@@ -107,7 +152,7 @@ def build_model(cfg, device="cuda", grid=None) -> PoseEstimator:
             raise ValueError(f"the grid's ranks run on {grid.device}, not "
                              f"{device}")
         device = grid.device
-    model = PoseEstimator(
+    kw = dict(
         backbone_name=cfg.model.backbone,
         head_type=cfg.model.head_type,
         num_keypoints=cfg.data.num_keypoints,
@@ -118,7 +163,12 @@ def build_model(cfg, device="cuda", grid=None) -> PoseEstimator:
         use_pallas=cfg.model.use_pallas,
         stage_modules=tuple(cfg.model.hrnet_stage_modules) or None,
         norm=cfg.model.norm)
-    init_weights(model, cfg.train.seed)
+    model = init_weights(PoseEstimator(**kw), cfg.train.seed)
+    if fold:
+        folded = PoseEstimator(**kw, fold=True)
+        folded.load_state_dict(fold_state_dict(model.state_dict()),
+                               strict=True)
+        model = folded
     if grid is not None:
         for m in model.modules():
             if isinstance(m, (BatchNorm, WindowAttention)):
@@ -163,3 +213,41 @@ def flip_inference(model: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
     merged = dict(outputs)
     merged["heatmaps"] = (outputs["heatmaps"] + hm_f) * 0.5
     return decode_outputs(merged, head_type, decode_method)
+
+
+def multiscale_flip_inference(
+        model: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
+        images: torch.Tensor, flip_index: torch.Tensor, head_type: str,
+        scales: Tuple[float, ...] = (1.0,), decode_method: str = "quarter",
+        shift_heatmap: bool = False, flip: bool = True
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-scale + flip test-time augmentation (the JAX package's
+    ``multiscale_flip_inference``): the forward (and its mirror) at each
+    scale, the image resized to sides snapped to multiples of 32; each
+    scale's flip-averaged heatmaps resized back to the first scale's
+    size; their mean decoded once, the other outputs from the first
+    scale's unflipped pass."""
+    B, H, W, _ = images.shape
+    base_outputs, base_hw, acc = None, None, None
+    for s in scales:
+        if s == 1.0:
+            imgs_s = images
+        else:
+            hs = max(32, int(round(H * s / 32)) * 32)
+            ws = max(32, int(round(W * s / 32)) * 32)
+            imgs_s = resize_bilinear(images, hs, ws)
+        outputs = model(imgs_s)
+        hm = outputs["heatmaps"]
+        if flip:
+            flipped = model(torch.flip(imgs_s, dims=[2]))
+            hm_f = decode_ops.flip_heatmaps(flipped["heatmaps"], flip_index,
+                                            shift=shift_heatmap)
+            hm = (hm + hm_f) * 0.5
+        if base_outputs is None:
+            base_outputs = dict(outputs)
+            base_hw = hm.shape[1:3]
+        if hm.shape[1:3] != base_hw:
+            hm = resize_bilinear(hm, base_hw[0], base_hw[1])
+        acc = hm if acc is None else acc + hm
+    base_outputs["heatmaps"] = acc / float(len(scales))
+    return decode_outputs(base_outputs, head_type, decode_method)

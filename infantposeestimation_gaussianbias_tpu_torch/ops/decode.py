@@ -1,15 +1,20 @@
-"""Keypoint decoding, batched on the device.
+"""Keypoint decoding and trajectory smoothing, batched on the device.
 
-Port of the heatmap-head decodes (argmax, quarter shift, Taylor) and the
-fusion-path functions of infantposeestimation_gaussianbias_tpu/ops/
-decode.py.  Heatmaps are (B, H, W, K) and all maths runs in float32.
+Port of the heatmap-head decodes (argmax, quarter shift, Taylor), the
+fusion-path functions, the window-centroid refinement and the temporal
+smoothers of infantposeestimation_gaussianbias_tpu/ops/decode.py.
+Heatmaps are (B, H, W, K), trajectories (T, K, 2), and all maths runs in
+float32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def argmax_decode(heatmaps: torch.Tensor
@@ -190,3 +195,79 @@ def transform_preds(coords: torch.Tensor, centers: torch.Tensor,
     osz = torch.tensor(output_size, dtype=torch.float32, device=coords.device)
     return (coords / osz * scales[:, None, :] + centers[:, None, :]
             - scales[:, None, :] / 2.0)
+
+
+def window_centroid_refine(heatmaps: torch.Tensor, coords: torch.Tensor,
+                           window_size: int = 5) -> torch.Tensor:
+    """Weighted centroid of the raw heatmap values in a window around
+    each (truncated) coordinate, the window cut at the borders."""
+    B, H, W, K = heatmaps.shape
+    r = window_size // 2
+    px = coords[..., 0].to(torch.int64)  # int() truncation
+    py = coords[..., 1].to(torch.int64)
+    offs = torch.arange(-r, r + 1, device=heatmaps.device)
+    win_x, win_y = px[..., None] + offs, py[..., None] + offs
+    valid = (((win_y >= 0) & (win_y < H))[..., :, None]
+             & ((win_x >= 0) & (win_x < W))[..., None, :])
+    gx, gy = win_x.clamp(0, W - 1), win_y.clamp(0, H - 1)
+    flat = heatmaps.permute(0, 3, 1, 2).reshape(B, K, H * W)
+    lin = gy[..., :, None] * W + gx[..., None, :]
+    patches = torch.take_along_dim(flat, lin.reshape(B, K, -1), dim=-1)
+    patches = torch.where(valid, patches.reshape(B, K, window_size,
+                                                 window_size), 0.0)
+    w = patches / (patches.sum(dim=(-1, -2), keepdim=True) + 1e-8)
+    rx = (w * gx[..., None, :].float()).sum(dim=(-1, -2))
+    ry = (w * gy[..., :, None].float()).sum(dim=(-1, -2))
+    return torch.stack([rx, ry], dim=-1)
+
+
+def temporal_smooth(coords_seq: torch.Tensor, window_size: int = 5,
+                    method: str = "gaussian", fps: float = 30.0
+                    ) -> torch.Tensor:
+    """Smooth a (T, K, 2) trajectory over time: "gaussian" (the
+    reference's one-sided kernel exp(-i^2 / 2 sigma^2), i = 0..w-1, sigma =
+    w / 3) or "moving_average", each a full convolution of the edge-padded
+    sequence as ``np.convolve(..., "valid")``; "one_euro" is
+    ``one_euro_smooth``."""
+    if method == "one_euro":
+        return one_euro_smooth(coords_seq, fps=fps)
+    T, K, D = coords_seq.shape
+    if method == "gaussian":
+        sig = window_size / 3.0
+        kernel = np.exp(-np.arange(window_size) ** 2 / (2 * sig ** 2))
+        kernel = kernel / kernel.sum()
+    else:
+        kernel = np.ones(window_size) / window_size
+    # a convolution flips its kernel; conv1d correlates
+    kern = torch.tensor(kernel[::-1].copy(), dtype=torch.float32,
+                        device=coords_seq.device)
+    half = window_size // 2
+    traj = coords_seq.float().reshape(T, K * D).t()[:, None, :]
+    padded = F.pad(traj, (half, half), mode="replicate")
+    sm = F.conv1d(padded, kern[None, None, :])[:, 0, :]   # (K*D, T)
+    return sm.t().reshape(T, K, D)
+
+
+def one_euro_smooth(coords_seq: torch.Tensor, fps: float = 30.0,
+                    min_cutoff: float = 1.0, beta: float = 0.007,
+                    d_cutoff: float = 1.0) -> torch.Tensor:
+    """One-Euro filter over a (T, K, 2) trajectory, causal: the cutoff
+    rises with the smoothed speed, so slow jitter is damped and fast
+    motion follows."""
+    dt = 1.0 / fps
+
+    def alpha(cutoff):
+        tau = 1.0 / (2.0 * math.pi * cutoff)
+        return 1.0 / (1.0 + tau / dt)
+
+    x_prev = coords_seq[0].float()
+    dx_prev = torch.zeros_like(x_prev)
+    out = [x_prev]
+    a_d = alpha(d_cutoff)
+    for x in coords_seq[1:].float():
+        dx_hat = a_d * ((x - x_prev) / dt) + (1 - a_d) * dx_prev
+        a = alpha(min_cutoff + beta * dx_hat.abs())
+        x_prev = a * x + (1 - a) * x_prev
+        dx_prev = dx_hat
+        out.append(x_prev)
+    return torch.stack(out)

@@ -7,9 +7,9 @@ prediction convs with zero bias, the heatmap head's ``final_layer`` among
 them; identity norms; 0.5 decode logits).  The two frameworks draw different numbers
 from one seed, so the port's random weights are its own.
 
-``state_dict_from_jax`` turns the JAX package's variables (numpy arrays)
-into the port's state dict, named as the reference checkpoint.  It is the
-inverse of ``tools/import_torch_checkpoint.convert_checkpoint`` of the JAX
+``state_dict_from_jax`` turns the JAX package's variables (numpy arrays),
+float or BN-folded, into the port's state dict, named as the reference
+checkpoint.  It is the inverse of ``tools/import_torch_checkpoint.convert_checkpoint`` of the JAX
 package (its ``convert_hrnet_backbone``, ``convert_hrformer_backbone``,
 ``convert_heatmap_head`` and ``convert_fusion_head``): flax conv kernels (kh, kw, I, O) become (O, I, kh, kw), Dense
 kernels (I, O) become (O, I), BatchNorm scale/bias/mean/var become
@@ -153,6 +153,9 @@ def _param_entry(part: str, path: Tuple[str, ...], value: np.ndarray
     if path[-2:] == ("conv", "kernel"):
         conv, _ = _convnorm_names(path[:-2])
         return f"{conv}.weight", value.transpose(3, 2, 0, 1)
+    if path[-2:] == ("conv", "bias"):  # a folded ConvNorm (models/fold.py)
+        conv, _ = _convnorm_names(path[:-2])
+        return f"{conv}.bias", value
     if path[-3:-1] in (("norm", "bn"), ("norm", "gn")):
         _, bn = _convnorm_names(path[:-3])
         return f"{bn}.{'weight' if path[-1] == 'scale' else 'bias'}", value
@@ -175,7 +178,11 @@ def _param_entry(part: str, path: Tuple[str, ...], value: np.ndarray
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping
                         ) -> Dict[str, torch.Tensor]:
     """JAX PoseEstimator variables (``params``/``batch_stats`` trees with
-    ``backbone`` and ``head``) -> the port's state dict."""
+    ``backbone`` and ``head``) -> the port's state dict.  Folded variables
+    (the JAX ``fold_variables``: ConvNorms as a biased ``conv``, no
+    ``norm``, ``batch_stats`` passed through) give the state dict of
+    ``build_model(cfg, fold=True)``: the statistics of a norm that folded
+    are left out, as the folded model stops reading them."""
     sd: Dict[str, torch.Tensor] = {}
     for part in ("backbone", "head"):
         for path, value in _flatten(params.get(part, {})).items():
@@ -190,6 +197,8 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
             if path[-3:-1] != ("norm", "bn"):
                 raise KeyError(f"unexpected batch stat {part}/{'/'.join(path)}")
             _, bn = _convnorm_names(path[:-3])
+            if f"{part}.{bn}.weight" not in sd:  # folded into its conv
+                continue
             stat = {"mean": "running_mean", "var": "running_var"}[path[-1]]
             sd[f"{part}.{bn}.{stat}"] = torch.tensor(value,
                                                      dtype=torch.float32)

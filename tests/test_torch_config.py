@@ -4,6 +4,9 @@ JAX package (its imports, and its entry points' device default)."""
 
 import ast
 import socket
+import subprocess
+import sys
+import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -99,11 +102,20 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from infantposeestimation_gaussianbias_tpu_torch.tools import (
         probe_wmsa_ablate)
 
+    from infantposeestimation_gaussianbias_tpu_torch import graft_entry
+    from infantposeestimation_gaussianbias_tpu_torch.cli import infer, serve
+
     cfg = config.get_variant("hrformer_small")
     for make in (PoseInference, build_model, create_train_state,
                  benchmark_model):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--variant", "hrformer_small", "--port", "0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        infer.main(["--variant", "hrformer_small", "--input", "x.jpg"])
     monkeypatch.setenv("PROBE_SHAPE", "2,16,16,1")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         probe_wmsa_ablate.main()
@@ -217,3 +229,56 @@ def test_run_grid_fails_when_a_rank_raises():
     with pytest.raises(Exception, match="rank 1 fails on purpose"):
         run_grid(torch_grid.raise_on, 1, 2, "gloo", device="cpu",
                  args=(1,), timeout=120)
+
+
+def test_serving_surfaces_run_without_jax():
+    """With jax, flax and the JAX package unimportable, the serving slice's
+    modules import and run on the CPU: the fold, the server's decode and
+    micro-batcher, the CLIs' option parsing, the native decoder (or its
+    absence), the prefetch stage, post-processing, the skeleton drawing
+    and the graft entry's config."""
+    code = textwrap.dedent("""
+        import io, sys
+        sys.modules["jax"] = sys.modules["flax"] = None
+        sys.modules["infantposeestimation_gaussianbias_tpu"] = None
+        import numpy as np
+        import torch
+        from infantposeestimation_gaussianbias_tpu_torch import (
+            data, graft_entry, native, postprocess, viz)
+        from infantposeestimation_gaussianbias_tpu_torch.cli import (
+            common, infer, serve)
+        from infantposeestimation_gaussianbias_tpu_torch.models import (
+            build_model, fold_state_dict)
+        from infantposeestimation_gaussianbias_tpu_torch.ops import decode
+        cfg = graft_entry.flagship_cfg("float32")
+        cfg.model.hrnet_stage_modules = (1, 1, 1)
+        sd = fold_state_dict(build_model(cfg, device="cpu").state_dict())
+        assert not any(k.endswith("running_var") for k in sd)
+        buf = io.BytesIO()
+        np.save(buf, np.zeros((4, 5, 3), np.uint8))
+        assert serve._decode_image(buf.getvalue(),
+                                   "application/x-npy").shape == (4, 5, 3)
+        native.available()
+        got = list(data.prefetch_to_device(
+            [{"x": np.ones(3)}], keys=("x",), device="cpu"))
+        assert torch.equal(got[0]["x"], torch.ones(3, dtype=torch.float64))
+        pts = torch.rand(2, 17, 2) * 10
+        postprocess.nms_pose(pts, torch.rand(2, 17))
+        decode.temporal_smooth(torch.rand(8, 17, 2), 5, "gaussian")
+        viz.draw_skeleton(np.zeros((20, 20, 3), np.uint8),
+                          pts[0].numpy(), np.ones(17))
+        try:
+            serve.main(["--int8", "--device", "cpu"])
+        except NotImplementedError as e:
+            assert "Queue 1 item 5" in str(e)
+        else:
+            raise AssertionError("--int8 must raise")
+        loaded = [m for m in sys.modules if sys.modules[m] is not None
+                  and m.split(".")[0] in ("jax", "flax")]
+        assert not loaded, loaded
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")

@@ -72,9 +72,10 @@ def setup():
     """(cfg, state dict, JAX model and variables) with the tiny backbone
     registered in both BACKBONES for the module."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setitem(jpe.BACKBONES, "tiny_hrformer", lambda **kw: jhr.HRFormer(
-            drop_path_rate=0.0, **torch_grid.TINY, **kw))
-        for name in ("tiny_hrformer", "tiny_hrformer_dp"):
+        for name in ("tiny_hrformer", "hrformer_tiny"):
+            mp.setitem(jpe.BACKBONES, name, lambda **kw: jhr.HRFormer(
+                drop_path_rate=0.0, **torch_grid.TINY, **kw))
+        for name in ("tiny_hrformer", "tiny_hrformer_dp", "hrformer_tiny"):
             mp.setitem(pose_estimator.BACKBONES, name, None)
         torch_grid.register_tiny()
         cfg = torch_grid.tiny_cfg()
@@ -101,13 +102,18 @@ def ranks(setup, request):
 
 @pytest.fixture(scope="module")
 def jax_serving(setup):
-    """JAX's single-device PoseInference on the frames of the test."""
-    jinf = jinference.PoseInference(
-        setup.jcfg, state=SimpleNamespace(
-            apply_fn=setup.jmodel.apply,
-            variables=jax.tree_util.tree_map(jnp.asarray, setup.variables)),
-        fold=False)
-    return jinf.predict_batch(*_frames_and_boxes())
+    """JAX's single-device PoseInference on the frames of the test: BN-fold
+    off (False) and the default, which folds ``hrformer_tiny`` (None)."""
+    out = {}
+    variables = jax.tree_util.tree_map(jnp.asarray, setup.variables)
+    for fold, backbone in ((False, "tiny_hrformer"), (None, "hrformer_tiny")):
+        jcfg = torch_grid.tiny_cfg(backbone)
+        jinf = jinference.PoseInference(
+            jcfg, state=SimpleNamespace(
+                apply_fn=jpe.build_model(jcfg).apply, variables=variables),
+            fold=fold)
+        out[fold] = jinf.predict_batch(*_frames_and_boxes())
+    return out
 
 
 def test_ranks_import_no_jax(ranks):
@@ -118,12 +124,24 @@ def test_grid_serving_matches_jax(setup, ranks, jax_serving):
     """Every rank returns the whole trimmed batch; keypoints off decode
     ties within 1e-3 px and scores within 1e-4 of JAX's (the tolerances of
     tests/test_torch_serving.py); the fused flag changes nothing under the
-    grid."""
+    grid.  BN-fold off on both sides."""
+    _grid_serving_matches_jax(setup, ranks, jax_serving, fold=False)
+
+
+def test_grid_serving_folded_matches_jax(setup, ranks, jax_serving):
+    """The same with each side's default, which folds ``hrformer_tiny``."""
+    _grid_serving_matches_jax(setup, ranks, jax_serving, fold=None)
+
+
+def _grid_serving_matches_jax(setup, ranks, jax_serving, fold):
     frames, bboxes = _frames_and_boxes()
-    ref_k, ref_s = jax_serving
+    ref_k, ref_s = jax_serving[fold]
 
     # soft-argmax of the flip-averaged heatmaps (single process), for ties
-    port = PoseInference(setup.cfg, state_dict=setup.sd, device="cpu")
+    cfg = torch_grid.tiny_cfg("tiny_hrformer" if fold is False
+                              else "hrformer_tiny")
+    port = PoseInference(cfg, state_dict=setup.sd, device="cpu", fold=fold)
+    assert port.fold == (fold is None)
     centers = (bboxes[:, :2] + bboxes[:, 2:]) / 2
     scales = (bboxes[:, 2:] - bboxes[:, :2]) * setup.cfg.data.bbox_padding
     with torch.no_grad():
@@ -137,9 +155,10 @@ def test_grid_serving_matches_jax(setup, ranks, jax_serving):
     keep = ~(frac < 1e-3).any(axis=-1)
     assert keep.sum() >= keep.size // 2
     for r in ranks:
-        kpts, scores = r["serve0"]
+        kpts, scores = r["serve0" if fold is False else "serve_fold"]
         assert kpts.shape == (5, 17, 2) and scores.shape == (5, 17)
         np.testing.assert_allclose(kpts[keep], ref_k[keep], atol=1e-3)
         np.testing.assert_allclose(scores, ref_s, atol=1e-4)
-        for a, b in zip(r["serve1"], r["serve0"]):
-            np.testing.assert_array_equal(a, b)
+        if fold is False:
+            for a, b in zip(r["serve1"], r["serve0"]):
+                np.testing.assert_array_equal(a, b)

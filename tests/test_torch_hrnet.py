@@ -241,14 +241,18 @@ def _unsure(port, cfg, frames, bboxes, head):
             | (dy.abs() < 1e-5)).numpy()
 
 
-@pytest.mark.parametrize("head,method", [("heatmap", "quarter"),
-                                         ("heatmap", "taylor"),
-                                         ("fusion", "quarter")])
-def test_predict_batch_matches_jax(tiny, head, method):
+@pytest.mark.parametrize("head,method,fold", [
+    pytest.param("heatmap", "quarter", False, id="heatmap-quarter"),
+    pytest.param("heatmap", "taylor", False, id="heatmap-taylor"),
+    pytest.param("fusion", "quarter", False, id="fusion-quarter"),
+    pytest.param("heatmap", "quarter", None, id="heatmap-quarter-folded"),
+    pytest.param("fusion", "quarter", None, id="fusion-quarter-folded")])
+def test_predict_batch_matches_jax(tiny, head, method, fold):
     """Whole slice: crop -> flip-tested forward -> decode by head type and
     ``cfg.eval.decode`` -> back-projection, 3 frames padded to a bucket
-    of 4, against the JAX PoseInference (BN-fold off: the port serves
-    eval-mode BatchNorm)."""
+    of 4, against the JAX PoseInference: BN-fold off on both sides
+    (``fold=False``: eval-mode BatchNorm), or each side's default (None:
+    both fold, models/fold.py)."""
     cfg, jcfg, jmodel, variables = tiny[head]
     cfg.eval.decode = jcfg.eval.decode = method
     frames, bboxes = _frames_and_boxes()
@@ -256,10 +260,12 @@ def test_predict_batch_matches_jax(tiny, head, method):
         jcfg, state=SimpleNamespace(
             apply_fn=jmodel.apply,
             variables=jax.tree_util.tree_map(jnp.asarray, variables)),
-        fold=False)
+        fold=fold)
     ref_k, ref_s = jinf.predict_batch(frames, bboxes)
     port = PoseInference(cfg, state_dict=state_dict_from_jax(
-        variables["params"], variables["batch_stats"]), device="cpu")
+        variables["params"], variables["batch_stats"]), device="cpu",
+        fold=fold)
+    assert port.fold == (fold is None)
     kpts, scores = port.predict_batch(frames, bboxes)
     cfg.eval.decode = jcfg.eval.decode = "quarter"
     assert kpts.shape == (3, 17, 2) and scores.shape == (3, 17)

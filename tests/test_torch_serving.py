@@ -5,6 +5,7 @@ The whole-slice tests register a tiny HRFormer in both packages'
 ``BACKBONES`` (test-only) and share one jitted JAX init per module.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -176,6 +177,10 @@ def jax_slice():
             drop_path_rate=0.0, **TINY, **kw))
         mp.setitem(pose_estimator.BACKBONES, "tiny_hrformer",
                    lambda **kw: hrformer.HRFormer(**TINY, **kw))
+        mp.setitem(jpe.BACKBONES, "hrformer_tiny",
+                   jpe.BACKBONES["tiny_hrformer"])
+        mp.setitem(pose_estimator.BACKBONES, "hrformer_tiny",
+                   pose_estimator.BACKBONES["tiny_hrformer"])
         cfg = _tiny_cfg()
         model = jpe.build_model(cfg)
         variables = jax.jit(lambda: model.init(
@@ -240,18 +245,35 @@ def test_model_outputs_match_jax(jax_slice):
 
 def test_predict_batch_matches_jax(jax_slice):
     """Whole slice: crop -> flip-tested forward -> fusion decode ->
-    back-projection, 3 frames padded to a bucket of 4."""
+    back-projection, 3 frames padded to a bucket of 4; BN-fold off on both
+    sides (eval-mode BatchNorm)."""
+    _predict_batch_matches_jax(*jax_slice, fold=False)
+
+
+def test_predict_batch_folded_matches_jax(jax_slice):
+    """The same with each side's default, which folds (the backbone named
+    ``hrformer_tiny``, so that both packages' ``validate_serving_mode``
+    take it for an HRFormer)."""
     cfg, model, variables = jax_slice
+    cfg = copy.deepcopy(cfg)
+    cfg.model.backbone = "hrformer_tiny"
+    _predict_batch_matches_jax(cfg, jpe.build_model(cfg), variables,
+                               fold=None)
+
+
+def _predict_batch_matches_jax(cfg, model, variables, fold):
     frames, bboxes = _frames_and_boxes()
     jinf = jinference.PoseInference(
         cfg, state=SimpleNamespace(
             apply_fn=model.apply,
             variables=jax.tree_util.tree_map(jnp.asarray, variables)),
-        fold=False)
+        fold=fold)
     ref_k, ref_s = jinf.predict_batch(frames, bboxes)
 
     port = PoseInference(cfg, state_dict=state_dict_from_jax(
-        variables["params"], variables["batch_stats"]), device="cpu")
+        variables["params"], variables["batch_stats"]), device="cpu",
+        fold=fold)
+    assert port.fold == (fold is None)
     kpts, scores = port.predict_batch(frames, bboxes)
     assert kpts.shape == (3, 17, 2) and scores.shape == (3, 17)
     assert np.isfinite(kpts).all() and np.isfinite(scores).all()

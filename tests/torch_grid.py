@@ -37,9 +37,13 @@ def no_jax() -> list:
 
 def register_tiny() -> None:
     """The tiny HRFormers of the slice tests in the port's BACKBONES:
-    ``tiny_hrformer`` without DropPath, ``tiny_hrformer_dp`` at 0.2."""
+    ``tiny_hrformer`` without DropPath, ``tiny_hrformer_dp`` at 0.2, and
+    ``hrformer_tiny``, the first under a name that ``validate_serving_mode``
+    takes for an HRFormer (so that it serves folded by default)."""
     pose_estimator.BACKBONES["tiny_hrformer"] = functools.partial(
         hrformer.HRFormer, drop_path_rate=0.0, **TINY)
+    pose_estimator.BACKBONES["hrformer_tiny"] = pose_estimator.BACKBONES[
+        "tiny_hrformer"]
     pose_estimator.BACKBONES["tiny_hrformer_dp"] = functools.partial(
         hrformer.HRFormer, drop_path_rate=0.2, **TINY)
 
@@ -92,18 +96,23 @@ def mesh_rank(grid, cases) -> dict:
 
 
 def serve_rank(grid, state_dict, frames, bboxes) -> dict:
-    """Serving a ragged batch over the grid, under IPE_FUSED_BLOCK=0 and
-    =1."""
+    """Serving a ragged batch over the grid, BN-fold off, under
+    IPE_FUSED_BLOCK=0 and =1; and with the default fold (``serve_fold``,
+    ``hrformer_tiny``)."""
     register_tiny()
     out = dict(jax_modules=no_jax())
     inf = PoseInference(tiny_cfg(), state_dict=state_dict, device="cpu",
-                        mesh=grid)
+                        mesh=grid, fold=False)
     for flag in ("0", "1"):
         os.environ["IPE_FUSED_BLOCK"] = flag
         try:
             out[f"serve{flag}"] = inf.predict_batch(frames, bboxes)
         finally:
             os.environ.pop("IPE_FUSED_BLOCK")
+    folded = PoseInference(tiny_cfg("hrformer_tiny"), state_dict=state_dict,
+                           device="cpu", mesh=grid)
+    assert folded.fold
+    out["serve_fold"] = folded.predict_batch(frames, bboxes)
     return out
 
 

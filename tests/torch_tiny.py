@@ -104,14 +104,15 @@ def crops(seed, n=2):
         np.float32)
 
 
-def random_variables(jmodel, seed):
+def random_variables(jmodel, seed, shape=(SIZE, SIZE)):
     """Seeded numpy weights for a JAX model's variable tree, without an
-    init: the tree's shapes come from ``jax.eval_shape`` (a trace, ~1 s,
-    where a jitted init of the tiny HRNet compiles for ~16 s).  Kernels
-    ~ N(0, 1/fan_in), BatchNorm scale 1 +- 0.1, running variance in
-    [0.75, 1.25), everything else N(0, 0.1)."""
+    init: the tree's shapes come from ``jax.eval_shape`` at input (H, W)
+    ``shape`` (a trace, ~1 s, where a jitted init of the tiny HRNet
+    compiles for ~16 s).  Kernels ~ N(0, 1/fan_in), BatchNorm scale
+    1 +- 0.1, running variance in [0.75, 1.25), everything else
+    N(0, 0.1)."""
     shapes = jax.eval_shape(lambda: jmodel.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)), False))
+        jax.random.PRNGKey(0), jnp.zeros((1, *shape, 3)), False))
     rng = np.random.RandomState(seed)
 
     def fill(path, s):
@@ -124,7 +125,7 @@ def random_variables(jmodel, seed):
             x = rng.rand(*s.shape) * 0.5 + 0.75
         else:
             x = 0.1 * rng.randn(*s.shape)
-        return x.astype(np.float32)
+        return np.asarray(x, np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
