@@ -185,7 +185,25 @@ Phases, in order; any failure exits non-zero:
      postprocess_predictions, nms_pose, the rotated affine matrices,
      transform_points and crop_and_normalize(rots=...) on card tensors
      against the CPU (float32, POST_RTOL; the rotated crop ROT_CROP_ATOL).
-Phases 21-25 run after 19 and before 20.
+ 26. the training loop: a set of 480x640 JPEGs written by the repo's
+     generator; the host loader alone (build_dataloader, training
+     augmentation, 8 threads, b = 32, 256x192), native against cv2,
+     images/s; hrformer_base + fusion bf16 b = 32 through
+     ``train/loop.train`` with ``data.native_loader="on"``: 2 epochs with
+     validation after each (K1 and K2 44 launches each per step, K1 132
+     per validation batch: the flip test's two forwards and the loss's
+     one; no cv2 sample; finite terms, a falling loss), the loop's
+     images/s against phase 6's bare step, a checkpoint's save and restore
+     seconds, the resume to epoch 3 from ``latest`` (its steps profiled:
+     device ms and idle share of a loop step), a preemption set through
+     ``_PREEMPTED`` in epoch 3 (``latest`` stamped epoch 2 and
+     ``preempted``) and its resume (epoch 3 replayed); the same 2 epochs
+     under IPE_FUSED_BLOCK=1 (K4 and K5, forward and backward, 44 each
+     per step, no K1 or K2); ``preemie`` (hrnet_w32 + heatmap, infant13,
+     256x256, jitter 0.2, its heatmaps at the model's stride 4): an epoch
+     of 2 steps, every crop moved by the jitter; the pipeline proof
+     (tools/pipeline_proof.py) on the card, AP held to PROOF_AP_MIN.
+Phases 21-26 run after 19 and before 20.
 The ranks import no JAX (each asserts it).
 Every phase's seconds and the whole run's are printed.  Each fused phase
 sets IPE_FUSED_BLOCK itself and restores it after.  The
@@ -3271,6 +3289,497 @@ def phase_postprocess() -> dict:
     return errs
 
 
+# -- phase 26: the training loop --------------------------------------------------
+
+LOOP_TRAIN_IMAGES = 256   # 8 steps an epoch at b = 32
+LOOP_VAL_IMAGES = 64      # 2 served batches of 32 a validation
+LOOP_THREADS = 8          # the loader's threads (DataLoader's default)
+# K1 launches per validation batch: the flip test's two forwards and the
+# eval step's loss forward, 44 each
+VAL_FORWARDS = 3
+# Pipeline proof: hrnet_w32's widths at stage modules (1, 1, 1), b = 16,
+# 128x128, on 64 rendered images (tools/pipeline_proof.py).
+PROOF_EPOCHS = 60
+# Its first run on the card reached AP 0.632 (AP50 1.0) in 240 steps
+# (PERF.md §6); the untrained model scores 0.  A broken augmentation,
+# target, decode, back-projection or evaluator leaves it near 0; the bound
+# leaves room for the run-to-run spread of cuDNN's atomic sums.
+PROOF_AP_MIN = 0.4
+
+
+def machine_libraries() -> dict:
+    """What the machine offers the loader: cv2, g++ and a libjpeg to link
+    (the system's, or the one Pillow ships), and what the native build
+    linked."""
+    from infantposeestimation_gaussianbias_tpu_torch import native
+    from infantposeestimation_gaussianbias_tpu_torch.native import binding
+
+    out = {}
+    try:
+        import cv2
+        out["cv2"] = cv2.__version__
+    except ImportError:
+        out["cv2"] = None
+    out["g++"] = shutil.which("g++")
+    out["system_libjpeg_headers"] = os.path.exists("/usr/include/jpeglib.h")
+    out["pillow_libjpeg"] = binding.pillow_libjpeg()
+    out["native"] = native.available()
+    ldd = subprocess.run(["ldd", binding._lib_path()], capture_output=True,
+                         text=True).stdout if out["native"] else ""
+    out["native_links"] = [line.split()[0] for line in ldd.splitlines()
+                           if "jpeg" in line or "png" in line]
+    log("[train-loop] machine: " + ", ".join(f"{k} {v}"
+                                             for k, v in out.items()))
+    return out
+
+
+def write_jpeg_set(root: str, split: str, n: int, seed: int, schema) -> dict:
+    """n synthetic 480x640 JPEGs (uniform noise, the repo's generator) and
+    their COCO annotation file under root; returns the COCO dict."""
+    from infantposeestimation_gaussianbias_tpu_torch.data import (
+        synthetic_coco_dataset)
+
+    os.makedirs(os.path.join(root, split), exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    gt = synthetic_coco_dataset(
+        num_images=n, num_keypoints=schema.num_keypoints,
+        image_dir=os.path.join(root, split), seed=seed, height=480,
+        width=640, keypoint_names=schema.keypoint_names,
+        skeleton=schema.skeleton)
+    with open(os.path.join(root, "annotations", f"{split}.json"), "w") as f:
+        json.dump(gt, f)
+    return gt
+
+
+def loop_cfg(root: str, name: str, cfg=None):
+    """``cfg`` (hrformer_base + fusion, bf16, b = 32 by default) reading
+    the JPEG set under root through the native loader ("on"), validating
+    every epoch, checkpoints and logs under root/name."""
+    cfg = cfg or hrformer_cfg()
+    d = cfg.data
+    d.data_root = root
+    d.train_ann, d.val_ann = "annotations/train.json", "annotations/val.json"
+    d.train_img_prefix, d.val_img_prefix = "train/", "val/"
+    d.native_loader = "on"
+    cfg.train.val_interval = 1
+    cfg.train.save_every = 0
+    cfg.eval.batch_size = TRAIN_BATCH
+    cfg.train.checkpoint_dir = os.path.join(root, name, "ck")
+    cfg.log_dir = os.path.join(root, name, "logs")
+    return cfg
+
+
+def loader_rate(cfg, mode: str, epochs: int = 2) -> tuple:
+    """Images/s of the host loader alone (build_dataloader, training
+    augmentation, LOOP_THREADS threads) under native_loader=mode, over
+    ``epochs`` epochs after one that warms the page cache, and the
+    samples each decode path made."""
+    from infantposeestimation_gaussianbias_tpu_torch.data import (
+        build_dataloader)
+
+    cfg.data.native_loader = mode
+    loader = build_dataloader(cfg, is_train=True)
+    loader.num_threads = LOOP_THREADS
+    for _ in loader.epoch(0):
+        pass
+    t0 = time.perf_counter()
+    n = sum(b["image_u8"].shape[0] for e in range(1, epochs + 1)
+            for b in loader.epoch(e))
+    return n / (time.perf_counter() - t0), dict(loader.ds.decoded)
+
+
+class LoopProbe:
+    """Wraps the loop's train step and validate: the kernel launches each
+    step and each validation made (counts read before and after; no
+    reset), each step's entry time on the host clock and terms (device
+    tensors, read after the run), and each validation's seconds, AP and
+    loss."""
+
+    def __init__(self):
+        self.steps, self.vals = [], []
+
+    def __enter__(self):
+        from infantposeestimation_gaussianbias_tpu_torch.train import loop
+
+        self._loop = loop
+        self._make, self._validate = loop.make_train_step, loop.validate
+
+        def make_train_step(cfg):
+            step = self._make(cfg)
+
+            def probed(state, batch, generator, **kw):
+                t, before = time.perf_counter(), launches()
+                state, metrics = step(state, batch, generator, **kw)
+                after = launches()
+                self.steps.append(dict(
+                    t=t, metrics=metrics,
+                    launches={k: after[k] - before[k] for k in after}))
+                return state, metrics
+
+            return probed
+
+        def validate(*args, **kw):
+            t, before = time.perf_counter(), launches()
+            out = self._validate(*args, **kw)
+            after = launches()
+            self.vals.append(dict(
+                s=time.perf_counter() - t, AP=out["AP"],
+                val_loss=out["val_loss"],
+                launches={k: after[k] - before[k] for k in after}))
+            return out
+
+        loop.make_train_step, loop.validate = make_train_step, validate
+        return self
+
+    def __exit__(self, *exc):
+        self._loop.make_train_step = self._make
+        self._loop.validate = self._validate
+        return False
+
+    def losses(self) -> list:
+        return [s["metrics"]["total_loss"].item() for s in self.steps]
+
+
+def run_loop(cfg, epochs: int, want_step: dict, want_val: dict,
+             loaders=None, **kw) -> dict:
+    """train(cfg) through its entry points (build_dataloader, the card),
+    ``epochs`` epochs, every kernel count set to 0 just before and read
+    just after; each step must launch ``want_step``, each validation batch
+    ``want_val``, and the totals must add up."""
+    from infantposeestimation_gaussianbias_tpu_torch.data import (
+        build_dataloader)
+    from infantposeestimation_gaussianbias_tpu_torch.train import loop
+
+    if loaders is None:
+        loaders = (build_dataloader(cfg, is_train=True),
+                   build_dataloader(cfg, is_train=False))
+    train_loader, val_loader = loaders
+    with open(os.path.join(cfg.data.data_root, cfg.data.val_ann)) as f:
+        gt = json.load(f)
+    with LoopProbe() as probe:
+        reset_launches()
+        t0 = time.perf_counter()
+        state = loop.train(cfg, train_loader, val_loader, gt,
+                           max_epochs=epochs, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = launches()
+    val_batches = len(val_loader)
+    for s in probe.steps:
+        assert s["launches"] == want_step, s["launches"]
+    for v in probe.vals:
+        assert v["launches"] == {k: n * val_batches
+                                 for k, n in want_val.items()}, v
+    assert total == {k: want_step[k] * len(probe.steps)
+                     + want_val[k] * val_batches * len(probe.vals)
+                     for k in total}, total
+    values = [{k: v.item() for k, v in s["metrics"].items()}
+              for s in probe.steps]
+    assert all(np.isfinite(v) for m in values for v in m.values()), values
+    return dict(state=state, probe=probe, wall=wall, launches=total,
+                losses=[m["total_loss"] for m in values])
+
+
+def step_gaps_ms(probe, steps_per_epoch: int, first: int) -> list:
+    """The intervals between the entries of consecutive steps of one
+    epoch, over the epochs from step ``first`` on, in ms: the loop's own
+    step (loader wait, device batch, the step's host work, and the device
+    where it holds the host back)."""
+    times = [s["t"] for s in probe.steps]
+    return [(times[i + 1] - times[i]) * 1e3
+            for i in range(first, len(times) - 1)
+            if (i + 1) % steps_per_epoch]
+
+
+def trace_device_ms(path: str, steps: int) -> float:
+    """Device kernel, copy and set time per step in a Chrome trace of
+    ``steps`` steps (the union of their intervals)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3 / steps
+
+
+class StopAt:
+    """A loader that sets the loop's preemption flag as it hands out batch
+    ``at[1]`` of epoch ``at[0]`` (the step that takes it still runs)."""
+
+    def __init__(self, loader, at):
+        from infantposeestimation_gaussianbias_tpu_torch.train import loop
+
+        self.loader, self.at, self.flag = loader, at, loop._PREEMPTED
+
+    def __len__(self):
+        return len(self.loader)
+
+    def epoch(self, epoch):
+        for i, batch in enumerate(self.loader.epoch(epoch)):
+            if (epoch, i) == self.at:
+                self.flag.set()
+            yield batch
+
+
+def latest_meta(cfg) -> dict:
+    with open(os.path.join(cfg.train.checkpoint_dir,
+                           "latest.meta.json")) as f:
+        return json.load(f)
+
+
+def phase_train_loop(smi: str, bare: float, bare_fused: float) -> dict:
+    """Phase 26, the training loop: the host loader alone (native against
+    cv2), hrformer_base + fusion bf16 b = 32 through train() with
+    validation (unfused: 2 epochs, the resume to 3, a preemption and its
+    resume; fused: 2 epochs), preemie with jitter, the pipeline proof."""
+    import logging
+    import tempfile
+
+    from infantposeestimation_gaussianbias_tpu_torch import get_variant
+    from infantposeestimation_gaussianbias_tpu_torch.data import (
+        build_dataloader)
+    from infantposeestimation_gaussianbias_tpu_torch.train import (
+        loop as tloop, step as tstep)
+    from infantposeestimation_gaussianbias_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+    from infantposeestimation_gaussianbias_tpu_torch.train.step import (
+        create_train_state)
+    from infantposeestimation_gaussianbias_tpu_torch.tools import (
+        pipeline_proof)
+
+    out = {"machine": machine_libraries(), "card": smi}
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    tloop.log.addHandler(handler)
+    tloop.log.setLevel(logging.INFO)
+    n = K1_CALLS_PER_FORWARD
+    unfused_step = dict(no_launches(), k1=n, k2=n)
+    unfused_val = dict(no_launches(), k1=VAL_FORWARDS * n)
+    fused_step = dict(no_launches(), k4=n, k4b=n, k5=n, k5b=n)
+    fused_val = dict(no_launches(), k4=VAL_FORWARDS * n,
+                     k5=VAL_FORWARDS * n)
+    spe = LOOP_TRAIN_IMAGES // TRAIN_BATCH
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            schema = hrformer_cfg().data.keypoint_schema
+            t0 = time.perf_counter()
+            write_jpeg_set(root, "train", LOOP_TRAIN_IMAGES, 1, schema)
+            write_jpeg_set(root, "val", LOOP_VAL_IMAGES, 2, schema)
+            log(f"[train-loop] wrote {LOOP_TRAIN_IMAGES} + {LOOP_VAL_IMAGES} "
+                f"480x640 JPEGs in {time.perf_counter() - t0:.1f} s")
+
+            # the host loader alone, b = 32, 256x192, training augmentation
+            rates = {}
+            for mode in ("on", "off"):
+                rate, decoded = loader_rate(loop_cfg(root, "rate"), mode)
+                rates[mode] = rate
+                log(f"[train-loop] loader native_loader={mode}: "
+                    f"{rate:.1f} images/s, {LOOP_THREADS} threads, b = "
+                    f"{TRAIN_BATCH}, 256x192; samples by path {decoded}")
+                assert decoded["cv2" if mode == "on" else "native"] == 0
+            out.update(loader_native_images_per_s=rates["on"],
+                       loader_cv2_images_per_s=rates["off"])
+
+            # hrformer_base + fusion, unfused: 2 epochs with validation
+            cfg = loop_cfg(root, "unfused")
+            loaders = (build_dataloader(cfg, is_train=True),
+                       build_dataloader(cfg, is_train=False))
+            assert len(loaders[0]) == spe
+            with fused_blocks("0"):
+                run = run_loop(cfg, 2, unfused_step, unfused_val, loaders)
+            losses = run["losses"]
+            vals = run["probe"].vals
+            log(f"[train-loop] unfused 2 epochs: {len(losses)} steps, "
+                f"launches {run['launches']}, total loss " + " ".join(
+                    f"{v:.5g}" for v in losses) + "; validation loss "
+                + " -> ".join(f"{v['val_loss']:.5g}" for v in vals))
+            # the loss on the same validation crops falls from epoch to epoch
+            assert vals[-1]["val_loss"] < vals[0]["val_loss"], vals
+            assert run["state"].step == 2 * spe
+            assert loaders[0].ds.decoded["cv2"] == 0
+            gaps = step_gaps_ms(run["probe"], spe, spe)
+            loop_rate = TRAIN_BATCH / float(np.median(gaps)) * 1e3
+            out.update(loop_images_per_s=loop_rate, bare_images_per_s=bare,
+                       loop_step_gaps_ms=gaps,
+                       val_s=[v["s"] for v in vals],
+                       val_AP=[v["AP"] for v in vals],
+                       val_loss=[v["val_loss"] for v in vals],
+                       unfused_launches=run["launches"],
+                       unfused_losses=losses, unfused_wall_s=run["wall"])
+            log(f"[train-loop] loop {loop_rate:.1f} images/s (epoch 1: "
+                f"median of the steps' intervals " + " ".join(
+                    f"{g:.1f}" for g in gaps) + f" ms) against the bare "
+                f"step's {bare:.1f} (phase 6); "
+                f"validation of {LOOP_VAL_IMAGES} crops with flip and loss: "
+                + ", ".join(f"{v['s']:.2f} s (AP {v['AP']:.4f})"
+                            for v in vals) + f"; loader samples "
+                f"{loaders[0].ds.decoded} train, {loaders[1].ds.decoded} val"
+                f"; on {smi}")
+
+            # a checkpoint's save and restore
+            mgr = CheckpointManager(cfg.train.checkpoint_dir)
+            state = run["state"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr._save("timing", state, {"epoch": 1})
+            save_s = time.perf_counter() - t0
+            fresh = create_train_state(cfg, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh, _ = mgr.restore(fresh, "timing")
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            size = os.path.getsize(os.path.join(cfg.train.checkpoint_dir,
+                                                "timing"))
+            for (name, a), b in zip(state.model.state_dict().items(),
+                                    fresh.model.state_dict().values()):
+                assert torch.equal(a, b), name
+            assert fresh.step == state.step
+            out.update(checkpoint_save_s=save_s,
+                       checkpoint_restore_s=restore_s,
+                       checkpoint_mb=size / 2 ** 20)
+            log(f"[train-loop] checkpoint of hrformer_base + AdamW "
+                f"({size / 2 ** 20:.1f} MiB): save {save_s:.2f} s, restore "
+                f"{restore_s:.2f} s")
+            del fresh
+
+            # the resume to epoch 3 from latest, its steps profiled
+            messages.clear()
+            with fused_blocks("0"):
+                res = run_loop(cfg, 3, unfused_step, unfused_val, loaders,
+                               profile_steps=(1, 3))
+            assert any("resumed from epoch 2" in m for m in messages)
+            assert res["state"].step == 3 * spe
+            assert len(res["probe"].steps) == spe
+            trace = os.path.join(cfg.log_dir, "profile", "steps_1_3.json")
+            device_ms = trace_device_ms(trace, 2)
+            period_ms = TRAIN_BATCH / loop_rate * 1e3
+            out.update(loop_device_ms=device_ms,
+                       loop_idle_share=max(0.0, 1 - device_ms / period_ms))
+            log(f"[train-loop] resumed from epoch 2: {spe} steps of epoch "
+                f"2; loop step {device_ms:.1f} ms of device kernels "
+                f"(torch.profiler, steps [1, 3) of the resume) against the "
+                f"{period_ms:.1f} ms loop step: idle share "
+                f"{out['loop_idle_share']:.1%}")
+
+            # a preemption in epoch 3 and its resume
+            stop = StopAt(loaders[0], (3, 1))
+            try:
+                with fused_blocks("0"):
+                    pre = run_loop(cfg, 4, unfused_step, unfused_val,
+                                   (stop, loaders[1]))
+            finally:
+                tloop._PREEMPTED.clear()
+            assert pre["state"].step == 3 * spe + 2
+            meta = latest_meta(cfg)
+            assert meta["epoch"] == 2.0 and meta["preempted"] == 1.0, meta
+            with fused_blocks("0"):
+                post = run_loop(cfg, 4, unfused_step, unfused_val, loaders)
+            assert post["state"].step == 4 * spe + 2
+            assert len(post["probe"].steps) == spe
+            meta = latest_meta(cfg)
+            assert meta["epoch"] == 3.0 and "preempted" not in meta
+            log(f"[train-loop] preempted at epoch 3 step 2: latest stamped "
+                f"epoch 2, preempted, step {pre['state'].step}; the resume "
+                f"replayed epoch 3: step {post['state'].step}")
+            unfused_total = {k: run["launches"][k] + res["launches"][k]
+                             + pre["launches"][k] + post["launches"][k]
+                             for k in run["launches"]}
+            del run, res, pre, post, state
+            torch.cuda.empty_cache()
+
+            # the same under IPE_FUSED_BLOCK=1
+            fcfg = loop_cfg(root, "fused")
+            with fused_blocks("1"):
+                frun = run_loop(fcfg, 2, fused_step, fused_val)
+            flosses = frun["losses"]
+            fvals = frun["probe"].vals
+            assert fvals[-1]["val_loss"] < fvals[0]["val_loss"], fvals
+            fgaps = step_gaps_ms(frun["probe"], spe, spe)
+            fused_rate = TRAIN_BATCH / float(np.median(fgaps)) * 1e3
+            out.update(fused_loop_images_per_s=fused_rate,
+                       fused_step_gaps_ms=fgaps,
+                       bare_fused_images_per_s=bare_fused,
+                       fused_launches=frun["launches"],
+                       fused_losses=flosses,
+                       fused_val_s=[v["s"] for v in fvals],
+                       fused_val_loss=[v["val_loss"] for v in fvals])
+            log(f"[train-loop] fused 2 epochs: launches "
+                f"{frun['launches']}; loop {fused_rate:.1f} images/s (epoch "
+                f"1's intervals " + " ".join(f"{g:.1f}" for g in fgaps)
+                + f" ms) against "
+                f"the bare fused step's {bare_fused:.1f} (phase 9); total "
+                f"loss " + " ".join(f"{v:.5g}" for v in flosses)
+                + "; validation loss " + " -> ".join(
+                    f"{v['val_loss']:.5g}" for v in fvals))
+            del frun
+            torch.cuda.empty_cache()
+            out["unfused_total_launches"] = unfused_total
+
+            # preemie: hrnet_w32 + heatmap, infant13, 256x256, jitter 0.2
+            pcfg = get_variant("preemie")
+            # the model's stride-4 maps: the config's 128x128 presumes a
+            # stride-2 head that neither package has
+            pcfg.data.heatmap_size = (64, 64)
+            pcfg.train.warmup_epochs = 0
+            pcfg.train.global_batch_size = TRAIN_BATCH
+            proot = os.path.join(root, "preemie_data")
+            write_jpeg_set(proot, "train", 2 * TRAIN_BATCH, 3,
+                           pcfg.data.keypoint_schema)
+            write_jpeg_set(proot, "val", TRAIN_BATCH, 4,
+                           pcfg.data.keypoint_schema)
+            pcfg = loop_cfg(proot, "preemie", pcfg)
+            pcfg.train.save_latest_interval = 0
+            seen = []
+            jitter = tstep.photometric.color_jitter_normalized
+
+            def recording(images, *a, **kw):
+                res = jitter(images, *a, **kw)
+                seen.append((res - images).abs().amax(dim=(1, 2, 3)))
+                return res
+
+            tstep.photometric.color_jitter_normalized = recording
+            try:
+                prun = run_loop(pcfg, 1, no_launches(), no_launches())
+            finally:
+                tstep.photometric.color_jitter_normalized = jitter
+            moved = torch.stack(seen).min().item()
+            assert len(seen) == 2 and moved > 1e-3, moved
+            out.update(preemie_losses=prun["losses"],
+                       preemie_jitter_min_change=moved)
+            log(f"[train-loop] preemie (hrnet_w32 + heatmap, infant13, "
+                f"256x256, jitter 0.2) bf16 b = {TRAIN_BATCH}: "
+                f"{len(prun['losses'])} steps, total loss "
+                + " ".join(f"{v:.5g}" for v in prun["losses"])
+                + f"; every jittered crop moved by >= {moved:.3f} "
+                f"(normalised units) from its unjittered self")
+            del prun
+
+            # the pipeline proof on rendered images
+            t0 = time.perf_counter()
+            proof = pipeline_proof.run(
+                epochs=PROOF_EPOCHS, ap_threshold=PROOF_AP_MIN,
+                hrnet_stage_modules=(1, 1, 1), device="cuda", verbose=False)
+            out["pipeline_proof"] = dict(proof,
+                                         seconds=time.perf_counter() - t0)
+            log(f"[train-loop] pipeline proof (hrnet_w32 widths, stage "
+                f"modules 1/1/1, 128x128, b = 16, {PROOF_EPOCHS} epochs of "
+                f"64 rendered images, {int(proof['steps'])} steps): AP "
+                f"{proof['AP']:.4f} (bound {PROOF_AP_MIN}), AP50 "
+                f"{proof['AP50']:.4f}; training {proof['train_s']:.1f} s, "
+                f"validation {proof['val_s']:.2f} s")
+    finally:
+        tloop.log.removeHandler(handler)
+    log("[train-loop] " + json.dumps({k: v for k, v in out.items()
+                                      if not isinstance(v, list)}))
+    return out
+
+
 # -- phase 20 (with --parent): this checkout's backward kernels and steps
 # against the parent commit's, in turns ------------------------------------------
 
@@ -3661,6 +4170,8 @@ def main(argv: list) -> int:
     del inf16
     graft = timed("24 graft entry", phase_graft)
     post = timed("25 post-processing", phase_postprocess)
+    train_loop = timed("26 training loop", phase_train_loop, smi,
+                       train["images_per_s"], fused_train["images_per_s"])
     parent = (timed("20 parent", phase_parent, args.parent)
               if args.parent else None)
     log(f"[fused] bf16 b=32 serving {fused_thr['crops_per_s']:.1f} crops/s "
@@ -3684,7 +4195,8 @@ def main(argv: list) -> int:
                     "fused_train_window8": fused_train["window8"],
                     "grid_slice": grid_serve, "grid_train": grid_train,
                     "fold": fold, "server": server, "stream": stream,
-                    "graft_entry": graft, "post": post}))
+                    "graft_entry": graft, "post": post,
+                    "train_loop": train_loop}))
     source = "infantposeestimation_gaussianbias_tpu_torch/csrc/"
     jax_pkg = "infantposeestimation_gaussianbias_tpu/"
     pallas = jax_pkg + "ops/pallas/"
@@ -3714,6 +4226,7 @@ def main(argv: list) -> int:
             rec[out] = parent["kernels"][key][src] if parent else None
         rec["parent_shape"] = key
     t, ft = train["launches"], fused_train["launches"]
+    tl, tlf = train_loop["unfused_total_launches"], train_loop["fused_launches"]
     sal = analysis["saliency_launches"]
 
     def entry(name, src, replaces, by_path, rec, root=pallas):
@@ -3727,22 +4240,28 @@ def main(argv: list) -> int:
         entry("window_msa_fwd", "window_msa.cu", "window_msa.py:222",
               {"serve": serve_launches, "serve_auto": fused_serve["k1"],
                "train": t["k1"], "analysis_saliency": sal["k1"],
-               "serve_http": server["serve_http_k1"], "stream": stream["k1"]},
+               "serve_http": server["serve_http_k1"], "stream": stream["k1"],
+               "train_loop": tl["k1"]},
               k1),
         entry("window_msa_bwd", "window_msa_bwd.cu", "window_msa.py:422",
-              {"train": t["k2"], "analysis_saliency": sal["k2"]}, k2),
+              {"train": t["k2"], "analysis_saliency": sal["k2"],
+               "train_loop": tl["k2"]}, k2),
         entry("fused_attn_half_fwd", "fused_attn.cu", "fused_block.py:562",
               {"serve_fused": fused_serve["k4"], "train_fused": ft["k4"],
-               "serve_http": server["serve_http_k4"]},
+               "serve_http": server["serve_http_k4"],
+               "train_loop_fused": tlf["k4"]},
               k45["attn_fwd"]),
         entry("fused_attn_half_bwd", "fused_attn.cu", "fused_block.py:608",
-              {"train_fused": ft["k4b"]}, k45["attn_bwd"]),
+              {"train_fused": ft["k4b"], "train_loop_fused": tlf["k4b"]},
+              k45["attn_bwd"]),
         entry("fused_mlp_half_fwd", "fused_mlp.cu", "fused_block.py:220",
               {"serve_fused": fused_serve["k5"], "train_fused": ft["k5"],
-               "serve_http": server["serve_http_k5"]},
+               "serve_http": server["serve_http_k5"],
+               "train_loop_fused": tlf["k5"]},
               k45["mlp_fwd"]),
         entry("fused_mlp_half_bwd", "fused_mlp.cu", "fused_block.py:260",
-              {"train_fused": ft["k5b"]}, k45["mlp_bwd"]),
+              {"train_fused": ft["k5b"], "train_loop_fused": tlf["k5b"]},
+              k45["mlp_bwd"]),
         entry("conv3x3_wgrad", "conv_wgrad.cu", "conv_wgrad.py:106",
               {"hrnet_train_fusion": hr_k6["launches"]}, k6),
         entry("fused_residual_chain", "residual_block.cu",

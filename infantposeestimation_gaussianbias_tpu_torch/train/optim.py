@@ -62,17 +62,24 @@ def weight_decay_mask(model: nn.Module) -> Dict[str, bool]:
     return {name: name in decayed for name, _ in model.named_parameters()}
 
 
-def build_optimizer(cfg, model: nn.Module, steps_per_epoch: int
-                    ) -> Tuple[torch.optim.Optimizer, Schedule]:
-    """(optimizer, schedule) from a Config.  The optimizer's lr is set from
-    the schedule before every update (train/state.py)."""
+def lr_schedule(cfg, steps_per_epoch: int) -> Schedule:
+    """The schedule of a Config's ``train`` section for epochs of
+    ``steps_per_epoch`` steps."""
     t = cfg.train
-    schedule = make_lr_schedule(
+    return make_lr_schedule(
         base_lr=t.lr,
         warmup_lr=t.warmup_lr,
         warmup_steps=t.warmup_epochs * steps_per_epoch,
         milestones_steps=tuple(m * steps_per_epoch for m in t.lr_milestones),
         gamma=t.lr_gamma)
+
+
+def build_optimizer(cfg, model: nn.Module, steps_per_epoch: int
+                    ) -> Tuple[torch.optim.Optimizer, Schedule]:
+    """(optimizer, schedule) from a Config.  The optimizer's lr is set from
+    the schedule before every update (train/state.py)."""
+    t = cfg.train
+    schedule = lr_schedule(cfg, steps_per_epoch)
     mask = weight_decay_mask(model)
     params = dict(model.named_parameters())
     groups = [

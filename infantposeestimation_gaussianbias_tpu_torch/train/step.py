@@ -20,9 +20,12 @@ whole batch from the ``torch.Generator`` it is given, before the forward
 microbatch i uses the masks of its samples.  HRNet has no DropPath and
 needs no generator.
 
-A non-zero ``data.color_jitter`` (the ``preemie`` config) raises
-``NotImplementedError``: the on-device photometric jitter
-(``ops/photometric.py``) is not ported yet.
+Photometric jitter (a non-zero ``data.color_jitter``, as the ``preemie``
+config sets): per microbatch, after the targets and before the forward,
+on the normalised image, as the JAX step puts it (ops/photometric.py).
+The step draws every sample's factors and op order for the whole batch
+from its generator after the DropPath masks, or takes them from the
+caller (``jitter``); microbatch i uses the draws of its samples.
 
 Under a process grid (``make_train_step(cfg, grid)``, parallel/mesh.py)
 every rank is handed the same global batch, as the JAX step is handed a
@@ -57,6 +60,7 @@ from .. import losses as L
 from ..models import build_model
 from ..models.hrformer import WindowAttention
 from ..ops import heatmap as heatmap_ops
+from ..ops import photometric
 from ..parallel.mesh import TENSOR_PARALLEL_TODO
 from .optim import build_optimizer
 from .state import TrainState, optax_global_norm
@@ -142,14 +146,15 @@ def _data_sum(grid) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
 
 
 def make_train_step(cfg, grid=None) -> Callable:
-    """The train step ``(state, batch, generator, drop_masks=None) ->
-    (state, metrics)``.  The state is updated in place and returned.
-    ``grid``: the ProcessGrid the state's model was built over (see the
-    module doc); ``batch`` and ``drop_masks`` are then the global ones."""
-    if any(float(j) != 0.0 for j in cfg.data.color_jitter):
-        raise NotImplementedError(
-            "photometric jitter is not ported yet: set data.color_jitter to "
-            "(0, 0, 0)")
+    """The train step ``(state, batch, generator, drop_masks=None,
+    jitter=None) -> (state, metrics)``.  The state is updated in place and
+    returned.  ``jitter``: (factors, orders) of ``photometric.draw_jitter``
+    for the batch.  ``grid``: the ProcessGrid the state's model was built
+    over (see the module doc); ``batch``, ``drop_masks`` and ``jitter`` are
+    then the global ones."""
+    amounts = tuple(float(a) for a in cfg.data.color_jitter)
+    jitter_on = photometric.jitter_enabled(amounts)
+    mean, std = cfg.data.pixel_mean, cfg.data.pixel_std
     heatmap_size = tuple(cfg.data.heatmap_size)
     input_size = tuple(cfg.data.input_size)
     sigma = cfg.data.sigma
@@ -158,18 +163,21 @@ def make_train_step(cfg, grid=None) -> Callable:
     accum = max(1, int(cfg.train.grad_accum_steps))
     D, d = (1, 0) if grid is None else (grid.data, grid.data_index)
 
-    def micro_grads(model, batch, keep) -> Metrics:
-        """Targets -> forward -> loss -> backward for one (micro)batch; the
-        gradients add into the parameters' ``.grad``."""
+    def micro_grads(model, batch, keep, jitter) -> Metrics:
+        """Targets -> jitter -> forward -> loss -> backward for one
+        (micro)batch; the gradients add into the parameters' ``.grad``."""
         target, weight = _targets(batch, heatmap_size, input_size, sigma)
-        outputs = model(batch["image"], keep)
+        images = photometric.color_jitter_normalized(
+            batch["image"], mean, std, amounts, jitter=jitter)
+        outputs = model(images, keep)
         loss, terms = loss_fn(outputs, batch, target, weight)
         loss.backward()
         return {k: v.detach() for k, v in terms.items()}
 
     def train_step(state: TrainState, batch: Batch,
                    generator: torch.Generator,
-                   drop_masks: Optional[torch.Tensor] = None
+                   drop_masks: Optional[torch.Tensor] = None,
+                   jitter: Optional[photometric.Jitter] = None
                    ) -> Tuple[TrainState, Metrics]:
         model = state.model
         device = next(model.parameters()).device
@@ -181,6 +189,10 @@ def make_train_step(cfg, grid=None) -> Callable:
         model.train()
         if drop_masks is None:
             drop_masks = draw_drop_masks(model, b, generator, device)
+        if jitter_on:
+            jitter = (photometric.draw_jitter(b, amounts, generator, device)
+                      if jitter is None else tuple(t.to(device)
+                                                   for t in jitter))
         state.optimizer.zero_grad(set_to_none=True)
         mb = b // accum
         per = mb // D  # this data rank's rows of each microbatch
@@ -188,8 +200,9 @@ def make_train_step(cfg, grid=None) -> Callable:
         for i in range(accum):
             rows = slice(i * mb + d * per, i * mb + (d + 1) * per)
             keep = None if drop_masks is None else drop_masks[:, rows]
+            jit = None if not jitter_on else tuple(t[rows] for t in jitter)
             terms = micro_grads(model, {k: v[rows] for k, v in batch.items()},
-                                keep)
+                                keep, jit)
             sums = terms if sums is None else {
                 k: sums[k] + terms[k] for k in terms}
         params = state.params

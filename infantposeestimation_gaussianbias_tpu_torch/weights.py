@@ -14,12 +14,18 @@ package (its ``convert_hrnet_backbone``, ``convert_hrformer_backbone``,
 ``convert_heatmap_head`` and ``convert_fusion_head``): flax conv kernels (kh, kw, I, O) become (O, I, kh, kw), Dense
 kernels (I, O) become (O, I), BatchNorm scale/bias/mean/var become
 weight/bias/running_mean/running_var, GroupNorm scale/bias weight/bias.
+
+``train_state_from_jax`` carries a JAX ``TrainState`` across as a whole:
+its parameters and BatchNorm statistics as above, the optax Adam moments
+(``mu``, ``nu``, laid out as the parameters and converted the same way)
+and update count into the ``torch.optim`` AdamW state, and its step, so
+that a run checkpointed by the JAX trainer continues in the port.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -204,3 +210,52 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
                                                      dtype=torch.float32)
             sd[f"{part}.{bn}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+# -- JAX train state -> port TrainState ---------------------------------------
+
+def optax_state_of(opt_state: Any, fields: Tuple[str, ...]) -> Tuple:
+    """The fields of the first optax state inside a JAX optimizer state
+    (a chain, optionally behind a clip) that has them all: ("mu", "nu",
+    "count") of Adam's ``ScaleByAdamState``, ("trace",) of SGD's
+    ``TraceState``."""
+    if all(hasattr(opt_state, k) for k in fields):
+        return tuple(getattr(opt_state, k) for k in fields)
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            try:
+                return optax_state_of(sub, fields)
+            except ValueError:
+                continue
+    raise ValueError(f"no optimizer state with {fields} in {type(opt_state)}")
+
+
+def train_state_from_jax(cfg, params: Mapping, batch_stats: Mapping,
+                         opt_state: Any, step: int, device="cuda"):
+    """A port TrainState (train/state.py) from a JAX TrainState's numpy
+    leaves: the model from ``params`` and ``batch_stats``
+    (``state_dict_from_jax``), the optimizer's state from ``opt_state``
+    (Adam and AdamW: the moments ``mu`` and ``nu`` and the update count;
+    SGD: the momentum ``trace``), each laid out as the parameters and
+    converted as they are, and ``step``."""
+    from .train.step import create_train_state
+
+    state = create_train_state(cfg, device=device, state_dict=state_dict_from_jax(
+        params, batch_stats))
+    named = list(state.model.named_parameters())
+    if cfg.train.optimizer.lower() == "sgd":
+        (trace,) = optax_state_of(opt_state, ("trace",))
+        trace = state_dict_from_jax(trace, {})
+        for name, p in named:
+            state.optimizer.state[p] = {"momentum_buffer": trace[name].to(p)}
+    else:
+        mu, nu, count = optax_state_of(opt_state, ("mu", "nu", "count"))
+        mu, nu = state_dict_from_jax(mu, {}), state_dict_from_jax(nu, {})
+        for name, p in named:
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(np.asarray(count)),
+                                     dtype=torch.float32),
+                "exp_avg": mu[name].to(p),
+                "exp_avg_sq": nu[name].to(p)}
+    state.step = int(np.asarray(step))
+    return state

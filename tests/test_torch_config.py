@@ -87,7 +87,7 @@ def test_port_imports_nothing_of_jax(path):
     assert not bad, bad
 
 
-def test_entry_points_refuse_a_missing_card(monkeypatch):
+def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     """Without a device argument the entry points run on CUDA; where there
     is no CUDA they raise instead of carrying on on the CPU."""
     if torch.cuda.is_available():
@@ -116,6 +116,15 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         serve.main(["--variant", "hrformer_small", "--port", "0"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         infer.main(["--variant", "hrformer_small", "--input", "x.jpg"])
+    from infantposeestimation_gaussianbias_tpu_torch.cli import (
+        train as cli_train, validate as cli_validate)
+
+    logs = ["--set", f"log_dir={tmp_path}"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_train.main(["--variant", "hrformer_small", "--synthetic", "2",
+                        "--epochs", "1", "--no-val"] + logs)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_validate.main(["--variant", "hrformer_small"] + logs)
     monkeypatch.setenv("PROBE_SHAPE", "2,16,16,1")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         probe_wmsa_ablate.main()
@@ -231,22 +240,35 @@ def test_run_grid_fails_when_a_rank_raises():
                  args=(1,), timeout=120)
 
 
-def test_serving_surfaces_run_without_jax():
-    """With jax, flax and the JAX package unimportable, the serving slice's
-    modules import and run on the CPU: the fold, the server's decode and
-    micro-batcher, the CLIs' option parsing, the native decoder (or its
-    absence), the prefetch stage, post-processing, the skeleton drawing
-    and the graft entry's config."""
-    code = textwrap.dedent("""
-        import io, sys
+def test_serving_surfaces_run_without_jax(tmp_path):
+    """With jax, flax and the JAX package unimportable, the serving and
+    training slices' modules import and run on the CPU: the fold, the
+    server's decode and micro-batcher, the CLIs' option parsing, the
+    native decoder (or its absence), the prefetch stage, post-processing,
+    the skeleton drawing and the graft entry's config; the loader over
+    on-disk JPEGs (the native decode + warp, or cv2 where it is missing),
+    device batches, the jitter, the evaluator, a checkpoint, the metrics
+    file (JSONL alone where TensorBoard does not import) and the pipeline
+    proof's data."""
+    code = textwrap.dedent(f"""
+        import io, os, sys
         sys.modules["jax"] = sys.modules["flax"] = None
         sys.modules["infantposeestimation_gaussianbias_tpu"] = None
+        sys.modules["torch.utils.tensorboard"] = None
         import numpy as np
         import torch
         from infantposeestimation_gaussianbias_tpu_torch import (
-            data, graft_entry, native, postprocess, viz)
+            data, eval, graft_entry, native, postprocess, viz, weights)
         from infantposeestimation_gaussianbias_tpu_torch.cli import (
-            common, infer, serve)
+            common, infer, serve, train as cli_train,
+            validate as cli_validate)
+        from infantposeestimation_gaussianbias_tpu_torch.ops import (
+            photometric)
+        from infantposeestimation_gaussianbias_tpu_torch.tools import (
+            analyze_dataset, convert_to_coco, pipeline_proof,
+            probe_native_loader)
+        from infantposeestimation_gaussianbias_tpu_torch.train import (
+            checkpoint, logging, loop, optim, state)
         from infantposeestimation_gaussianbias_tpu_torch.models import (
             build_model, fold_state_dict)
         from infantposeestimation_gaussianbias_tpu_torch.ops import decode
@@ -260,7 +282,7 @@ def test_serving_surfaces_run_without_jax():
                                    "application/x-npy").shape == (4, 5, 3)
         native.available()
         got = list(data.prefetch_to_device(
-            [{"x": np.ones(3)}], keys=("x",), device="cpu"))
+            [{{"x": np.ones(3)}}], keys=("x",), device="cpu"))
         assert torch.equal(got[0]["x"], torch.ones(3, dtype=torch.float64))
         pts = torch.rand(2, 17, 2) * 10
         postprocess.nms_pose(pts, torch.rand(2, 17))
@@ -273,6 +295,33 @@ def test_serving_surfaces_run_without_jax():
             assert "Queue 1 item 5" in str(e)
         else:
             raise AssertionError("--int8 must raise")
+        root = "{tmp_path}"
+        gt = data.synthetic_coco_dataset(num_images=4, image_dir=root)
+        recs = data.build_records(data.CocoIndex(dataset=gt))
+        cfg.data.input_size, cfg.data.heatmap_size = (64, 64), (16, 16)
+        ds = data.PoseDataset(cfg, recs, root, True)
+        batches = list(data.DataLoader(ds, 2, shuffle=True,
+                                       num_threads=2).epoch(0))
+        assert ds.decoded["native" if native.available() else "cv2"] == 4
+        db = data.device_batch(batches[0], cfg.data.pixel_mean,
+                               cfg.data.pixel_std, device="cpu")
+        assert db["image"].shape == (2, 64, 64, 3)
+        photometric.color_jitter_normalized(
+            db["image"], cfg.data.pixel_mean, cfg.data.pixel_std,
+            (0.2, 0.2, 0.2), torch.Generator().manual_seed(0))
+        ev = eval.COCOEvaluator(cfg.data.keypoint_schema.oks_sigma_array(),
+                                gt)
+        ev.update(batches[0]["image_id"], np.zeros((2, 17, 2)),
+                  np.ones((2, 17)))
+        assert set(ev.evaluate()) >= {{"AP", "AR"}}
+        cfg.train.steps_per_epoch = 2
+        st = loop.create_train_state(cfg, device="cpu")
+        checkpoint.CheckpointManager(root + "/ck").save(st, 0, {{"AP": 0.5}},
+                                                        -np.inf)
+        assert {{"latest", "best"}} <= set(os.listdir(root + "/ck"))
+        logging.MetricsWriter(root + "/logs").write(1, {{"loss": 1.0}})
+        assert os.listdir(root + "/logs") == ["metrics.jsonl"]
+        pipeline_proof.build_synthetic_pose_dataset(2)
         loaded = [m for m in sys.modules if sys.modules[m] is not None
                   and m.split(".")[0] in ("jax", "flax")]
         assert not loaded, loaded
@@ -282,3 +331,4 @@ def test_serving_surfaces_run_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+

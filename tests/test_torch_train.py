@@ -27,6 +27,7 @@ from infantposeestimation_gaussianbias_tpu.models import layers as jlayers
 from infantposeestimation_gaussianbias_tpu.models import pose_estimator as jpe
 from infantposeestimation_gaussianbias_tpu.ops import decode as jdecode
 from infantposeestimation_gaussianbias_tpu.ops import heatmap as jheatmap
+from infantposeestimation_gaussianbias_tpu.ops import photometric as jphoto
 from infantposeestimation_gaussianbias_tpu.tools.import_torch_checkpoint import (
     convert_checkpoint,
 )
@@ -56,9 +57,11 @@ from infantposeestimation_gaussianbias_tpu_torch.train import (
 )
 from infantposeestimation_gaussianbias_tpu_torch.weights import (
     state_dict_from_jax,
+    train_state_from_jax,
 )
 
 from tests import torch_grid
+from tests.torch_jitter import jax_jitter_draws
 
 TINY = dict(channels=(8, 16, 32, 64), num_heads=(1, 2, 4, 8),
             stage_modules=(1, 1, 1))
@@ -428,10 +431,17 @@ def tiny():
 
 
 @pytest.fixture(scope="module")
-def jax_steps(tiny):
+def jax_step(tiny):
+    """The jitted JAX train step of the tiny model (no jitter)."""
+    _, jcfg, _, _ = tiny
+    return jax.jit(jstep.make_train_step(jcfg, jcfg.data.keypoint_schema))
+
+
+@pytest.fixture(scope="module")
+def jax_steps(tiny, jax_step):
     """The JAX step's states and metrics over 3 steps on one batch."""
     _, jcfg, model, variables = tiny
-    step = jax.jit(jstep.make_train_step(jcfg, jcfg.data.keypoint_schema))
+    step = jax_step
     state = _jax_state(jcfg, model, variables)
     batch = jax.tree_util.tree_map(jnp.asarray, _batch(12))
     out = []
@@ -601,6 +611,96 @@ def test_train_step_matches_jax(tiny, jax_steps):
                                        atol=1e-5, rtol=1e-4, err_msg=name)
 
 
+def test_train_step_with_jitter_matches_jax(tiny, jax_step, jax_steps):
+    """The preemie config's photometric jitter (0.2, 0.2, 0.2) inside the
+    port's step, fed JAX's draws for a key, against the JAX step on the
+    batch that JAX's own ``color_jitter_normalized`` jittered with that key
+    (the JAX step's jitter is the same op on the same image, in the same
+    place: after the targets, before the forward).  The bounds of
+    test_train_step_matches_jax."""
+    cfg, jcfg, model, variables = tiny
+    amounts = (0.2, 0.2, 0.2)
+    batch = _batch(16)
+    key = jax.random.PRNGKey(21)
+    jbatch = dict(batch, image=np.asarray(jphoto.color_jitter_normalized(
+        key, jnp.asarray(batch["image"]), jcfg.data.pixel_mean,
+        jcfg.data.pixel_std, *amounts)))
+    # jax_steps' optimizer object: it is a static field of the state, and
+    # a new one would compile the jitted step again
+    state0 = _jax_state(jcfg, model, variables).replace(
+        tx=jax_steps[0][0].tx)
+    jstate, jmetrics = jax_step(state0,
+                                jax.tree_util.tree_map(jnp.asarray, jbatch),
+                                jax.random.PRNGKey(0))
+    factors, orders = jax_jitter_draws(key, 4, amounts)
+    state = _port_state(cfg, variables)
+    cfg.data.color_jitter = amounts
+    try:
+        step = make_train_step(cfg)
+    finally:
+        cfg.data.color_jitter = (0.0, 0.0, 0.0)
+    _, metrics = step(state, {k: _t(v) for k, v in batch.items()}, None,
+                      jitter=(_t(factors), _t(orders)))
+    for k in metrics:
+        np.testing.assert_allclose(metrics[k].item(), float(jmetrics[k]),
+                                   rtol=1e-4, err_msg=k)
+    j_grads = _jax_named(jax.tree_util.tree_map(
+        lambda m: np.asarray(m) / 0.1, jstate.opt_state[0].mu))
+    _assert_grads_close(_port_grads(state.model), j_grads,
+                        metrics["grad_norm"].item())
+
+
+def test_carried_jax_state_continues_like_jax(tiny, jax_steps):
+    """JAX's state after one step (parameters, BatchNorm statistics, AdamW
+    moments and count, step) carried across by train_state_from_jax; the
+    port's next step against JAX's second step on the same batch: every
+    loss term and grad_norm (rtol 1e-4), the first moments (as the
+    gradients), the parameters' update (as the gradients), the
+    statistics."""
+    cfg, _, _, _ = tiny
+    as_np = lambda tree: jax.tree_util.tree_map(  # noqa: E731
+        lambda x: np.array(x), tree)
+    j0, _ = jax_steps[0]
+    j1, jmetrics = jax_steps[1]
+    state = train_state_from_jax(cfg, as_np(j0.params), as_np(j0.batch_stats),
+                                 as_np(j0.opt_state), as_np(j0.step),
+                                 device="cpu")
+    assert state.step == 1
+    mu0 = _jax_named(as_np(j0.opt_state[0].mu))
+    for n, p in state.model.named_parameters():
+        assert torch.equal(state.optimizer.state[p]["exp_avg"], mu0[n]), n
+        assert state.optimizer.state[p]["step"].item() == 1.0
+    p0 = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    _, metrics = make_train_step(cfg)(
+        state, {k: _t(v) for k, v in _batch(12).items()}, None)
+    assert state.step == 2
+    for k in metrics:
+        np.testing.assert_allclose(metrics[k].item(), jmetrics[k],
+                                   rtol=1e-4, err_msg=k)
+    j_now = _jax_named(as_np(j1.params), as_np(j1.batch_stats))
+    j_mu = _jax_named(as_np(j1.opt_state[0].mu))
+    grad_norm = metrics["grad_norm"].item()
+    # the first moments, 0.9 mu + 0.1 g: as the gradients, per tensor
+    _assert_grads_close({n: state.optimizer.state[p]["exp_avg"]
+                         for n, p in state.model.named_parameters()},
+                        j_mu, grad_norm)
+    for n, p in state.model.named_parameters():
+        # The second update, lr * mu_hat / sqrt(nu_hat), follows the
+        # gradient's value (the first one only its sign), so it differs
+        # per element as the gradients do: per tensor, as the gradients.
+        # A tensor whose gradient is rounding noise (a bias that feeds only
+        # a train-mode BatchNorm) moves by lr times the noise's sign.
+        if p.grad.norm().item() < 1e-5 * grad_norm:
+            continue
+        step, j_step = p.detach() - p0[n], j_now[n] - p0[n]
+        err = (step - j_step).norm().item()
+        assert err <= 5e-3 * j_step.norm().item(), (n, err)
+    for name, buf in state.model.named_buffers():
+        if name.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(buf.numpy(), j_now[name].numpy(),
+                                       atol=1e-5, rtol=1e-4, err_msg=name)
+
+
 def test_train_loss_trajectory_matches_jax(tiny, jax_steps):
     """Total loss over 3 steps on one batch, and it falls."""
     cfg, _, _, variables = tiny
@@ -716,8 +816,12 @@ def test_remat_matches_no_remat(tiny):
 
 
 def test_step_refuses_color_jitter():
+    """The step took no jitter before ops/photometric.py was ported and
+    refused the preemie config; now it builds for it, and jitters only
+    where data.color_jitter asks (the preemie config's is held against
+    JAX in test_train_step_with_jitter_matches_jax)."""
     cfg = config.get_variant("preemie")
-    with pytest.raises(NotImplementedError, match="color_jitter"):
-        make_train_step(cfg)
+    assert tuple(cfg.data.color_jitter) == (0.2, 0.2, 0.2)
+    assert callable(make_train_step(cfg))
     assert math.isclose(config.get_variant("hrformer_base").data
                         .color_jitter[0], 0.0)
