@@ -203,7 +203,27 @@ Phases, in order; any failure exits non-zero:
      256x256, jitter 0.2, its heatmaps at the model's stride 4): an epoch
      of 2 steps, every crop moved by the jitter; the pipeline proof
      (tools/pipeline_proof.py) on the card, AP held to PROOF_AP_MIN.
-Phases 21-26 run after 19 and before 20.
+ 27. int8 PTQ serving (K9, the int8 conv, and K10, the int8 Dense, of
+     csrc/qgemm.cu): hrnet_w32 with the heatmap and the fusion head
+     (BatchNorm calibrated as in phase 12) and hrformer_base + fusion
+     (BatchNorm perturbed), each quantized by PoseInference(quantize=True)
+     on 32 calibration crops.  K9 at every distinct int8 conv call of a
+     served hrnet_w32 + fusion forward at b = 64 (32 crops with flip) and
+     K10 at every wide Dense call of hrformer_base's, each equal to its
+     plain version bit for bit, with kernel, plain and library ms (cuDNN
+     bf16 conv; torch._int_mm on operands padded to multiples of 8 and a
+     bf16 matmul) and the bound (int8 tensor cores or bytes); served int8
+     batches of 32 frames with flip and of 1, exactly 2 x the model's
+     QConvNorms K9 launches (610 heatmap, 620 fusion), 2 x its QDense K10
+     launches (268) and 88 K1 (hrformer) a batch; float32 int8 against
+     float32 float heatmaps (cosine >= INT8_COS_MIN on the JAX int8
+     test's weights, logged on the served ones) and against the CPU
+     on the same crops and int8 state (INT8_CARD_CPU_* bounds);
+     crops/s, b = 1 ms and a profile of the bf16 int8 batch beside the
+     folded bf16 batch; ``cli.serve --int8 --calibration-dir`` in its own
+     process answering a burst (/healthz "int8-ptq"), ``cli.infer --int8``
+     and ``cli.validate --int8`` (AP, no loss).
+Phases 21-27 run after 19 and before 20.
 The ranks import no JAX (each asserts it).
 Every phase's seconds and the whole run's are printed.  Each fused phase
 sets IPE_FUSED_BLOCK itself and restores it after.  The
@@ -395,9 +415,10 @@ def fused_blocks(flag: str):
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
-        conv_wgrad, fused_block, residual_block, window_msa,
+        conv_wgrad, fused_block, quant, residual_block, window_msa,
         window_msa_ablate)
 
+    quant.CONV_LAUNCHES = quant.DENSE_LAUNCHES = 0
     window_msa.LAUNCHES = window_msa.BWD_LAUNCHES = 0
     window_msa.SHARDED_LAUNCHES = window_msa.SHARDED_BWD_LAUNCHES = 0
     window_msa.HM_LAUNCHES = window_msa_ablate.ABLATE_LAUNCHES = 0
@@ -408,16 +429,18 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     """Launches since the last reset: K1, K2, K4 (fwd, bwd), K5 (fwd, bwd),
-    K6, K7, K1-hm, K8, and K3's K1 and K2 (counted in K1 and K2 too)."""
+    K6, K7, K1-hm, K8, K3's K1 and K2 (counted in K1 and K2 too), K9 and
+    K10."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
-        conv_wgrad as cw, fused_block as fb, residual_block as rb,
+        conv_wgrad as cw, fused_block as fb, quant as qk, residual_block as rb,
         window_msa as wm, window_msa_ablate as ab)
 
     return dict(k1=wm.LAUNCHES, k2=wm.BWD_LAUNCHES, k4=fb.ATTN_LAUNCHES,
                 k4b=fb.ATTN_BWD_LAUNCHES, k5=fb.MLP_LAUNCHES,
                 k5b=fb.MLP_BWD_LAUNCHES, k6=cw.LAUNCHES, k7=rb.LAUNCHES,
                 k1hm=wm.HM_LAUNCHES, k8=ab.ABLATE_LAUNCHES,
-                k3=wm.SHARDED_LAUNCHES, k3b=wm.SHARDED_BWD_LAUNCHES)
+                k3=wm.SHARDED_LAUNCHES, k3b=wm.SHARDED_BWD_LAUNCHES,
+                k9=qk.CONV_LAUNCHES, k10=qk.DENSE_LAUNCHES)
 
 
 def cuda_median_ms(fn, warmup: int = 3, runs: int = 25) -> float:
@@ -1278,7 +1301,7 @@ def hrformer_cfg():
 
 def no_launches() -> dict:
     return dict(k1=0, k2=0, k4=0, k4b=0, k5=0, k5b=0, k6=0, k7=0, k1hm=0,
-                k8=0, k3=0, k3b=0)
+                k8=0, k3=0, k3b=0, k9=0, k10=0)
 
 
 def train_bf16(smi: str, cfg, tag: str, want: dict) -> dict:
@@ -3780,6 +3803,571 @@ def phase_train_loop(smi: str, bare: float, bare_fused: float) -> dict:
     return out
 
 
+# -- phase 27: int8 PTQ serving, K9 and K10 -------------------------------------
+
+INT8_OP_PER_S = 1979e12   # H100 SXM int8 tensor cores, dense
+# int8 against float32 heatmaps on the card, flip-averaged: the JAX
+# package's own bound (tests/test_quant.py:147-159), held in that test's
+# conditions (jax_test_state: the seeded init, its BatchNorm statistics
+# nudged as there, where the untrained maps grow through the residual
+# chains).  The served models' BatchNorm is calibrated (phase 12), which
+# keeps every layer's activations near unit scale: per-tensor int8 noise
+# then adds up over HRNet's ~100 requantized layers in a row, and the
+# cosine of those random-weight maps is logged, not bounded (the port's
+# int8 layers equal the JAX package's bit for bit on the CPU).
+INT8_COS_MIN = 0.995
+INT8_CALIB_CROPS = 32     # PoseInference.MIN_SELF_CALIB_CROPS
+# int8 serving in float32 compute, card against CPU on the same crops and
+# the same quantized state: K9 and K10 equal their plain versions bit for
+# bit, so int8 values part only where a float32 step before a requantize
+# (the fuse's bilinear resize, cuDNN's float convs of HRFormer's trunk)
+# rounds an ulp apart on the two devices and moves a value across a .5
+# boundary; the maps then agree to INT8_CARD_CPU_REL of their largest.
+INT8_CARD_CPU_REL = 1e-2        # heatmaps, of their largest magnitude
+INT8_KEYPOINT_ATOL_PX = 0.5     # frame pixels, off decode ties
+# K9 per forward: stem 2, layer1 13, transitions 2 + 1 + 1, exchange
+# modules 18 + 4 x 31 + 3 x 48; the fusion head adds 5.  K10: the wide
+# Dense layers of hrformer_base (C >= 128: qkv, proj, fc1, fc2; C = 78:
+# fc2) over its 44 blocks.
+HRNET_W32_QCONVS = 2 + 13 + 2 + 18 + 1 + 4 * 31 + 1 + 3 * 48
+HRFORMER_BASE_QDENSE = 2 * (1 + 4) + 4 * 2 * (1 + 4 + 4) + 2 * 2 * (1 + 3 * 4)
+
+
+def int8_models():
+    """[(label, head, make(dtype) -> cfg, float state dict on the card)]:
+    hrnet_w32 with the heatmap head (Config()) and with the fusion head,
+    BatchNorm calibrated as in phase 12, and hrformer_base + fusion,
+    BatchNorm perturbed (perturb_bn)."""
+    from infantposeestimation_gaussianbias_tpu_torch import get_variant
+    from infantposeestimation_gaussianbias_tpu_torch.models import (
+        build_model)
+
+    def hrformer(dtype: str = "bfloat16"):
+        cfg = get_variant("hrformer_base")
+        cfg.model.compute_dtype = dtype
+        return cfg
+
+    out = []
+    for label, head, make in (
+            ("hrnet_w32 heatmap", "heatmap",
+             lambda d="bfloat16": hrnet_cfg("heatmap", d)),
+            ("hrnet_w32 fusion", "fusion",
+             lambda d="bfloat16": hrnet_cfg("fusion", d)),
+            ("hrformer_base fusion", "fusion", hrformer)):
+        model = build_model(make(), "cuda")
+        if label.startswith("hrnet"):
+            calibrate_batch_stats(model, make())
+        else:
+            perturb_bn(model, seed=22)
+        out.append((label, head, make, {k: v.clone() for k, v in
+                                        model.state_dict().items()}))
+        del model
+    return out
+
+
+def jax_test_state(label: str, make) -> dict:
+    """The float32 weights of the JAX package's own int8 agreement tests
+    (tests/test_quant.py): the seeded init; for HRNet its BatchNorm running
+    statistics nudged by 0.01 i / n, i = 0..n-1, as that test's
+    ``fusion_setup`` does; HRFormer's left as initialised, as its
+    ``test_hrformer_dense_ptq_model_agreement``."""
+    from infantposeestimation_gaussianbias_tpu_torch.models import (
+        build_model)
+    from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
+        BatchNorm)
+
+    model = build_model(make("float32"), "cuda")
+    if label.startswith("hrnet"):
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    n = m.running_mean.numel()
+                    step = 0.01 * torch.arange(n, device="cuda") / n
+                    m.running_mean.add_(step)
+                    m.running_var.add_(step)
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def int8_cosine(cfg32, sd, calib, frames, bboxes) -> tuple:
+    """(cosine of the flip-averaged heatmaps of the float32 int8 model,
+    calibrated on ``calib``, and the float32 float model, both from ``sd``
+    on the card; the int8 PoseInference)."""
+    from infantposeestimation_gaussianbias_tpu_torch import PoseInference
+
+    inf = PoseInference(cfg32, state_dict=sd, device="cuda", quantize=True,
+                        calibration_crops=calib)
+    flt = PoseInference(cfg32, state_dict=sd, device="cuda", fold=False)
+    hq = flip_heatmaps_of(inf, frames, bboxes).double().flatten()
+    hf = flip_heatmaps_of(flt, frames, bboxes).double().flatten()
+    return (hq @ hf / (hq.norm() * hf.norm())).item(), inf
+
+
+def normalized_crops(cfg, frames, bboxes, device="cuda") -> torch.Tensor:
+    """The normalised crops predict_batch makes of these frames."""
+    from infantposeestimation_gaussianbias_tpu_torch.ops import affine
+
+    centers = (bboxes[:, :2] + bboxes[:, 2:]) / 2
+    scales = (bboxes[:, 2:] - bboxes[:, :2]) * cfg.data.bbox_padding
+    with torch.no_grad():
+        return affine.crop_and_normalize(
+            torch.from_numpy(frames).to(device),
+            torch.from_numpy(centers).to(device),
+            torch.from_numpy(scales).to(device), cfg.data.input_size,
+            mean=cfg.data.pixel_mean, std=cfg.data.pixel_std)
+
+
+@contextlib.contextmanager
+def captured(module, name: str, store: dict, key_fn):
+    """``module.name`` wrapped to keep the (cloned) arguments of the first
+    call of each ``key_fn(*args, **kw)`` in ``store``."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        key = key_fn(*args, **kw)
+        if key not in store:
+            store[key] = ([a.clone() if torch.is_tensor(a) else a
+                           for a in args],
+                          {k: v.clone() if torch.is_tensor(v) else v
+                           for k, v in kw.items()})
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield store
+    finally:
+        setattr(module, name, fn)
+
+
+def _qconv_key(x, x_scale, w, eff_scale, eff_bias, stride=1, relu=False,
+               out_scale=None, residual=None, res_scale=None):
+    return (tuple(x.shape), tuple(w.shape), stride, relu,
+            out_scale is not None,
+            None if residual is None else str(residual.dtype))
+
+
+def _qdense_key(x, w, *args):
+    return (x.reshape(-1, x.shape[-1]).shape[0], w.shape[1], w.shape[0],
+            str(x.dtype))
+
+
+def k9_record(args, kw, smi: str) -> dict:
+    """K9 against its plain version (bit for bit), its ms, the plain
+    version's, cuDNN bf16's at the same conv shape, and the bound."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
+
+    x, w = args[0], args[2]
+    got = qk.qconv(*args, **kw)
+    want = qk.qconv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.equal(got, want), (x.shape, w.shape, err)
+    B, H, W, C = x.shape
+    Co, k = w.shape[0], w.shape[1]
+    stride = args[5] if len(args) > 5 else kw.get("stride", 1)
+    M = got.numel() // Co
+    res = kw.get("residual")
+    nbytes = (x.numel() + w.numel() + 8 * Co + got.numel() * got.element_size()
+              + (0 if res is None else res.numel() * res.element_size()))
+    b_ms, b_by = bound_ms(nbytes, 2.0 * M * Co * k * k * C, INT8_OP_PER_S)
+    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wb = w.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    lib = cuda_median_ms(lambda: F.conv2d(xb, wb, stride=stride,
+                                          padding=k // 2))
+    return dict(shape=f"{B}x{H}x{W} {C}->{Co} {k}x{k} s{stride}"
+                f"{' relu' if kw.get('relu') else ''}"
+                f"{' int8-out' if kw.get('out_scale') is not None else ''}"
+                f"{'' if res is None else ' +' + str(res.dtype)[6:]}",
+                max_abs_err=err, ms=cuda_median_ms(lambda: qk.qconv(*args,
+                                                                    **kw)),
+                plain_ms=cuda_median_ms(lambda: qk.qconv_reference(*args,
+                                                                   **kw),
+                                        warmup=1, runs=5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library="cuDNN bf16 conv (F.conv2d), channels_last")
+
+
+def k10_record(args, kw) -> dict:
+    """K10 against its plain version (bit for bit), its ms, the plain
+    version's, ``torch._int_mm`` on operands padded to multiples of 8 and
+    a bf16 matmul at the same shape, and the bound."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
+
+    x, w = args[0], args[1]
+    got = qk.qdense(*args, **kw)
+    want = qk.qdense_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.equal(got, want), (x.shape, w.shape, err)
+    K, N = w.shape[1], w.shape[0]
+    M = x.numel() // K
+    nbytes = (x.numel() * x.element_size() + w.numel() + 8 * N
+              + got.numel() * got.element_size())
+    b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OP_PER_S)
+    pad = lambda n: -(-n // 8) * 8  # noqa: E731
+    xq = torch.zeros(max(M, 17), pad(K), dtype=torch.int8, device=x.device)
+    wq = torch.zeros(pad(N), pad(K), dtype=torch.int8, device=x.device)
+    xq[:M, :K] = torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                               device=x.device)
+    wq[:N, :K] = w
+    try:
+        int_mm = cuda_median_ms(lambda: torch._int_mm(xq, wq.t()))
+    except RuntimeError as e:  # a yardstick only: log why it is missing
+        log(f"[k10] torch._int_mm at {tuple(xq.shape)} x {tuple(wq.t().shape)} "
+            f"refused: {str(e).splitlines()[0]}")
+        int_mm = None
+    xb = x.reshape(M, K).to(torch.bfloat16)
+    wb = w.to(torch.bfloat16).t()
+    return dict(shape=f"M{M} {K}->{N} {str(x.dtype)[6:]}", max_abs_err=err,
+                ms=cuda_median_ms(lambda: qk.qdense(*args, **kw)),
+                plain_ms=cuda_median_ms(lambda: qk.qdense_reference(
+                    *args, **kw), warmup=1, runs=5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=int_mm,
+                library_bf16_ms=cuda_median_ms(lambda: torch.matmul(xb, wb)),
+                library="torch._int_mm, operands padded to multiples of 8")
+
+
+def phase_int8_kernels(smi: str, models) -> dict:
+    """K9 at every distinct int8 conv call of a served hrnet_w32 + fusion
+    forward at b = 64 (32 crops with flip) and K10 at every wide Dense call
+    of a served hrformer_base forward at b = 64, each held to its plain
+    version bit for bit, with its times and bound."""
+    from infantposeestimation_gaussianbias_tpu_torch import PoseInference
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
+
+    frames, bboxes = make_requests(SERVE_BATCH, seed=27)
+    out = {}
+    for label, kind, fn, key_fn, record in (
+            ("hrnet_w32 fusion", "k9", "qconv", _qconv_key,
+             lambda a, k: k9_record(a, k, smi)),
+            ("hrformer_base fusion", "k10", "qdense", _qdense_key,
+             k10_record)):
+        _, _, make, sd = next(m for m in models if m[0] == label)
+        cfg = make()
+        crops = normalized_crops(cfg, frames, bboxes)
+        inf = PoseInference(cfg, state_dict=sd, device="cuda", quantize=True,
+                            calibration_crops=crops[:INT8_CALIB_CROPS])
+        with torch.inference_mode(), captured(qk, fn, {}, key_fn) as calls:
+            inf.model(crops)
+        rows = []
+        for (args, kw) in calls.values():
+            with torch.inference_mode():
+                rows.append(record(args, kw))
+            r = rows[-1]
+            log(f"[{kind}] {label} b={SERVE_BATCH} {r['shape']}: equal to "
+                f"the plain version bit for bit; {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f}, library {r['library_ms']}"
+                + (f", bf16 matmul {r['library_bf16_ms']:.4f}"
+                   if 'library_bf16_ms' in r else "")
+                + f"; bound {r['bound_ms']:.4f} ({r['bound_by']}); on {smi}")
+        out[kind] = rows
+        del inf
+    return out
+
+
+def int8_served(inf, frames, bboxes, want_k9: int, want_k10: int,
+                want_k1: int) -> dict:
+    """One served batch of each size: exactly the wanted launches per
+    batch (two forwards, flip)."""
+    got = {}
+    for n in (SERVE_BATCH // 2, 1):
+        reset_launches()
+        kpts, scores = inf.predict_batch(frames[:n], bboxes[:n])
+        torch.cuda.synchronize()
+        launched = launches()
+        assert np.isfinite(kpts).all() and np.isfinite(scores).all()
+        want = dict(no_launches(), k9=2 * want_k9, k10=2 * want_k10,
+                    k1=2 * want_k1)
+        assert launched == want, (n, launched, want)
+        got[n] = launched
+    return got
+
+
+def int8_layer_outputs(model, x: torch.Tensor) -> tuple:
+    """The outputs of every QConvNorm and residual block of an int8 model's
+    forward on ``x``, in call order, on the CPU, and its heatmaps."""
+    from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
+        BasicBlock, Bottleneck, QConvNorm)
+    from infantposeestimation_gaussianbias_tpu_torch.ops.quant import QTensor
+
+    outs, hooks = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, QConvNorm) or (isinstance(m, (BasicBlock,
+                                                      Bottleneck))
+                                        and m.quant):
+            hooks.append(m.register_forward_hook(
+                lambda m, i, o, name=name: outs.append((name, (
+                    o.data if isinstance(o, QTensor) else o).cpu()))))
+    try:
+        with torch.inference_mode():
+            hm = model(x)["heatmaps"]
+    finally:
+        for h in hooks:
+            h.remove()
+    return outs, hm
+
+
+def int8_card_against_cpu(label: str, head: str, cfg32, inf32, frames,
+                          bboxes, bounded: bool) -> dict:
+    """float32 int8 serving on the card against the port on the CPU with
+    the card's quantized state, on the same crops.  HRNet: every int8 conv
+    and block output in call order, bit for bit up to the first fuse (K9
+    against its plain version, the requantizes alike); where they first
+    part (the fuse's float32 bilinear resize rounds an ulp apart on the
+    two devices and an int8 value crosses a .5 boundary), and the share
+    of the backbone's int8 output that differs at the end.  Then the
+    flip-averaged heatmaps and the keypoints off decode ties, held to the
+    INT8_CARD_CPU bounds when ``bounded``."""
+    from infantposeestimation_gaussianbias_tpu_torch import PoseInference
+
+    cpu = PoseInference(cfg32, device="cpu", quantize=True)
+    cpu.install_quantized({k: v.cpu() for k, v in
+                           inf32.model.state_dict().items()})
+    n = 1  # one frame: the full-width int8 model runs on the CPU too
+    crops = normalized_crops(cfg32, frames[:n], bboxes[:n], "cpu")
+    layers, hms = {}, {}
+    for name, p in (("cuda", inf32), ("cpu", cpu)):
+        x = crops.to(p.device)
+        layers[name], hm = int8_layer_outputs(p.model, x)
+        with torch.inference_mode():
+            hms[name] = ((hm + decode_flip(p, x)) * 0.5).float().cpu()
+    rec = {}
+    if layers["cpu"]:
+        names = [k for k, _ in layers["cpu"]]
+        assert names == [k for k, _ in layers["cuda"]]
+        same = [torch.equal(a, b) for (_, a), (_, b) in zip(layers["cuda"],
+                                                            layers["cpu"])]
+        first = same.index(False) if False in same else len(same)
+        last_fuse = max(i for i, k in enumerate(names)
+                        if k.startswith("backbone.stage2.0.fuse_layers"))
+        a, b = layers["cuda"][-1][1], layers["cpu"][-1][1]
+        rec.update(equal_prefix=first, layers=len(same),
+                   first_difference=names[first] if first < len(same) else None,
+                   int8_mismatch=(a != b).float().mean().item(),
+                   int8_max_diff=(a.int() - b.int()).abs().max().item())
+        assert first > last_fuse, rec
+    rec["heatmap_rel"] = rel_max(hms["cuda"], hms["cpu"])
+    unsure = _unsure_keypoints(hms["cuda"], head) | _unsure_keypoints(
+        hms["cpu"], head)
+    k_gpu, _ = inf32.predict_batch(frames[:n], bboxes[:n])
+    k_cpu, _ = cpu.predict_batch(frames[:n], bboxes[:n])
+    keep = ~unsure
+    rec["keypoint_err_px"] = float(np.abs(k_gpu - k_cpu)[keep].max())
+    rec["left_out"] = int(unsure.sum())
+    log(f"[int8] {label} f32 card vs CPU, same crops and int8 state: "
+        + (f"{rec['equal_prefix']} of {rec['layers']} int8 layer outputs "
+           f"equal bit for bit before the first difference "
+           f"({rec['first_difference']}); at the end "
+           f"{rec['int8_mismatch']:.2e} of the backbone's int8 outputs "
+           f"differ (max {rec['int8_max_diff']} lsb); "
+           if "layers" in rec else "")
+        + f"heatmaps {rec['heatmap_rel']:.3e} of their largest; keypoints "
+        f"{rec['keypoint_err_px']:.3e} px off decode ties (left out "
+        f"{rec['left_out']} of {unsure.size})"
+        + ("" if bounded else " (logged, not bounded)"))
+    assert keep.any()
+    if bounded:
+        assert rec["heatmap_rel"] <= INT8_CARD_CPU_REL, rec
+        assert rec["keypoint_err_px"] <= INT8_KEYPOINT_ATOL_PX, rec
+    return rec
+
+
+def decode_flip(inf, crops: torch.Tensor) -> torch.Tensor:
+    """The un-mirrored heatmaps of the mirrored crops."""
+    from infantposeestimation_gaussianbias_tpu_torch.ops import decode
+
+    return decode.flip_heatmaps(inf.model(torch.flip(crops, [2]))[
+        "heatmaps"], inf._flip_index)
+
+
+def phase_int8_serving(smi: str, models) -> dict:
+    """int8 PoseInference for each model: launches per served batch (b = 32
+    with flip and b = 1), the float32 int8 model against the float32 float
+    model (heatmap cosine) and against the CPU, crops/s and the profile of
+    the bf16 int8 batch beside the folded bf16 batch."""
+    from infantposeestimation_gaussianbias_tpu_torch import PoseInference
+    from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
+        QConvNorm, QDense)
+
+    frames, bboxes = make_requests(SERVE_BATCH // 2, seed=28)
+    calib_frames, calib_boxes = make_requests(INT8_CALIB_CROPS, seed=29)
+    out = {}
+    for label, head, make, sd in models:
+        hrnet = label.startswith("hrnet")
+        cfg = make()
+        calib = normalized_crops(cfg, calib_frames, calib_boxes)
+        inf = PoseInference(cfg, state_dict=sd, device="cuda", quantize=True,
+                            calibration_crops=calib)
+        n9 = sum(isinstance(m, QConvNorm) for m in inf.model.modules())
+        n10 = sum(isinstance(m, QDense) for m in inf.model.modules())
+        assert (n9, n10) == ((HRNET_W32_QCONVS + 5 * (head == "fusion"), 0)
+                             if hrnet else (0, HRFORMER_BASE_QDENSE)), (n9,
+                                                                        n10)
+        launched = int8_served(inf, frames, bboxes, n9, n10,
+                               0 if hrnet else K1_CALLS_PER_FORWARD)
+        rec = dict(qconvs=n9, qdense=n10, launches=launched[SERVE_BATCH // 2],
+                   launches_b1=launched[1])
+        rec["int8"] = phase_throughput(inf, smi, f"int8 {label}")
+        rec["int8"].update(profile_steps(
+            lambda: inf.predict_batch(frames, bboxes),
+            rec["int8"]["batch32_ms"], tag=f"int8-{label}", what="batch"))
+        del inf
+        folded = PoseInference(cfg, state_dict=sd, device="cuda")
+        assert folded.fold
+        rec["folded"] = phase_throughput(folded, smi, f"folded {label}")
+        rec["folded"].update(profile_steps(
+            lambda: folded.predict_batch(frames, bboxes),
+            rec["folded"]["batch32_ms"], tag=f"folded-{label}", what="batch"))
+        del folded
+        cfg32 = make("float32")
+        calib32 = normalized_crops(cfg32, calib_frames, calib_boxes)
+        rec["cos_int8_float"], inf32 = int8_cosine(cfg32, sd, calib32,
+                                                   frames[:8], bboxes[:8])
+        # HRNet's served weights amplify an ulp's flip (see INT8_COS_MIN):
+        # card against CPU bounded on the JAX test's weights
+        rec["card_cpu"] = int8_card_against_cpu(label, head, cfg32, inf32,
+                                                frames, bboxes, not hrnet)
+        rec["cos_int8_float_jax_test"], inf32 = int8_cosine(
+            cfg32, jax_test_state(label, make), calib32, frames[:8],
+            bboxes[:8])
+        if hrnet:
+            rec["card_cpu_jax_test"] = int8_card_against_cpu(
+                label + " (JAX test weights)", head, cfg32, inf32, frames,
+                bboxes, True)
+        del inf32
+        i8, fo = rec["int8"], rec["folded"]
+        log(f"[int8] {label}: {n9} K9 and {n10} K10 layers a forward; a served "
+            f"batch of {SERVE_BATCH // 2} with flip launched K9 "
+            f"{rec['launches']['k9']}, K10 {rec['launches']['k10']}, K1 "
+            f"{rec['launches']['k1']} (b = 1: {rec['launches_b1']['k9']}, "
+            f"{rec['launches_b1']['k10']}, {rec['launches_b1']['k1']}); "
+            f"heatmap cosine int8 vs float32 "
+            f"{rec['cos_int8_float_jax_test']:.5f} on the JAX test's weights "
+            f"(bound {INT8_COS_MIN}), {rec['cos_int8_float']:.5f} on the "
+            f"served ones; bf16 b=32 int8 {i8['crops_per_s']:.1f} "
+            f"crops/s, {i8['device_ms']:.2f} ms device in "
+            f"{i8['kernels_per_step']} kernels, b=1 {i8['batch1_ms']:.1f} ms; "
+            f"folded {fo['crops_per_s']:.1f} crops/s, {fo['device_ms']:.2f} "
+            f"ms device in {fo['kernels_per_step']} kernels, b=1 "
+            f"{fo['batch1_ms']:.1f} ms; on {smi}")
+        assert rec["cos_int8_float_jax_test"] >= INT8_COS_MIN, rec
+        out[label] = rec
+    return out
+
+
+def phase_int8_clis(smi: str, models) -> dict:
+    """``cli.serve --int8 --calibration-dir`` in its own process answering
+    a burst (/healthz reporting int8-ptq), ``cli.infer --int8`` on an
+    image and ``cli.validate --int8`` on a COCO directory of JPEGs."""
+    import io
+    import socket
+    import tempfile
+    import threading
+    import urllib.request
+
+    import cv2
+
+    from infantposeestimation_gaussianbias_tpu_torch import Config
+    from infantposeestimation_gaussianbias_tpu_torch.cli import (
+        infer as cli_infer, validate as cli_validate)
+
+    _, _, _, sd = models[0]  # hrnet_w32 + heatmap: Config()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = os.path.join(root, "hrnet_w32.pt")
+        torch.save({k: v.cpu() for k, v in sd.items()}, ckpt)
+        calib_dir = os.path.join(root, "calib")
+        os.makedirs(calib_dir)
+        frames, bboxes = make_requests(16, seed=30)
+        for i, f in enumerate(frames):
+            cv2.imwrite(os.path.join(calib_dir, f"{i:02d}.jpg"),
+                        cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        cmd = [sys.executable, "-m",
+               "infantposeestimation_gaussianbias_tpu_torch.cli.serve",
+               "--int8", "--calibration-dir", calib_dir, "--checkpoint", ckpt,
+               "--host", "127.0.0.1", "--port", str(port),
+               "--max-batch", "16"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        lines = []
+        try:
+            ready = threading.Event()
+
+            def read():
+                for line in proc.stdout:
+                    lines.append(line.rstrip())
+                    if line.startswith("serving "):
+                        ready.set()
+
+            reader = threading.Thread(target=read, daemon=True)
+            reader.start()
+            assert ready.wait(SERVER_TIMEOUT_S), "\n".join(lines)
+            start_s = time.perf_counter() - t0
+            base = f"http://127.0.0.1:{port}"
+            results, lat, wall = burst(base, frames, bboxes, 32, 8)
+            with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+                health = json.loads(r.read())
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        codes = [r[0] for r in results]
+        log(f"[int8-serve] cli.serve --int8 --calibration-dir (16 JPEGs), "
+            f"up in {start_s:.1f} s: {' | '.join(lines[:2])}; 32 requests "
+            f"from 8 threads: {32 / wall:.1f} requests/s, p50 "
+            f"{np.percentile(lat, 50) * 1e3:.1f} ms, codes {set(codes)}; "
+            f"/healthz {health}; on {smi}")
+        assert all(c == 200 for c in codes), codes
+        assert health["precision"] == "int8-ptq" and not health["fold"], health
+        assert any(line.startswith("calibrating int8 PTQ on 16 crops")
+                   for line in lines), lines
+        out["serve"] = dict(requests_per_s=32 / wall, start_s=start_s,
+                            p50_ms=float(np.percentile(lat, 50)) * 1e3)
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_infer.main(["--input", os.path.join(calib_dir, "00.jpg"),
+                            "--int8", "--checkpoint", ckpt])
+        printed = buf.getvalue().splitlines()
+        log(f"[int8-infer] cli.infer --int8: {printed[0]} ... "
+            f"({len(printed)} lines)")
+        assert len(printed) == 17, printed
+
+        schema = Config().data.keypoint_schema
+        write_jpeg_set(root, "val", 16, seed=31, schema=schema)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_validate.main(["--int8", "--set", f"data.data_root={root}",
+                               "data.val_ann=annotations/val.json",
+                               "data.val_img_prefix=val/",
+                               "eval.batch_size=16"])
+        printed = buf.getvalue()
+        log(f"[int8-validate] cli.validate --int8 on 16 JPEGs in "
+            f"{time.perf_counter() - t0:.1f} s: "
+            + " | ".join(printed.split("\n")[:5]))
+        assert "AP:" in printed and "val_loss" not in printed, printed
+    return out
+
+
+def phase_int8(smi: str) -> dict:
+    """Phase 27: K9 and K10 at every shape of the int8 path, the int8
+    served batches and the three int8 CLIs."""
+    models = int8_models()
+    kernels = phase_int8_kernels(smi, models)
+    serving = phase_int8_serving(smi, models)
+    clis = phase_int8_clis(smi, models)
+    return dict(kernels=kernels, serving=serving, clis=clis)
+
+
 # -- phase 20 (with --parent): this checkout's backward kernels and steps
 # against the parent commit's, in turns ------------------------------------------
 
@@ -4172,6 +4760,8 @@ def main(argv: list) -> int:
     post = timed("25 post-processing", phase_postprocess)
     train_loop = timed("26 training loop", phase_train_loop, smi,
                        train["images_per_s"], fused_train["images_per_s"])
+    with fused_blocks("0"):
+        int8 = timed("27 int8", phase_int8, smi)
     parent = (timed("20 parent", phase_parent, args.parent)
               if args.parent else None)
     log(f"[fused] bf16 b=32 serving {fused_thr['crops_per_s']:.1f} crops/s "
@@ -4196,7 +4786,8 @@ def main(argv: list) -> int:
                     "grid_slice": grid_serve, "grid_train": grid_train,
                     "fold": fold, "server": server, "stream": stream,
                     "graft_entry": graft, "post": post,
-                    "train_loop": train_loop}))
+                    "train_loop": train_loop, "int8": int8["serving"],
+                    "int8_clis": int8["clis"]}))
     source = "infantposeestimation_gaussianbias_tpu_torch/csrc/"
     jax_pkg = "infantposeestimation_gaussianbias_tpu/"
     pallas = jax_pkg + "ops/pallas/"
@@ -4226,6 +4817,18 @@ def main(argv: list) -> int:
             rec[out] = parent["kernels"][key][src] if parent else None
         rec["parent_shape"] = key
     t, ft = train["launches"], fused_train["launches"]
+    i8 = {label: dict(rec["launches"], **{f"{k}_b1": v for k, v in
+                                          rec["launches_b1"].items()})
+          for label, rec in int8["serving"].items()}
+    i8_by = lambda k: {f"serve_int8 {label}": n[k] + n[f"{k}_b1"]  # noqa: E731
+                       for label, n in i8.items() if n[k]}
+    i8_rec = {}
+    for kind, record_shape in (("k9", "64x64x48 32->32 3x3 s1 relu int8-out"),
+                               ("k10", "M62720 156->468 bfloat16")):
+        rows = int8["kernels"][kind]
+        i8_rec[kind] = dict(next(r for r in rows
+                                 if r["shape"] == record_shape),
+                            per_shape=rows)
     tl, tlf = train_loop["unfused_total_launches"], train_loop["fused_launches"]
     sal = analysis["saliency_launches"]
 
@@ -4241,7 +4844,7 @@ def main(argv: list) -> int:
               {"serve": serve_launches, "serve_auto": fused_serve["k1"],
                "train": t["k1"], "analysis_saliency": sal["k1"],
                "serve_http": server["serve_http_k1"], "stream": stream["k1"],
-               "train_loop": tl["k1"]},
+               "train_loop": tl["k1"], **i8_by("k1")},
               k1),
         entry("window_msa_bwd", "window_msa_bwd.cu", "window_msa.py:422",
               {"train": t["k2"], "analysis_saliency": sal["k2"],
@@ -4282,6 +4885,18 @@ def main(argv: list) -> int:
                            ["parent_ms"] if parent else None),
              k1_fresh_ms=(parent["kernels"]["k3fwd base b0 bf16"]["ms"]
                           if parent else None)),
+        dict(entry("qconv_int8", "qgemm.cu", "ops/quant.py:95",
+                   i8_by("k9"), i8_rec["k9"], root=jax_pkg),
+             replaces_kind="XLA int8 conv_general_dilated (qconv_affine, "
+                           "qconv :85); no TPU kernel",
+             library=i8_rec["k9"]["library"], per_shape=i8_rec["k9"][
+                 "per_shape"]),
+        dict(entry("qdense_int8", "qgemm.cu", "ops/quant.py:109",
+                   i8_by("k10"), i8_rec["k10"], root=jax_pkg),
+             replaces_kind="XLA int8 dot_general (qdense); no TPU kernel",
+             library=i8_rec["k10"]["library"],
+             library_bf16_ms=i8_rec["k10"]["library_bf16_ms"],
+             per_shape=i8_rec["k10"]["per_shape"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

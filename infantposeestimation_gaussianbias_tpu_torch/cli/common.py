@@ -8,8 +8,6 @@ import argparse
 
 from ..config import Config, apply_overrides, get_variant, load_yaml
 
-INT8_TODO = ("--int8 (int8 PTQ serving) is not ported yet: ROADMAP Queue 1 "
-             "item 5")
 MESH_TODO = ("--mesh (serving over several cards) is not ported yet: "
              "ROADMAP Queue 1 item 9")
 
@@ -39,7 +37,8 @@ def add_serving_args(parser: argparse.ArgumentParser) -> None:
                         help="serve eval-mode BatchNorm instead of the "
                              "BN-folded convs")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 PTQ serving (not ported: raises)")
+                        help="serve in int8 PTQ (calibrated on the first "
+                             "batch; hrnet conv-PTQ or hrformer Dense-PTQ)")
     parser.add_argument("--mesh", type=int, nargs="?", const=0, default=None,
                         metavar="MODEL_AXIS",
                         help="serve over several cards (not ported: raises)")
@@ -53,11 +52,11 @@ def resolve_config(args: argparse.Namespace) -> Config:
     return cfg
 
 
-def make_inference(args: argparse.Namespace, cfg: Config):
-    """``PoseInference`` from the serving options; ``--int8`` and
-    ``--mesh`` raise NotImplementedError."""
-    if args.int8:
-        raise NotImplementedError(INT8_TODO)
+def make_inference(args: argparse.Namespace, cfg: Config,
+                   calibration_crops=None):
+    """``PoseInference`` from the serving options (``--int8``: int8 PTQ,
+    calibrated on ``calibration_crops`` or else on the first batch);
+    ``--mesh`` raises NotImplementedError."""
     if args.mesh is not None:
         raise NotImplementedError(MESH_TODO)
     import torch
@@ -69,4 +68,6 @@ def make_inference(args: argparse.Namespace, cfg: Config):
         state_dict = torch.load(args.checkpoint, map_location="cpu",
                                 weights_only=True)
     return PoseInference(cfg, state_dict=state_dict, device=args.device,
-                         fold=False if args.no_fold else None)
+                         fold=False if args.no_fold else None,
+                         quantize=args.int8,
+                         calibration_crops=calibration_crops)

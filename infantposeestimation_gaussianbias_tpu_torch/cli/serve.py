@@ -22,7 +22,9 @@ BatchNorm by default (``--no-fold`` serves it unfolded).
     GET  /healthz          -> {"status": "ok", "backbone": ...}
 
 ``--checkpoint`` takes a ``torch.save``d state dict in the reference's
-naming; ``--int8`` and ``--mesh`` are not ported and raise.
+naming; ``--int8`` serves int8 PTQ, calibrated on ``--calibration-dir``'s
+images or else on the first request batch (``/healthz`` then reports
+``"precision": "int8-ptq"``); ``--mesh`` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import os
 import queue
 import threading
 from typing import Optional
@@ -343,10 +346,42 @@ def make_server(infer, host: str = "127.0.0.1",
     return server, batcher
 
 
+def _load_calibration_crops(directory: str, cfg, limit: int) -> np.ndarray:
+    """Up to ``limit`` images of ``directory`` (name order) as normalised
+    model-input crops for PTQ calibration: resized to the input size,
+    (rgb - mean * 255) / (std * 255)."""
+    import cv2
+
+    W, H = cfg.data.input_size
+    mean = np.asarray(cfg.data.pixel_mean, np.float32) * 255.0
+    std = np.asarray(cfg.data.pixel_std, np.float32) * 255.0
+    crops = []
+    for name in sorted(os.listdir(directory)):
+        if not name.lower().endswith((".jpg", ".jpeg", ".png", ".bmp")):
+            continue
+        img = cv2.imread(os.path.join(directory, name))
+        if img is None:
+            continue
+        rgb = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        crop = cv2.resize(rgb, (W, H)).astype(np.float32)
+        crops.append((crop - mean) / std)
+        if len(crops) >= limit:
+            break
+    if not crops:
+        raise SystemExit(f"no readable images in {directory}")
+    return np.stack(crops)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Batched pose HTTP server")
     add_config_args(parser)
     add_serving_args(parser)
+    parser.add_argument("--calibration-dir", default=None, metavar="DIR",
+                        help="directory of representative images for int8 "
+                             "PTQ calibration; without it calibration "
+                             "happens on the first real request batch")
+    parser.add_argument("--calibration-size", type=int, default=64,
+                        help="max images read from --calibration-dir")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--max-batch", type=int, default=64,
@@ -367,18 +402,33 @@ def main(argv=None):
                         "requests are dropped before device dispatch")
     args = parser.parse_args(argv)
     cfg = resolve_config(args)
-    infer = make_inference(args, cfg)
-    # build the kernels and the first batch's plans before taking traffic
+    calib = None
+    if args.int8 and args.calibration_dir:
+        calib = _load_calibration_crops(args.calibration_dir, cfg,
+                                        args.calibration_size)
+        print(f"calibrating int8 PTQ on {len(calib)} crops from "
+              f"{args.calibration_dir}", flush=True)
+    infer = make_inference(args, cfg, calib)
     W, H = cfg.data.input_size
-    infer.predict_batch(np.zeros((1, H, W, 3), np.uint8),
-                        np.asarray([[0, 0, W, H]], np.float32))
+    if args.int8 and calib is None:
+        # a warm-up request would freeze the PTQ ranges on a black frame:
+        # leave calibration to the first real batch
+        print("int8 without --calibration-dir: PTQ calibrates on the first "
+              "request batch", flush=True)
+    else:
+        # build the kernels and the first batch's plans before taking
+        # traffic
+        infer.predict_batch(np.zeros((1, H, W, 3), np.uint8),
+                            np.asarray([[0, 0, W, H]], np.float32))
     server, batcher = make_server(infer, args.host, args.port,
                                   args.max_batch, args.batch_window,
                                   depth=args.dispatch_depth,
                                   queue_depth=args.queue_depth,
                                   request_timeout=args.request_timeout)
+    mode = ("int8" if infer.quantize
+            else "folded" if infer.fold else "unfolded")
     print(f"serving {cfg.model.backbone}+{cfg.model.head_type} "
-          f"({'folded' if infer.fold else 'unfolded'}) on {infer.device} at "
+          f"({mode}) on {infer.device} at "
           f"http://{args.host}:{args.port}  (POST /predict, GET /healthz)",
           flush=True)
     try:

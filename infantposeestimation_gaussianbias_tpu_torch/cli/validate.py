@@ -9,7 +9,8 @@ Port of infantposeestimation_gaussianbias_tpu/cli/validate.py.
 (train/checkpoint.py); without it the model has seeded weights.  The
 float model is served BN-folded where the architecture folds (as the
 JAX CLI does); ``--no-fold`` serves eval-mode BatchNorm.  The loss runs
-on the unfolded model either way.
+on the unfolded model either way.  ``--int8`` serves int8 PTQ, calibrated
+on the first validation batch, and reports no loss (as the JAX CLI).
 """
 
 from __future__ import annotations
@@ -19,11 +20,13 @@ import json
 import os
 
 from ..data.pipeline import build_dataloader
-from ..models import build_model, fold_state_dict, serving_mode_supported
+from ..data.pipeline import device_batch
+from ..models import (build_model, fold_state_dict, quantize_model,
+                      serving_mode_supported)
 from ..train.checkpoint import CheckpointManager
 from ..train.loop import setup_logging, validate
 from ..train.step import create_train_state
-from .common import INT8_TODO, MESH_TODO, add_config_args, resolve_config
+from .common import MESH_TODO, add_config_args, resolve_config
 
 
 def main(argv=None):
@@ -36,7 +39,8 @@ def main(argv=None):
                         help="torch device (default cuda; 'cpu' runs the "
                              "kernels' plain versions)")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 PTQ serving (not ported: raises)")
+                        help="serve int8 PTQ (calibrated on the first "
+                             "val batch); loss reporting is skipped")
     parser.add_argument("--no-fold", action="store_true",
                         help="serve eval-mode BatchNorm instead of the "
                              "BN-folded convs")
@@ -44,8 +48,6 @@ def main(argv=None):
                         help="evaluate over several cards (not ported: "
                              "raises)")
     args = parser.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError(INT8_TODO)
     if args.mesh:
         raise NotImplementedError(MESH_TODO)
     cfg = resolve_config(args)
@@ -63,13 +65,23 @@ def main(argv=None):
         gt = json.load(f)
 
     serve = None
-    if not args.no_fold and serving_mode_supported(
+    with_loss = True
+    if args.int8:
+        first = next(iter(loader.epoch(0)))
+        crops = device_batch(first, cfg.data.pixel_mean, cfg.data.pixel_std,
+                             args.device)["image"]
+        serve = build_model(cfg, args.device, quant=True)
+        serve.load_state_dict(quantize_model(
+            cfg, state.model.state_dict(), [crops], args.device), strict=True)
+        with_loss = False
+    elif not args.no_fold and serving_mode_supported(
             cfg.model.backbone, cfg.model.head_type, cfg.model.norm,
             fold=True):
         serve = build_model(cfg, args.device, fold=True)
         serve.load_state_dict(fold_state_dict(state.model.state_dict()),
                               strict=True)
-    results = validate(cfg, state, loader, gt, model=serve)
+    results = validate(cfg, state, loader, gt, with_loss=with_loss,
+                       model=serve)
     for k, v in results.items():
         print(f"{k:>6}: {v:.4f}")
 

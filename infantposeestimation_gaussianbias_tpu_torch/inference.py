@@ -13,6 +13,16 @@ serves eval-mode BatchNorm.  The fold leaves the transformer blocks, and
 so the W-MSA kernels (K1, or K4/K5 under ``IPE_FUSED_BLOCK``), as they
 are.
 
+``quantize=True`` serves int8 PTQ (ops/quant.py, models/quantize.py), as
+the JAX ``PoseInference(quantize=True)``: the float model is calibrated on
+``calibration_crops`` (normalised (N, H, W, 3) crops) at construction, or
+else on the first predicted batch's crops, with a warning below
+``MIN_SELF_CALIB_CROPS``; from then on every forward is the int8 model
+(HRNet: K9 for every ConvNorm; HRFormer: K10 for its wide Dense layers and
+K1 unfused).  int8 takes precedence over BN-fold.  The quantized model is
+installed once, under a lock: concurrent first batches (the server's
+dispatch threads) calibrate once.
+
 ``predict_batch`` takes uint8 frames, which cross to the device as uint8;
 every batch is padded to a power-of-two bucket by repeating its last row,
 with results trimmed back, for the reason the JAX package pads: the
@@ -38,6 +48,8 @@ from __future__ import annotations
 
 import collections
 import os
+import threading
+import warnings
 from typing import (Dict, Iterable, Iterator, Mapping, Optional, Sequence,
                     Tuple)
 
@@ -45,13 +57,16 @@ import numpy as np
 import torch
 
 from .models import (build_model, flip_inference, fold_state_dict,
-                     resolve_device, serving_mode_supported)
+                     quantize_model, resolve_device, serving_mode_supported,
+                     validate_serving_mode)
 from .ops import affine
 from .ops import decode as decode_ops
 from .parallel.mesh import TENSOR_PARALLEL_TODO, gather_data_rows, shard_batch
 
 GRID_STREAM_TODO = ("predict_stream over a process grid is not ported; "
                     "serve each batch with predict_batch")
+GRID_INT8_TODO = ("int8 PTQ serving over a process grid is not ported yet: "
+                  "ROADMAP Queue 1 item 9")
 
 
 def detect_persons(image: np.ndarray) -> list:
@@ -69,22 +84,36 @@ class PoseInference:
     architecture can, True folds (or raises, as ``validate_serving_mode``),
     False never does.  ``mesh``: a ProcessGrid to serve over (see the
     module doc); the model then runs on the grid's device.
-    ``tensor_parallel`` is not ported and raises."""
+    ``tensor_parallel`` is not ported and raises.  ``quantize``,
+    ``calibration_crops``: int8 PTQ serving (see the module doc; not over
+    a grid)."""
 
-    quantize = False  # int8 serving is not ported (ROADMAP Queue 1 item 5)
+    # PTQ abs-max ranges freeze after the first calibration; below this
+    # many crops a single unrepresentative batch (one dark frame, say)
+    # would degrade every later prediction.
+    MIN_SELF_CALIB_CROPS = 32
 
     def __init__(self, cfg,
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  device="cuda", mesh=None, tensor_parallel: bool = False,
-                 fold: Optional[bool] = None):
+                 fold: Optional[bool] = None, quantize: bool = False,
+                 calibration_crops=None):
         if tensor_parallel:
             raise NotImplementedError(TENSOR_PARALLEL_TODO)
-        if fold is None:
+        if quantize:
+            # fail fast on an architecture that does not quantize
+            validate_serving_mode(cfg.model.backbone, cfg.model.head_type,
+                                  cfg.model.norm, quant=True)
+            if mesh is not None:
+                raise NotImplementedError(GRID_INT8_TODO)
+            fold = False  # int8 takes precedence over BN-fold
+        elif fold is None:
             fold = serving_mode_supported(cfg.model.backbone,
                                           cfg.model.head_type,
                                           cfg.model.norm, fold=True)
         self.cfg = cfg
         self.fold = fold
+        self.quantize = quantize
         self.schema = cfg.data.keypoint_schema
         self.mesh = mesh
         self.model = build_model(cfg, resolve_device(device), mesh,
@@ -96,6 +125,51 @@ class PoseInference:
                 strict=True)
         self._flip_index = torch.as_tensor(self.schema.flip_index(),
                                            device=self.device)
+        self._quant_lock = threading.Lock()
+        self._quant_installed = False
+        if quantize and calibration_crops is not None:
+            self._install_quant(torch.as_tensor(calibration_crops))
+
+    # -- int8 serving -------------------------------------------------------
+
+    def install_quantized(self, state_dict: Mapping[str, torch.Tensor]
+                          ) -> None:
+        """Serve the int8 model of ``state_dict`` (``models.quantize_model``'s
+        output, made here or elsewhere: on the card, say, for a CPU
+        replica) from now on, without calibrating."""
+        if not self.quantize:
+            raise ValueError("install_quantized needs quantize=True")
+        with torch.inference_mode(False):  # ordinary tensors in the model
+            qmodel = build_model(self.cfg, self.device, quant=True)
+            qmodel.load_state_dict(state_dict, strict=True)
+        self.model = qmodel
+        self._quant_installed = True
+
+    def _install_quant(self, crops: torch.Tensor) -> None:
+        """Calibrate the float model on ``crops``, then serve its int8
+        model."""
+        with torch.inference_mode(False):
+            qsd = quantize_model(self.cfg, self.model.state_dict(), [crops],
+                                 self.device)
+        self.install_quantized(qsd)
+
+    def _maybe_calibrate(self, crops: torch.Tensor) -> None:
+        """Self-calibration on the first predicted batch's normalised crops
+        (``quantize`` without ``calibration_crops``), once."""
+        if not self.quantize or self._quant_installed:
+            return
+        with self._quant_lock:
+            if self._quant_installed:
+                return
+            n = crops.shape[0]
+            if n < self.MIN_SELF_CALIB_CROPS:
+                warnings.warn(
+                    f"int8 PTQ self-calibrating on the first predicted batch "
+                    f"of only {n} crop(s); activation ranges freeze here "
+                    f"permanently. Pass calibration_crops (>= "
+                    f"{self.MIN_SELF_CALIB_CROPS} representative crops) to "
+                    f"PoseInference for stable quantization.", stacklevel=5)
+            self._install_quant(crops)
 
     def _forward_decode(self, crops: torch.Tensor, centers: torch.Tensor,
                         scales: torch.Tensor
@@ -121,6 +195,7 @@ class PoseInference:
         crops = affine.crop_and_normalize(
             frames, centers, scales, cfg.data.input_size,
             mean=cfg.data.pixel_mean, std=cfg.data.pixel_std)
+        self._maybe_calibrate(crops)
         return self._forward_decode(crops, centers, scales)
 
     @torch.inference_mode()
@@ -136,6 +211,7 @@ class PoseInference:
         std = torch.tensor(cfg.data.pixel_std, dtype=torch.float32,
                            device=self.device) * 255.0
         crops = (crops_u8.float() - mean) / std
+        self._maybe_calibrate(crops)
         return self._forward_decode(crops, centers.float(), scales.float())
 
     @staticmethod

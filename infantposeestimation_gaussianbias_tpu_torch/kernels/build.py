@@ -144,6 +144,8 @@ def load() -> ctypes.CDLL:
         lib.ipe_residual_chain.restype = i
         lib.ipe_conv3x3_wgrad.argtypes = [p] * 4 + [i] * 10 + [p]
         lib.ipe_conv3x3_wgrad.restype = i
+        lib.ipe_qgemm.argtypes = [i] + [p] * 9 + [i] * 14 + [p]
+        lib.ipe_qgemm.restype = i
         lib.ipe_cuda_error_string.argtypes = [i]
         lib.ipe_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

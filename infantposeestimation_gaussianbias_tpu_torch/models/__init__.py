@@ -1,5 +1,5 @@
 """Models: HRNet and HRFormer backbones, the heatmap and fusion heads,
-their assembly and the BN-fold serving transform."""
+their assembly, the BN-fold serving transform and int8 PTQ."""
 
 from .heads import FusionHead, HeatmapHead
 from .hrformer import HRFormer, hrformer_base, hrformer_small
@@ -9,9 +9,11 @@ from .pose_estimator import (BACKBONES, PoseEstimator, build_model,
                              decode_outputs, flip_inference,
                              multiscale_flip_inference, resolve_device,
                              serving_mode_supported, validate_serving_mode)
+from .quantize import calibrate, quantize_model
 
 __all__ = ["BACKBONES", "FusionHead", "HRFormer", "HRNet", "HeatmapHead",
-           "PoseEstimator", "build_model", "decode_outputs", "flip_inference",
-           "fold_state_dict", "hrformer_base", "hrformer_small", "hrnet_w32",
-           "hrnet_w48", "multiscale_flip_inference", "resolve_device",
+           "PoseEstimator", "build_model", "calibrate", "decode_outputs",
+           "flip_inference", "fold_state_dict", "hrformer_base",
+           "hrformer_small", "hrnet_w32", "hrnet_w48",
+           "multiscale_flip_inference", "quantize_model", "resolve_device",
            "serving_mode_supported", "validate_serving_mode"]

@@ -1,8 +1,8 @@
 """BN-fold float serving: inference BatchNorm baked into the conv before it.
 
-Port of infantposeestimation_gaussianbias_tpu/models/fold.py (and of
-``fold_batchnorm`` in its ops/quant.py).  At inference a BatchNorm is a
-per-channel affine (a, b), so
+Port of infantposeestimation_gaussianbias_tpu/models/fold.py
+(``fold_batchnorm`` lives in ops/quant.py, as in the JAX package).  At
+inference a BatchNorm is a per-channel affine (a, b), so
 
     bn(conv(x, W)) = conv(x, W * a) + b
 
@@ -31,18 +31,10 @@ from typing import Dict, List, Mapping, Tuple
 
 import torch
 
-EPS = 1e-5
+from ..ops.quant import fold_batchnorm
+
 _BN_STATE = ("weight", "bias", "running_mean", "running_var",
              "num_batches_tracked")
-
-
-def fold_batchnorm(weight: torch.Tensor, bias: torch.Tensor,
-                   mean: torch.Tensor, var: torch.Tensor,
-                   eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inference BatchNorm -> per-channel (a, b), bn(x) = x * a + b, in
-    float32."""
-    a = weight.float() * torch.rsqrt(var.float() + eps)
-    return a, bias.float() - mean.float() * a
 
 
 def _conv_of(norm: str) -> str:

@@ -30,6 +30,14 @@ windows, its heads when the model axis divides them), as the JAX
 multi-device mesh; and the blocks never fuse, as the JAX gate requires
 ``mesh is None``.
 
+int8 PTQ (``quant``, the JAX package's Dense-only mode): the Linears of
+the blocks whose input is at least ``QUANT_MIN_FEATURES`` wide (qkv and
+proj by C, fc1 by C, fc2 by the hidden width) are QDense on K10; the conv
+trunk, the norms and the narrow Linears stay float, the BatchNorms
+unfolded.  Calibration records those Linears' inputs
+(``layers.sow_absmax``).  Under ``quant`` and under calibration the
+blocks never fuse, ``IPE_FUSED_BLOCK`` or not (JAX hrformer.py:199-201).
+
 Base:  channels (78, 156, 312, 624), heads (2, 4, 8, 16), window 7,
        modules per stage (1, 4, 2), 2 blocks per branch, drop-path 0.2.
 Small: channels (32, 64, 128, 256), heads (1, 2, 4, 8), drop-path 0.1.
@@ -48,12 +56,30 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.fused_block import fused_attn_half, fused_mlp_half
 from ..kernels.window_msa import window_attention, window_attention_sharded
 from ..ops import msa
-from .layers import (Bottleneck, Conv2d, Linear, apply_transition,
-                     drop_path, fuse, make_fuse_layers, make_norm,
-                     make_transition, remat_contexts)
+from .layers import (Bottleneck, Conv2d, Linear, QDense, apply_transition,
+                     drop_path, fuse, is_calibrating, make_fuse_layers,
+                     make_norm, make_transition, remat_contexts, sow_absmax)
 
 BLOCKS_PER_BRANCH = 2
 MLP_RATIO = 4
+# Dense-PTQ width gate (JAX hrformer.py:60-64): a Linear is quantized only
+# where its input is at least this wide.
+QUANT_MIN_FEATURES = 128
+
+
+def dense(in_features: int, out_features: int, compute_dtype: torch.dtype,
+          quant: bool) -> nn.Module:
+    """A block's Linear: its QDense twin under ``quant`` when the input is
+    at least QUANT_MIN_FEATURES wide."""
+    if quant and in_features >= QUANT_MIN_FEATURES:
+        return QDense(in_features, out_features, compute_dtype)
+    return Linear(in_features, out_features, compute_dtype=compute_dtype)
+
+
+def sow_dense_input(layer: nn.Module, x: torch.Tensor) -> None:
+    """Record a wide Linear's input at ``{layer}.in_absmax``."""
+    if x.shape[-1] >= QUANT_MIN_FEATURES:
+        sow_absmax(layer, "in_absmax", x, conv=False)
 
 
 def _fused_blocks_enabled(dim: int) -> bool:
@@ -79,7 +105,8 @@ class WindowAttention(nn.Module):
     grid = None  # set by models.build_model under a process grid
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 quant: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
@@ -87,8 +114,8 @@ class WindowAttention(nn.Module):
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         self.register_buffer("relative_position_index", torch.from_numpy(
             msa.relative_position_index(window_size).astype("int64")))
-        self.qkv = Linear(dim, 3 * dim, compute_dtype=compute_dtype)
-        self.proj = Linear(dim, dim, compute_dtype=compute_dtype)
+        self.qkv = dense(dim, 3 * dim, compute_dtype, quant)
+        self.proj = dense(dim, dim, compute_dtype, quant)
 
     def rpe_bias(self) -> torch.Tensor:
         """(num_heads, N, N) float32 bias gathered from the table."""
@@ -98,12 +125,14 @@ class WindowAttention(nn.Module):
         return bias.reshape(N, N, self.num_heads).permute(2, 0, 1).contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sow_dense_input(self.qkv, x)
         qkv = self.qkv(x).contiguous()
         if self.grid is not None and self.grid.size > 1:
             out = window_attention_sharded(qkv, self.rpe_bias(),
                                            self.num_heads, self.grid)
         else:
             out = window_attention(qkv, self.rpe_bias(), self.num_heads)
+        sow_dense_input(self.proj, out)
         return self.proj(out)
 
 
@@ -111,13 +140,17 @@ class Mlp(nn.Module):
     """Linear -> exact-erf GELU -> Linear."""
 
     def __init__(self, dim: int, hidden: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 quant: bool = False):
         super().__init__()
-        self.fc1 = Linear(dim, hidden, compute_dtype=compute_dtype)
-        self.fc2 = Linear(hidden, dim, compute_dtype=compute_dtype)
+        self.fc1 = dense(dim, hidden, compute_dtype, quant)
+        self.fc2 = dense(hidden, dim, compute_dtype, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        sow_dense_input(self.fc1, x)
+        y = F.gelu(self.fc1(x))
+        sow_dense_input(self.fc2, y)
+        return self.fc2(y)
 
 
 class HRFormerBlock(nn.Module):
@@ -127,29 +160,33 @@ class HRFormerBlock(nn.Module):
     LayerNorm statistics are float32 with eps 1e-5; the normalised map
     drops to the compute dtype before the window partition, as in the JAX
     block (hrformer.py:188-227).  With ``use_pallas`` and the fused gate
-    on, and no process grid, the block runs ``_fused`` instead."""
+    on, no process grid, no ``quant`` and no calibration running, the
+    block runs ``_fused`` instead."""
 
     DROP_PATHS = 2  # keep masks per block: after attention, after the MLP
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
-                 drop_path_rate: float = 0.0, use_pallas: bool = False):
+                 drop_path_rate: float = 0.0, use_pallas: bool = False,
+                 quant: bool = False):
         super().__init__()
         self.dim = dim
         self.window_size = window_size
         self.compute_dtype = compute_dtype
         self.drop_path_rate = drop_path_rate
         self.use_pallas = use_pallas
+        self.quant = quant
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = WindowAttention(dim, window_size, num_heads, compute_dtype)
+        self.attn = WindowAttention(dim, window_size, num_heads, compute_dtype,
+                                    quant)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, MLP_RATIO * dim, compute_dtype)
+        self.mlp = Mlp(dim, MLP_RATIO * dim, compute_dtype, quant)
 
     def forward(self, x: torch.Tensor,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``keep``: (2, B) bool DropPath masks, or None for none."""
-        if (self.use_pallas and self.attn.grid is None
-                and _fused_blocks_enabled(self.dim)):
+        if (self.use_pallas and self.attn.grid is None and not self.quant
+                and not is_calibrating() and _fused_blocks_enabled(self.dim)):
             return self._fused(x, keep)
         B, H, W, C = x.shape
         ws, dt, rate = self.window_size, self.compute_dtype, self.drop_path_rate
@@ -206,13 +243,15 @@ class HRFormerModule(nn.Module):
                  window_size: int = 7,
                  compute_dtype: torch.dtype = torch.float32,
                  drop_path_rate: float = 0.0, use_pallas: bool = False,
-                 norm: str = "batchnorm", fold: bool = False):
+                 norm: str = "batchnorm", fold: bool = False,
+                 quant: bool = False):
         super().__init__()
         kw = dict(compute_dtype=compute_dtype)
         self.branches = nn.ModuleList([
             nn.Sequential(*[HRFormerBlock(c, h, window_size,
                                           drop_path_rate=drop_path_rate,
-                                          use_pallas=use_pallas, **kw)
+                                          use_pallas=use_pallas, quant=quant,
+                                          **kw)
                             for _ in range(BLOCKS_PER_BRANCH)])
             for c, h in zip(channels, heads)])
         self.num_drop_paths = (len(channels) * BLOCKS_PER_BRANCH
@@ -231,13 +270,14 @@ class HRFormerModule(nn.Module):
                 k = i * BLOCKS_PER_BRANCH + b
                 x = block(x, None if keep is None else keep[n * k:n * k + n])
             ys.append(x)
-        return fuse(self.fuse_layers, ys)
+        return fuse(self.fuse_layers, ys, self)
 
 
 class HRFormer(nn.Module):
     """HRFormer backbone on NHWC images; returns the stride-4 features.
     ``fold``: the BN-folded serving form of its convs (models/fold.py);
-    the transformer blocks have no BatchNorm and do not change."""
+    the transformer blocks have no BatchNorm and do not change.
+    ``quant``: the int8 Dense-only form (see the module doc)."""
 
     def __init__(self, channels: Tuple[int, ...] = (78, 156, 312, 624),
                  num_heads: Tuple[int, ...] = (2, 4, 8, 16),
@@ -246,7 +286,7 @@ class HRFormer(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  drop_path_rate: float = 0.2, remat: bool = False,
                  use_pallas: bool = False, norm: str = "batchnorm",
-                 fold: bool = False):
+                 fold: bool = False, quant: bool = False):
         super().__init__()
         self.channels = tuple(channels)
         self.drop_path_rate = drop_path_rate
@@ -268,7 +308,7 @@ class HRFormer(nn.Module):
             setattr(self, f"stage{s + 2}", nn.ModuleList([
                 HRFormerModule(cur, num_heads[: s + 2], window_size,
                                drop_path_rate=drop_path_rate,
-                               use_pallas=use_pallas, **kw)
+                               use_pallas=use_pallas, quant=quant, **kw)
                 for _ in range(modules)]))
             prev = cur
         self.num_stages = len(stage_modules)
@@ -307,18 +347,20 @@ class HRFormer(nn.Module):
 def hrformer_base(compute_dtype: torch.dtype = torch.float32,
                   window_size: int = 7, remat: bool = False,
                   use_pallas: bool = False,
-                  norm: str = "batchnorm", fold: bool = False) -> HRFormer:
+                  norm: str = "batchnorm", fold: bool = False,
+                  quant: bool = False) -> HRFormer:
     return HRFormer(channels=(78, 156, 312, 624), num_heads=(2, 4, 8, 16),
                     compute_dtype=compute_dtype, window_size=window_size,
                     drop_path_rate=0.2, remat=remat, use_pallas=use_pallas,
-                    norm=norm, fold=fold)
+                    norm=norm, fold=fold, quant=quant)
 
 
 def hrformer_small(compute_dtype: torch.dtype = torch.float32,
                    window_size: int = 7, remat: bool = False,
                    use_pallas: bool = False,
-                   norm: str = "batchnorm", fold: bool = False) -> HRFormer:
+                   norm: str = "batchnorm", fold: bool = False,
+                   quant: bool = False) -> HRFormer:
     return HRFormer(channels=(32, 64, 128, 256), num_heads=(1, 2, 4, 8),
                     compute_dtype=compute_dtype, window_size=window_size,
                     drop_path_rate=0.1, remat=remat, use_pallas=use_pallas,
-                    norm=norm, fold=fold)
+                    norm=norm, fold=fold, quant=quant)

@@ -1,7 +1,6 @@
 """HRNet backbone: multi-resolution CNN on NHWC feature maps.
 
-Port of infantposeestimation_gaussianbias_tpu/models/hrnet.py (the float
-path).  Stem (two stride-2 3x3 ConvNorms to 64 channels) -> four
+Port of infantposeestimation_gaussianbias_tpu/models/hrnet.py.  Stem (two stride-2 3x3 ConvNorms to 64 channels) -> four
 Bottlenecks (64 -> 256) -> three exchange stages of HRModules, each
 running 4 BasicBlocks per branch and then the all-pairs fuse (1x1 +
 bilinear upsample upward, stride-2 3x3 chains downward); returns the
@@ -20,6 +19,13 @@ Names follow the reference's state dict (``conv1``/``bn1``, ``layer1.{b}``,
 ``drop_path_rate`` is 0, so ``train.step.draw_drop_masks`` gives None.
 ``remat`` wraps each HRModule in ``torch.utils.checkpoint``, whose
 recomputation leaves the BatchNorm running statistics alone.
+
+``quant``: the int8 PTQ serving form (ops/quant.py), every ConvNorm a
+QConvNorm on K9: the normalised input is requantized with
+``input_scale``, activations travel between layers as int8 QTensors, and
+the backbone returns one (the heads dequantize it).  Its buffers come from
+``models.quantize.quantize_model``.  The float model records its
+calibration points when run under ``layers.calibrating``.
 """
 
 from __future__ import annotations
@@ -31,9 +37,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (BasicBlock, Bottleneck, Conv2d, apply_transition,
-                     fuse, make_fuse_layers, make_norm, make_transition,
-                     remat_contexts)
+from ..ops.quant import requantize
+from .layers import (BasicBlock, Bottleneck, Conv2d, QConvNorm,
+                     apply_transition, fuse, make_fuse_layers, make_norm,
+                     make_transition, remat_contexts, sow_absmax)
 
 BLOCKS_PER_BRANCH = 4
 STAGE_MODULES = (1, 4, 3)
@@ -41,28 +48,35 @@ STAGE_MODULES = (1, 4, 3)
 
 class HRModule(nn.Module):
     """Exchange unit: 4 BasicBlocks per branch, then the all-pairs fuse
-    (layers.make_fuse_layers / layers.fuse)."""
+    (layers.make_fuse_layers / layers.fuse; int8: requantized with the
+    ``fused{i}_scale`` buffers)."""
 
     def __init__(self, channels: Sequence[int],
                  compute_dtype: torch.dtype = torch.float32,
-                 norm: str = "batchnorm", fold: bool = False):
+                 norm: str = "batchnorm", fold: bool = False,
+                 quant: bool = False):
         super().__init__()
         self.branches = nn.ModuleList([
             nn.Sequential(*[BasicBlock(c, compute_dtype=compute_dtype,
-                                       norm=norm, fold=fold)
+                                       norm=norm, fold=fold, quant=quant)
                             for _ in range(BLOCKS_PER_BRANCH)])
             for c in channels])
         self.fuse_layers = make_fuse_layers(channels, compute_dtype, norm,
-                                            fold)
+                                            fold, quant)
+        if quant and len(channels) > 1:
+            for i in range(len(channels)):
+                self.register_buffer(f"fused{i}_scale", torch.ones(()))
 
-    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, xs: list) -> list:
         return fuse(self.fuse_layers,
-                    [branch(x) for branch, x in zip(self.branches, xs)])
+                    [branch(x) for branch, x in zip(self.branches, xs)],
+                    self)
 
 
 class HRNet(nn.Module):
     """HRNet backbone on NHWC images; returns the stride-4 features.
-    ``fold``: the BN-folded serving form (models/fold.py)."""
+    ``fold``: the BN-folded serving form (models/fold.py); ``quant``: the
+    int8 one (see the module doc)."""
 
     drop_path_rate = 0.0
     num_drop_paths = 0
@@ -71,19 +85,26 @@ class HRNet(nn.Module):
                  stage_modules: Optional[Tuple[int, ...]] = None,
                  compute_dtype: torch.dtype = torch.float32,
                  remat: bool = False, norm: str = "batchnorm",
-                 fold: bool = False):
+                 fold: bool = False, quant: bool = False):
         super().__init__()
         C = base_channels
         self.channels = (C, 2 * C, 4 * C, 8 * C)
         self.remat = remat
+        self.quant = quant
         stage_modules = tuple(stage_modules or STAGE_MODULES)
-        kw = dict(compute_dtype=compute_dtype, norm=norm, fold=fold)
-        self.conv1 = Conv2d(3, 64, 3, stride=2, bias=fold,
-                            compute_dtype=compute_dtype)
-        self.bn1 = make_norm(norm, 64, fold)
-        self.conv2 = Conv2d(64, 64, 3, stride=2, bias=fold,
-                            compute_dtype=compute_dtype)
-        self.bn2 = make_norm(norm, 64, fold)
+        kw = dict(compute_dtype=compute_dtype, norm=norm, fold=fold,
+                  quant=quant)
+        if quant:
+            self.register_buffer("input_scale", torch.ones(()))
+            self.conv1 = QConvNorm(3, 64, 3, stride=2)
+            self.conv2 = QConvNorm(64, 64, 3, stride=2)
+        else:
+            self.conv1 = Conv2d(3, 64, 3, stride=2, bias=fold,
+                                compute_dtype=compute_dtype)
+            self.bn1 = make_norm(norm, 64, fold)
+            self.conv2 = Conv2d(64, 64, 3, stride=2, bias=fold,
+                                compute_dtype=compute_dtype)
+            self.bn2 = make_norm(norm, 64, fold)
         self.layer1 = nn.Sequential(Bottleneck(64, 64, **kw),
                                     *[Bottleneck(256, 64, **kw)
                                       for _ in range(3)])
@@ -104,8 +125,15 @@ class HRNet(nn.Module):
         if drop_masks is not None:
             raise ValueError("HRNet has no DropPath; drop_masks must be None")
         remat = self.remat and torch.is_grad_enabled()
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
+        if self.quant:
+            x = self.conv2(self.conv1(requantize(x.float(),
+                                                 self.input_scale)))
+        else:
+            sow_absmax(self, "input_absmax", x)
+            x = F.relu(self.bn1(self.conv1(x)))
+            sow_absmax(self.conv1, "out_absmax", x)
+            x = F.relu(self.bn2(self.conv2(x)))
+            sow_absmax(self.conv2, "out_absmax", x)
         xs = [self.layer1(x)]
         for t in range(1, self.num_stages + 1):
             xs = apply_transition(getattr(self, f"transition{t}"), xs)
@@ -120,15 +148,17 @@ class HRNet(nn.Module):
 
 def hrnet_w32(compute_dtype: torch.dtype = torch.float32, remat: bool = False,
               stage_modules: Optional[Tuple[int, ...]] = None,
-              norm: str = "batchnorm", fold: bool = False) -> HRNet:
+              norm: str = "batchnorm", fold: bool = False,
+              quant: bool = False) -> HRNet:
     return HRNet(base_channels=32, stage_modules=stage_modules,
                  compute_dtype=compute_dtype, remat=remat, norm=norm,
-                 fold=fold)
+                 fold=fold, quant=quant)
 
 
 def hrnet_w48(compute_dtype: torch.dtype = torch.float32, remat: bool = False,
               stage_modules: Optional[Tuple[int, ...]] = None,
-              norm: str = "batchnorm", fold: bool = False) -> HRNet:
+              norm: str = "batchnorm", fold: bool = False,
+              quant: bool = False) -> HRNet:
     return HRNet(base_channels=48, stage_modules=stage_modules,
                  compute_dtype=compute_dtype, remat=remat, norm=norm,
-                 fold=fold)
+                 fold=fold, quant=quant)

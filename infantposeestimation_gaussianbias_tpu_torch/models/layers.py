@@ -1,7 +1,9 @@
 """Shared building blocks: compute-dtype Linear and Conv2d, BatchNorm and
 GroupNorm (``make_norm``), ConvNorm, BasicBlock, Bottleneck, bilinear
 resize, DropPath, and the transition and all-pairs fuse layers of the
-multi-resolution backbones.
+multi-resolution backbones; their int8 serving twins (``QConvNorm``,
+``QDense``, the ``quant`` forms of the blocks and fuse) and the
+calibration sow points (``sow_absmax``).
 
 Port of infantposeestimation_gaussianbias_tpu/models/layers.py.  Feature
 maps are NHWC, as in the JAX package: a convolution hands PyTorch the
@@ -20,18 +22,30 @@ Under a process grid (parallel/mesh.py) a train-mode BatchNorm whose
 sum, sum of squares and count are all-reduced over the grid's data group
 (``_GlobalSums``), as GSPMD's statistics over a 'data'-sharded batch are
 global in the JAX package.
+
+int8 PTQ (ops/quant.py), as the JAX package's ``quant`` and ``calibrate``
+modes: under ``calibrating(record)`` every sow point of the float model
+adds the running abs-max of its tensor to ``record`` (a ConvNorm's output
+at ``{conv}.out_absmax``, a block's at ``{block}.out_absmax``, a fused
+sum at ``{module}.fused{i}_absmax``, a wide Linear's input at
+``{linear}.in_absmax``); the ``quant`` modules read the buffers that
+``ops.quant.convert_tree`` makes of that record, named alike.  Between
+int8 layers activations travel as ``QTensor``s.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..kernels import quant as qk
+from ..ops.quant import QTensor, requantize
 
 # True while a checkpointed forward is recomputed in the backward: the
 # recomputation must not update the running statistics a second time.
@@ -48,6 +62,57 @@ def frozen_batch_stats() -> Iterator[None]:
     finally:
         _STATS_FROZEN.reset(token)
 
+
+# -- int8 PTQ calibration -----------------------------------------------------
+
+class Calibration:
+    """The running abs-max of every sow point of one model, keyed by the
+    module's name in it (``model.named_modules()``) and the point's name.
+    ``convs``: record the conv points (HRNet quantizes its convs); the
+    wide Linears' inputs are recorded always (HRFormer quantizes those)."""
+
+    def __init__(self, model: nn.Module, convs: bool = True):
+        self.names = {id(m): n for n, m in model.named_modules()}
+        self.convs = convs
+        self.values: Dict[str, torch.Tensor] = {}
+
+
+_CALIB: contextvars.ContextVar = contextvars.ContextVar("ipe_calibration",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def calibrating(record: Optional[Calibration]) -> Iterator[None]:
+    """Within this context the sow points record into ``record`` (None:
+    nowhere)."""
+    token = _CALIB.set(record)
+    try:
+        yield
+    finally:
+        _CALIB.reset(token)
+
+
+def is_calibrating() -> bool:
+    return _CALIB.get() is not None
+
+
+def sow_absmax(module: nn.Module, name: str, x: torch.Tensor,
+               conv: bool = True) -> None:
+    """Record max |x| (taken in x's dtype, kept as float32) at
+    ``{module's name}.{name}``, as a running maximum over forwards; a no-op
+    outside ``calibrating``.  ``conv``: a conv point, skipped unless the
+    record takes them."""
+    rec = _CALIB.get()
+    if rec is None or (conv and not rec.convs):
+        return
+    path = rec.names[id(module)]
+    key = f"{path}.{name}" if path else name
+    v = x.detach().abs().amax().float()
+    old = rec.values.get(key)
+    rec.values[key] = v if old is None else torch.maximum(old, v)
+
+
+# -- layers ---------------------------------------------------------------------
 
 class Linear(nn.Linear):
     """nn.Linear that computes in ``compute_dtype`` (float32 parameters)."""
@@ -177,6 +242,67 @@ class GroupNorm(nn.GroupNorm):
 NORMS = {"batchnorm": BatchNorm, "groupnorm": GroupNorm}
 
 
+class QConvNorm(nn.Module):
+    """int8 twin of a ConvNorm (the JAX package's ``ConvNorm._quant_call``):
+    K9 (kernels/quant.py ``qconv``) on a QTensor, the BatchNorm folded into
+    its epilogue.  ``relu``: the output is ReLU'd and requantized to int8
+    with ``out_scale`` (``quant_out``); without it the output is the
+    float32 pre-activation.  Its buffers (ops.quant.convert_convnorm):
+    ``w_int8`` (Co, k, k, Ci), ``eff_scale``, ``eff_bias`` (Co,), and
+    ``out_scale`` (), calibrated for every ConvNorm as in the JAX
+    package."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, relu: bool = True):
+        super().__init__()
+        self.stride = stride
+        self.relu = relu
+        self.register_buffer("w_int8", torch.zeros(
+            out_channels, kernel_size, kernel_size, in_channels,
+            dtype=torch.int8))
+        self.register_buffer("eff_scale", torch.zeros(out_channels))
+        self.register_buffer("eff_bias", torch.zeros(out_channels))
+        self.register_buffer("out_scale", torch.ones(()))
+
+    def forward(self, x: QTensor):
+        y = qk.qconv(x.data, x.scale, self.w_int8, self.eff_scale,
+                     self.eff_bias, self.stride, relu=self.relu,
+                     out_scale=self.out_scale if self.relu else None)
+        return QTensor(y, self.out_scale) if self.relu else y
+
+    def fused(self, x: QTensor, residual, out_scale: torch.Tensor) -> QTensor:
+        """A residual block's tail in one launch: this conv's affine, plus
+        ``residual`` (a QTensor, dequantized, or float32), ReLU, and the
+        requantize with the block's ``out_scale``."""
+        res, res_scale = ((residual.data, residual.scale)
+                          if isinstance(residual, QTensor) else (residual, None))
+        y = qk.qconv(x.data, x.scale, self.w_int8, self.eff_scale,
+                     self.eff_bias, self.stride, relu=True,
+                     out_scale=out_scale, residual=res, res_scale=res_scale)
+        return QTensor(y, out_scale)
+
+
+class QDense(nn.Module):
+    """int8 serving twin of a Linear (the JAX package's ``QDense``): K10
+    (kernels/quant.py ``qdense``) on a float input, the output in
+    ``compute_dtype``.  Buffers (ops.quant.convert_dense): ``w_int8``
+    (out, in), ``w_scale``, ``bias`` (out,), ``in_scale`` ()."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.register_buffer("w_int8", torch.zeros(out_features, in_features,
+                                                   dtype=torch.int8))
+        self.register_buffer("w_scale", torch.zeros(out_features))
+        self.register_buffer("bias", torch.zeros(out_features))
+        self.register_buffer("in_scale", torch.ones(()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return qk.qdense(x, self.w_int8, self.w_scale, self.bias,
+                         self.in_scale, self.compute_dtype)
+
+
 def make_norm(kind: str, channels: int, fold: bool = False) -> nn.Module:
     """The norm layer ``cfg.model.norm`` names: "batchnorm" or
     "groupnorm"; any other name raises, as the JAX package's ``Norm``
@@ -188,72 +314,125 @@ def make_norm(kind: str, channels: int, fold: bool = False) -> nn.Module:
     return nn.Identity() if fold else NORMS[kind](channels)
 
 
+class ConvNormSeq(nn.Sequential):
+    """A Sequential ConvNorm that records its output at
+    ``{conv}.out_absmax`` (``sow_absmax``)."""
+
+    def forward(self, x):
+        y = super().forward(x)
+        sow_absmax(self[0], "out_absmax", y)
+        return y
+
+
 def conv_norm(in_channels: int, out_channels: int, kernel_size: int = 3,
               stride: int = 1, relu: bool = True,
               compute_dtype: torch.dtype = torch.float32,
-              norm: str = "batchnorm", fold: bool = False) -> nn.Sequential:
+              norm: str = "batchnorm", fold: bool = False,
+              quant: bool = False) -> nn.Sequential:
     """Conv (bias-free) -> norm (-> ReLU), named 0/1(/2) as the
     reference's ``Sequential`` blocks; with ``fold`` a biased conv and an
-    identity (the JAX package's ``ConvNorm(fold=True)``)."""
+    identity (the JAX package's ``ConvNorm(fold=True)``); with ``quant`` a
+    ``QConvNorm`` and an identity (a ReLU'd ConvNorm requantizes, the
+    others end in float32, as the JAX package's ``quant_out``)."""
+    if quant:
+        return nn.Sequential(QConvNorm(in_channels, out_channels,
+                                       kernel_size, stride, relu),
+                             nn.Identity())
     mods = [Conv2d(in_channels, out_channels, kernel_size, stride,
                    bias=fold, compute_dtype=compute_dtype),
             make_norm(norm, out_channels, fold)]
     if relu:
         mods.append(nn.ReLU())
-    return nn.Sequential(*mods)
+    return ConvNormSeq(*mods)
 
 
 class BasicBlock(nn.Module):
     """Two 3x3 conv-BN units with an identity residual: relu(bn1(conv1(x)))
-    -> bn2(conv2(.)) -> relu(. + x), named as the reference's BasicBlock.
-    The float path of models/layers.py:193-222 of the JAX package;
-    ``fold`` as ``conv_norm``'s."""
+    -> bn2(conv2(.)) -> relu(. + x), named as the reference's BasicBlock
+    (models/layers.py:193-222 of the JAX package); ``fold`` as
+    ``conv_norm``'s.  ``quant``: conv1 a ReLU'd QConvNorm, conv2's launch
+    also adds the dequantized input, ReLUs and requantizes with the
+    block's ``out_scale``."""
 
     def __init__(self, features: int,
                  compute_dtype: torch.dtype = torch.float32,
-                 norm: str = "batchnorm", fold: bool = False):
+                 norm: str = "batchnorm", fold: bool = False,
+                 quant: bool = False):
         super().__init__()
+        self.quant = quant
+        if quant:
+            self.conv1 = QConvNorm(features, features, 3)
+            self.conv2 = QConvNorm(features, features, 3, relu=False)
+            self.register_buffer("out_scale", torch.ones(()))
+            return
         kw = dict(bias=fold, compute_dtype=compute_dtype)
         self.conv1 = Conv2d(features, features, 3, **kw)
         self.bn1 = make_norm(norm, features, fold)
         self.conv2 = Conv2d(features, features, 3, **kw)
         self.bn2 = make_norm(norm, features, fold)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if self.quant:
+            return self.conv2.fused(self.conv1(x), x, self.out_scale)
         y = F.relu(self.bn1(self.conv1(x)))
-        return F.relu(self.bn2(self.conv2(y)) + x)
+        sow_absmax(self.conv1, "out_absmax", y)
+        y = self.bn2(self.conv2(y))
+        sow_absmax(self.conv2, "out_absmax", y)
+        out = F.relu(y + x)
+        sow_absmax(self, "out_absmax", out)
+        return out
 
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 (x4) residual block with an optional 1x1
     ``downsample`` on the skip when the channel count changes; ``fold`` as
-    ``conv_norm``'s."""
+    ``conv_norm``'s.  ``quant``: ReLU'd QConvNorms conv1 and conv2; conv3's
+    launch adds the skip (the float32 downsample, or the dequantized
+    input), ReLUs and requantizes with the block's ``out_scale``."""
 
     expansion = 4
 
     def __init__(self, in_channels: int, features: int,
                  compute_dtype: torch.dtype = torch.float32,
-                 norm: str = "batchnorm", fold: bool = False):
+                 norm: str = "batchnorm", fold: bool = False,
+                 quant: bool = False):
         super().__init__()
         out = features * self.expansion
-        kw = dict(bias=fold, compute_dtype=compute_dtype)
-        self.conv1 = Conv2d(in_channels, features, 1, **kw)
-        self.bn1 = make_norm(norm, features, fold)
-        self.conv2 = Conv2d(features, features, 3, **kw)
-        self.bn2 = make_norm(norm, features, fold)
-        self.conv3 = Conv2d(features, out, 1, **kw)
-        self.bn3 = make_norm(norm, out, fold)
+        self.quant = quant
+        # registration order (convs, then downsample) is the order in
+        # which weights.init_weights draws the seeded weights
+        if quant:
+            self.conv1 = QConvNorm(in_channels, features, 1)
+            self.conv2 = QConvNorm(features, features, 3)
+            self.conv3 = QConvNorm(features, out, 1, relu=False)
+            self.register_buffer("out_scale", torch.ones(()))
+        else:
+            kw = dict(bias=fold, compute_dtype=compute_dtype)
+            self.conv1 = Conv2d(in_channels, features, 1, **kw)
+            self.bn1 = make_norm(norm, features, fold)
+            self.conv2 = Conv2d(features, features, 3, **kw)
+            self.bn2 = make_norm(norm, features, fold)
+            self.conv3 = Conv2d(features, out, 1, **kw)
+            self.bn3 = make_norm(norm, out, fold)
         self.downsample = (conv_norm(in_channels, out, 1, relu=False,
                                      compute_dtype=compute_dtype, norm=norm,
-                                     fold=fold)
+                                     fold=fold, quant=quant)
                            if in_channels != out else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
+        if self.quant:
+            y = self.conv2(self.conv1(x))
+            return self.conv3.fused(y, residual, self.out_scale)
         y = F.relu(self.bn1(self.conv1(x)))
+        sow_absmax(self.conv1, "out_absmax", y)
         y = F.relu(self.bn2(self.conv2(y)))
+        sow_absmax(self.conv2, "out_absmax", y)
         y = self.bn3(self.conv3(y))
-        return F.relu(y + residual)
+        sow_absmax(self.conv3, "out_absmax", y)
+        out = F.relu(y + residual)
+        sow_absmax(self, "out_absmax", out)
+        return out
 
 
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -280,13 +459,13 @@ def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor],
 
 def make_transition(prev: Sequence[int], cur: Sequence[int],
                     compute_dtype: torch.dtype = torch.float32,
-                    norm: str = "batchnorm",
-                    fold: bool = False) -> nn.ModuleList:
+                    norm: str = "batchnorm", fold: bool = False,
+                    quant: bool = False) -> nn.ModuleList:
     """Transition into a stage of ``cur`` branches from one of ``prev``: a
     3x3 ConvNorm where a branch's width changes (Identity where it does
     not), and a stride-2 3x3 ConvNorm from the lowest branch for each new
     one, wrapped in one more Sequential as in the reference."""
-    kw = dict(compute_dtype=compute_dtype, norm=norm, fold=fold)
+    kw = dict(compute_dtype=compute_dtype, norm=norm, fold=fold, quant=quant)
     trans = nn.ModuleList()
     for i, ch in enumerate(cur):
         if i < len(prev):
@@ -307,13 +486,13 @@ def apply_transition(trans: nn.ModuleList,
 
 def make_fuse_layers(channels: Sequence[int],
                      compute_dtype: torch.dtype = torch.float32,
-                     norm: str = "batchnorm",
-                     fold: bool = False) -> nn.ModuleList:
+                     norm: str = "batchnorm", fold: bool = False,
+                     quant: bool = False) -> nn.ModuleList:
     """All-pairs fuse layers of an exchange module: layer (i, j) is, for
     j > i, a 1x1 ConvNorm (upsampled in ``fuse``); for j == i the
     identity; for j < i a chain of stride-2 3x3 ConvNorms, ReLU on all but
     the last, which also changes the width."""
-    kw = dict(compute_dtype=compute_dtype, norm=norm, fold=fold)
+    kw = dict(compute_dtype=compute_dtype, norm=norm, fold=fold, quant=quant)
     n = len(channels)
     rows = nn.ModuleList()
     for i in range(n):
@@ -334,20 +513,33 @@ def make_fuse_layers(channels: Sequence[int],
     return rows
 
 
-def fuse(fuse_layers: nn.ModuleList,
-         ys: List[torch.Tensor]) -> List[torch.Tensor]:
+def fuse(fuse_layers: nn.ModuleList, ys: list,
+         module: Optional[nn.Module] = None) -> list:
     """Output i = relu(sum over j of layer (i, j) of branch j), the
-    higher-indexed (lower-resolution) branches resized to branch i's map."""
+    higher-indexed (lower-resolution) branches resized to branch i's map;
+    each recorded at ``{module}.fused{i}_absmax``.  int8 (``ys``
+    QTensors, the JAX HRModule's quant fuse): every contribution lands in
+    float32 (the identity dequantized, the projections and chains ending
+    in float32), and the ReLU'd sum is requantized with ``module``'s
+    ``fused{i}_scale``."""
+    quant = isinstance(ys[0], QTensor)
     out = []
     for i, row in enumerate(fuse_layers):
         acc = None
         for j, layer in enumerate(row):
             contrib = layer(ys[j])
-            if j > i:
+            if j == i and quant:
+                contrib = contrib.dequantize()
+            elif j > i:
                 contrib = resize_bilinear(contrib, ys[i].shape[1],
                                           ys[i].shape[2])
             acc = contrib if acc is None else acc + contrib
-        out.append(F.relu(acc))
+        acc = F.relu(acc)
+        if quant:
+            acc = requantize(acc, getattr(module, f"fused{i}_scale"))
+        else:
+            sow_absmax(module, f"fused{i}_absmax", acc)
+        out.append(acc)
     return out
 
 

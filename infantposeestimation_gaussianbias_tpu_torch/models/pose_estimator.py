@@ -6,12 +6,16 @@ the HRNet and HRFormer backbones and the heatmap and fusion heads.
 averaged with the mirrored pass, while the fusion head's offsets and
 decode logits come from the unflipped pass.
 
-``build_model(cfg, device, grid, fold)`` reads ``cfg.model.norm``
-(BatchNorm or GroupNorm in every ConvNorm, as the JAX package), under a
-process grid (parallel/mesh.py) hands the grid to every WindowAttention
-and BatchNorm, as the JAX ``build_model(cfg, mesh=...)`` threads its mesh,
-and with ``fold`` builds the BN-folded serving model (models/fold.py).
-``validate_serving_mode`` is the one check of which architectures fold.
+``build_model(cfg, device, grid, fold, quant, calibrate)`` reads
+``cfg.model.norm`` (BatchNorm or GroupNorm in every ConvNorm, as the JAX
+package), under a process grid (parallel/mesh.py) hands the grid to every
+WindowAttention and BatchNorm, as the JAX ``build_model(cfg, mesh=...)``
+threads its mesh, with ``fold`` builds the BN-folded serving model
+(models/fold.py), with ``quant`` the int8 PTQ serving model (its buffers
+from models/quantize.py), and with ``calibrate`` the float model that
+records its calibration points on every forward.
+``validate_serving_mode`` is the one check of which architectures fold
+and which quantize.
 ``multiscale_flip_inference`` is the JAX package's multi-scale + flip
 test-time augmentation.
 """
@@ -28,7 +32,7 @@ from .fold import fold_state_dict
 from .heads import FusionHead, HeatmapHead
 from .hrformer import WindowAttention, hrformer_base, hrformer_small
 from .hrnet import hrnet_w32, hrnet_w48
-from .layers import BatchNorm, resize_bilinear
+from .layers import BatchNorm, Calibration, calibrating, resize_bilinear
 
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
     "hrnet_w32": hrnet_w32,
@@ -40,18 +44,25 @@ HEAD_TYPES = ("heatmap", "fusion")
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-INT8_TODO = ("int8 PTQ serving is not ported yet (ROADMAP Queue 1 item 5: "
-             "ops/quant.py and models/quantize.py)")
-
 
 def validate_serving_mode(backbone_name: str, head_type: str, norm: str,
                           quant: bool = False, fold: bool = False) -> None:
-    """Raise ValueError unless the architecture supports BN-fold serving
-    (the JAX package's rule: hrnet/hrformer backbones, fusion/heatmap
-    heads, BatchNorm); ``quant`` raises NotImplementedError (int8 is not
-    ported)."""
+    """Raise ValueError unless the architecture supports the requested
+    int8 PTQ / BN-fold serving mode, by the JAX package's rules: int8 for
+    the hrnet backbones (the conv pipeline) with the fusion or heatmap
+    head, and for the hrformer backbones (their Dense layers); BN-fold for
+    hrnet/hrformer backbones, fusion/heatmap heads, BatchNorm."""
     if quant:
-        raise NotImplementedError(INT8_TODO)
+        quant_conv = backbone_name.startswith("hrnet")
+        quant_dense = backbone_name.startswith("hrformer")
+        if not (quant_conv or quant_dense):
+            raise ValueError(
+                f"int8 PTQ supports the hrnet/hrformer backbones, not "
+                f"{backbone_name!r}")
+        if quant_conv and head_type not in ("fusion", "heatmap"):
+            raise ValueError(
+                f"int8 PTQ supports fusion/heatmap heads, not "
+                f"{head_type!r}")
     if fold:
         if not backbone_name.startswith(("hrnet", "hrformer")):
             raise ValueError(
@@ -81,8 +92,13 @@ class PoseEstimator(nn.Module):
 
     A backbone whose name starts with ``hrnet`` takes ``stage_modules``;
     any other is an HRFormer and takes ``window_size`` and
-    ``use_pallas``.  ``fold``: the BN-folded serving form, checked by
-    ``validate_serving_mode``."""
+    ``use_pallas``.  ``fold``: the BN-folded serving form; ``quant``: the
+    int8 one (an HRNet's convs and head ConvNorms, an HRFormer's wide
+    Dense layers); both checked by ``validate_serving_mode``.
+    ``calibrate``: every forward records the running abs-max of each
+    calibration point into ``self.calibration.values`` (HRNet: its
+    ConvNorms, blocks, fused sums and input; HRFormer: its wide Dense
+    inputs)."""
 
     def __init__(self, backbone_name: str = "hrnet_w32",
                  head_type: str = "heatmap", num_keypoints: int = 17,
@@ -90,9 +106,14 @@ class PoseEstimator(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  remat: bool = False, use_pallas: bool = False,
                  stage_modules: Optional[Tuple[int, ...]] = None,
-                 norm: str = "batchnorm", fold: bool = False):
+                 norm: str = "batchnorm", fold: bool = False,
+                 quant: bool = False, calibrate: bool = False):
         super().__init__()
-        validate_serving_mode(backbone_name, head_type, norm, fold=fold)
+        validate_serving_mode(backbone_name, head_type, norm,
+                              quant=quant or calibrate, fold=fold)
+        if fold and (quant or calibrate):
+            raise ValueError("BN-fold and int8 PTQ are separate serving "
+                             "modes")
         if backbone_name not in BACKBONES:
             raise ValueError(f"Unknown backbone {backbone_name!r}; "
                              f"known: {sorted(BACKBONES)}")
@@ -102,8 +123,9 @@ class PoseEstimator(nn.Module):
         self.compute_dtype = compute_dtype
         self.head_type = head_type
         kw = dict(compute_dtype=compute_dtype, remat=remat, norm=norm,
-                  fold=fold)
-        if backbone_name.startswith("hrnet"):
+                  fold=fold, quant=quant)
+        conv_net = backbone_name.startswith("hrnet")
+        if conv_net:
             kw.update(stage_modules=stage_modules)
         else:
             kw.update(window_size=window_size, use_pallas=use_pallas)
@@ -111,16 +133,21 @@ class PoseEstimator(nn.Module):
         width = self.backbone.channels[0]
         self.head = (
             FusionHead(width, num_keypoints, hidden_dim,
-                       compute_dtype=compute_dtype, norm=norm, fold=fold)
+                       compute_dtype=compute_dtype, norm=norm, fold=fold,
+                       quant=quant and conv_net)
             if head_type == "fusion" else
             HeatmapHead(width, num_keypoints, compute_dtype=compute_dtype))
+        self.calibration = (Calibration(self, convs=conv_net) if calibrate
+                            else None)
 
     def forward(self, x: torch.Tensor,
                 drop_masks: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """``drop_masks``: the backbone's DropPath keep masks, for
         training (see HRFormer.forward; None for HRNet)."""
-        return self.head(self.backbone(x.to(self.compute_dtype), drop_masks))
+        with calibrating(self.calibration):
+            return self.head(self.backbone(x.to(self.compute_dtype),
+                                           drop_masks))
 
 
 def resolve_device(device) -> torch.device:
@@ -135,15 +162,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_model(cfg, device="cuda", grid=None,
-                fold: bool = False) -> PoseEstimator:
+def build_model(cfg, device="cuda", grid=None, fold: bool = False,
+                quant: bool = False, calibrate: bool = False
+                ) -> PoseEstimator:
     """PoseEstimator from a Config, with seeded weights (``cfg.train.seed``,
     see weights.init_weights), in eval mode on ``device``.  ``grid``: a
     parallel.ProcessGrid whose device is ``device``'s kind; the model is
     built on the grid's device, its W-MSA runs K3 over the grid and its
     train-mode BatchNorm statistics are global over the grid's data
     group.  ``fold``: the BN-folded serving model (models/fold.py), its
-    weights the fold of the seeded float model's."""
+    weights the fold of the seeded float model's.  ``calibrate``: the
+    seeded float model, recording its calibration points.  ``quant``: the
+    int8 PTQ serving model, its buffers unset until the state dict of
+    ``models.quantize.quantize_model`` is loaded into it."""
     from ..weights import init_weights
 
     device = resolve_device(device)
@@ -163,7 +194,13 @@ def build_model(cfg, device="cuda", grid=None,
         use_pallas=cfg.model.use_pallas,
         stage_modules=tuple(cfg.model.hrnet_stage_modules) or None,
         norm=cfg.model.norm)
-    model = init_weights(PoseEstimator(**kw), cfg.train.seed)
+    if quant:
+        if grid is not None:
+            raise ValueError("int8 PTQ serving over a process grid is not "
+                             "ported")
+        return PoseEstimator(**kw, quant=True).to(device).eval()
+    model = init_weights(PoseEstimator(**kw, calibrate=calibrate),
+                         cfg.train.seed)
     if fold:
         folded = PoseEstimator(**kw, fold=True)
         folded.load_state_dict(fold_state_dict(model.state_dict()),

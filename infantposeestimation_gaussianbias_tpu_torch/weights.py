@@ -15,6 +15,13 @@ package (its ``convert_hrnet_backbone``, ``convert_hrformer_backbone``,
 kernels (I, O) become (O, I), BatchNorm scale/bias/mean/var become
 weight/bias/running_mean/running_var, GroupNorm scale/bias weight/bias.
 
+``quant_state_from_jax`` turns the JAX package's int8 PTQ serving variables
+(``params``, ``qparams``, ``batch_stats``: its ``quantize_model``'s
+output) into the state dict of the port's ``build_model(cfg, quant=True)``:
+conv weights (kh, kw, I, O) int8 become (O, kh, kw, I), the layout K9
+reads, Dense (I, O) int8 become (O, I), scales and biases keep their
+values, each named as the port's module that reads it.
+
 ``train_state_from_jax`` carries a JAX ``TrainState`` across as a whole:
 its parameters and BatchNorm statistics as above, the optax Adam moments
 (``mu``, ``nu``, laid out as the parameters and converted the same way)
@@ -25,7 +32,7 @@ that a run checkpointed by the JAX trainer continues in the port.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -209,6 +216,61 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
             sd[f"{part}.{bn}.{stat}"] = torch.tensor(value,
                                                      dtype=torch.float32)
             sd[f"{part}.{bn}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+# -- JAX int8 PTQ variables -> quantized state dict ----------------------------
+
+def _scale_owner(part: str, path: Tuple[str, ...]) -> str:
+    """The port's name of a module that holds a calibrated scale leaf (an
+    HRNet's input, a residual block's output, an exchange module's fused
+    sums)."""
+    p = "/".join(path)
+    if not p:
+        return part
+    m = re.fullmatch(r"layer1_block(\d+)", p)
+    if m:
+        return f"{part}.layer1.{m.group(1)}"
+    m = re.fullmatch(r"stage(\d)_module(\d+)(?:/branch(\d)_block(\d+))?", p)
+    if m:
+        s, mod, br, blk = m.groups()
+        base = f"{part}.stage{s}.{mod}"
+        return base if br is None else f"{base}.branches.{br}.{blk}"
+    raise KeyError(f"no reference name for the module {part}/{p}")
+
+
+def _dense_name(part: str, path: Tuple[str, ...]) -> str:
+    """The port's name of an HRFormer block's Dense (attn/qkv, attn/proj,
+    mlp/fc1, mlp/fc2)."""
+    name, _ = _param_entry(part, path + ("kernel",), np.zeros((1, 1)))
+    return f"{part}.{name[: -len('.weight')]}"
+
+
+def quant_state_from_jax(params: Mapping, qparams: Mapping,
+                         batch_stats: Optional[Mapping] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """The JAX package's int8 serving variables (numpy trees) -> the state
+    dict of the port's ``build_model(cfg, quant=True)``: the float entries
+    the int8 forward reads (``state_dict_from_jax`` of ``params`` and
+    ``batch_stats``), and every int8 buffer of ``qparams``."""
+    sd = state_dict_from_jax(params, batch_stats or {})
+    for part in ("backbone", "head"):
+        nodes: Dict[Tuple[str, ...], Dict[str, np.ndarray]] = {}
+        for path, value in _flatten(qparams.get(part, {})).items():
+            nodes.setdefault(path[:-1], {})[path[-1]] = value
+        for path, leaves in nodes.items():
+            if "eff_scale" in leaves:  # a ConvNorm
+                conv, _ = _convnorm_names(path)
+                prefix = f"{part}.{conv}"
+                leaves = dict(leaves, w_int8=leaves["w_int8"].transpose(
+                    3, 0, 1, 2))
+            elif "in_scale" in leaves:  # a Dense
+                prefix = _dense_name(part, path)
+                leaves = dict(leaves, w_int8=leaves["w_int8"].T)
+            else:  # calibrated scales of a module
+                prefix = _scale_owner(part, path)
+            for k, v in leaves.items():
+                sd[f"{prefix}.{k}"] = torch.from_numpy(v.copy(order="C"))
     return sd
 
 

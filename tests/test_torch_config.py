@@ -243,7 +243,8 @@ def test_run_grid_fails_when_a_rank_raises():
 def test_serving_surfaces_run_without_jax(tmp_path):
     """With jax, flax and the JAX package unimportable, the serving and
     training slices' modules import and run on the CPU: the fold, the
-    server's decode and micro-batcher, the CLIs' option parsing, the
+    server's decode and micro-batcher, ``serve --int8`` answering a
+    request in int8 (calibrated on it), the CLIs' option parsing, the
     native decoder (or its absence), the prefetch stage, post-processing,
     the skeleton drawing and the graft entry's config; the loader over
     on-disk JPEGs (the native decode + warp, or cv2 where it is missing),
@@ -289,12 +290,40 @@ def test_serving_surfaces_run_without_jax(tmp_path):
         decode.temporal_smooth(torch.rand(8, 17, 2), 5, "gaussian")
         viz.draw_skeleton(np.zeros((20, 20, 3), np.uint8),
                           pts[0].numpy(), np.ones(17))
-        try:
-            serve.main(["--int8", "--device", "cpu"])
-        except NotImplementedError as e:
-            assert "Queue 1 item 5" in str(e)
-        else:
-            raise AssertionError("--int8 must raise")
+        import json, threading, urllib.request
+        answers = []
+        real_make_server = serve.make_server
+
+        def make_server(*args, **kw):  # serve one request, then stop
+            srv, batcher = real_make_server(*args, **kw)
+
+            def serve_one():
+                t = threading.Thread(target=type(srv).serve_forever,
+                                     args=(srv,), daemon=True)
+                t.start()
+                base = f"http://127.0.0.1:{{srv.server_address[1]}}"
+                npy = io.BytesIO()
+                np.save(npy, np.full((40, 30, 3), 128, np.uint8))
+                req = urllib.request.Request(
+                    base + "/predict", data=npy.getvalue(),
+                    headers={{"Content-Type": "application/x-npy"}})
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    answers.append(json.loads(r.read()))
+                with urllib.request.urlopen(base + "/healthz") as r:
+                    answers.append(json.loads(r.read()))
+                srv.shutdown()
+                t.join()
+
+            srv.serve_forever = serve_one
+            return srv, batcher
+
+        serve.make_server = make_server
+        serve.main(["--int8", "--device", "cpu", "--host", "127.0.0.1",
+                    "--port", "0", "--set", "model.hrnet_stage_modules=1,1,1",
+                    "model.compute_dtype=float32", "data.input_size=64,64",
+                    "data.heatmap_size=16,16"])
+        assert len(answers[0]["keypoints"]) == 17, answers
+        assert answers[1]["precision"] == "int8-ptq", answers
         root = "{tmp_path}"
         gt = data.synthetic_coco_dataset(num_images=4, image_dir=root)
         recs = data.build_records(data.CocoIndex(dataset=gt))

@@ -37,6 +37,7 @@ from infantposeestimation_gaussianbias_tpu_torch.weights import (
     state_dict_from_jax,
 )
 from tests import torch_tiny
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = torch_tiny.SIZE
 TINY_HRFORMER = dict(channels=(8, 16, 32, 64), num_heads=(1, 2, 4, 8),
@@ -193,20 +194,25 @@ def test_pose_inference_folds_by_default(models):
     ("hrformer_base", "fused", "batchnorm"),
 ])
 def test_validate_serving_mode_matches_jax(backbone, head, norm):
-    """Which architectures fold, and the error, as the JAX package's
-    ``validate_serving_mode``; int8 raises NotImplementedError."""
-    ok = jpe.serving_mode_supported(backbone, head, norm, fold=True)
-    assert pose_estimator.serving_mode_supported(
-        backbone, head, norm, fold=True) == ok
-    if not ok:
-        with pytest.raises(ValueError) as jerr:
-            jpe.validate_serving_mode(backbone, head, norm, fold=True)
-        with pytest.raises(ValueError) as err:
-            pose_estimator.validate_serving_mode(backbone, head, norm,
-                                                 fold=True)
-        assert str(err.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pose_estimator.validate_serving_mode(backbone, head, norm, quant=True)
+    """Which architectures fold and which quantize to int8, and the error,
+    as the JAX package's ``validate_serving_mode``: int8 for hrformer, and
+    for hrnet with the fusion or heatmap head; the rest raise
+    ValueError."""
+    for mode in (dict(fold=True), dict(quant=True)):
+        ok = jpe.serving_mode_supported(backbone, head, norm, **mode)
+        assert pose_estimator.serving_mode_supported(
+            backbone, head, norm, **mode) == ok
+        if not ok:
+            with pytest.raises(ValueError) as jerr:
+                jpe.validate_serving_mode(backbone, head, norm, **mode)
+            with pytest.raises(ValueError) as err:
+                pose_estimator.validate_serving_mode(backbone, head, norm,
+                                                     **mode)
+            assert str(err.value) == str(jerr.value)
+    quant_ok = pose_estimator.serving_mode_supported(backbone, head, norm,
+                                                     quant=True)
+    assert quant_ok == (backbone.startswith("hrformer") or (
+        backbone.startswith("hrnet") and head in ("fusion", "heatmap")))
 
 
 def test_fold_true_with_groupnorm_raises(models):

@@ -54,6 +54,7 @@ from infantposeestimation_gaussianbias_tpu_torch.weights import (
     init_weights,
     state_dict_from_jax,
 )
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 JDT = {"bfloat16": jnp.bfloat16, "float32": jnp.float32}
 TDT = {"bfloat16": torch.bfloat16, "float32": torch.float32}

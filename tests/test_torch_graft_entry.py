@@ -29,6 +29,7 @@ from infantposeestimation_gaussianbias_tpu_torch.weights import (
     state_dict_from_jax,
 )
 from tests import torch_tiny
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _jax_cfg():

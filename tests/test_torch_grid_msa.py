@@ -23,6 +23,7 @@ from infantposeestimation_gaussianbias_tpu.parallel import mesh as jmesh
 from infantposeestimation_gaussianbias_tpu_torch import parallel
 
 from tests import torch_grid
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 N = 49
 # (nW, H, hd): head-parallel on model = 2 with nW padded 29 -> 30 for

@@ -35,6 +35,7 @@ from infantposeestimation_gaussianbias_tpu_torch.models import pose_estimator
 from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
 
 from tests import torch_grid
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(x):

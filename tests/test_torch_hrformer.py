@@ -19,6 +19,7 @@ from infantposeestimation_gaussianbias_tpu_torch.weights import (
     init_weights,
     state_dict_from_jax,
 )
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 _BLOCK = "backbone.stage2.0.branches.0.0."
 

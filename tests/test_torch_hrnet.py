@@ -5,9 +5,9 @@ numpy inputs and weights; and the full-width weight bridge.
 
 The tiny model is HRNet with base_channels 8 and stage modules (1, 1, 1)
 at 64x64, registered as ``hrnet_tiny`` in both packages' ``BACKBONES``
-(test-only; tests/torch_tiny.py).  One jitted JAX init (the fusion model)
-gives both heads' weights, and one jitted JAX train step is shared by the
-file.  Weights go JAX -> ``state_dict_from_jax`` -> the port.
+(test-only; tests/torch_tiny.py).  Seeded numpy weights on the fusion
+model's ``jax.eval_shape`` tree give both heads' weights, and one jitted
+JAX train step is shared by the file.  Weights go JAX -> ``state_dict_from_jax`` -> the port.
 """
 
 from types import SimpleNamespace
@@ -43,6 +43,7 @@ from infantposeestimation_gaussianbias_tpu_torch.weights import (
     state_dict_from_jax,
 )
 from tests import torch_tiny
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 TINY_C, SIZE, HM = torch_tiny.TINY_C, torch_tiny.SIZE, torch_tiny.HM
 # Float32 on both sides, on the CPU; only summation orders and XLA's

@@ -31,6 +31,7 @@ from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
     BasicBlock,
     Conv2d,
 )
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 # K7's shape in tests/test_pallas.py:159; K6's at :292.
 CHAIN = (2, 16, 12, 32)

@@ -26,6 +26,7 @@ from infantposeestimation_gaussianbias_tpu.ops.pallas.window_msa import (
 from infantposeestimation_gaussianbias_tpu_torch.kernels import window_msa
 from infantposeestimation_gaussianbias_tpu_torch.models import layers
 from infantposeestimation_gaussianbias_tpu_torch.ops import msa
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 # Both sides are exact float32 CPU maths; only the summation order differs.
 ATOL = RTOL = 1e-4

@@ -37,6 +37,7 @@ from infantposeestimation_gaussianbias_tpu_torch.weights import (
 )
 
 from tests import torch_tiny
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("C", [8, 64, 78, 156, 624])

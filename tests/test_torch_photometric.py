@@ -19,6 +19,7 @@ from infantposeestimation_gaussianbias_tpu.ops import photometric as jphoto
 from infantposeestimation_gaussianbias_tpu_torch.ops import photometric
 
 from tests.torch_jitter import jax_jitter_draws
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)

@@ -24,6 +24,7 @@ from infantposeestimation_gaussianbias_tpu_torch.models import (
     multiscale_flip_inference)
 from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
 from tests import torch_tiny
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(x):

@@ -44,6 +44,7 @@ from infantposeestimation_gaussianbias_tpu_torch.weights import (
     state_dict_from_jax,
 )
 from tests import torch_tiny
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 FRAME_HW = (72, 88)
 TINY_SET = ["model.backbone=hrnet_tiny", "model.head_type=fusion",
@@ -330,7 +331,8 @@ def test_pipelined_dispatch_overlaps_batches():
 def test_infer_cli(servers, tmp_path, capsys):
     """``infer.main`` with a ``torch.save``d checkpoint on the CPU: an
     image (with the skeleton drawn), a directory and a video print what
-    the port's PoseInference predicts; a video's --output raises."""
+    the port's PoseInference predicts; the video again with --int8; a
+    video's --output and --mesh raise."""
     _, _, port, variables = servers
     ckpt = tmp_path / "tiny.pt"
     torch.save(state_dict_from_jax(variables["params"],
@@ -363,6 +365,10 @@ def test_infer_cli(servers, tmp_path, capsys):
         assert "processed 3 frames @ 10.0 fps" in capsys.readouterr().out
         with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             infer.main(["--input", video, "--output", "x.mp4", *args])
-        for flag, item in (("--int8", "item 5"), ("--mesh", "item 9")):
-            with pytest.raises(NotImplementedError, match=item):
-                infer.main(["--input", video, flag, *args])
+        # --int8: the video's first batch of 3 frames calibrates (with the
+        # small-calibration warning), then every frame is served in int8
+        with pytest.warns(UserWarning, match="self-calibrating"):
+            infer.main(["--input", video, "--int8", *args])
+        assert "processed 3 frames @ 10.0 fps" in capsys.readouterr().out
+        with pytest.raises(NotImplementedError, match="item 9"):
+            infer.main(["--input", video, "--mesh", *args])

@@ -2,7 +2,9 @@
 ``PoseInference.predict_batch`` against the JAX package on the CPU.
 
 The whole-slice tests register a tiny HRFormer in both packages'
-``BACKBONES`` (test-only) and share one jitted JAX init per module.
+``BACKBONES`` (test-only) and share its seeded numpy weights on
+``jax.eval_shape``'s tree (``torch_tiny.random_variables``: no JAX init to
+compile).
 """
 
 import copy
@@ -37,6 +39,8 @@ from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
 from infantposeestimation_gaussianbias_tpu_torch.weights import (
     state_dict_from_jax,
 )
+from tests import torch_tiny
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = dict(channels=(8, 16, 32, 64), num_heads=(1, 2, 4, 8),
@@ -183,8 +187,8 @@ def jax_slice():
                    pose_estimator.BACKBONES["tiny_hrformer"])
         cfg = _tiny_cfg()
         model = jpe.build_model(cfg)
-        variables = jax.jit(lambda: model.init(
-            jax.random.PRNGKey(0), jnp.zeros((1, 64, 48, 3)), False))()
+        # seeded numpy weights on jax.eval_shape's tree: no init to compile
+        variables = torch_tiny.random_variables(model, seed=0, shape=(64, 48))
         yield cfg, model, _sharpen(variables, seed=1)
 
 

@@ -39,6 +39,7 @@ from infantposeestimation_gaussianbias_tpu_torch.weights import (
     state_dict_from_jax,
 )
 from tests import torch_tiny
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = torch_tiny.SIZE
 FRAME_HW = (72, 88)

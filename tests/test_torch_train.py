@@ -62,6 +62,7 @@ from infantposeestimation_gaussianbias_tpu_torch.weights import (
 
 from tests import torch_grid
 from tests.torch_jitter import jax_jitter_draws
+from tests.torch_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(channels=(8, 16, 32, 64), num_heads=(1, 2, 4, 8),
             stage_modules=(1, 1, 1))

@@ -248,11 +248,17 @@ def test_cli_train_resume_and_validate(tmp_path, disk, capsys):
                            "data.val_img_prefix=val/"])
 
 
-def test_cli_options_not_ported_raise_and_profile(tmp_path):
-    """validate's --int8 and --mesh name their ROADMAP items; train's
-    --profile writes a torch.profiler trace of the window."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        cli_validate.main(["--int8", "--device", "cpu"])
+def test_cli_options_not_ported_raise_and_profile(tmp_path, disk, capsys):
+    """validate --int8 serves int8 PTQ, calibrated on the first validation
+    batch, and reports AP without a loss; --mesh names its ROADMAP item;
+    train's --profile writes a torch.profiler trace of the window."""
+    capsys.readouterr()
+    cli_validate.main(["--int8", "--device", "cpu", "--set", *TINY_SET,
+                       f"data.data_root={disk}",
+                       "data.val_ann=annotations/val.json",
+                       "data.val_img_prefix=val/"])
+    printed = capsys.readouterr().out
+    assert "AP:" in printed and "val_loss" not in printed, printed
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         cli_validate.main(["--mesh", "--device", "cpu"])
     cli_train.main(["--synthetic", "8", "--epochs", "1", "--no-val",

@@ -2,9 +2,10 @@
 
 HRNet with base_channels 8 and stage modules (1, 1, 1) at 64x64, registered
 as ``hrnet_tiny`` in both packages' ``BACKBONES`` (test-only) while
-``tiny_models()`` is open.  One jitted JAX init (the fusion model) gives
-both heads' weights: the heatmap head's 1x1 ``final`` conv is drawn from
-numpy, the backbone is the fusion model's.  Weights go JAX ->
+``tiny_models()`` is open.  Seeded numpy weights on the fusion model's
+``jax.eval_shape`` tree (``random_variables``: no JAX init to compile)
+give both heads' weights: the heatmap head's 1x1 ``final`` conv is drawn
+from numpy, the backbone is the fusion model's.  Weights go JAX ->
 ``state_dict_from_jax`` -> the port (``port``).
 """
 
@@ -30,6 +31,18 @@ from infantposeestimation_gaussianbias_tpu_torch.weights import (
 TINY_C = 8
 SIZE = 64
 HM = 16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread for the test module that imports this
+    fixture: the suite runs six workers on the machine's cores, and
+    torch's default of a thread per core has them oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def t(x):
@@ -73,9 +86,7 @@ def tiny_models():
     with registered():
         jcfg = tiny_cfg(jget_config(), "fusion")
         model = jpe.build_model(jcfg)
-        variables = sharpen(jax.jit(lambda: model.init(
-            jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)), False))(),
-            seed=1)
+        variables = sharpen(random_variables(model, seed=0), seed=1)
         rng = np.random.RandomState(2)
         hm_vars = {
             "params": {"backbone": variables["params"]["backbone"],
