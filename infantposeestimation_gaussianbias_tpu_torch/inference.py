@@ -3,8 +3,13 @@ stream of crop batches, a directory of images, a video.
 
 Port of ``PoseInference`` in infantposeestimation_gaussianbias_tpu/
 inference.py: crop + normalise -> flip-tested forward -> decode (fusion
-decode for the fusion head; ``cfg.eval.decode`` for the heatmap head) ->
-back-projection, all on ``device`` for a whole batch of crops.
+decode for the fusion head; ``cfg.eval.decode`` for the heatmap and fused
+heads; the SimCC head's expectation, served with ``cfg.eval.flip_test``
+off) -> back-projection, all on ``device`` for a whole batch of crops.
+Every backbone and head of ``models.BACKBONES`` serves; LiteHRNet and the
+fused and SimCC heads unfolded (``validate_serving_mode``).  The SimCC
+head's coords are input pixels already and skip the heatmap stride
+(``models.to_input_pixels``), where the JAX package scales them too.
 
 Float serving folds BatchNorm into the convs by default wherever the
 architecture allows it (models/fold.py: hrnet/hrformer backbones, fusion
@@ -58,7 +63,7 @@ import torch
 
 from .models import (build_model, flip_inference, fold_state_dict,
                      quantize_model, resolve_device, serving_mode_supported,
-                     validate_serving_mode)
+                     to_input_pixels, validate_serving_mode)
 from .ops import affine
 from .ops import decode as decode_ops
 from .parallel.mesh import TENSOR_PARALLEL_TODO, gather_data_rows, shard_batch
@@ -177,15 +182,14 @@ class PoseInference:
         """Normalised crops -> flip-tested forward -> decode ->
         back-projection to the source frames."""
         cfg = self.cfg
-        W, H = cfg.data.input_size
-        hm_w, hm_h = cfg.data.heatmap_size
         coords, scores = flip_inference(
             self.model, crops, self._flip_index, cfg.model.head_type,
             cfg.eval.decode, shift_heatmap=cfg.eval.shift_heatmap,
             flip=cfg.eval.flip_test)
-        coords = coords * torch.tensor([W / hm_w, H / hm_h],
+        coords = coords * torch.tensor(to_input_pixels(cfg),
                                        dtype=torch.float32, device=self.device)
-        coords = decode_ops.transform_preds(coords, centers, scales, (W, H))
+        coords = decode_ops.transform_preds(coords, centers, scales,
+                                            cfg.data.input_size)
         return coords, scores
 
     @torch.inference_mode()

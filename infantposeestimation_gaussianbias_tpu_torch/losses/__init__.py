@@ -1,4 +1,5 @@
-"""Losses: the six-term fusion loss and the weighted heatmap MSE."""
+"""Losses: the six-term fusion loss, the Stack-B morphology and combined
+losses, and the weighted heatmap MSE."""
 
 from typing import Optional
 
@@ -7,7 +8,10 @@ import torch
 from .fusion import (GlobalSum, batch_mean, distribution_shape_loss,
                      fusion_pose_loss, heatmap_mse, heatmap_variance,
                      smooth_l1, spatial_overlap_loss,
-                     variance_alignment_loss)
+                     variance_alignment_loss, weighted_mean)
+from .morphology import (combined_loss, fused_pose_loss, joints_mse_loss,
+                         morphology_shape_loss, offset_regression_loss,
+                         spatial_statistics)
 
 
 def keypoint_mse_loss(pred: torch.Tensor, target: torch.Tensor,
@@ -28,12 +32,19 @@ def keypoint_mse_loss(pred: torch.Tensor, target: torch.Tensor,
 
 
 __all__ = [
+    "combined_loss",
     "distribution_shape_loss",
+    "fused_pose_loss",
     "fusion_pose_loss",
     "heatmap_mse",
     "heatmap_variance",
+    "joints_mse_loss",
     "keypoint_mse_loss",
+    "morphology_shape_loss",
+    "offset_regression_loss",
     "smooth_l1",
     "spatial_overlap_loss",
+    "spatial_statistics",
     "variance_alignment_loss",
+    "weighted_mean",
 ]

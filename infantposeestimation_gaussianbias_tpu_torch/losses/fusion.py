@@ -51,7 +51,7 @@ def _ratio(num: torch.Tensor, den: torch.Tensor,
     return num / (den + 1e-8)
 
 
-def _weighted_mean(per_kpt: torch.Tensor, weight: torch.Tensor,
+def weighted_mean(per_kpt: torch.Tensor, weight: torch.Tensor,
                    global_sum: GlobalSum = None) -> torch.Tensor:
     """sum(loss * w) / (sum(w) + 1e-8) over all (B, K)."""
     return _ratio((per_kpt * weight).sum(), weight.sum(), global_sum)
@@ -78,7 +78,7 @@ def heatmap_mse(pred: torch.Tensor, target: torch.Tensor,
     """Per-keypoint spatial-mean MSE, visibility-weighted."""
     per = ((pred.float() - target) ** 2).mean(dim=(1, 2))  # (B, K)
     if use_weight:
-        return _weighted_mean(per, weight, global_sum)
+        return weighted_mean(per, weight, global_sum)
     return batch_mean(per, global_sum)
 
 
@@ -108,7 +108,7 @@ def variance_alignment_loss(heatmaps: torch.Tensor, coords: torch.Tensor,
     if variances is not None:
         sig_pred = variances.float().mean(dim=(1, 2))  # (B, K)
         per = per + (sig_pred - target_sigma) ** 2
-    return _weighted_mean(per, weight, global_sum)
+    return weighted_mean(per, weight, global_sum)
 
 
 def spatial_overlap_loss(heatmaps: torch.Tensor, weight: torch.Tensor,
@@ -138,7 +138,7 @@ def distribution_shape_loss(heatmaps: torch.Tensor, weight: torch.Tensor,
     probs = torch.softmax(heatmaps.float().reshape(B, H * W, K), dim=1)
     entropy = -(probs * torch.log(probs + 1e-8)).sum(dim=1)  # (B, K)
     target = math.log(2 * math.pi * math.e * target_sigma ** 2)
-    return _weighted_mean((entropy - target) ** 2, weight, global_sum)
+    return weighted_mean((entropy - target) ** 2, weight, global_sum)
 
 
 def fusion_pose_loss(outputs: Dict[str, torch.Tensor],
@@ -173,8 +173,8 @@ def fusion_pose_loss(outputs: Dict[str, torch.Tensor],
     peak_per = ((pred_coords - gt_hm) ** 2).sum(dim=-1)
     gs = global_sum
     if use_target_weight:
-        l_off = _weighted_mean(off_per, wt, gs)
-        l_peak = _weighted_mean(peak_per, wt, gs)
+        l_off = weighted_mean(off_per, wt, gs)
+        l_peak = weighted_mean(peak_per, wt, gs)
     else:
         l_off = batch_mean(off_per, gs)
         l_peak = batch_mean(peak_per, gs)

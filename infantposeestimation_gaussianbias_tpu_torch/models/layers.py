@@ -1,4 +1,5 @@
-"""Shared building blocks: compute-dtype Linear and Conv2d, BatchNorm and
+"""Shared building blocks: compute-dtype Linear, Conv2d (depthwise too)
+and ConvTranspose2d, BatchNorm and
 GroupNorm (``make_norm``), ConvNorm, BasicBlock, Bottleneck, bilinear
 resize, DropPath, and the transition and all-pairs fuse layers of the
 multi-resolution backbones; their int8 serving twins (``QConvNorm``,
@@ -115,12 +116,17 @@ def sow_absmax(module: nn.Module, name: str, x: torch.Tensor,
 # -- layers ---------------------------------------------------------------------
 
 class Linear(nn.Linear):
-    """nn.Linear that computes in ``compute_dtype`` (float32 parameters)."""
+    """nn.Linear that computes in ``compute_dtype`` (float32 parameters).
+    ``init``: the initialiser ``weights.init_weights`` draws its weight
+    from, "trunc_normal" (std 0.02, the HRFormer's) or "lecun" (flax's
+    ``nn.Dense`` default, truncated normal of variance 1 / fan-in)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 init: str = "trunc_normal"):
         super().__init__(in_features, out_features)
         self.compute_dtype = compute_dtype
+        self.init = init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -129,20 +135,69 @@ class Linear(nn.Linear):
 
 class Conv2d(nn.Conv2d):
     """NHWC-in, NHWC-out nn.Conv2d computing in ``compute_dtype``, with the
-    symmetric ``kernel_size // 2`` padding of the JAX ConvNorm."""
+    symmetric ``kernel_size // 2`` padding of the JAX ConvNorm; ``groups``
+    as torch's (``groups=C``: a depthwise conv, flax's
+    ``feature_group_count``).  ``init``: how ``weights.init_weights``
+    draws it, "auto" (kaiming-normal fan-out without a bias, a prediction
+    conv's normal 0.001 with one) or "kaiming" (kaiming-normal fan-out and
+    a zero bias)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, bias: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 groups: int = 1, init: str = "auto"):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=kernel_size // 2, bias=bias)
+                         padding=kernel_size // 2, bias=bias, groups=groups)
         self.compute_dtype = compute_dtype
+        self.init = init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b,
-                     self.stride, self.padding)
+                     self.stride, self.padding, groups=self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+def same_transpose_padding(kernel: int, stride: int) -> tuple:
+    """(padding, output_padding, crop) that make ``F.conv_transpose2d``
+    with a spatially flipped kernel compute ``lax.conv_transpose(...,
+    padding="SAME")``: an unflipped correlation over the input dilated by
+    ``stride`` and padded (a, b), a = k - 1 if stride > k - 1 else
+    ceil((k + stride - 2) / 2), b = k + stride - 2 - a, giving an output of
+    ``stride`` x the input.  torch pads k - 1 - padding before and that
+    plus output_padding after; where b < a it pads a on both sides and the
+    last ``crop`` rows and columns are dropped."""
+    pad_len = kernel + stride - 2
+    a = kernel - 1 if stride > kernel - 1 else -(-pad_len // 2)
+    b = pad_len - a
+    return kernel - 1 - a, max(b - a, 0), max(a - b, 0)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """NHWC flax ``nn.ConvTranspose`` (``transpose_kernel=False``,
+    ``padding="SAME"``, no bias) computing in ``compute_dtype``: flax
+    applies its (kh, kw, I, O) kernel unflipped to the dilated input and
+    torch's transposed conv flips its (I, O, kh, kw) weight, so the
+    weight holds the flax kernel flipped in both spatial axes (see
+    ``same_transpose_padding`` for the padding)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 2, compute_dtype: torch.dtype = torch.float32):
+        pad, out_pad, crop = same_transpose_padding(kernel_size, stride)
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=pad, output_padding=out_pad,
+                         bias=False)
+        self.crop = crop
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
+                               self.weight.to(dt), None, self.stride,
+                               self.padding, self.output_padding)
+        if self.crop:
+            y = y[:, :, :y.shape[2] - self.crop, :y.shape[3] - self.crop]
         return y.permute(0, 2, 3, 1)
 
 

@@ -1,10 +1,13 @@
 """PoseEstimator (backbone + head), its factory, decode and flip test.
 
-Port of infantposeestimation_gaussianbias_tpu/models/pose_estimator.py for
-the HRNet and HRFormer backbones and the heatmap and fusion heads.
-``flip_inference`` keeps the reference's flip-test contract: heatmaps are
-averaged with the mirrored pass, while the fusion head's offsets and
-decode logits come from the unflipped pass.
+Port of infantposeestimation_gaussianbias_tpu/models/pose_estimator.py:
+every backbone of its ``BACKBONES`` (HRNet, HRFormer, LiteHRNet) and every
+head type (heatmap, fusion, fused, simcc).  ``flip_inference`` keeps the
+reference's flip-test contract: heatmaps are averaged with the mirrored
+pass, while the fusion head's offsets and decode logits (and the fused
+head's coords) come from the unflipped pass; the SimCC head has no
+heatmaps to flip, and the flip test raises for it (the JAX function fails
+on the missing key).
 
 ``build_model(cfg, device, grid, fold, quant, calibrate)`` reads
 ``cfg.model.norm`` (BatchNorm or GroupNorm in every ConvNorm, as the JAX
@@ -29,9 +32,10 @@ import torch.nn as nn
 
 from ..ops import decode as decode_ops
 from .fold import fold_state_dict
-from .heads import FusionHead, HeatmapHead
+from .heads import FusedHead, FusionHead, HeatmapHead, SimCCHead
 from .hrformer import WindowAttention, hrformer_base, hrformer_small
 from .hrnet import hrnet_w32, hrnet_w48
+from .litehrnet import litehrnet
 from .layers import BatchNorm, Calibration, calibrating, resize_bilinear
 
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
@@ -39,8 +43,9 @@ BACKBONES: Dict[str, Callable[..., nn.Module]] = {
     "hrnet_w48": hrnet_w48,
     "hrformer_base": hrformer_base,
     "hrformer_small": hrformer_small,
+    "litehrnet": litehrnet,
 }
-HEAD_TYPES = ("heatmap", "fusion")
+HEAD_TYPES = ("heatmap", "fusion", "fused", "simcc")
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -91,10 +96,13 @@ class PoseEstimator(nn.Module):
     """Backbone + head.  NHWC images in, dict of NHWC maps out.
 
     A backbone whose name starts with ``hrnet`` takes ``stage_modules``;
-    any other is an HRFormer and takes ``window_size`` and
-    ``use_pallas``.  ``fold``: the BN-folded serving form; ``quant``: the
-    int8 one (an HRNet's convs and head ConvNorms, an HRFormer's wide
-    Dense layers); both checked by ``validate_serving_mode``.
+    one whose name starts with ``litehrnet`` takes only the dtype and the
+    norm; any other is an HRFormer and takes ``window_size`` and
+    ``use_pallas``.  ``input_size`` (W, H) and ``simcc_split_ratio`` size
+    the SimCC head's bins.  ``fold``: the BN-folded serving form;
+    ``quant``: the int8 one (an HRNet's convs and head ConvNorms, an
+    HRFormer's wide Dense layers); both checked by
+    ``validate_serving_mode``.
     ``calibrate``: every forward records the running abs-max of each
     calibration point into ``self.calibration.values`` (HRNet: its
     ConvNorms, blocks, fused sums and input; HRFormer: its wide Dense
@@ -107,7 +115,9 @@ class PoseEstimator(nn.Module):
                  remat: bool = False, use_pallas: bool = False,
                  stage_modules: Optional[Tuple[int, ...]] = None,
                  norm: str = "batchnorm", fold: bool = False,
-                 quant: bool = False, calibrate: bool = False):
+                 quant: bool = False, calibrate: bool = False,
+                 input_size: Tuple[int, int] = (192, 256),
+                 simcc_split_ratio: float = 2.0):
         super().__init__()
         validate_serving_mode(backbone_name, head_type, norm,
                               quant=quant or calibrate, fold=fold)
@@ -122,21 +132,30 @@ class PoseEstimator(nn.Module):
                              f"{head_type!r}")
         self.compute_dtype = compute_dtype
         self.head_type = head_type
-        kw = dict(compute_dtype=compute_dtype, remat=remat, norm=norm,
-                  fold=fold, quant=quant)
+        kw = dict(compute_dtype=compute_dtype, norm=norm)
         conv_net = backbone_name.startswith("hrnet")
         if conv_net:
-            kw.update(stage_modules=stage_modules)
-        else:
-            kw.update(window_size=window_size, use_pallas=use_pallas)
+            kw.update(stage_modules=stage_modules, remat=remat, fold=fold,
+                      quant=quant)
+        elif not backbone_name.startswith("litehrnet"):
+            kw.update(window_size=window_size, use_pallas=use_pallas,
+                      remat=remat, fold=fold, quant=quant)
         self.backbone = BACKBONES[backbone_name](**kw)
         width = self.backbone.channels[0]
-        self.head = (
-            FusionHead(width, num_keypoints, hidden_dim,
-                       compute_dtype=compute_dtype, norm=norm, fold=fold,
-                       quant=quant and conv_net)
-            if head_type == "fusion" else
-            HeatmapHead(width, num_keypoints, compute_dtype=compute_dtype))
+        if head_type == "fusion":
+            self.head = FusionHead(width, num_keypoints, hidden_dim,
+                                   compute_dtype=compute_dtype, norm=norm,
+                                   fold=fold, quant=quant and conv_net)
+        elif head_type == "heatmap":
+            self.head = HeatmapHead(width, num_keypoints,
+                                    compute_dtype=compute_dtype)
+        elif head_type == "fused":
+            self.head = FusedHead(width, num_keypoints,
+                                  compute_dtype=compute_dtype, norm=norm)
+        else:
+            self.head = SimCCHead(width, num_keypoints, input_size,
+                                  simcc_split_ratio,
+                                  compute_dtype=compute_dtype)
         self.calibration = (Calibration(self, convs=conv_net) if calibrate
                             else None)
 
@@ -193,7 +212,9 @@ def build_model(cfg, device="cuda", grid=None, fold: bool = False,
         remat=cfg.model.remat,
         use_pallas=cfg.model.use_pallas,
         stage_modules=tuple(cfg.model.hrnet_stage_modules) or None,
-        norm=cfg.model.norm)
+        norm=cfg.model.norm,
+        input_size=tuple(cfg.data.input_size),
+        simcc_split_ratio=cfg.model.simcc_split_ratio)
     if quant:
         if grid is not None:
             raise ValueError("int8 PTQ serving over a process grid is not "
@@ -217,10 +238,14 @@ def decode_outputs(outputs: Dict[str, torch.Tensor], head_type: str,
                    decode_method: str = "quarter",
                    softargmax_beta: float = 1.0, refine_radius: int = 2
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Head outputs -> (coords (B, K, 2) in heatmap pixels, scores (B, K)).
-    The fusion head decodes by sub-pixel fusion; the heatmap head by
-    ``decode_method``: "taylor", "softargmax", or else the quarter
-    shift."""
+    """Head outputs -> (coords (B, K, 2), scores (B, K)).  The SimCC head
+    decodes by its softmax expectation (``SimCCHead.decode`` at its
+    default split ratio, as the JAX function), to input pixels; the others
+    to heatmap pixels: the fusion head by sub-pixel fusion, the heatmap and
+    fused heads by ``decode_method``: "taylor", "softargmax", or else the
+    quarter shift."""
+    if head_type == "simcc":
+        return SimCCHead.decode(outputs["simcc_x"], outputs["simcc_y"])
     if head_type == "fusion":
         return decode_ops.fusion_decode(
             outputs["heatmaps"], outputs["offsets"],
@@ -233,6 +258,25 @@ def decode_outputs(outputs: Dict[str, torch.Tensor], head_type: str,
     return decode_ops.quarter_shift_decode(outputs["heatmaps"])
 
 
+def _need_heatmaps(head_type: str) -> None:
+    if head_type == "simcc":
+        raise ValueError("the simcc head outputs no heatmaps to flip or "
+                         "rescale: serve it with flip=False at one scale")
+
+
+def to_input_pixels(cfg) -> Tuple[float, float]:
+    """The factors (x, y) that take ``decode_outputs``' coords to input
+    pixels: the heatmap stride, (W / heatmap W, H / heatmap H), for the
+    heads that decode heatmaps; 1 for the SimCC head, whose coords are in
+    input pixels already (the JAX package scales them by the stride too,
+    which puts its SimCC keypoints 4x off)."""
+    if cfg.model.head_type == "simcc":
+        return 1.0, 1.0
+    W, H = cfg.data.input_size
+    hm_w, hm_h = cfg.data.heatmap_size
+    return W / hm_w, H / hm_h
+
+
 def flip_inference(model: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                    images: torch.Tensor, flip_index: torch.Tensor,
                    head_type: str, decode_method: str = "quarter",
@@ -240,10 +284,12 @@ def flip_inference(model: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward on NHWC images and their mirror, un-mirror and average the
     heatmaps (the other outputs from the unflipped pass), then decode with
-    ``decode_outputs``' defaults."""
+    ``decode_outputs``' defaults.  The flip test needs heatmaps: with the
+    SimCC head it raises (pass ``flip=False``)."""
     outputs = model(images)
     if not flip:
         return decode_outputs(outputs, head_type, decode_method)
+    _need_heatmaps(head_type)
     flipped = model(torch.flip(images, dims=[2]))
     hm_f = decode_ops.flip_heatmaps(flipped["heatmaps"], flip_index,
                                     shift=shift_heatmap)
@@ -264,6 +310,7 @@ def multiscale_flip_inference(
     scale's flip-averaged heatmaps resized back to the first scale's
     size; their mean decoded once, the other outputs from the first
     scale's unflipped pass."""
+    _need_heatmaps(head_type)
     B, H, W, _ = images.shape
     base_outputs, base_hw, acc = None, None, None
     for s in scales:

@@ -1,7 +1,8 @@
 """Keypoint decoding and trajectory smoothing, batched on the device.
 
 Port of the heatmap-head decodes (argmax, quarter shift, Taylor), the
-fusion-path functions, the window-centroid refinement and the temporal
+fusion-path functions, the Stack-B fused decode (``fused_alpha_decode``),
+the window-centroid refinement and the temporal
 smoothers of infantposeestimation_gaussianbias_tpu/ops/decode.py.
 Heatmaps are (B, H, W, K), trajectories (T, K, 2), and all maths runs in
 float32.
@@ -10,7 +11,7 @@ float32.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -195,6 +196,30 @@ def transform_preds(coords: torch.Tensor, centers: torch.Tensor,
     osz = torch.tensor(output_size, dtype=torch.float32, device=coords.device)
     return (coords / osz * scales[:, None, :] + centers[:, None, :]
             - scales[:, None, :] / 2.0)
+
+
+def fused_alpha_decode(heatmaps: torch.Tensor,
+                       regression_coords: Optional[torch.Tensor] = None,
+                       alpha: float = 0.5, image_size: float = 256.0,
+                       adaptive: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stack-B fused decode: Taylor heatmap coords scaled to image space
+    (``image_size`` / the map's side), blended with the regression coords
+    (given normalised to [0, 1], scaled by ``image_size``) by ``alpha``;
+    with ``adaptive`` the blend's alpha is maxval / (maxval + 0.1) per
+    keypoint instead, as the reference overwrites it.  Without regression
+    coords, the scaled heatmap coords.  Returns coords (B, K, 2) in image
+    space and maxvals (B, K)."""
+    B, H, W, K = heatmaps.shape
+    hm_coords, maxvals = taylor_decode(heatmaps)
+    hm_coords = hm_coords * torch.tensor(
+        [image_size / W, image_size / H], dtype=torch.float32,
+        device=heatmaps.device)
+    if regression_coords is None:
+        return hm_coords, maxvals
+    reg = regression_coords * image_size
+    a = (maxvals / (maxvals + 0.1))[..., None] if adaptive else alpha
+    return a * hm_coords + (1.0 - a) * reg, maxvals
 
 
 def window_centroid_refine(heatmaps: torch.Tensor, coords: torch.Tensor,

@@ -7,11 +7,9 @@ the whole training path: the host loader with augmentation, the train
 step, flip-test validation and COCO OKS-AP; a broken augmentation,
 target, decode, back-projection or evaluator destroys the AP.
 
-The JAX tool's default backbone, ``litehrnet``, is not in the port yet
-(ROADMAP Queue 1 item 7), so this one defaults to ``hrnet_w32`` with the
-heatmap head, the port's smallest model that trains at 128x128 with no
-kernel of its own in the way; ``hrformer_base`` with the fusion head runs
-too (``--backbone hrformer_base --head fusion``).
+The default model is the JAX tool's, ``litehrnet`` with the heatmap head;
+any other backbone and head run too (``--backbone hrformer_base --head
+fusion``).
 
     python -m infantposeestimation_gaussianbias_tpu_torch.tools.pipeline_proof
     ... --epochs 40 --device cpu       # a slow CPU run
@@ -80,7 +78,7 @@ def build_synthetic_pose_dataset(n: int, num_kpts: int = 17,
 
 
 def run(train_images: int = 64, epochs: int = 400, ap_threshold: float = 0.5,
-        backbone: str = "hrnet_w32", head_type: str = "heatmap",
+        backbone: str = "litehrnet", head_type: str = "heatmap",
         lr: float = 2e-3, device="cuda",
         hrnet_stage_modules: Tuple[int, ...] = (),
         verbose: bool = True) -> Dict[str, float]:
@@ -150,7 +148,7 @@ if __name__ == "__main__":
     import argparse
 
     p = argparse.ArgumentParser()
-    p.add_argument("--backbone", default="hrnet_w32")
+    p.add_argument("--backbone", default="litehrnet")
     p.add_argument("--head", default="heatmap")
     p.add_argument("--epochs", type=int, default=400)
     p.add_argument("--lr", type=float, default=2e-3)

@@ -32,7 +32,7 @@ import torch
 from ..config import Config
 from ..data.pipeline import DataLoader, device_batch
 from ..eval import COCOEvaluator, MetricLogger
-from ..models import flip_inference
+from ..models import flip_inference, to_input_pixels
 from ..ops import decode as decode_ops
 from .checkpoint import CheckpointManager
 from .logging import MetricsWriter
@@ -97,8 +97,7 @@ def validate(cfg: Config, state: TrainState, loader: DataLoader,
     flip_idx = torch.as_tensor(schema.flip_index(), device=device)
     evaluator = COCOEvaluator(schema.oks_sigma_array(), gt_dataset)
     W, H = cfg.data.input_size
-    hm_w, hm_h = cfg.data.heatmap_size
-    to_input = torch.tensor([W / hm_w, H / hm_h], dtype=torch.float32,
+    to_input = torch.tensor(to_input_pixels(cfg), dtype=torch.float32,
                             device=device)
     eval_step = make_eval_step(cfg) if with_loss else None
     loss_meter = MetricLogger()

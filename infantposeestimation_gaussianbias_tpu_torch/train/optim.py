@@ -55,10 +55,11 @@ def make_lr_schedule(base_lr: float, warmup_lr: float, warmup_steps: int,
 
 def weight_decay_mask(model: nn.Module) -> Dict[str, bool]:
     """Parameter name -> whether it takes weight decay: the ``weight`` of
-    every Linear and Conv2d layer, nothing else."""
+    every Linear, Conv2d and ConvTranspose2d layer (the JAX package's
+    kernels of two or more axes), nothing else."""
     decayed = {f"{name}.weight" if name else "weight"
                for name, m in model.named_modules()
-               if isinstance(m, (nn.Linear, nn.Conv2d))}
+               if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d))}
     return {name: name in decayed for name, _ in model.named_parameters()}
 
 

@@ -3,7 +3,9 @@
 Port of infantposeestimation_gaussianbias_tpu/train/step.py.  One call of
 the train step does, on the model's device: Gaussian targets -> forward in
 train mode (HRFormer: W-MSA through K1) -> every loss term in float32 (the
-heatmap head: the weighted MSE; the fusion head: the six terms) ->
+heatmap head: the weighted MSE; the fusion head: the six terms; the
+fused head: the combined Stack-B loss; the SimCC head: its 1-D
+classification loss) ->
 backward (HRFormer: W-MSA through K2) -> optimizer update, and returns the
 per-term losses and ``grad_norm`` as 0-d device tensors (no host sync).
 
@@ -79,12 +81,16 @@ def _targets(batch: Batch, heatmap_size, input_size, sigma
 
 
 def make_loss_fn(cfg, global_sum: L.GlobalSum = None) -> Callable:
-    """Loss: (outputs, batch, target, weight) -> (loss, terms dict), for
-    the fusion and heatmap heads.  ``global_sum``: see losses/fusion.py."""
+    """Loss: (outputs, batch, target, weight) -> (loss, terms dict), by
+    head type: the heatmap head's weighted MSE; the fusion head's six
+    terms; the fused head's combined Stack-B loss against the keypoints
+    normalised by the input size (its terms ``heatmap``, ``morph``,
+    ``regression``, ``refined``, ``total_loss``); the SimCC head's
+    ``simcc_loss`` at sigma ``data.sigma`` x the split ratio.
+    ``global_sum``: see losses/fusion.py."""
     head = cfg.model.head_type
-    if head not in ("fusion", "heatmap"):
-        raise NotImplementedError(f"no loss for the {head!r} head in the "
-                                  f"port yet")
+    if head not in ("fusion", "heatmap", "fused", "simcc"):
+        raise ValueError(f"Unknown head type {head!r}")
     m = cfg.model
     input_size = tuple(cfg.data.input_size)
     skeleton_np = cfg.data.keypoint_schema.skeleton_array()
@@ -98,6 +104,23 @@ def make_loss_fn(cfg, global_sum: L.GlobalSum = None) -> Callable:
             loss = L.keypoint_mse_loss(outputs["heatmaps"], target, weight,
                                        m.use_target_weight, global_sum)
             return loss, {"total_loss": loss, "heatmap_loss": loss}
+        if head == "fused":
+            norm = torch.tensor(input_size, dtype=torch.float32,
+                                device=target.device)
+            total, terms = L.combined_loss(
+                outputs, {"heatmaps": target, "weights": weight,
+                          "coords": batch["keypoints"] / norm},
+                morph_weight=m.morph_weight, morph_lambda=m.morph_lambda,
+                morph_mean_lambda=m.morph_mean_lambda,
+                reg_weight=m.reg_weight, global_sum=global_sum)
+            return total, {(k if k != "total" else "total_loss"): v
+                           for k, v in terms.items()}
+        if head == "simcc":
+            loss = simcc_loss(outputs, batch["keypoints"], weight,
+                              m.simcc_split_ratio,
+                              sigma=cfg.data.sigma * m.simcc_split_ratio,
+                              global_sum=global_sum)
+            return loss, {"total_loss": loss, "simcc_loss": loss}
         dev = target.device
         if dev not in skeletons:
             skeletons[dev] = torch.as_tensor(skeleton_np, dtype=torch.long,
@@ -110,6 +133,29 @@ def make_loss_fn(cfg, global_sum: L.GlobalSum = None) -> Callable:
         return terms["total_loss"], terms
 
     return loss_fn
+
+
+def simcc_loss(outputs, keypoints: torch.Tensor, weight: torch.Tensor,
+               split_ratio: float, sigma: float = 4.0,
+               global_sum: L.GlobalSum = None) -> torch.Tensor:
+    """The SimCC objective: per axis, the cross-entropy of the logits'
+    log-softmax against a Gaussian (``sigma`` in bins, normalised to sum 1
+    plus 1e-8) centred on the keypoint x ``split_ratio``; the two axes'
+    sum, weighted-averaged over the keypoints, sum(l w) / (sum(w) +
+    1e-8).  keypoints (B, K, 2) in input pixels."""
+
+    def axis_loss(logits: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
+        bins = torch.arange(logits.shape[-1], dtype=torch.float32,
+                            device=logits.device)
+        mu = coord[..., None] * split_ratio
+        tgt = torch.exp(-((bins - mu) ** 2) / (2 * sigma ** 2))
+        tgt = tgt / (tgt.sum(-1, keepdim=True) + 1e-8)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -(tgt * logp).sum(-1)  # (B, K)
+
+    per = (axis_loss(outputs["simcc_x"], keypoints[..., 0])
+           + axis_loss(outputs["simcc_y"], keypoints[..., 1]))
+    return L.weighted_mean(per, weight, global_sum)
 
 
 def draw_drop_masks(model: nn.Module, batch_size: int,

@@ -2,18 +2,30 @@
 
 ``init_weights`` fills a PoseEstimator from a ``torch.Generator`` with the
 JAX package's initialisers (kaiming-normal fan-out convs, among them the
-BasicBlocks'; truncated-normal 0.02 Linears and RPE tables; normal 0.001
+BasicBlocks' and LiteHRNet's depthwise ones; truncated-normal 0.02 Linears
+and RPE tables, and flax's default lecun-normal for the Dense layers that
+keep it (the fused and SimCC heads', the attention add-ons'); normal 0.001
 prediction convs with zero bias, the heatmap head's ``final_layer`` among
-them; identity norms; 0.5 decode logits).  The two frameworks draw different numbers
+them, and transposed convs; normal 0.02 position embeddings; identity
+norms; 0.5 decode logits).  The two frameworks draw different numbers
 from one seed, so the port's random weights are its own.
 
 ``state_dict_from_jax`` turns the JAX package's variables (numpy arrays),
 float or BN-folded, into the port's state dict, named as the reference
-checkpoint.  It is the inverse of ``tools/import_torch_checkpoint.convert_checkpoint`` of the JAX
+checkpoint where one exists (HRNet, HRFormer, the heatmap and fusion
+heads) and as the flax module paths elsewhere (LiteHRNet, the deconv
+stack, the fused and SimCC heads; see models/litehrnet.py and
+models/heads.py).  It is the inverse of ``tools/import_torch_checkpoint.convert_checkpoint`` of the JAX
 package (its ``convert_hrnet_backbone``, ``convert_hrformer_backbone``,
 ``convert_heatmap_head`` and ``convert_fusion_head``): flax conv kernels (kh, kw, I, O) become (O, I, kh, kw), Dense
 kernels (I, O) become (O, I), BatchNorm scale/bias/mean/var become
-weight/bias/running_mean/running_var, GroupNorm scale/bias weight/bias.
+weight/bias/running_mean/running_var, GroupNorm scale/bias weight/bias;
+a depthwise kernel (kh, kw, 1, C) becomes (C, 1, kh, kw) like any conv's,
+and a transposed conv's (kh, kw, I, O) kernel becomes (I, O, kh, kw)
+flipped in both spatial axes (layers.ConvTranspose2d).
+``attention_state_from_jax`` does the same for a CBAM or TransformerNeck
+(models/attention.py): multi-head attention kernels (C, heads, hd) and
+(heads, hd, C) become (C, C) Linear weights.
 
 ``quant_state_from_jax`` turns the JAX package's int8 PTQ serving variables
 (``params``, ``qparams``, ``batch_stats``: its ``quantize_model``'s
@@ -38,9 +50,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .models.attention import TransformerNeck
 from .models.heads import FusionHead
 from .models.hrformer import WindowAttention
-from .models.layers import BatchNorm, Conv2d, GroupNorm, Linear
+from .models.layers import (BatchNorm, Conv2d, ConvTranspose2d, GroupNorm,
+                            Linear)
 from .ops.msa import relative_position_index
 
 # -- seeded initialisation ---------------------------------------------------
@@ -57,15 +71,22 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
     for m in model.modules():
         if isinstance(m, Conv2d):
-            if m.bias is not None:  # the heads' 1x1 prediction convs
+            if m.bias is not None and m.init == "auto":
+                # the heads' 1x1 prediction convs
                 nn.init.normal_(m.weight, std=0.001, generator=g)
-                m.bias.zero_()
             else:
                 fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
                 nn.init.normal_(m.weight, std=(2.0 / fan_out) ** 0.5,
                                 generator=g)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, ConvTranspose2d):
+            nn.init.normal_(m.weight, std=0.001, generator=g)
         elif isinstance(m, Linear):
-            trunc_normal(m.weight, 0.02)
+            # flax's lecun_normal: a truncated normal of variance 1 / fan-in
+            # (its std rescaled by the truncation's 0.8796)
+            trunc_normal(m.weight, 0.02 if m.init == "trunc_normal" else
+                         (1.0 / m.in_features) ** 0.5 / 0.87962566103423978)
             m.bias.zero_()
         elif isinstance(m, (BatchNorm, GroupNorm, nn.LayerNorm)):
             m.weight.fill_(1.0)
@@ -77,6 +98,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, FusionHead):
             m.fusion_weight.fill_(0.5)
             m.subpixel_refine.alpha.fill_(0.5)
+        elif isinstance(m, TransformerNeck):
+            nn.init.normal_(m.pos_embed, std=0.02, generator=g)
     return model
 
 
@@ -99,9 +122,14 @@ _HEAD_CONVNORMS = {
     "hm_conv": ("heatmap_branch.0", "heatmap_branch.1"),
     "off_conv": ("offset_branch.0", "offset_branch.1"),
     "var_conv": ("variance_branch.0", "variance_branch.1"),
+    "reg_conv": ("reg_conv.0", "reg_conv.1"),
+    "refine_conv": ("refine_conv.0", "refine_conv.1"),
 }
 _HEAD_FINALS = {"hm_final": "heatmap_branch.3", "off_final": "offset_branch.3",
-                "var_final": "variance_branch.3", "final": "final_layer"}
+                "var_final": "variance_branch.3", "final": "final_layer",
+                "hm": "hm", "refine_final": "refine_final",
+                "kpt_conv": "kpt_conv"}
+_HEAD_DENSE = ("reg_fc", "fc_x", "fc_y")
 
 
 def _convnorm_names(path: Tuple[str, ...]) -> Tuple[str, str]:
@@ -142,6 +170,36 @@ def _convnorm_names(path: Tuple[str, ...]) -> Tuple[str, str]:
     raise KeyError(f"no reference name for ConvNorm {p!r}")
 
 
+def _dw_block_name(path: Tuple[str, ...]) -> str:
+    """flax LiteHRNet DWSeparableBlock path -> the port's module name."""
+    p = "/".join(path)
+    if p == "layer1":
+        return p
+    m = re.fullmatch(r"stage(\d)_module(\d+)/branch(\d)_block(\d+)", p)
+    if m:
+        s, mod, br, blk = m.groups()
+        return f"stage{s}.{mod}.branches.{br}.{blk}"
+    m = re.fullmatch(r"stage(\d)_module(\d+)/fuse(\d)_(\d)_(\d)", p)
+    if m:
+        s, mod, i, j, k = m.groups()
+        return f"stage{s}.{mod}.fuse_layers.{i}.{j}.{k}"
+    raise KeyError(f"no port name for the DWSeparableBlock {p!r}")
+
+
+def _norm_name(path: Tuple[str, ...]) -> str:
+    """flax Norm module path (``.../norm``, a DWSeparableBlock's
+    ``dw_norm``/``pw_norm``, a head's ``deconv{i}_norm``) -> the port's
+    norm module name."""
+    *owner, last = path
+    if last == "norm":  # a ConvNorm's
+        return _convnorm_names(tuple(owner))[1]
+    if last in ("dw_norm", "pw_norm"):
+        return f"{_dw_block_name(tuple(owner))}.{last}"
+    if not owner and re.fullmatch(r"deconv\d+_norm", last):
+        return last
+    raise KeyError(f"no port name for the norm {'/'.join(path)!r}")
+
+
 _BLOCK_LEAVES = {
     ("norm1", "scale"): "norm1.weight", ("norm1", "bias"): "norm1.bias",
     ("norm2", "scale"): "norm2.weight", ("norm2", "bias"): "norm2.bias",
@@ -161,6 +219,13 @@ def _param_entry(part: str, path: Tuple[str, ...], value: np.ndarray
         if path[1] == "kernel":
             return f"{name}.weight", value.transpose(3, 2, 0, 1)
         return f"{name}.bias", value
+    if part == "head" and path[0] in _HEAD_DENSE:
+        return f"{path[0]}.{'weight' if path[1] == 'kernel' else 'bias'}", (
+            value.T if path[1] == "kernel" else value)
+    if (part == "head" and re.fullmatch(r"deconv\d+", path[0])
+            and path[1:] == ("kernel",)):
+        return f"{path[0]}.weight", np.ascontiguousarray(
+            value[::-1, ::-1].transpose(2, 3, 0, 1))
     # ConvNorm leaves: (..., conv, kernel) and (..., norm, bn|gn,
     # scale|bias)
     if path[-2:] == ("conv", "kernel"):
@@ -169,9 +234,14 @@ def _param_entry(part: str, path: Tuple[str, ...], value: np.ndarray
     if path[-2:] == ("conv", "bias"):  # a folded ConvNorm (models/fold.py)
         conv, _ = _convnorm_names(path[:-2])
         return f"{conv}.bias", value
-    if path[-3:-1] in (("norm", "bn"), ("norm", "gn")):
-        _, bn = _convnorm_names(path[:-3])
-        return f"{bn}.{'weight' if path[-1] == 'scale' else 'bias'}", value
+    if len(path) >= 3 and path[-2] in ("bn", "gn"):
+        return (f"{_norm_name(path[:-2])}."
+                f"{'weight' if path[-1] == 'scale' else 'bias'}", value)
+    # LiteHRNet's depthwise-separable blocks: before the HRFormer rule
+    # below, whose block paths theirs share
+    if path[-2:] in (("dw", "kernel"), ("pw", "kernel")):
+        return (f"{_dw_block_name(path[:-2])}.{path[-2]}.weight",
+                value.transpose(3, 2, 0, 1))
     # HRFormer block leaves: norm1/2, attn.qkv/proj, the RPE table, mlp.fc1/2
     m = re.fullmatch(r"stage(\d)_module(\d+)", path[0])
     b = re.fullmatch(r"branch(\d)_block(\d+)", path[1]) if m else None
@@ -207,15 +277,40 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
                 sd[f"{part}.{idx}relative_position_index"] = torch.from_numpy(
                     relative_position_index(ws).astype(np.int64))
         for path, value in _flatten(batch_stats.get(part, {})).items():
-            if path[-3:-1] != ("norm", "bn"):
+            if len(path) < 3 or path[-2] != "bn":
                 raise KeyError(f"unexpected batch stat {part}/{'/'.join(path)}")
-            _, bn = _convnorm_names(path[:-3])
+            bn = _norm_name(path[:-2])
             if f"{part}.{bn}.weight" not in sd:  # folded into its conv
                 continue
             stat = {"mean": "running_mean", "var": "running_var"}[path[-1]]
             sd[f"{part}.{bn}.{stat}"] = torch.tensor(value,
                                                      dtype=torch.float32)
             sd[f"{part}.{bn}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def attention_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``params`` of a JAX CBAM or TransformerNeck (models/attention.py,
+    numpy) -> the state dict of the port's module of the same arguments."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params).items():
+        leaf = path[-1]
+        name = ".".join(path[:-1])
+        if path == ("pos_embed",):
+            name, arr = "pos_embed", value
+        elif path[-2:] == ("conv", "kernel"):  # SpatialAttention's
+            name, arr = f"{name}.weight", value.transpose(3, 2, 0, 1)
+        elif re.fullmatch(r"ln[12]_\d+", path[0]):
+            name, arr = f"{name}.{'weight' if leaf == 'scale' else 'bias'}", value
+        elif leaf == "kernel":
+            # a Dense (I, O); an attention projection: query/key/value
+            # (C, heads, hd), out (heads, hd, C)
+            arr = (value.reshape(-1, value.shape[-1]) if path[-2] == "out"
+                   else value.reshape(value.shape[0], -1)).T
+            name = f"{name}.weight"
+        else:  # a bias: (heads, hd) of an attention projection, flattened
+            name, arr = f"{name}.bias", value.reshape(-1)
+        sd[name] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
     return sd
 
 

@@ -266,7 +266,7 @@ def test_serving_surfaces_run_without_jax(tmp_path):
         from infantposeestimation_gaussianbias_tpu_torch.ops import (
             photometric)
         from infantposeestimation_gaussianbias_tpu_torch.tools import (
-            analyze_dataset, convert_to_coco, pipeline_proof,
+            analyze_dataset, convert_to_coco, overfit_check, pipeline_proof,
             probe_native_loader)
         from infantposeestimation_gaussianbias_tpu_torch.train import (
             checkpoint, logging, loop, optim, state)

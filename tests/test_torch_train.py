@@ -193,26 +193,44 @@ def test_keypoint_mse_loss_matches_jax(use_weight):
 
 
 def test_loss_fn_heads_match_jax():
-    """make_loss_fn's heatmap head is the JAX step's weighted MSE; the heads
-    the port has no loss for yet raise."""
+    """make_loss_fn of every head with a loss of its own against the JAX
+    step's: the heatmap head's weighted MSE, the fused head's combined
+    Stack-B loss (keypoints normalised by the input size; its terms
+    renamed as the JAX step does) and the SimCC head's loss (sigma
+    ``data.sigma`` x the split ratio), every term."""
     hm, _, var = _peaked_maps(7)
-    kpts, vis = _keypoints(8, 2, 17, 48, 64)
+    kpts, _ = _keypoints(8, 2, 17, 192, 256)
     wt = np.random.RandomState(9).choice([0.0, 2.0], (2, 17)).astype(
         np.float32)
-    cfg = config.get_variant("hrnet_w32")
-    assert cfg.model.head_type == "heatmap"
-    loss, terms = make_loss_fn(cfg)({"heatmaps": _t(hm)}, {"keypoints":
-                                    _t(kpts)}, _t(var), _t(wt))
-    jcfg = get_variant("hrnet_w32")
-    jloss, _ = jstep.make_loss_fn(jcfg, jcfg.data.keypoint_schema)(
-        {"heatmaps": jnp.asarray(hm)}, {"keypoints": jnp.asarray(kpts)},
-        jnp.asarray(var), jnp.asarray(wt))
-    np.testing.assert_allclose(loss.item(), float(jloss), rtol=LOSS_RTOL)
-    assert set(terms) == {"total_loss", "heatmap_loss"}
-    for head in ("fused", "simcc"):
-        cfg.model.head_type = head
-        with pytest.raises(NotImplementedError):
-            make_loss_fn(cfg)
+    rng = np.random.RandomState(10)
+    outputs = {
+        "heatmap": {"heatmaps": hm},
+        # non-negative maps: the morphology term normalises each by its sum
+        "fused": {"heatmaps": np.abs(hm), "coords": rng.rand(2, 17, 2),
+                  "refined_coords": rng.rand(2, 17, 2)},
+        "simcc": {"simcc_x": rng.randn(2, 17, 384) * 2,
+                  "simcc_y": rng.randn(2, 17, 512) * 2}}
+    want_terms = {"heatmap": {"heatmap_loss"},
+                  "fused": {"heatmap", "morph", "regression", "refined"},
+                  "simcc": {"simcc_loss"}}
+    assert config.get_variant("hrnet_w32").model.head_type == "heatmap"
+    for head, out in outputs.items():
+        out = {k: v.astype(np.float32) for k, v in out.items()}
+        cfg = config.get_variant("hrnet_w32")
+        jcfg = get_variant("hrnet_w32")
+        cfg.model.head_type = jcfg.model.head_type = head
+        loss, terms = make_loss_fn(cfg)(
+            {k: _t(v) for k, v in out.items()}, {"keypoints": _t(kpts)},
+            _t(var), _t(wt))
+        jloss, jterms = jstep.make_loss_fn(jcfg, jcfg.data.keypoint_schema)(
+            {k: jnp.asarray(v) for k, v in out.items()},
+            {"keypoints": jnp.asarray(kpts)}, jnp.asarray(var),
+            jnp.asarray(wt))
+        assert set(terms) == set(jterms) == want_terms[head] | {"total_loss"}
+        np.testing.assert_allclose(loss.item(), float(jloss), rtol=LOSS_RTOL)
+        for k in jterms:
+            np.testing.assert_allclose(terms[k].item(), float(jterms[k]),
+                                       rtol=LOSS_RTOL, err_msg=f"{head} {k}")
 
 
 # -- train-mode BatchNorm and DropPath ----------------------------------------
