@@ -142,7 +142,14 @@ Phases, in order; any failure exits non-zero:
      steps of phases 6 and 9 (step ms, device ms,
      peak memory) and one fused (IPE_FUSED_BLOCK=1) and one unfused served
      bf16 batch of 32 with flip (batch ms, device ms, K4 and K1
-     launches), the parent's against
+     launches), K9 at every distinct int8 conv call of a served hrnet_w32
+     + fusion forward and K10 at every wide Dense call of hrformer_base's
+     (b = 64, bf16; event ms, their sums and the worst shape logged; the
+     host µs of a call at the record shapes), one served int8 bf16 batch
+     of 32 with flip of hrnet_w32 + heatmap and of hrformer_base beside
+     the folded one (batch ms, crops/s, device ms and its split by kernel,
+     kernels, K9 and K10 launches), the
+     parent's against
      this checkout's, each in a fresh
      subprocess that imports its checkout's package and builds its
      kernels, in turns: parent, change, change, parent (``[parent]``
@@ -152,7 +159,8 @@ Phases, in order; any failure exits non-zero:
      the probe's default shape) as ``parent_ms`` and this checkout's,
      timed the same way, as ``fresh_ms``, the K5 records the same at b3
      bf16 b = 32, its worst branch (``parent_shape``; all null without
-     ``--parent``); and the outputs of K1, K1-hm, K2 and K4 at
+     ``--parent``), K9 and K10 at their record shapes and over all their
+     shapes (``sum_parent_ms``, ``sum_fresh_ms``); and the outputs of K1, K1-hm, K2 and K4 at
      hrformer_base b0 (b = 32, float32 and bf16) must hash the same in
      the parent and this checkout (``[parent] bits`` lines).
  21. BN-fold serving: hrnet_w32 + heatmap (Config(), BatchNorm
@@ -204,15 +212,26 @@ Phases, in order; any failure exits non-zero:
      of 2 steps, every crop moved by the jitter; the pipeline proof
      (tools/pipeline_proof.py) on the card, AP held to PROOF_AP_MIN.
  27. int8 PTQ serving (K9, the int8 conv, and K10, the int8 Dense, of
-     csrc/qgemm.cu): hrnet_w32 with the heatmap and the fusion head
+     csrc/qgemm.cu and csrc/qdense.cu): hrnet_w32 with the heatmap and the
+     fusion head
      (BatchNorm calibrated as in phase 12) and hrformer_base + fusion
      (BatchNorm perturbed), each quantized by PoseInference(quantize=True)
      on 32 calibration crops.  K9 at every distinct int8 conv call of a
      served hrnet_w32 + fusion forward at b = 64 (32 crops with flip) and
      K10 at every wide Dense call of hrformer_base's, each equal to its
      plain version bit for bit, with kernel, plain and library ms (cuDNN
-     bf16 conv; torch._int_mm on operands padded to multiples of 8 and a
-     bf16 matmul) and the bound (int8 tensor cores or bytes); served int8
+     bf16 conv, and at K9's 1x1 stride-1 shapes padded torch._int_mm,
+     which computes the same int32 product; for K10 torch._int_mm on
+     operands padded to multiples of 8 and a bf16 matmul) and the bound
+     (int8 tensor cores or bytes); at K9_SPLIT_SHAPES and
+     K10_SPLIT_SHAPES ``[k9-split]`` and ``[k10-split]`` lines: the device
+     ms of a launch of the serving kernel and of its variants with
+     staging, the products or the epilogue alone compiled in
+     (quant._qconv_ablate, quant._qdense_ablate), each from a profile
+     that kept one record for every call, and the host microseconds of
+     one wrapper call; K9 and K10 launched from INT8_THREADS host threads
+     at once (two on the default stream, the others on streams of their
+     own), every output equal to its plain version; served int8
      batches of 32 frames with flip and of 1, exactly 2 x the model's
      QConvNorms K9 launches (610 heatmap, 620 fusion), 2 x its QDense K10
      launches (268) and 88 K1 (hrformer) a batch; float32 int8 against
@@ -237,7 +256,9 @@ Phases, in order; any failure exits non-zero:
      hrnet_w32's stride-4 features at b = 32, float32 card against CPU;
      the pipeline proof at its litehrnet default (AP held to
      PROOF_AP_MIN) and the overfit check (OVERFIT_STEPS steps).
-Phases 21-28 run after 19 and before 20.
+Phases 21-28 run after 19 and before 20.  ``--phases N,N,...`` runs the
+chosen phases alone (and what they need: 5 and 8 need 4, 23 needs 22, 26
+needs 6 and 9; 0 and 1 always run); the default is every phase.
 The ranks import no JAX (each asserts it).
 Every phase's seconds and the whole run's are printed.  Each fused phase
 sets IPE_FUSED_BLOCK itself and restores it after.  The
@@ -255,6 +276,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -473,6 +495,23 @@ def cuda_median_ms(fn, warmup: int = 3, runs: int = 25) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, calls: int = 10, runs: int = 7) -> float:
+    """Device ms of one call of ``fn`` without the host: ``calls`` calls
+    captured in one CUDA graph (after one call outside it: a kernel's
+    first launch loads it and opts it in to its shared memory), the
+    median of ``runs`` replays timed by CUDA events, divided by
+    ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_median_ms(graph.replay, warmup=1, runs=runs) / calls
+    del graph
+    return ms
+
+
 def _kernel_name(name: str) -> str:
     """A profiler's kernel name without return type, namespace and
     arguments: ``atb_kernel``, ``core_kernel<bf16>``,
@@ -486,8 +525,10 @@ def launch_split(fn, runs: int = 7) -> list:
     """Device time of each kernel (and copy) name that one call of ``fn``
     launches, in order of first launch: [(name, launches per call, ms per
     call)], the totals of ``runs`` calls under one torch.profiler divided
-    by ``runs``.  A record the profiler drops lowers a total a little; it
-    fails nothing (this is a measurement, not a check)."""
+    by ``runs``.  Records the profiler drops lower a total and show as
+    fewer launches per call than ``fn`` makes; it fails nothing (this is
+    a measurement, not a check), and a caller that needs a whole reading
+    checks the launches (``one_launch_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -517,6 +558,25 @@ def log_split(tag: str, label: str, fn) -> list:
         + (" | ".join(f"{name} x{n:g} {ms:.4f}" for name, n, ms in split)
            or "no device records"))
     return split
+
+
+def one_launch_ms(tag: str, label: str, fn, runs: int = 7,
+                  tries: int = 3) -> Optional[float]:
+    """Device ms of the one kernel launch that a call of ``fn`` makes, from
+    ``launch_split``: counted only when the profile kept one record of it
+    for each of the ``runs`` calls; after ``tries`` profiles that did not,
+    None (not measured), never 0.  Logs each profile, and each one that
+    kept fewer records, as ``[tag] label``."""
+    for _ in range(tries):
+        split = launch_split(fn, runs)
+        if len(split) == 1 and split[0][1] == 1:
+            return split[0][2]
+        log(f"[{tag}] {label}: the profile kept "
+            f"{[(name, round(n * runs)) for name, n, _ in split]} records "
+            f"of {runs} calls; again")
+    log(f"[{tag}] {label}: not measured ({tries} profiles without one "
+        f"record a call)")
+    return None
 
 
 def flop_rate(dtype: torch.dtype) -> float:
@@ -611,10 +671,27 @@ def _mangled_kernel(line: str) -> str:
     if tc:  # K7's bf16 conv: its slab width, its weights whole or a ring
         name += (f" <TCO {tc.group(1)}, "
                  f"{'whole slab' if tc.group(2) == '1' else 'ring'}>")
+    qc = re.search(r"qconv_kernelILi(\d+)ELi(\d)ELb([01])ELi(\d)ELi(\d)E",
+                   line)
+    if qc:  # K9: its N tile, warpgroups, staging route, ring, phases
+        name += (f" <BN {qc.group(1)}, {qc.group(2)} warpgroup(s), "
+                 f"{'bytes' if qc.group(3) == '1' else '16-byte copies'}, "
+                 f"{qc.group(4)}-slice ring{_qgemm_phases(qc.group(5))}>")
+    qd = re.search(r"qdense_kernelILi([01])ELi(\d)ELi(\d)E", line)
+    if qd:  # K10: its rows' type, warpgroups of products, phases
+        name += (f" <{'bf16' if qd.group(1) == '1' else 'float32'} rows, "
+                 f"{qd.group(2)} warpgroup(s){_qgemm_phases(qd.group(3))}>")
     targ = re.search(r"_kernelI(f|13__nv_bfloat16)", line)
     if targ:  # a template's element type
         name += " (float)" if targ.group(1) == "f" else " (bf16)"
     return name
+
+
+def _qgemm_phases(phases: str) -> str:
+    """K9's or K10's compiled phases as a name's suffix: nothing for the
+    serving kernel (7), else the one phase of a measurement variant."""
+    return {"7": "", "1": ", staging only", "2": ", products only",
+            "4": ", epilogue only"}[phases]
 
 
 def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
@@ -3970,9 +4047,49 @@ def _qdense_key(x, w, *args):
             str(x.dtype))
 
 
+def k9_shape(args, kw) -> str:
+    """Phase 27's and phase 20's name of a K9 call: batch x map, channels,
+    kernel, stride, the epilogue's options."""
+    x, w = args[0], args[2]
+    B, H, W, C = x.shape
+    Co, k = w.shape[0], w.shape[1]
+    stride = args[5] if len(args) > 5 else kw.get("stride", 1)
+    res = kw.get("residual")
+    return (f"{B}x{H}x{W} {C}->{Co} {k}x{k} s{stride}"
+            f"{' relu' if kw.get('relu') else ''}"
+            f"{' int8-out' if kw.get('out_scale') is not None else ''}"
+            f"{'' if res is None else ' +' + str(res.dtype)[6:]}")
+
+
+def k10_shape(args, kw) -> str:
+    x, w = args[0], args[1]
+    return f"M{x.numel() // w.shape[1]} {w.shape[1]}->{w.shape[0]} {str(x.dtype)[6:]}"
+
+
+def int_mm_ms(a: torch.Tensor, b: torch.Tensor, tag: str):
+    """Median ms of ``torch._int_mm`` of int8 a (M, K) and b (N, K)^T on
+    operands padded to multiples of 8 (M to at least 17), as a yardstick:
+    it computes the same int32 product without the epilogue; None (logged)
+    where this torch refuses it."""
+    pad = lambda n: -(-n // 8) * 8  # noqa: E731
+    (M, K), N = a.shape, b.shape[0]
+    aq = torch.zeros(max(M, 17), pad(K), dtype=torch.int8, device=a.device)
+    bq = torch.zeros(pad(N), pad(K), dtype=torch.int8, device=a.device)
+    aq[:M, :K] = a
+    bq[:N, :K] = b
+    try:
+        return cuda_median_ms(lambda: torch._int_mm(aq, bq.t()))
+    except RuntimeError as e:  # a yardstick only: log why it is missing
+        log(f"[{tag}] torch._int_mm at {tuple(aq.shape)} x "
+            f"{tuple(bq.t().shape)} refused: {str(e).splitlines()[0]}")
+        return None
+
+
 def k9_record(args, kw, smi: str) -> dict:
     """K9 against its plain version (bit for bit), its ms, the plain
-    version's, cuDNN bf16's at the same conv shape, and the bound."""
+    version's, cuDNN bf16's at the same conv shape and, at 1x1 stride-1
+    shapes, padded ``torch._int_mm``'s (the same int32 product), and the
+    bound."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
 
     x, w = args[0], args[2]
@@ -3994,17 +4111,18 @@ def k9_record(args, kw, smi: str) -> dict:
         memory_format=torch.channels_last)
     lib = cuda_median_ms(lambda: F.conv2d(xb, wb, stride=stride,
                                           padding=k // 2))
-    return dict(shape=f"{B}x{H}x{W} {C}->{Co} {k}x{k} s{stride}"
-                f"{' relu' if kw.get('relu') else ''}"
-                f"{' int8-out' if kw.get('out_scale') is not None else ''}"
-                f"{'' if res is None else ' +' + str(res.dtype)[6:]}",
+    int_mm = (int_mm_ms(x.reshape(-1, C), w.reshape(Co, C), "k9")
+              if k == 1 and stride == 1 else None)
+    return dict(shape=k9_shape(args, kw),
                 max_abs_err=err, ms=cuda_median_ms(lambda: qk.qconv(*args,
                                                                     **kw)),
                 plain_ms=cuda_median_ms(lambda: qk.qconv_reference(*args,
                                                                    **kw),
                                         warmup=1, runs=5),
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                library="cuDNN bf16 conv (F.conv2d), channels_last")
+                library_int_mm_ms=int_mm,
+                library="cuDNN bf16 conv (F.conv2d), channels_last; at 1x1 "
+                        "stride 1 also torch._int_mm, padded")
 
 
 def k10_record(args, kw) -> dict:
@@ -4024,27 +4142,99 @@ def k10_record(args, kw) -> dict:
     nbytes = (x.numel() * x.element_size() + w.numel() + 8 * N
               + got.numel() * got.element_size())
     b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OP_PER_S)
-    pad = lambda n: -(-n // 8) * 8  # noqa: E731
-    xq = torch.zeros(max(M, 17), pad(K), dtype=torch.int8, device=x.device)
-    wq = torch.zeros(pad(N), pad(K), dtype=torch.int8, device=x.device)
-    xq[:M, :K] = torch.randint(-127, 128, (M, K), dtype=torch.int8,
-                               device=x.device)
-    wq[:N, :K] = w
-    try:
-        int_mm = cuda_median_ms(lambda: torch._int_mm(xq, wq.t()))
-    except RuntimeError as e:  # a yardstick only: log why it is missing
-        log(f"[k10] torch._int_mm at {tuple(xq.shape)} x {tuple(wq.t().shape)} "
-            f"refused: {str(e).splitlines()[0]}")
-        int_mm = None
+    g = torch.Generator(device=x.device).manual_seed(M + K + N)
+    int_mm = int_mm_ms(torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                                     device=x.device, generator=g), w, "k10")
     xb = x.reshape(M, K).to(torch.bfloat16)
     wb = w.to(torch.bfloat16).t()
-    return dict(shape=f"M{M} {K}->{N} {str(x.dtype)[6:]}", max_abs_err=err,
+    return dict(shape=k10_shape(args, kw), max_abs_err=err,
                 ms=cuda_median_ms(lambda: qk.qdense(*args, **kw)),
                 plain_ms=cuda_median_ms(lambda: qk.qdense_reference(
                     *args, **kw), warmup=1, runs=5),
                 bound_ms=b_ms, bound_by=b_by, library_ms=int_mm,
                 library_bf16_ms=cuda_median_ms(lambda: torch.matmul(xb, wb)),
                 library="torch._int_mm, operands padded to multiples of 8")
+
+
+# The shapes of phase 27's [k9-split] and [k10-split] lines: the record
+# shapes of K9 (a 32-channel branch conv, int8 out), its widest 3x3 (256
+# channels, the tensor cores' bound), a 1x1 with float32 output (bytes),
+# the 8x6 3x3 (split over the depth); of K10 the record shape and the
+# two Dense layers of the widest branch (N split over blocks).
+K9_SPLIT_SHAPES = ("64x64x48 32->32 3x3 s1 relu int8-out",
+                   "64x64x48 256->256 3x3 s1 relu int8-out",
+                   "64x64x48 64->256 1x1 s1",
+                   "64x8x6 256->256 3x3 s1 relu int8-out +int8")
+K10_SPLIT_SHAPES = ("M62720 156->468 bfloat16", "M3072 624->2496 bfloat16",
+                    "M3072 2496->624 bfloat16")
+# The serving kernel (None) and its variants with one phase compiled in
+# (kernels/quant.py ABLATED_PHASES): where a launch's time goes (a
+# variant's output is meaningless)
+QGEMM_PHASES = (("full", None), ("staging only", 1), ("products only", 2),
+                ("epilogue only", 4))
+
+
+def host_us(fn, n: int = 100) -> float:
+    """Host microseconds of one call of a kernel wrapper: n calls queued
+    without a synchronize (fewer than the launch queue holds), timed on
+    the host clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def qgemm_split(kind: str, label: str, call) -> dict:
+    """``[k9-split]`` / ``[k10-split]`` lines of one wrapper call,
+    ``call(phase)``: the device ms of one launch of the serving kernel
+    (``phase`` None) and of its variants with staging, the products or the
+    epilogue alone (1, 2, 4), and the host microseconds of one call of the
+    serving wrapper.  A reading counts only when the profile kept one
+    record of the one kernel for every call; after three profiles that
+    did not, the figure is None (not measured), never 0."""
+    out = {}
+    for name, phase in QGEMM_PHASES:
+        out[name] = one_launch_ms(f"{kind}-split", f"{label} {name}",
+                                  lambda: call(phase))
+        log(f"[{kind}-split] {label} {name}: "
+            + ("not measured" if out[name] is None
+               else f"{out[name]:.4f} ms device a launch"))
+    out["host_us"] = host_us(lambda: call(None))
+    log(f"[{kind}-split] {label}: host {out['host_us']:.1f} us a call")
+    return out
+
+
+def int8_sass() -> dict:
+    """``[k9-sass]`` lines: the number of integer warpgroup products
+    (IGMMA) in each of K9's and K10's compiled kernels, from ``cuobjdump
+    --dump-sass`` of the built library; every kernel compiled with the
+    products (the serving kernels and the products-only variants) must
+    have some.  Returns those kernels' counts."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(build.library_path())],
+                          check=True, capture_output=True, text=True,
+                          timeout=600).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            if "qconv_kernel" in fn or "qdense_kernel" in fn:
+                counts[fn] = 0
+        elif fn in counts and "IGMMA" in line:
+            counts[fn] += 1
+    for fn, n in counts.items():
+        log(f"[k9-sass] {_mangled_kernel(repr(fn))}: {n} IGMMA")
+    products = {fn: n for fn, n in counts.items()
+                if re.search(r"_kernelI(?:L[ib]\d+E)+Li[72]EE", fn)}
+    assert products and all(products.values()), counts
+    return products
 
 
 def phase_int8_kernels(smi: str, models) -> dict:
@@ -4056,7 +4246,7 @@ def phase_int8_kernels(smi: str, models) -> dict:
     from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
 
     frames, bboxes = make_requests(SERVE_BATCH, seed=27)
-    out = {}
+    out = {"sass_igmma": int8_sass()}
     for label, kind, fn, key_fn, record in (
             ("hrnet_w32 fusion", "k9", "qconv", _qconv_key,
              lambda a, k: k9_record(a, k, smi)),
@@ -4079,7 +4269,18 @@ def phase_int8_kernels(smi: str, models) -> dict:
                 f"{r['plain_ms']:.4f}, library {r['library_ms']}"
                 + (f", bf16 matmul {r['library_bf16_ms']:.4f}"
                    if 'library_bf16_ms' in r else "")
+                + (f", torch._int_mm {r['library_int_mm_ms']:.4f}"
+                   if r.get('library_int_mm_ms') is not None else "")
                 + f"; bound {r['bound_ms']:.4f} ({r['bound_by']}); on {smi}")
+        shape_of = k9_shape if kind == "k9" else k10_shape
+        for args, kw in calls.values():
+            name = shape_of(args, kw)
+            if name in (K9_SPLIT_SHAPES if kind == "k9" else K10_SPLIT_SHAPES):
+                with torch.inference_mode():
+                    split = qgemm_split(kind, name, lambda phase: (
+                        getattr(qk, fn)(*args, **kw) if phase is None else
+                        getattr(qk, f"_{fn}_ablate")(phase, *args, **kw)))
+                next(r for r in rows if r["shape"] == name)["split"] = split
         out[kind] = rows
         del inf
     return out
@@ -4340,12 +4541,13 @@ def phase_int8_clis(smi: str, models) -> dict:
                 proc.kill()
                 proc.wait()
         codes = [r[0] for r in results]
+        failed = [r[:2] for r in results if r[0] != 200]
         log(f"[int8-serve] cli.serve --int8 --calibration-dir (16 JPEGs), "
             f"up in {start_s:.1f} s: {' | '.join(lines[:2])}; 32 requests "
             f"from 8 threads: {32 / wall:.1f} requests/s, p50 "
             f"{np.percentile(lat, 50) * 1e3:.1f} ms, codes {set(codes)}; "
             f"/healthz {health}; on {smi}")
-        assert all(c == 200 for c in codes), codes
+        assert all(c == 200 for c in codes), (codes, failed[:3])
         assert health["precision"] == "int8-ptq" and not health["fold"], health
         assert any(line.startswith("calibrating int8 PTQ on 16 crops")
                    for line in lines), lines
@@ -4378,14 +4580,102 @@ def phase_int8_clis(smi: str, models) -> dict:
     return out
 
 
+# Phase 27's host threads (int8_threads): threads launching K9 and K10 at
+# once, as the server's dispatch threads do, and the rounds each makes.
+INT8_THREADS = 4
+INT8_THREAD_ROUNDS = 40
+
+
+def int8_threads(smi: str) -> dict:
+    """K9 and K10 launched from INT8_THREADS host threads at once: threads
+    0 and 1 on the default stream (as the server's dispatch threads), the
+    others each on a stream of its own.  Each round launches one K9
+    kernel (the 8x6 256->256 3x3 conv, its depth split over blocks)
+    without a residual and with an int8 and a float32 one (three shared
+    memory sizes), and one K10 kernel at K = 624 and 2,496 (two sizes),
+    then holds every output to its plain version under torch.equal."""
+    import threading
+
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    dev = "cuda"
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                             generator=g)
+
+    def pos(*shape):
+        return torch.rand(shape, device=dev, generator=g) * 1e-3 + 1e-3
+
+    x, w = i8(64, 8, 6, 256), i8(256, 3, 3, 256)
+    conv = (x, torch.tensor(0.02, device=dev), w, pos(256),
+            torch.randn(256, device=dev, generator=g))
+    conv_kw = dict(relu=True, out_scale=torch.tensor(0.7, device=dev))
+    res8 = dict(conv_kw, residual=i8(64, 8, 6, 256),
+                res_scale=torch.tensor(0.03, device=dev))
+    res32 = dict(conv_kw, residual=torch.randn(64, 8, 6, 256, device=dev,
+                                               generator=g))
+    cases = {"k9": ("qconv", conv, conv_kw), "k9 +int8": ("qconv", conv, res8),
+             "k9 +float32": ("qconv", conv, res32)}
+    for K, N in ((624, 2496), (2496, 624)):
+        rows = torch.randn(3072, K, device=dev, generator=g) * 2
+        dense = (rows.to(torch.bfloat16), i8(N, K), pos(N),
+                 torch.randn(N, device=dev, generator=g),
+                 torch.tensor(0.03, device=dev))
+        cases[f"k10 {K}->{N}"] = ("qdense", dense,
+                                  dict(out_dtype=torch.bfloat16))
+    want = {name: getattr(qk, f"{fn}_reference")(*a, **kw)
+            for name, (fn, a, kw) in cases.items()}
+    torch.cuda.synchronize()
+    start, errors, unequal = threading.Barrier(INT8_THREADS), [], []
+
+    def work(t: int) -> None:
+        try:
+            stream = (torch.cuda.default_stream() if t < 2
+                      else torch.cuda.Stream())
+            stream.wait_stream(torch.cuda.default_stream())
+            start.wait()
+            with torch.cuda.stream(stream), torch.inference_mode():
+                for _ in range(INT8_THREAD_ROUNDS):
+                    got = {name: getattr(qk, fn)(*a, **kw)
+                           for name, (fn, a, kw) in cases.items()}
+                    unequal.extend((t, name) for name, out in got.items()
+                                   if not torch.equal(out, want[name]))
+        except Exception as e:  # re-raised below, with the thread's number
+            errors.append((t, repr(e)))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=work, args=(t,))
+               for t in range(INT8_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    assert not errors, errors
+    assert not unequal, unequal[:8]
+    n = INT8_THREADS * INT8_THREAD_ROUNDS * len(cases)
+    log(f"[int8-threads] {INT8_THREADS} host threads (2 on the default "
+        f"stream, {INT8_THREADS - 2} on streams of their own) x "
+        f"{INT8_THREAD_ROUNDS} rounds of {', '.join(cases)}: {n} launches, "
+        f"each equal to its plain version bit for bit, in {seconds:.1f} s; "
+        f"on {smi}")
+    return dict(threads=INT8_THREADS, rounds=INT8_THREAD_ROUNDS, launches=n,
+                seconds=seconds)
+
+
 def phase_int8(smi: str) -> dict:
-    """Phase 27: K9 and K10 at every shape of the int8 path, the int8
-    served batches and the three int8 CLIs."""
+    """Phase 27: K9 and K10 at every shape of the int8 path, launched from
+    several host threads at once, the int8 served batches and the three
+    int8 CLIs."""
     models = int8_models()
     kernels = phase_int8_kernels(smi, models)
+    threads = int8_threads(smi)
     serving = phase_int8_serving(smi, models)
     clis = phase_int8_clis(smi, models)
-    return dict(kernels=kernels, serving=serving, clis=clis)
+    return dict(kernels=kernels, threads=threads, serving=serving, clis=clis)
 
 
 # -- phase 28: LiteHRNet, the fused and SimCC heads, the add-ons, the tools --
@@ -4684,8 +4974,10 @@ def bwd_times(smi: str) -> dict:
     and 32, and K1 on the head range of K3's rank 0 (b = 32, half the
     windows and heads) at hrformer_base's branches (float32 and bf16); the
     bf16 b = 32 steps of phases 6 (unfused) and 9 (fused): step ms, device
-    ms, peak memory; and one fused and one unfused served bf16 batch
-    (``serve_times``).  Runs whichever package ``sys.path``
+    ms, peak memory; one fused and one unfused served bf16 batch
+    (``serve_times``); K9 and K10 at every shape of the int8 path and the
+    int8 served batches beside the folded ones (``int8_times``).  Runs
+    whichever package ``sys.path``
     finds first, so that a parent commit's checkout can be timed by the
     same code."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
@@ -4776,7 +5068,84 @@ def bwd_times(smi: str) -> dict:
         torch.cuda.empty_cache()
     steps["serve_fused"] = serve_times(smi, "1")
     steps["serve_unfused"] = serve_times(smi, "0")
+    int8_kernels, int8_steps = int8_times(smi)
+    kernels.update(int8_kernels)
+    steps.update(int8_steps)
     return dict(kernels=kernels, steps=steps, digests=kernel_digests())
+
+
+def int8_times(smi: str) -> tuple:
+    """Phase 20's int8 keys: K9 at every distinct int8 conv call of a
+    served hrnet_w32 + fusion forward at b = 64 (32 crops with flip) and
+    K10 at every wide Dense call of hrformer_base's (bf16), each call's
+    arguments captured from the calibrated int8 model (median event ms,
+    ``k9``/``k10`` keys; the ms of one call replayed in a CUDA graph,
+    ``k9graph``/``k10graph``, the device's time without the host's; at the
+    record shapes the host µs of one wrapper call, ``k9host``/``k10host``);
+    and one served bf16 int8 batch of 32 frames with flip of hrnet_w32 +
+    heatmap and of hrformer_base, each beside the folded model's: batch
+    ms, device ms, kernels, K9 and K10 launches.  Uses only what the int8
+    path has had from its first version on, so that a parent checkout
+    runs it."""
+    from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
+                                                              get_variant)
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
+
+    frames, bboxes = make_requests(SERVE_BATCH, seed=27)
+    kernels, steps = {}, {}
+    for name, head, fn, key_fn, kind, shape_of in (
+            ("hrnet_w32", "fusion", "qconv", _qconv_key, "k9", k9_shape),
+            ("hrformer_base", "fusion", "qdense", _qdense_key, "k10",
+             k10_shape)):
+        cfg = get_variant(name)
+        cfg.model.head_type = head
+        crops = normalized_crops(cfg, frames, bboxes)
+        inf = PoseInference(cfg, device="cuda", quantize=True,
+                            calibration_crops=crops[:INT8_CALIB_CROPS])
+        with torch.inference_mode(), captured(qk, fn, {}, key_fn) as calls:
+            inf.model(crops)
+        with torch.inference_mode():
+            for args, kw in calls.values():
+                call = lambda: getattr(qk, fn)(*args, **kw)  # noqa: E731
+                name = shape_of(args, kw)
+                kernels[f"{kind} {name}"] = cuda_median_ms(call)
+                kernels[f"{kind}graph {name}"] = graph_ms(call)
+                if name in (K9_RECORD_SHAPE, K10_RECORD_SHAPE):
+                    # host microseconds of one wrapper call, as "ms" keys
+                    # hold them: phase 20 logs every key alike
+                    kernels[f"{kind}host {name}"] = host_us(call)
+        del inf, calls, crops
+    for name, head in (("hrnet_w32", "heatmap"), ("hrformer_base", "fusion")):
+        cfg = get_variant(name)
+        cfg.model.head_type = head
+        calib = normalized_crops(cfg, *make_requests(INT8_CALIB_CROPS,
+                                                     seed=29))
+        for mode, inf in (("int8", PoseInference(
+                cfg, device="cuda", quantize=True, calibration_crops=calib)),
+                          ("folded", PoseInference(cfg, device="cuda"))):
+            f32, b32 = frames[:32], bboxes[:32]
+            for _ in range(3):
+                inf.predict_batch(f32, b32)
+            times = []
+            for _ in range(8):
+                t0 = time.perf_counter()
+                inf.predict_batch(f32, b32)
+                times.append(time.perf_counter() - t0)
+            reset_launches()
+            inf.predict_batch(f32, b32)
+            got = launches()
+            batch_ms = float(np.median(times)) * 1e3
+            prof = profile_steps(lambda: inf.predict_batch(f32, b32),
+                                 batch_ms, tag=f"times-serve-{mode}-{name}",
+                                 what="batch")
+            steps[f"serve_{mode} {name}"] = dict(
+                batch_ms=batch_ms, crops_per_s=32e3 / batch_ms,
+                device_ms=prof["device_ms"],
+                kernels=float(prof["kernels_per_step"]), k9=got["k9"],
+                k10=got["k10"])
+            del inf
+            torch.cuda.empty_cache()
+    return kernels, steps
 
 
 # K8's shapes in phase 20: the probe's default and hrformer_base b0 at
@@ -4908,9 +5277,24 @@ def phase_parent(parent: str) -> dict:
         ps = [r["kernels"][key] for r in (p1, p2)]
         cs = [r["kernels"][key] for r in (c1, c2)]
         kernels[key] = dict(parent_ms=float(np.mean(ps)), ms=float(np.mean(cs)))
-        log(f"[parent] {key}: parent {ps[0]:.4f}/{ps[1]:.4f} ms, change "
-            f"{cs[0]:.4f}/{cs[1]:.4f} ms, change/parent "
+        unit = "us" if "host " in key else "ms"
+        log(f"[parent] {key}: parent {ps[0]:.4f}/{ps[1]:.4f} {unit}, change "
+            f"{cs[0]:.4f}/{cs[1]:.4f} {unit}, change/parent "
             f"{kernels[key]['ms'] / kernels[key]['parent_ms']:.3f}")
+    for kind, name in (("k9", "K9"), ("k10", "K10"),
+                       ("k9graph", "K9 in graph replays"),
+                       ("k10graph", "K10 in graph replays")):
+        keys = [k for k in kernels if k.startswith(kind + " ")]
+        if keys:
+            ps = sum(kernels[k]["parent_ms"] for k in keys)
+            cs = sum(kernels[k]["ms"] for k in keys)
+            worst = max(keys, key=lambda k: kernels[k]["ms"]
+                        / kernels[k]["parent_ms"])
+            kernels[f"{kind} sum"] = dict(parent_ms=ps, ms=cs)
+            log(f"[parent] {name} over its {len(keys)} shapes: parent "
+                f"{ps:.4f} ms, change {cs:.4f} ms, change/parent "
+                f"{cs / ps:.3f}; the worst shape {worst}: change/parent "
+                f"{kernels[worst]['ms'] / kernels[worst]['parent_ms']:.3f}")
     for key, want in p1["digests"].items():
         got = [r["digests"].get(key) for r in (p2, c1, c2)]
         log(f"[parent] bits {key}: parent {want}, change {got[1]}")
@@ -4940,6 +5324,12 @@ def phase_parent(parent: str) -> dict:
 
 
 PHASE_SECONDS: dict = {}
+# Every phase in the order main runs them, and what a phase needs run
+# before it when --phases chooses it (the served model of 4, the server's
+# PoseInference of 22, the bare steps' images/s of 6 and 9).
+ALL_PHASES = (2, 3, 4, 5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+              21, 22, 23, 24, 25, 26, 27, 28, 20)
+PHASE_NEEDS = {5: {4}, 8: {4}, 23: {22}, 26: {6, 9}}
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -4948,6 +5338,72 @@ def timed(name: str, fn, *args, **kwargs):
     out = fn(*args, **kwargs)
     PHASE_SECONDS[name] = time.perf_counter() - t0
     log(f"[time] {name}: {PHASE_SECONDS[name]:.1f} s")
+    return out
+
+
+CSRC = "infantposeestimation_gaussianbias_tpu_torch/csrc/"
+JAX_PKG = "infantposeestimation_gaussianbias_tpu/"
+RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms", "shape")
+RECORD_EXTRA = ("max_rel_err", "variants_ms", "variants_bound_ms",
+                "variants_plain_ms", "variants_device_ms", "parent_ms",
+                "fresh_ms", "parent_shape", "device_ms", "library_device_ms",
+                "split")
+K9_RECORD_SHAPE = "64x64x48 32->32 3x3 s1 relu int8-out"
+K10_RECORD_SHAPE = "M62720 156->468 bfloat16"
+
+
+def kernel_entry(name, src, replaces, by_path, rec,
+                 root=JAX_PKG + "ops/pallas/") -> dict:
+    """One kernel of the kernels' JSON line: its source, what it
+    replaces, its launches by path and its record's figures."""
+    return {"name": name, "route": "cuda", "source": CSRC + src,
+            "replaces": root + replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, **{k: rec[k] for k in RECORD_KEYS},
+            **{k: rec[k] for k in RECORD_EXTRA if k in rec}}
+
+
+def int8_launches_by_path(int8, k: str) -> dict:
+    """Launches of kernel ``k`` in phase 27's served int8 batches (b = 32
+    with flip and b = 1), by model."""
+    if int8 is None:
+        return {}
+    return {f"serve_int8 {label}": rec["launches"][k] + rec["launches_b1"][k]
+            for label, rec in int8["serving"].items() if rec["launches"][k]}
+
+
+def int8_entries(int8, parent=None) -> list:
+    """The kernels' JSON entries of K9 and K10 from phase 27: the record
+    shape's figures (with phase 20's parent and change ms when it ran),
+    every shape's, the split at the record shape."""
+    out = []
+    for kind, name, src, replaces, what, record_shape in (
+            ("k9", "qconv_int8", "qgemm.cu", "ops/quant.py:95",
+             "XLA int8 conv_general_dilated (qconv_affine, qconv :85); no "
+             "TPU kernel", K9_RECORD_SHAPE),
+            ("k10", "qdense_int8", "qdense.cu", "ops/quant.py:109",
+             "XLA int8 dot_general (qdense); no TPU kernel",
+             K10_RECORD_SHAPE)):
+        rows = int8["kernels"][kind]
+        rec = dict(next(r for r in rows if r["shape"] == record_shape))
+        key = f"{kind} {record_shape}"
+        if parent and key in parent["kernels"]:
+            rec.update(parent_ms=parent["kernels"][key]["parent_ms"],
+                       fresh_ms=parent["kernels"][key]["ms"],
+                       parent_shape=key)
+        e = dict(kernel_entry(name, src, replaces,
+                              int8_launches_by_path(int8, kind), rec,
+                              root=JAX_PKG),
+                 sources=[CSRC + src, CSRC + src.replace(".cu", ".cuh"),
+                          CSRC + "qgemm_common.cuh"],
+                 replaces_kind=what, library=rec["library"], per_shape=rows)
+        if kind == "k10":
+            e["library_bf16_ms"] = rec["library_bf16_ms"]
+        for key, tag in ((f"{kind} sum", ""), (f"{kind}graph sum", "_graph")):
+            if parent and key in parent["kernels"]:
+                e[f"sum{tag}_parent_ms"] = parent["kernels"][key]["parent_ms"]
+                e[f"sum{tag}_fresh_ms"] = parent["kernels"][key]["ms"]
+        out.append(e)
     return out
 
 
@@ -4960,6 +5416,13 @@ def main(argv: list) -> int:
                         "phase 20 times its K1, K1-hm, K2, K4, K5, K6, K7, "
                         "K8, bf16 steps and served batches against this "
                         "checkout's, in turns")
+    parser.add_argument("--phases", metavar="N,N,...",
+                        help="run only these phases (default: every "
+                        "phase); 0 (device) and 1 (build) always run, and "
+                        "so do the phases a chosen one needs: 5 and 8 need "
+                        "4, 23 needs 22, 26 needs 6 and 9; 20 needs "
+                        "--parent.  The kernels' JSON line then holds the "
+                        "kernels of phase 27 only, if it ran")
     parser.add_argument("--bwd-times", action="store_true",
                         help=argparse.SUPPRESS)  # phase 20's subprocess
     parser.add_argument("--package-root", help=argparse.SUPPRESS)
@@ -4971,17 +5434,34 @@ def main(argv: list) -> int:
         phase_build()
         print(json.dumps(bwd_times(smi)), flush=True)
         return 0
+    chosen = set(ALL_PHASES)
+    if args.phases:
+        chosen = {int(n) for n in args.phases.split(",") if n.strip()}
+        if not chosen <= set(ALL_PHASES) | {0, 1}:
+            parser.error(f"--phases: no phase {sorted(chosen - set(ALL_PHASES))}")
+        for n, needs in PHASE_NEEDS.items():
+            if n in chosen:
+                chosen |= needs
+    elif not args.parent:
+        chosen.discard(20)
+    if 20 in chosen and not args.parent:
+        parser.error("phase 20 needs --parent DIR")
+    every = chosen == set(ALL_PHASES) - ({20} if not args.parent else set())
     t_start = time.perf_counter()
     smi = timed("0 device", phase_device)
     timed("1 build", phase_build)
-    k1 = timed("2 k1", phase_k1)
-    k2 = timed("3 k2", phase_k2)
+    def on(n: int) -> bool:
+        return n in chosen
+
+    k1 = timed("2 k1", phase_k1) if on(2) else None
+    k2 = timed("3 k2", phase_k2) if on(3) else None
     with fused_blocks("0"):  # the default path: K1 and K2, no fused block
-        inf, serve_launches = timed("4 serving", phase_slice)
-        thr = timed("5 throughput", phase_throughput, inf, smi)
-    k45 = timed("7 k4/k5", phase_fused_kernels)
-    fused_thr, fused_serve = timed("8 fused serving", phase_fused_serving,
-                                   inf, smi)
+        inf, serve_launches = (timed("4 serving", phase_slice) if on(4)
+                               else (None, None))
+        thr = timed("5 throughput", phase_throughput, inf, smi) if on(5) else None
+    k45 = timed("7 k4/k5", phase_fused_kernels) if on(7) else None
+    fused_thr, fused_serve = (timed("8 fused serving", phase_fused_serving,
+                                    inf, smi) if on(8) else (None, None))
     del inf
 
     def train_unfused():
@@ -5001,12 +5481,13 @@ def main(argv: list) -> int:
         return result
 
     with fused_blocks("0"):
-        train = timed("6 training", train_unfused)
+        train = timed("6 training", train_unfused) if on(6) else None
     with fused_blocks("1"):
-        fused_train = timed("9 fused training", train_fused)
-    k7 = timed("10 k7", phase_k7)
-    k6, k6_shapes = timed("11 k6", phase_k6)
-    hr_serve = timed("12 hrnet serving", phase_hrnet_serving, smi)
+        fused_train = timed("9 fused training", train_fused) if on(9) else None
+    k7 = timed("10 k7", phase_k7) if on(10) else None
+    k6, k6_shapes = timed("11 k6", phase_k6) if on(11) else (None, None)
+    hr_serve = (timed("12 hrnet serving", phase_hrnet_serving, smi) if on(12)
+                else None)
 
     def hrnet_train():
         conv_train_agreement_f32(hrnet_cfg("heatmap", "float32"),
@@ -5015,28 +5496,44 @@ def main(argv: list) -> int:
                               no_launches())
         return hr_train, hrnet_fusion_step_k6()
 
-    hr_train, hr_k6 = timed("13 hrnet training", hrnet_train)
-    k1hm = timed("14 k1-hm", phase_k1_hm)
-    k8 = timed("15 k8", phase_k8)
+    hr_train, hr_k6 = (timed("13 hrnet training", hrnet_train) if on(13)
+                       else (None, None))
+    k1hm = timed("14 k1-hm", phase_k1_hm) if on(14) else None
+    k8 = timed("15 k8", phase_k8) if on(15) else None
     with fused_blocks("0"):
-        analysis = timed("16 analysis", phase_analysis, smi)
-    k3 = timed("17 k3", phase_k3)
-    grid_serve = timed("18 grid serving", phase_grid_serving, smi)
-    grid_train = timed("19 grid training", phase_grid_training, smi)
-    fold = timed("21 fold", phase_fold, smi)
+        analysis = timed("16 analysis", phase_analysis, smi) if on(16) else None
+    k3 = timed("17 k3", phase_k3) if on(17) else None
+    grid_serve = (timed("18 grid serving", phase_grid_serving, smi) if on(18)
+                  else None)
+    grid_train = (timed("19 grid training", phase_grid_training, smi)
+                  if on(19) else None)
+    fold = timed("21 fold", phase_fold, smi) if on(21) else None
     with fused_blocks("0"):
-        server, inf16 = timed("22 server", phase_server, smi)
-        stream = timed("23 stream", phase_stream, inf16, smi)
+        server, inf16 = (timed("22 server", phase_server, smi) if on(22)
+                         else (None, None))
+        stream = timed("23 stream", phase_stream, inf16, smi) if on(23) else None
     del inf16
-    graft = timed("24 graft entry", phase_graft)
-    post = timed("25 post-processing", phase_postprocess)
-    train_loop = timed("26 training loop", phase_train_loop, smi,
-                       train["images_per_s"], fused_train["images_per_s"])
+    graft = timed("24 graft entry", phase_graft) if on(24) else None
+    post = timed("25 post-processing", phase_postprocess) if on(25) else None
+    train_loop = (timed("26 training loop", phase_train_loop, smi,
+                        train["images_per_s"], fused_train["images_per_s"])
+                  if on(26) else None)
     with fused_blocks("0"):
-        int8 = timed("27 int8", phase_int8, smi)
-    lite = timed("28 litehrnet", phase_lite, smi)
-    parent = (timed("20 parent", phase_parent, args.parent)
-              if args.parent else None)
+        int8 = timed("27 int8", phase_int8, smi) if on(27) else None
+    lite = timed("28 litehrnet", phase_lite, smi) if on(28) else None
+    parent = timed("20 parent", phase_parent, args.parent) if on(20) else None
+    loaded = jax_modules()
+    assert not loaded, loaded
+    if not every:
+        log(f"[time] phases {sorted(chosen)} of {len(ALL_PHASES)} in "
+            f"{time.perf_counter() - t_start:.1f} s: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
+        if int8 is not None:
+            log(json.dumps({"kernels": int8_entries(int8, parent)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     log(f"[fused] bf16 b=32 serving {fused_thr['crops_per_s']:.1f} crops/s "
         f"fused vs {thr['crops_per_s']:.1f} unfused; training "
         f"{fused_train['step_ms']:.1f} ms/step fused vs "
@@ -5044,8 +5541,6 @@ def main(argv: list) -> int:
         f"{fused_train['peak_gib']:.2f} vs {train['peak_gib']:.2f} GiB")
     log(f"[time] whole run {time.perf_counter() - t_start:.1f} s; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
-    loaded = jax_modules()
-    assert not loaded, loaded
     log(json.dumps({"slice": thr, "train": train, "fused_slice": fused_thr,
                     "fused_train": fused_train,
                     "hrnet_slice": {h: hr_serve[h]
@@ -5061,21 +5556,13 @@ def main(argv: list) -> int:
                     "graft_entry": graft, "post": post,
                     "train_loop": train_loop, "int8": int8["serving"],
                     "int8_clis": int8["clis"], "lite": lite}))
-    source = "infantposeestimation_gaussianbias_tpu_torch/csrc/"
-    jax_pkg = "infantposeestimation_gaussianbias_tpu/"
-    pallas = jax_pkg + "ops/pallas/"
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")
-    extra = ("max_rel_err", "variants_ms", "variants_bound_ms",
-             "variants_plain_ms", "variants_device_ms", "parent_ms",
-             "fresh_ms", "parent_shape", "device_ms", "library_device_ms")
     # The redesigned kernels, from phase 20 of this call (null without
     # --parent): the parent commit's ms and this checkout's, both timed the
     # same way in fresh processes (``ms`` is phase 2's, 3's, 7's, 10's,
     # 11's, 14's or 15's, timed in this process), K1, K1-hm, K2, K4, K6, K7
     # and K8 at the record shape, K5 at its worst branch
     # (``parent_shape``); K3's forward (K1 on rank 0's head range) as
-    # ``k1_parent_ms`` and ``k1_fresh_ms``.
+    # ``k1_parent_ms`` and ``k1_fresh_ms``; K9 and K10 in int8_entries.
     for rec, key in ((k1, "k1 base b0 b=64 bf16"),
                      (k1hm, "k1hm base b0 b=64 bf16"),
                      (k2, "k2 base b0 bf16"),
@@ -5090,34 +5577,16 @@ def main(argv: list) -> int:
             rec[out] = parent["kernels"][key][src] if parent else None
         rec["parent_shape"] = key
     t, ft = train["launches"], fused_train["launches"]
-    i8 = {label: dict(rec["launches"], **{f"{k}_b1": v for k, v in
-                                          rec["launches_b1"].items()})
-          for label, rec in int8["serving"].items()}
-    i8_by = lambda k: {f"serve_int8 {label}": n[k] + n[f"{k}_b1"]  # noqa: E731
-                       for label, n in i8.items() if n[k]}
-    i8_rec = {}
-    for kind, record_shape in (("k9", "64x64x48 32->32 3x3 s1 relu int8-out"),
-                               ("k10", "M62720 156->468 bfloat16")):
-        rows = int8["kernels"][kind]
-        i8_rec[kind] = dict(next(r for r in rows
-                                 if r["shape"] == record_shape),
-                            per_shape=rows)
     tl, tlf = train_loop["unfused_total_launches"], train_loop["fused_launches"]
     sal = analysis["saliency_launches"]
-
-    def entry(name, src, replaces, by_path, rec, root=pallas):
-        return {"name": name, "route": "cuda", "source": source + src,
-                "replaces": root + replaces,
-                "launches": sum(by_path.values()),
-                "launches_by_path": by_path, **{k: rec[k] for k in keys},
-                **{k: rec[k] for k in extra if k in rec}}
+    entry = kernel_entry
 
     log(json.dumps({"kernels": [
         entry("window_msa_fwd", "window_msa.cu", "window_msa.py:222",
               {"serve": serve_launches, "serve_auto": fused_serve["k1"],
                "train": t["k1"], "analysis_saliency": sal["k1"],
                "serve_http": server["serve_http_k1"], "stream": stream["k1"],
-               "train_loop": tl["k1"], **i8_by("k1")},
+               "train_loop": tl["k1"], **int8_launches_by_path(int8, "k1")},
               k1),
         entry("window_msa_bwd", "window_msa_bwd.cu", "window_msa.py:422",
               {"train": t["k2"], "analysis_saliency": sal["k2"],
@@ -5147,29 +5616,18 @@ def main(argv: list) -> int:
               {"window_major_relayout": k1hm["path_launches"]}, k1hm),
         entry("window_msa_ablate", "window_msa_ablate.cu",
               "tools/probe_wmsa_ablate.py:160", {"probe": k8["launches"]},
-              k8["record"], root=jax_pkg),
+              k8["record"], root=JAX_PKG),
         dict(entry("window_msa_sharded", "window_msa.cu", "window_msa.py:483",
                    {"grid_serve_rank0": grid_serve["launches"],
                     "grid_train_rank0": grid_train["launches"]}, k3),
-             sources=[source + "window_msa.cu", source + "window_msa_bwd.cu"],
+             sources=[CSRC + "window_msa.cu", CSRC + "window_msa_bwd.cu"],
              allreduce_ms=k3["allreduce_ms"], k1_ms=k3["k1_ms"],
              k2_ms=k3["k2_ms"],
              k1_parent_ms=(parent["kernels"]["k3fwd base b0 bf16"]
                            ["parent_ms"] if parent else None),
              k1_fresh_ms=(parent["kernels"]["k3fwd base b0 bf16"]["ms"]
                           if parent else None)),
-        dict(entry("qconv_int8", "qgemm.cu", "ops/quant.py:95",
-                   i8_by("k9"), i8_rec["k9"], root=jax_pkg),
-             replaces_kind="XLA int8 conv_general_dilated (qconv_affine, "
-                           "qconv :85); no TPU kernel",
-             library=i8_rec["k9"]["library"], per_shape=i8_rec["k9"][
-                 "per_shape"]),
-        dict(entry("qdense_int8", "qgemm.cu", "ops/quant.py:109",
-                   i8_by("k10"), i8_rec["k10"], root=jax_pkg),
-             replaces_kind="XLA int8 dot_general (qdense); no TPU kernel",
-             library=i8_rec["k10"]["library"],
-             library_bf16_ms=i8_rec["k10"]["library_bf16_ms"],
-             per_shape=i8_rec["k10"]["per_shape"]),
+        *int8_entries(int8, parent),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

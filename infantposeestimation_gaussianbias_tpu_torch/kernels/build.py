@@ -144,8 +144,14 @@ def load() -> ctypes.CDLL:
         lib.ipe_residual_chain.restype = i
         lib.ipe_conv3x3_wgrad.argtypes = [p] * 4 + [i] * 10 + [p]
         lib.ipe_conv3x3_wgrad.restype = i
-        lib.ipe_qgemm.argtypes = [i] + [p] * 9 + [i] * 14 + [p]
-        lib.ipe_qgemm.restype = i
+        # K9 and K10, and their variants with one phase compiled in, take
+        # one packed struct (kernels/quant.py)
+        for kind in ("qconv", "qdense"):
+            for suffix in ("", "_stage_only", "_products_only",
+                           "_epilogue_only"):
+                entry = getattr(lib, f"ipe_{kind}{suffix}")
+                entry.argtypes = [ctypes.c_char_p]
+                entry.restype = i
         lib.ipe_cuda_error_string.argtypes = [i]
         lib.ipe_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
