@@ -256,7 +256,26 @@ Phases, in order; any failure exits non-zero:
      hrnet_w32's stride-4 features at b = 32, float32 card against CPU;
      the pipeline proof at its litehrnet default (AP held to
      PROOF_AP_MIN) and the overfit check (OVERFIT_STEPS steps).
-Phases 21-28 run after 19 and before 20.  ``--phases N,N,...`` runs the
+ 29. the last surfaces: four served pipelines exported by
+     tools/export_model.py (torch.export; the served kernels as the
+     registered operators of kernels/ops.py), saved, loaded and called at
+     b = 32 frames with flip: (a) hrformer_base + fusion folded (K1), (b)
+     the same under IPE_FUSED_BLOCK=1 (K4, K5), (c) hrnet_w32 + heatmap
+     int8 (K9), (d) hrformer_base + fusion int8 (K10 and K1); each against
+     the live PoseInference pipeline on the same inputs (int8 bit for bit;
+     float keypoints within KEYPOINT_ATOL_PX off decode ties, scores
+     EXPORT_SCORE_ATOL) with exactly its launches (88 K1; 88 K4 and 88
+     K5; 610 K9; 268 K10 and 88 K1), the blob's MB, export and load
+     seconds and crops/s beside predict_batch's; cli/analyze's computing
+     half on hrformer_base (its files, K1 and K2 launches counted);
+     validate_reference_checkpoint --dry-run at hrnet_w32 + fusion, float
+     and --int8; tools/probe_serve_http (16 clients x 8 requests, folded
+     hrnet_w32 + fusion: requests/s, latency percentiles, the batches
+     formed); predict_video on a short synthetic video and
+     viz/clinical.create_video_with_pose over it; the host microseconds
+     of a K1, K9 and K10 call through the registered operator against the
+     wrapper (``[operator]`` lines).
+Phases 21-29 run after 19 and before 20.  ``--phases N,N,...`` runs the
 chosen phases alone (and what they need: 5 and 8 need 4, 23 needs 22, 26
 needs 6 and 9; 0 and 1 always run); the default is every phase.
 The ranks import no JAX (each asserts it).
@@ -5323,12 +5342,406 @@ def phase_parent(parent: str) -> dict:
     return dict(kernels=kernels, steps=steps)
 
 
+# -- phase 29: the last surfaces ------------------------------------------------
+
+EXPORT_BATCH = 32          # frames a call of an exported program (flip test on)
+EXPORT_FRAME_HW = (480, 640)
+# Float exported programs run the live pipeline's ATen ops and kernels in
+# the same order: off decode ties their keypoints may differ only by the
+# float32 card bounds of phase 4 (KEYPOINT_ATOL_PX) and their scores by
+# EXPORT_SCORE_ATOL; int8 programs must equal the live pipeline bit for
+# bit (every int8 step exact), as JAX's int8 export round trip does.
+EXPORT_SCORE_ATOL = 1e-4
+# (label, variant, head, IPE_FUSED_BLOCK, int8, the kernels a call
+# launches: K1 a block and pass; K4 and K5 a block and pass; K9 each
+# int8 ConvNorm and pass; K10 each quantized Dense and pass, with K1)
+EXPORTS = (
+    ("a", "hrformer_base", "fusion", "0", False,
+     dict(k1=2 * K1_CALLS_PER_FORWARD)),
+    ("b", "hrformer_base", "fusion", "1", False,
+     dict(k4=2 * K1_CALLS_PER_FORWARD, k5=2 * K1_CALLS_PER_FORWARD)),
+    ("c", "hrnet_w32", "heatmap", "0", True, dict(k9=2 * HRNET_W32_QCONVS)),
+    ("d", "hrformer_base", "fusion", "0", True,
+     dict(k1=2 * K1_CALLS_PER_FORWARD, k10=2 * HRFORMER_BASE_QDENSE)),
+)
+VIDEO_FRAMES = 16
+EXPORT_WORKER_TIMEOUT_S = 600.0
+PROBE_ENV = dict(PROBE_CLIENTS="16", PROBE_REQS="8", PROBE_QUANT="0")
+
+
+def export_inference(variant: str, head: str, int8: bool):
+    """The live PoseInference an exported program is made from: seeded
+    weights, BatchNorm calibrated (HRNet, as phase 12) or perturbed
+    (HRFormer), BN-folded, or int8 calibrated on INT8_CALIB_CROPS crops."""
+    from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
+                                                              get_variant)
+    from infantposeestimation_gaussianbias_tpu_torch.models import (
+        build_model)
+
+    cfg = hrnet_cfg(head) if variant == "hrnet_w32" else get_variant(variant)
+    cfg.model.head_type = head
+    model = build_model(cfg, "cuda")
+    if variant == "hrnet_w32":
+        calibrate_batch_stats(model, cfg)
+    else:
+        perturb_bn(model, seed=29)
+    calib = None
+    if int8:
+        calib = normalized_crops(cfg, *make_requests(INT8_CALIB_CROPS,
+                                                     seed=29))
+    inf = PoseInference(cfg, state_dict=model.state_dict(), device="cuda",
+                        quantize=int8, calibration_crops=calib)
+    assert inf.fold != int8
+    return inf
+
+
+def export_case(label: str, variant: str, head: str, int8: bool,
+                want: dict, smi: str, turn=contextlib.nullcontext) -> dict:
+    """Export, save, load and call the served pipeline of one model at
+    EXPORT_BATCH frames; the loaded program against the live pipeline on
+    the same inputs, launch for launch; its blob size, export and load
+    seconds, and its crops/s beside predict_batch's (printed only), timed
+    inside ``turn()`` (the card and the host to itself)."""
+    from infantposeestimation_gaussianbias_tpu_torch.tools import (
+        export_model)
+
+    inf = export_inference(variant, head, int8)
+    frames, bboxes = make_requests(EXPORT_BATCH, seed=30)
+    centers = (bboxes[:, :2] + bboxes[:, 2:]) / 2
+    scales = (bboxes[:, 2:] - bboxes[:, :2]) * inf.cfg.data.bbox_padding
+    t0 = time.perf_counter()
+    blob = export_model.export_serving(
+        export_model.ServingPipeline(inf, EXPORT_FRAME_HW), EXPORT_BATCH)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = export_model.load_pipeline(blob)
+    load_s = time.perf_counter() - t0
+    assert program.device == torch.device("cuda", 0), program.device
+    args = tuple(torch.from_numpy(a).cuda() for a in (frames, centers,
+                                                      scales))
+    reset_launches()
+    k, s = program.call(*args)
+    torch.cuda.synchronize()
+    got = launches()
+    reset_launches()
+    live_k, live_s = inf._pipeline(*args)
+    torch.cuda.synchronize()
+    live = launches()
+    assert got == live == dict(no_launches(), **want), (label, got, live)
+    assert k.shape == (EXPORT_BATCH, 17, 2) and s.shape == (EXPORT_BATCH, 17)
+    assert torch.isfinite(k).all() and torch.isfinite(s).all()
+    equal = torch.equal(k, live_k) and torch.equal(s, live_s)
+    kp_err = float((k - live_k).abs().max())
+    score_err = float((s - live_s).abs().max())
+    if int8:
+        assert equal, (label, kp_err, score_err)
+        left = 0
+    else:
+        unsure = _unsure_keypoints(flip_heatmaps_of(inf, frames, bboxes),
+                                   head)
+        off = (k - live_k).abs().amax(-1).cpu().numpy()
+        kp_err = float(off[~unsure].max())
+        left = int(unsure.sum())
+        assert kp_err <= KEYPOINT_ATOL_PX and score_err <= EXPORT_SCORE_ATOL, (
+            label, kp_err, score_err)
+
+    def program_batch():
+        kk, ss = program.call(*(torch.from_numpy(a).cuda()
+                                for a in (frames, centers, scales)))
+        return kk.cpu(), ss.cpu()
+
+    ms = {}
+    with turn():
+        for name, fn in (("program", program_batch),
+                         ("predict_batch",
+                          lambda: inf.predict_batch(frames, bboxes))):
+            fn()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = float(np.median(times))
+    rec = dict(variant=variant, head=head, int8=int8, blob_mb=len(blob) / 1e6,
+               export_s=export_s, load_s=load_s, launches=got,
+               bit_equal=equal, max_kp_err=kp_err, max_score_err=score_err,
+               ties_left_out=left,
+               crops_per_s=EXPORT_BATCH / ms["program"] * 1e3,
+               predict_batch_crops_per_s=EXPORT_BATCH / ms["predict_batch"]
+               * 1e3, batch_ms=ms["program"],
+               predict_batch_ms=ms["predict_batch"])
+    log(f"[export] ({label}) {variant} + {head} "
+        f"{'int8' if int8 else 'folded'}"
+        f"{' IPE_FUSED_BLOCK=1' if 'k4' in want else ''} b={EXPORT_BATCH} "
+        f"flip: {rec['blob_mb']:.1f} MB, export {export_s:.1f} s, load "
+        f"{load_s:.1f} s; launches a call {dict((k_, v) for k_, v in got.items() if v)} "
+        f"= the live pipeline's; against it: "
+        f"{'bit for bit' if equal else f'keypoints {kp_err:.3e} px off {left} ties, scores {score_err:.3e}'}; "
+        f"{rec['crops_per_s']:.1f} crops/s ({ms['program']:.1f} ms a batch) "
+        f"against predict_batch's {rec['predict_batch_crops_per_s']:.1f} "
+        f"({ms['predict_batch']:.1f} ms); on {smi}")
+    return rec
+
+
+def surfaces_analyze() -> dict:
+    """cli/analyze's computing half on hrformer_base (bf16, seeded):
+    parameters.txt, activations.json, three finite maps; K1 and K2
+    launches: the activation capture's forward, the saliency map's forward
+    and backward, Grad-CAM's backbone forward, occlusion's base image and
+    its occluded images OCCLUSION_BATCH at a time."""
+    import tempfile
+
+    from infantposeestimation_gaussianbias_tpu_torch.analysis.introspection import (
+        OCCLUSION_BATCH)
+    from infantposeestimation_gaussianbias_tpu_torch.cli import analyze
+
+    cfg = hrformer_cfg()
+    W, H = cfg.data.input_size
+    patch = max(H // 8, 8)
+    occluded = len(range(0, H - patch + 1, patch)) * len(
+        range(0, W - patch + 1, patch))
+    forwards = 1 + 1 + 1 + 1 + -(-occluded // OCCLUSION_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = analyze.analyze_model(cfg, tmp, device="cuda")
+        secs = time.perf_counter() - t0
+        got = launches()
+        files = sorted(os.listdir(tmp))
+    assert files == ["activations.json", "parameters.txt"], files
+    want = dict(no_launches(), k1=forwards * K1_CALLS_PER_FORWARD,
+                k2=K1_CALLS_PER_FORWARD)
+    assert got == want, got
+    shapes = {k: v.shape for k, v in out["maps"].items()}
+    assert shapes == {"saliency": (H, W), "gradcam": (H // 4, W // 4),
+                      "occlusion": (H // patch, W // patch)}, shapes
+    assert all(np.isfinite(v).all() for v in out["maps"].values())
+    log(f"[analyze] cli.analyze.analyze_model hrformer_base bf16: "
+        f"{out['activations']} activations, {len(out['dead_layers'])} layers "
+        f"> 20% dead, maps {shapes}; K1 {got['k1']}, K2 {got['k2']} launches; "
+        f"{secs:.1f} s")
+    return dict(launches=got, seconds=secs, activations=out["activations"])
+
+
+def surfaces_validate() -> dict:
+    """validate_reference_checkpoint --dry-run at hrnet_w32 + fusion,
+    256x192, float and --int8 (4 synthetic images, batch 2, flip test):
+    the table printed, AP in [0, 1]; the int8 run's K9 launches: two
+    batches of two passes."""
+    from infantposeestimation_gaussianbias_tpu_torch.tools import (
+        validate_reference_checkpoint as vrc)
+
+    out = {}
+    for int8 in (False, True):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = vrc.main(["--dry-run", "--device", "cuda"]
+                       + (["--int8"] if int8 else []))
+        secs = time.perf_counter() - t0
+        got = launches()
+        results = res[1] if int8 else res
+        assert 0.0 <= results["AP"] <= 1.0, results
+        want = dict(no_launches(),
+                    k9=2 * 2 * (HRNET_W32_QCONVS + 5) if int8 else 0)
+        assert got == want, got
+        key = "int8" if int8 else "float"
+        out[key] = dict(AP=results["AP"], seconds=secs, launches=got)
+        log(f"[validate] dry run hrnet_w32 + fusion {key}: AP "
+            f"{results['AP']:.4f}, K9 {got['k9']} launches, {secs:.1f} s")
+    return out
+
+
+def surfaces_probe(smi: str) -> dict:
+    """tools/probe_serve_http against cli.serve on folded hrnet_w32 +
+    fusion (16 clients x 8 requests): every answer a 200."""
+    from infantposeestimation_gaussianbias_tpu_torch.tools import (
+        probe_serve_http)
+
+    with contextlib.ExitStack() as stack:
+        for k, v in PROBE_ENV.items():
+            stack.enter_context(env_var(k, v))
+        reset_launches()
+        out = probe_serve_http.main(device="cuda")
+        got = launches()
+    assert out["requests_ok"] == 16 * 8, out
+    assert out["errors"] == out["shed_503"] == out["timeout_504"] == 0, out
+    assert out["precision"] == "bfloat16-fold", out
+    log(f"[probe] HTTP probe, folded hrnet_w32 + fusion, 16 clients x 8 "
+        f"requests: {out['requests_per_sec']:.1f} requests/s, latency p50 "
+        f"{out['latency_ms_p50']:.1f} / p95 {out['latency_ms_p95']:.1f} / "
+        f"p99 {out['latency_ms_p99']:.1f} ms, {out['num_device_batches']} "
+        f"batches (sizes {out['batch_sizes']}, mean "
+        f"{out['mean_device_batch']:.1f}), predict_batch p50 "
+        f"{out['batch_ms_p50']:.1f} ms, {out['batch_ms_sum']:.0f} ms of "
+        f"{out['wall_s'] * 1e3:.0f} ms wall in predict_batch; port kernels "
+        f"launched {dict((k, v) for k, v in got.items() if v) or 'none'} "
+        f"(folded HRNet runs cuDNN); on {smi}")
+    return dict(out, launches=got)
+
+
+def surfaces_video(inf) -> dict:
+    """A short synthetic video (cv2) served through ``inf.predict_video``
+    (hrformer_base, folded, bf16: K1 88 launches a batch), then
+    viz/clinical.create_video_with_pose: every frame written, drawn on."""
+    import tempfile
+
+    import cv2
+
+    from infantposeestimation_gaussianbias_tpu_torch.viz.clinical import (
+        create_video_with_pose)
+
+    rng = np.random.RandomState(31)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "clip.avi")
+        writer = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"MJPG"), 10.0,
+                                 (320, 240))
+        for _ in range(VIDEO_FRAMES):
+            writer.write(rng.randint(0, 255, (240, 320, 3)).astype(np.uint8))
+        writer.release()
+        reset_launches()
+        traj, scores, fps = inf.predict_video(src)
+        got = launches()
+        out = os.path.join(tmp, "drawn.mp4")
+        t0 = time.perf_counter()
+        create_video_with_pose(src, traj, scores, out, inf.schema, fps=fps)
+        secs = time.perf_counter() - t0
+        cap = cv2.VideoCapture(out)
+        n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+    assert traj.shape == (VIDEO_FRAMES, 17, 2) and np.isfinite(traj).all()
+    assert got == dict(no_launches(), k1=2 * K1_CALLS_PER_FORWARD), got
+    assert n == VIDEO_FRAMES, n
+    log(f"[video] predict_video {VIDEO_FRAMES} frames (K1 {got['k1']}), "
+        f"create_video_with_pose wrote {n} frames in {secs:.2f} s")
+    return dict(launches=got, frames=n)
+
+
+def export_worker(i: int, smi: str, barrier, lock, results) -> None:
+    """EXPORTS[i]'s ``export_case`` in a process of its own (phase 29 runs
+    the four at once: tracing and loading a program is single-threaded
+    host work, tens of seconds each); the timed section waits until every
+    worker has loaded its program, then takes the card and the host in
+    turns.  Puts (i, record, None) or (i, None, traceback) on
+    ``results``."""
+    import traceback
+
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import build
+
+    @contextlib.contextmanager
+    def turn():
+        barrier.wait(timeout=EXPORT_WORKER_TIMEOUT_S)
+        with lock:
+            yield
+
+    label, variant, head, flag, int8, want = EXPORTS[i]
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ[FUSED_ENV] = flag
+        build.load()  # built by the parent's phase 1
+        results.put((i, export_case(label, variant, head, int8, want, smi,
+                                    turn), None))
+    except BaseException:
+        barrier.abort()  # the others' waits raise instead of hanging
+        results.put((i, None, traceback.format_exc()))
+
+
+
+def operator_host_us(smi: str) -> dict:
+    """Host microseconds of one call of K1, K9 and K10 through the
+    registered operator (kernels/ops.py, the exported programs' route)
+    against the direct wrapper call (eager serving's), at small shapes
+    whose device work hides under the host's: the price of the dispatcher
+    hop (ROADMAP Queue 2 item 15).  In turns: wrapper, operator, operator,
+    wrapper; the mean of each side's two."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        ops, quant, window_msa)
+
+    g = torch.Generator(device="cuda").manual_seed(32)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device="cuda",
+                             dtype=torch.int8)
+
+    def f32(*shape):
+        return torch.rand(shape, generator=g, device="cuda") * 0.01
+
+    cases = {
+        "k1": (window_msa.window_attention_qkv, ops.window_attention_qkv,
+               (torch.randn(8, 49, 3 * 78, generator=g, device="cuda",
+                            dtype=torch.bfloat16),
+                torch.randn(2, 49, 49, generator=g, device="cuda"), 2)),
+        "k9": (quant.qconv, ops.qconv,
+               (i8(2, 16, 12, 32), torch.tensor(0.02, device="cuda"),
+                i8(32, 3, 3, 32), f32(32), f32(32), 1, True,
+                torch.tensor(0.05, device="cuda"), None, None)),
+        "k10": (quant.qdense, ops.qdense,
+                (torch.randn(98, 156, generator=g, device="cuda",
+                             dtype=torch.bfloat16), i8(468, 156), f32(468),
+                 f32(468), torch.tensor(0.05, device="cuda"),
+                 torch.bfloat16)),
+    }
+    out = {}
+    for k, (wrapper, op, args) in cases.items():
+        assert torch.equal(wrapper(*args), op(*args)), k
+        times = {"wrapper": [], "operator": []}
+        for side in ("wrapper", "operator", "operator", "wrapper"):
+            fn = wrapper if side == "wrapper" else op
+            times[side].append(host_us(lambda: fn(*args), n=200))
+        out[k] = {side: float(np.mean(v)) for side, v in times.items()}
+        log(f"[operator] {k}: host {out[k]['operator']:.1f} us a call "
+            f"through the operator, {out[k]['wrapper']:.1f} us through the "
+            f"wrapper (+{out[k]['operator'] - out[k]['wrapper']:.1f} us); "
+            f"on {smi}")
+    return out
+
+
+def phase_surfaces(smi: str) -> dict:
+    """Phase 29: the exported programs (a)-(d), one process each (spawned,
+    run at once, timed in turns), cli/analyze, the validator's dry run,
+    the HTTP probe, the video overlay."""
+    import multiprocessing
+
+    from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
+                                                              get_variant)
+
+    ctx = multiprocessing.get_context("spawn")
+    barrier, lock, results = ctx.Barrier(len(EXPORTS)), ctx.Lock(), ctx.Queue()
+    procs = [ctx.Process(target=export_worker,
+                         args=(i, smi, barrier, lock, results))
+             for i in range(len(EXPORTS))]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:  # drain the queue before joining
+            i, rec, err = results.get(timeout=EXPORT_WORKER_TIMEOUT_S)
+            got[i] = (rec, err)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    errors = [err for rec, err in got.values() if err]
+    assert not errors and len(got) == len(EXPORTS), "\n".join(errors)
+    out = {"exports": {EXPORTS[i][0]: got[i][0] for i in sorted(got)},
+           "operator_host_us": operator_host_us(smi)}
+    with fused_blocks("0"):
+        out["analyze"] = surfaces_analyze()
+        out["validate"] = surfaces_validate()
+        out["probe"] = surfaces_probe(smi)
+        out["video"] = surfaces_video(PoseInference(
+            get_variant("hrformer_base"), device="cuda"))
+    return out
+
+
 PHASE_SECONDS: dict = {}
 # Every phase in the order main runs them, and what a phase needs run
 # before it when --phases chooses it (the served model of 4, the server's
 # PoseInference of 22, the bare steps' images/s of 6 and 9).
 ALL_PHASES = (2, 3, 4, 5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
-              21, 22, 23, 24, 25, 26, 27, 28, 20)
+              21, 22, 23, 24, 25, 26, 27, 28, 29, 20)
 PHASE_NEEDS = {5: {4}, 8: {4}, 23: {22}, 26: {6, 9}}
 
 
@@ -5372,10 +5785,11 @@ def int8_launches_by_path(int8, k: str) -> dict:
             for label, rec in int8["serving"].items() if rec["launches"][k]}
 
 
-def int8_entries(int8, parent=None) -> list:
+def int8_entries(int8, parent=None, paths=None) -> list:
     """The kernels' JSON entries of K9 and K10 from phase 27: the record
     shape's figures (with phase 20's parent and change ms when it ran),
-    every shape's, the split at the record shape."""
+    every shape's, the split at the record shape; ``paths``: more launches
+    by path, by kernel ("k9", "k10"; phase 29's)."""
     out = []
     for kind, name, src, replaces, what, record_shape in (
             ("k9", "qconv_int8", "qgemm.cu", "ops/quant.py:95",
@@ -5391,8 +5805,9 @@ def int8_entries(int8, parent=None) -> list:
             rec.update(parent_ms=parent["kernels"][key]["parent_ms"],
                        fresh_ms=parent["kernels"][key]["ms"],
                        parent_shape=key)
-        e = dict(kernel_entry(name, src, replaces,
-                              int8_launches_by_path(int8, kind), rec,
+        by_path = dict(int8_launches_by_path(int8, kind),
+                       **(paths or {}).get(kind, {}))
+        e = dict(kernel_entry(name, src, replaces, by_path, rec,
                               root=JAX_PKG),
                  sources=[CSRC + src, CSRC + src.replace(".cu", ".cuh"),
                           CSRC + "qgemm_common.cuh"],
@@ -5521,6 +5936,7 @@ def main(argv: list) -> int:
     with fused_blocks("0"):
         int8 = timed("27 int8", phase_int8, smi) if on(27) else None
     lite = timed("28 litehrnet", phase_lite, smi) if on(28) else None
+    surf = timed("29 surfaces", phase_surfaces, smi) if on(29) else None
     parent = timed("20 parent", phase_parent, args.parent) if on(20) else None
     loaded = jax_modules()
     assert not loaded, loaded
@@ -5530,6 +5946,8 @@ def main(argv: list) -> int:
             + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
         if int8 is not None:
             log(json.dumps({"kernels": int8_entries(int8, parent)}))
+        if surf is not None:
+            log(json.dumps({"surfaces": surf}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5555,7 +5973,8 @@ def main(argv: list) -> int:
                     "fold": fold, "server": server, "stream": stream,
                     "graft_entry": graft, "post": post,
                     "train_loop": train_loop, "int8": int8["serving"],
-                    "int8_clis": int8["clis"], "lite": lite}))
+                    "int8_clis": int8["clis"], "lite": lite,
+                    "surfaces": surf}))
     # The redesigned kernels, from phase 20 of this call (null without
     # --parent): the parent commit's ms and this checkout's, both timed the
     # same way in fresh processes (``ms`` is phase 2's, 3's, 7's, 10's,
@@ -5579,6 +5998,8 @@ def main(argv: list) -> int:
     t, ft = train["launches"], fused_train["launches"]
     tl, tlf = train_loop["unfused_total_launches"], train_loop["fused_launches"]
     sal = analysis["saliency_launches"]
+    ex = {k: v["launches"] for k, v in surf["exports"].items()}
+    an, probe = surf["analyze"]["launches"], surf["probe"]["launches"]
     entry = kernel_entry
 
     log(json.dumps({"kernels": [
@@ -5586,15 +6007,19 @@ def main(argv: list) -> int:
               {"serve": serve_launches, "serve_auto": fused_serve["k1"],
                "train": t["k1"], "analysis_saliency": sal["k1"],
                "serve_http": server["serve_http_k1"], "stream": stream["k1"],
-               "train_loop": tl["k1"], **int8_launches_by_path(int8, "k1")},
+               "train_loop": tl["k1"], **int8_launches_by_path(int8, "k1"),
+               "export_a": ex["a"]["k1"], "export_d": ex["d"]["k1"],
+               "analyze_cli": an["k1"],
+               "video_overlay": surf["video"]["launches"]["k1"],
+               "probe_http": probe["k1"]},
               k1),
         entry("window_msa_bwd", "window_msa_bwd.cu", "window_msa.py:422",
               {"train": t["k2"], "analysis_saliency": sal["k2"],
-               "train_loop": tl["k2"]}, k2),
+               "train_loop": tl["k2"], "analyze_cli": an["k2"]}, k2),
         entry("fused_attn_half_fwd", "fused_attn.cu", "fused_block.py:562",
               {"serve_fused": fused_serve["k4"], "train_fused": ft["k4"],
                "serve_http": server["serve_http_k4"],
-               "train_loop_fused": tlf["k4"]},
+               "train_loop_fused": tlf["k4"], "export_b": ex["b"]["k4"]},
               k45["attn_fwd"]),
         entry("fused_attn_half_bwd", "fused_attn.cu", "fused_block.py:608",
               {"train_fused": ft["k4b"], "train_loop_fused": tlf["k4b"]},
@@ -5602,7 +6027,7 @@ def main(argv: list) -> int:
         entry("fused_mlp_half_fwd", "fused_mlp.cu", "fused_block.py:220",
               {"serve_fused": fused_serve["k5"], "train_fused": ft["k5"],
                "serve_http": server["serve_http_k5"],
-               "train_loop_fused": tlf["k5"]},
+               "train_loop_fused": tlf["k5"], "export_b": ex["b"]["k5"]},
               k45["mlp_fwd"]),
         entry("fused_mlp_half_bwd", "fused_mlp.cu", "fused_block.py:260",
               {"train_fused": ft["k5b"], "train_loop_fused": tlf["k5b"]},
@@ -5627,7 +6052,11 @@ def main(argv: list) -> int:
                            ["parent_ms"] if parent else None),
              k1_fresh_ms=(parent["kernels"]["k3fwd base b0 bf16"]["ms"]
                           if parent else None)),
-        *int8_entries(int8, parent),
+        *int8_entries(int8, parent, {
+            "k9": {"export_c": ex["c"]["k9"],
+                   "validate_int8": surf["validate"]["int8"]["launches"]["k9"],
+                   "probe_http": probe["k9"]},
+            "k10": {"export_d": ex["d"]["k10"]}}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,9 @@ Port of infantposeestimation_gaussianbias_tpu/cli/infer.py.
     ... --input video.mp4 --max-frames 64
 
 Images and videos are read with cv2.  ``--output`` on an image draws the
-skeleton (viz/skeleton.py).  A video's ``--output`` and
-``--clinical-report`` need the clinical figures (matplotlib), which are
-not ported yet, and raise.
+skeleton (viz/skeleton.py); on a video it writes the video with the
+skeleton and wrist trails drawn (viz/clinical.create_video_with_pose, cv2)
+and ``--clinical-report`` the four-panel clinical figure (matplotlib).
 """
 
 from __future__ import annotations
@@ -22,10 +22,6 @@ import numpy as np
 
 from .common import (add_config_args, add_serving_args, make_inference,
                      resolve_config)
-
-CLINICAL_TODO = ("video --output and --clinical-report need viz/clinical.py, "
-                 "which is not ported yet: ROADMAP Queue 1 item 8")
-
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Pose inference")
@@ -39,14 +35,11 @@ def main(argv=None):
     parser.add_argument("--video", action="store_true")
     parser.add_argument("--max-frames", type=int, default=None)
     parser.add_argument("--clinical-report", default=None,
-                        help="write a clinical analysis figure (video mode; "
-                             "not ported: raises)")
+                        help="write a clinical analysis figure (video mode)")
     args = parser.parse_args(argv)
     cfg = resolve_config(args)
     video = args.video or args.input.lower().endswith((".mp4", ".avi",
                                                        ".mov"))
-    if video and (args.output or args.clinical_report):
-        raise NotImplementedError(CLINICAL_TODO)
     infer = make_inference(args, cfg)
     schema = cfg.data.keypoint_schema
 
@@ -54,6 +47,20 @@ def main(argv=None):
         traj, scores, fps = infer.predict_video(args.input,
                                                 max_frames=args.max_frames)
         print(f"processed {len(traj)} frames @ {fps:.1f} fps")
+        if args.output:
+            from ..viz.clinical import create_video_with_pose
+
+            create_video_with_pose(args.input, traj, scores, args.output,
+                                   schema, fps=fps,
+                                   max_frames=args.max_frames)
+            print(f"wrote {args.output}")
+        if args.clinical_report:
+            from ..viz.clinical import create_clinical_report_figure
+
+            create_clinical_report_figure(
+                traj, scores, schema, args.clinical_report,
+                fps=fps, cfg_clinical=cfg.clinical)
+            print(f"wrote {args.clinical_report}")
         return
 
     if os.path.isdir(args.input):

@@ -80,6 +80,23 @@ def detect_persons(image: np.ndarray) -> list:
     return [np.array([0, 0, w, h], np.float32)]
 
 
+def forward_decode(model, cfg, flip_index: torch.Tensor, crops: torch.Tensor,
+                   centers: torch.Tensor, scales: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalised crops -> flip-tested forward -> decode ->
+    back-projection to the source frames: the served pipeline after the
+    crop (``PoseInference``'s, and the exported program's of
+    tools/export_model.py)."""
+    coords, scores = flip_inference(
+        model, crops, flip_index, cfg.model.head_type, cfg.eval.decode,
+        shift_heatmap=cfg.eval.shift_heatmap, flip=cfg.eval.flip_test)
+    coords = coords * torch.tensor(to_input_pixels(cfg), dtype=torch.float32,
+                                   device=crops.device)
+    coords = decode_ops.transform_preds(coords, centers, scales,
+                                        cfg.data.input_size)
+    return coords, scores
+
+
 class PoseInference:
     """Pose predictor on ``device`` (the CUDA card unless the caller asks
     for ``"cpu"``).  Weights come from ``state_dict`` (the reference
@@ -179,18 +196,8 @@ class PoseInference:
     def _forward_decode(self, crops: torch.Tensor, centers: torch.Tensor,
                         scales: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Normalised crops -> flip-tested forward -> decode ->
-        back-projection to the source frames."""
-        cfg = self.cfg
-        coords, scores = flip_inference(
-            self.model, crops, self._flip_index, cfg.model.head_type,
-            cfg.eval.decode, shift_heatmap=cfg.eval.shift_heatmap,
-            flip=cfg.eval.flip_test)
-        coords = coords * torch.tensor(to_input_pixels(cfg),
-                                       dtype=torch.float32, device=self.device)
-        coords = decode_ops.transform_preds(coords, centers, scales,
-                                            cfg.data.input_size)
-        return coords, scores
+        return forward_decode(self.model, self.cfg, self._flip_index, crops,
+                              centers, scales)
 
     @torch.inference_mode()
     def _pipeline(self, frames: torch.Tensor, centers: torch.Tensor,

@@ -53,6 +53,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import ops as kops
 from ..kernels.fused_block import fused_attn_half, fused_mlp_half
 from ..kernels.window_msa import window_attention, window_attention_sharded
 from ..ops import msa
@@ -130,6 +131,9 @@ class WindowAttention(nn.Module):
         if self.grid is not None and self.grid.size > 1:
             out = window_attention_sharded(qkv, self.rpe_bias(),
                                            self.num_heads, self.grid)
+        elif torch.compiler.is_exporting():  # one operator node (kernels/ops)
+            out = kops.window_attention_qkv(qkv, self.rpe_bias(),
+                                            self.num_heads)
         else:
             out = window_attention(qkv, self.rpe_bias(), self.num_heads)
         sow_dense_input(self.proj, out)
@@ -220,12 +224,16 @@ class HRFormerBlock(nn.Module):
         xw, (Hp, Wp) = msa.window_partition(x.to(dt), ws)
         nW, N = xw.shape[0], ws * ws
         dp1, dp2 = self._scales(keep, B, x.device)
-        xw = fused_attn_half(
+        # one operator node each while exporting (kernels/ops)
+        exporting = torch.compiler.is_exporting()
+        attn_half = kops.fused_attn_half_fwd if exporting else fused_attn_half
+        mlp_half = kops.fused_mlp_half_fwd if exporting else fused_mlp_half
+        xw = attn_half(
             xw.contiguous(), self.norm1.weight, self.norm1.bias,
             attn.qkv.weight.to(dt).t(), attn.qkv.bias, attn.rpe_bias(),
             attn.proj.weight.to(dt).t(), attn.proj.bias, dp1,
             attn.num_heads, (H, W, ws))
-        y = fused_mlp_half(
+        y = mlp_half(
             xw.reshape(nW * N, C), self.norm2.weight, self.norm2.bias,
             mlp.fc1.weight.to(dt).t(), mlp.fc1.bias,
             mlp.fc2.weight.to(dt).t(), mlp.fc2.bias, dp2, (nW // B) * N)

@@ -45,6 +45,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels import ops as kops
 from ..kernels import quant as qk
 from ..ops.quant import QTensor, requantize
 
@@ -320,9 +321,15 @@ class QConvNorm(nn.Module):
         self.register_buffer("out_scale", torch.ones(()))
 
     def forward(self, x: QTensor):
-        y = qk.qconv(x.data, x.scale, self.w_int8, self.eff_scale,
-                     self.eff_bias, self.stride, relu=self.relu,
-                     out_scale=self.out_scale if self.relu else None)
+        out_scale = self.out_scale if self.relu else None
+        if torch.compiler.is_exporting():  # one operator node (kernels/ops)
+            y = kops.qconv(x.data, x.scale, self.w_int8, self.eff_scale,
+                           self.eff_bias, self.stride, self.relu, out_scale,
+                           None, None)
+        else:
+            y = qk.qconv(x.data, x.scale, self.w_int8, self.eff_scale,
+                         self.eff_bias, self.stride, relu=self.relu,
+                         out_scale=out_scale)
         return QTensor(y, self.out_scale) if self.relu else y
 
     def fused(self, x: QTensor, residual, out_scale: torch.Tensor) -> QTensor:
@@ -331,9 +338,15 @@ class QConvNorm(nn.Module):
         requantize with the block's ``out_scale``."""
         res, res_scale = ((residual.data, residual.scale)
                           if isinstance(residual, QTensor) else (residual, None))
-        y = qk.qconv(x.data, x.scale, self.w_int8, self.eff_scale,
-                     self.eff_bias, self.stride, relu=True,
-                     out_scale=out_scale, residual=res, res_scale=res_scale)
+        if torch.compiler.is_exporting():  # one operator node (kernels/ops)
+            y = kops.qconv(x.data, x.scale, self.w_int8, self.eff_scale,
+                           self.eff_bias, self.stride, True, out_scale, res,
+                           res_scale)
+        else:
+            y = qk.qconv(x.data, x.scale, self.w_int8, self.eff_scale,
+                         self.eff_bias, self.stride, relu=True,
+                         out_scale=out_scale, residual=res,
+                         res_scale=res_scale)
         return QTensor(y, out_scale)
 
 
@@ -354,6 +367,9 @@ class QDense(nn.Module):
         self.register_buffer("in_scale", torch.ones(()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.compiler.is_exporting():  # one operator node (kernels/ops)
+            return kops.qdense(x, self.w_int8, self.w_scale, self.bias,
+                               self.in_scale, self.compute_dtype)
         return qk.qdense(x, self.w_int8, self.w_scale, self.bias,
                          self.in_scale, self.compute_dtype)
 

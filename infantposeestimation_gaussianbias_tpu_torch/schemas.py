@@ -107,3 +107,47 @@ def get_schema(name: str) -> KeypointSchema:
         raise KeyError(
             f"Unknown keypoint schema {name!r}; known: {sorted(SCHEMAS)}"
         ) from None
+
+
+def schema_from_category(cat: dict, name: str | None = None,
+                         default_sigma: float = 0.05) -> KeypointSchema:
+    """Build a schema from a COCO category dict: the
+    arbitrary-K capability of the reference's
+    analysis/extended_dataset_loader.py:15-341.
+
+    Flip pairs are inferred from left_/right_ name symmetry; upper/lower
+    body from name heuristics; OKS sigmas default to ``default_sigma`` for
+    keypoints without a COCO-known value.
+    """
+    names = tuple(cat["keypoints"])
+    known = dict(zip(COCO17.keypoint_names, COCO17.oks_sigmas))
+    sigmas = tuple(known.get(n, default_sigma) for n in names)
+
+    idx = {n: i for i, n in enumerate(names)}
+    pairs = []
+    for n, i in idx.items():
+        if n.startswith("left_"):
+            mirror = "right_" + n[len("left_"):]
+            if mirror in idx:
+                pairs.append((i, idx[mirror]))
+        elif n.startswith("left"):
+            mirror = "right" + n[len("left"):]
+            if mirror in idx:
+                pairs.append((i, idx[mirror]))
+
+    lower_words = ("hip", "knee", "ankle", "foot", "heel", "toe", "leg")
+    lower = tuple(i for i, n in enumerate(names)
+                  if any(w in n for w in lower_words))
+    upper = tuple(i for i in range(len(names)) if i not in lower)
+
+    skeleton = tuple(tuple(int(v) for v in e)
+                     for e in cat.get("skeleton", []))
+    return KeypointSchema(
+        name=name or cat.get("name", f"custom{len(names)}"),
+        keypoint_names=names,
+        flip_pairs=tuple(pairs),
+        skeleton=skeleton,
+        oks_sigmas=sigmas,
+        upper_body=upper,
+        lower_body=lower,
+    )

@@ -97,3 +97,11 @@ class CheckpointManager:
             with open(path + ".meta.json") as f:
                 meta = json.load(f)
         return state, meta
+
+
+def model_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The model state dict of a checkpoint file written by
+    ``CheckpointManager`` (e.g. ``checkpoints/best``), on the CPU: what the
+    serving tools (tools/export_model.py, cli/analyze.py) load.  A missing
+    file raises."""
+    return torch.load(path, map_location="cpu", weights_only=True)["model"]

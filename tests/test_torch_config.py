@@ -76,11 +76,13 @@ def _imported_modules(path: Path):
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO))
     for p in [*PORT.rglob("*.py"), REPO / "chip_smoke.py",
-              REPO / "tests" / "torch_grid.py"]))
+              REPO / "tests" / "torch_grid.py",
+              *(REPO / "examples").glob("*_torch.py")]))
 def test_port_imports_nothing_of_jax(path):
-    """No module of the port, not chip_smoke.py, and not the process-grid
-    tests' rank helper (which spawned ranks import) imports jax, flax or
-    the JAX package (its framework-neutral modules included)."""
+    """No module of the port, not chip_smoke.py, not the port's examples
+    (examples/*_torch.py) and not the process-grid tests' rank helper
+    (which spawned ranks import) imports jax, flax or the JAX package (its
+    framework-neutral modules included)."""
     bad = [m for m in _imported_modules(REPO / path)
            if m.split(".")[0] in ("jax", "flax", "optax",
                                   "infantposeestimation_gaussianbias_tpu")]
@@ -128,6 +130,20 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     monkeypatch.setenv("PROBE_SHAPE", "2,16,16,1")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         probe_wmsa_ablate.main()
+    from infantposeestimation_gaussianbias_tpu_torch.cli import analyze
+    from infantposeestimation_gaussianbias_tpu_torch.tools import (
+        export_model, probe_serve_http, validate_reference_checkpoint)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_model.build_serving_fn(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        analyze.main(["--variant", "hrformer_small", "--out-dir",
+                      str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        validate_reference_checkpoint.build_state(cfg, None)
+    monkeypatch.setenv("PROBE_QUANT", "0")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe_serve_http.main(cfg)
     grid = ProcessGrid(data=2, model=1, rank=0, data_index=0, model_index=0,
                        data_group=None, model_group=None, world_group=None,
                        device=torch.device("cpu"))

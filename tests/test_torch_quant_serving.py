@@ -189,12 +189,11 @@ def _decode_ties(infer, frames, bboxes, tol: float) -> np.ndarray:
     return (np.abs(g.numpy() % 1.0 - 0.5) < tol).any(axis=-1)
 
 
-def test_pose_inference_int8_matches_jax(registered):
-    """``PoseInference(quantize=True, device="cpu")`` against JAX's on the
-    same frames and calibration crops (HRNet + fusion, flip test on):
-    keypoints and scores; the int8 model is installed once; without
-    calibration crops the first batch calibrates, with the JAX package's
-    warning below MIN_SELF_CALIB_CROPS."""
+@pytest.fixture(scope="module")
+def int8_fusion(registered):
+    """The int8 HRNet + fusion serving case (flip test on): (port cfg,
+    float variables as numpy, frames, bboxes, calibration crops, JAX's
+    live int8 ``PoseInference`` keypoints and scores on them)."""
     jcfg = torch_tiny.tiny_cfg(jget_config(), "fusion")
     variables = torch_tiny.sharpen(torch_tiny.random_variables(
         jpe.build_model(jcfg), seed=80), seed=81)
@@ -209,7 +208,27 @@ def test_pose_inference_int8_matches_jax(registered):
                                     state=SimpleNamespace(
         apply_fn=jpe.build_model(jcfg).apply,
         variables=jax.tree_util.tree_map(jnp.asarray, variables)))
-    ref_k, ref_s = jinf.predict_batch(frames, bboxes)
+    return (cfg, variables, frames, bboxes, calib,
+            jinf.predict_batch(frames, bboxes))
+
+
+def _close_to_jax(infer, kpts, scores, frames, bboxes, ref) -> None:
+    """Keypoints within KEYPOINT_ATOL_PX of JAX's off decode ties, scores
+    within SCORE_RTOL of the largest (the module doc's reasons)."""
+    ref_k, ref_s = ref
+    keep = ~_decode_ties(infer, frames, bboxes, TIE_TOL)
+    assert keep.mean() > 0.7
+    assert np.abs(kpts - ref_k)[keep].max() <= KEYPOINT_ATOL_PX
+    assert np.abs(scores - ref_s).max() <= SCORE_RTOL * np.abs(ref_s).max()
+
+
+def test_pose_inference_int8_matches_jax(int8_fusion):
+    """``PoseInference(quantize=True, device="cpu")`` against JAX's on the
+    same frames and calibration crops (HRNet + fusion, flip test on):
+    keypoints and scores; the int8 model is installed once; without
+    calibration crops the first batch calibrates, with the JAX package's
+    warning below MIN_SELF_CALIB_CROPS."""
+    cfg, variables, frames, bboxes, calib, ref = int8_fusion
     port = PoseInference(cfg, state_dict=state_dict_from_jax(
         variables["params"], variables["batch_stats"]), device="cpu",
         quantize=True, calibration_crops=calib)
@@ -218,10 +237,7 @@ def test_pose_inference_int8_matches_jax(registered):
     assert any(isinstance(m, QConvNorm) for m in installed.modules())
     kpts, scores = port.predict_batch(frames, bboxes)
     assert port.model is installed
-    keep = ~_decode_ties(port, frames, bboxes, TIE_TOL)
-    assert keep.mean() > 0.7
-    assert np.abs(kpts - ref_k)[keep].max() <= KEYPOINT_ATOL_PX
-    assert np.abs(scores - ref_s).max() <= SCORE_RTOL * np.abs(ref_s).max()
+    _close_to_jax(port, kpts, scores, frames, bboxes, ref)
 
     lazy = PoseInference(cfg, state_dict=state_dict_from_jax(
         variables["params"], variables["batch_stats"]), device="cpu",
@@ -286,3 +302,33 @@ def test_concurrent_first_batches_calibrate_once(registered, monkeypatch):
     for k, s in results:
         np.testing.assert_array_equal(k, results[0][0])
         np.testing.assert_array_equal(s, results[0][1])
+
+
+def test_exported_int8_matches_live_and_jax(int8_fusion):
+    """The int8 pipeline of ``test_pose_inference_int8_matches_jax``
+    exported by tools/export_model.py (saved, loaded, called at its 3
+    frames): equal bit for bit to the live int8 pipeline it was exported
+    from (the same int8 state), within that test's bounds of JAX's live
+    int8 pipeline, and holding one K9 operator node per int8 conv call
+    (two passes: the flip test)."""
+    from collections import Counter
+
+    from infantposeestimation_gaussianbias_tpu_torch.tools import (
+        export_model)
+
+    cfg, variables, frames, bboxes, calib, ref = int8_fusion
+    inf = PoseInference(cfg, state_dict=state_dict_from_jax(
+        variables["params"], variables["batch_stats"]), device="cpu",
+        quantize=True, calibration_crops=calib)
+    program = export_model.load_pipeline(export_model.export_serving(
+        export_model.ServingPipeline(inf, frames.shape[1:3]), len(frames)))
+    centers = (bboxes[:, :2] + bboxes[:, 2:]) / 2
+    scales = (bboxes[:, 2:] - bboxes[:, :2]) * cfg.data.bbox_padding
+    args = tuple(map(torch.from_numpy, (frames, centers, scales)))
+    kpts, scores = program.call(*args)
+    live_k, live_s = inf._pipeline(*args)
+    assert torch.equal(kpts, live_k) and torch.equal(scores, live_s)
+    _close_to_jax(inf, kpts.numpy(), scores.numpy(), frames, bboxes, ref)
+    nodes = Counter(str(n.target) for n in program.program.graph.nodes)
+    convs = sum(isinstance(m, QConvNorm) for m in inf.model.modules())
+    assert nodes["ipe.qconv.default"] == 2 * convs > 0

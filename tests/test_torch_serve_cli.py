@@ -331,8 +331,9 @@ def test_pipelined_dispatch_overlaps_batches():
 def test_infer_cli(servers, tmp_path, capsys):
     """``infer.main`` with a ``torch.save``d checkpoint on the CPU: an
     image (with the skeleton drawn), a directory and a video print what
-    the port's PoseInference predicts; the video again with --int8; a
-    video's --output and --mesh raise."""
+    the port's PoseInference predicts; a video's --output (the video with
+    the skeleton drawn, every frame) and --clinical-report (the figure);
+    the video again with --int8; --mesh raises."""
     _, _, port, variables = servers
     ckpt = tmp_path / "tiny.pt"
     torch.save(state_dict_from_jax(variables["params"],
@@ -363,8 +364,17 @@ def test_infer_cli(servers, tmp_path, capsys):
         writer.release()
         infer.main(["--input", video, *args])
         assert "processed 3 frames @ 10.0 fps" in capsys.readouterr().out
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            infer.main(["--input", video, "--output", "x.mp4", *args])
+        drawn, report = tmp_path / "drawn.mp4", tmp_path / "report.png"
+        infer.main(["--input", video, "--output", str(drawn),
+                    "--clinical-report", str(report), *args])
+        printed = capsys.readouterr().out
+        assert f"wrote {drawn}" in printed and f"wrote {report}" in printed
+        cap = cv2.VideoCapture(str(drawn))
+        assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 3
+        ok, first = cap.read()
+        cap.release()
+        assert ok and first.shape == (*FRAME_HW, 3)
+        assert cv2.imread(str(report)) is not None
         # --int8: the video's first batch of 3 frames calibrates (with the
         # small-calibration warning), then every frame is served in int8
         with pytest.warns(UserWarning, match="self-calibrating"):
