@@ -2453,6 +2453,30 @@ def phase_analysis(smi: str) -> dict:
 GRID = (2, 2)
 GRID_LABEL = "4 ranks, 1 card, gloo"
 GRID_F32_BATCH = 4  # the float32 step against one process (2 rows a rank)
+# Tensor parallelism over the model axis (parallel/tensor.py): at model
+# axis 2 every hrformer_base Dense and both shared convs of the fusion head
+# are cut.  The assembly all-reduces are timed by layer kind beside K3's
+# output all-reduce, on one float32 batch of GRID_F32_BATCH frames with
+# flip (a diagnosis: gloo copies each through the host, four ranks share
+# the card).
+GRID_TP_TABLE = 4 * 2 * (1 * 2 + 4 * 3 + 2 * 4) + 2
+GRID_TP_KINDS = (("attn.qkv", "qkv"), ("attn.proj", "proj"),
+                 ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2"),
+                 ("shared_layers", "shared conv"))
+# int8 over the grid against one process on the same crops, float32
+# compute.  Calibration: each data rank runs its float model on its 2 of
+# the 4 crops (other batch shapes for cuBLAS and cuDNN than one process's
+# 4), so an abs-max may part by float32 rounding before the maximum over
+# the data group: the scales are held to 1e-5 of their value.  Serving:
+# one process serving the grid's int8 state (install_quantized) against
+# the grid, held to phase 27's bound for int8 maps whose float32 steps
+# round apart (INT8_CARD_CPU_REL of the largest: K9 and K10 are exact in
+# int32, but a float32 value before a requantize that rounds an ulp apart
+# at another batch shape moves an int8 value across a .5 boundary).  The
+# maps of one process's own calibration are logged beside them: on the
+# seeded weights (identity BatchNorm, activations ~1e6) a scale 1e-6
+# apart moves many int8 values and the maps part by percents.
+GRID_INT8_SCALE_RTOL = 1e-5
 
 
 def jax_modules() -> list:
@@ -2681,7 +2705,10 @@ def grid_serve_rank(grid, frames, bboxes) -> dict:
     del inf
     cfg32 = get_variant("hrformer_base")
     cfg32.model.compute_dtype = "float32"
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
     inf32 = PoseInference(cfg32, device="cuda", mesh=grid)
+    replicated_bytes = torch.cuda.memory_allocated() - m0
     n = GRID_F32_BATCH
     k32, s32 = inf32.predict_batch(frames[:n], bboxes[:n])
     centers = (bboxes[:n, :2] + bboxes[:n, 2:]) / 2
@@ -2692,8 +2719,162 @@ def grid_serve_rank(grid, frames, bboxes) -> dict:
             torch.from_numpy(centers).to(grid.device),
             torch.from_numpy(scales).to(grid.device), cfg32.data.input_size)
         hm = inf32.model(shard_batch(crops, grid))["heatmaps"].cpu().numpy()
+    t0 = time.perf_counter()
+    tp = grid_tp_serve(grid, inf32, frames[:n], bboxes[:n], crops, m0,
+                       replicated_bytes)
+    del inf32
+    t1 = time.perf_counter()
+    int8 = grid_int8_serve(grid, frames[:n], bboxes[:n])
     return dict(rank=grid.rank, kpts=kpts, scores=scores, launches=got,
-                batch_s=times, k32=k32, s32=s32, hm32=hm)
+                batch_s=times, k32=k32, s32=s32, hm32=hm, tp=tp, int8=int8,
+                seconds=dict(tp=t1 - t0, int8=time.perf_counter() - t1))
+
+
+def _assembly_timer(model, tensor_mod, wm):
+    """Time every all-reduce of one forward by what it assembles: the
+    tensor-parallel layers' outputs by layer kind (GRID_TP_KINDS), K3's
+    output ("K3 out"); card work synchronised before and after each.
+    Returns (start, stop): stop() restores the collectives and the hooks
+    and returns {kind: [ms, ...]}."""
+    current, times, hooks = [None], {}, []
+
+    class Timed:
+        def __init__(self, real, kind):
+            self.real, self.kind = real, kind
+
+        def __getattr__(self, name):
+            return getattr(self.real, name)
+
+        def all_reduce(self, t, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real.all_reduce(t, *a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(self.kind(), []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+
+    real = tensor_mod.dist, wm.dist
+
+    def start():
+        for name, m in model.named_modules():
+            if getattr(m, "tp", None) is None:
+                continue
+            kind = next(k for key, k in GRID_TP_KINDS if key in name)
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args, kind=kind: current.__setitem__(0, kind)))
+            hooks.append(m.register_forward_hook(
+                lambda mod, args, out: current.__setitem__(0, None)))
+        tensor_mod.dist = Timed(real[0], lambda: current[0])
+        wm.dist = Timed(real[1], lambda: "K3 out")
+
+    def stop():
+        tensor_mod.dist, wm.dist = real
+        for h in hooks:
+            h.remove()
+        return times
+
+    return start, stop
+
+
+def grid_tp_serve(grid, tp, frames, bboxes, crops, m0, replicated_bytes
+                  ) -> dict:
+    """Phase 18's tensor-parallel half on one rank: the float32 grid
+    PoseInference ``tp`` (hrformer_base + fusion, folded) cut over the
+    grid's model axis in place (``shard_params``, as
+    ``PoseInference(tensor_parallel=True)`` cuts its model once its weights
+    are loaded); its parameter memory against the replicated model's (both
+    from ``m0``); one flip-tested batch of the frames with its launches and
+    its assembly all-reduces timed by layer kind; this data rank's
+    heatmaps of their crops; and ``predict_stream`` over the grid on two
+    batches of uint8 crops (the second ragged against the data axis; the
+    parent holds them to one process's stream)."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        window_msa as wm)
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
+        shard_batch, shard_params, sharding_table, tensor as tensor_mod)
+
+    shard_params(tp.model, grid, tensor_parallel=True)
+    tp.tensor_parallel = True
+    torch.cuda.synchronize()
+    tp_bytes = torch.cuda.memory_allocated() - m0
+    table = sharding_table(tp.model)
+    start, stop = _assembly_timer(tp.model, tensor_mod, wm)
+    reset_launches()
+    start()
+    try:
+        kpts, scores = tp.predict_batch(frames, bboxes)
+    finally:
+        assembly = stop()
+    torch.cuda.synchronize()
+    got = launches()
+    with torch.inference_mode():
+        hm = tp.model(shard_batch(crops, grid))["heatmaps"].cpu().numpy()
+    streamed = list(tp.predict_stream(
+        iter(grid_stream_batches(tp.cfg, bboxes)), max_in_flight=2))
+    return dict(kpts=kpts, scores=scores, launches=got, hm32=hm,
+                table=len(table), param_bytes=(replicated_bytes, tp_bytes),
+                assembly={k: (len(v), float(np.sum(v)))
+                          for k, v in assembly.items()},
+                stream=streamed)
+
+
+def grid_stream_batches(cfg, bboxes) -> list:
+    """Two batches of seeded uint8 crops at the input size (4, then 3
+    rows: ragged against the 2-rank data axis) with centers and scales."""
+    rng = np.random.RandomState(18)
+    W, H = cfg.data.input_size
+    return [{"image_u8": rng.randint(0, 256, (b, H, W, 3)).astype(np.uint8),
+             "center": bboxes[:b, :2] + 20.0 * i,
+             "scale": bboxes[:b, 2:] - bboxes[:b, :2]}
+            for i, b in enumerate((4, 3))]
+
+
+def _int8_cfgs():
+    from infantposeestimation_gaussianbias_tpu_torch import get_variant
+
+    hr = get_variant("hrformer_base")
+    hr.model.compute_dtype = "float32"
+    return (("hrnet_w32 heatmap", hrnet_cfg("heatmap", "float32")),
+            ("hrformer_base fusion", hr))
+
+
+def grid_int8_serve(grid, frames, bboxes) -> dict:
+    """Phase 18's int8 half on one rank, for hrnet_w32 + heatmap and
+    hrformer_base + fusion (seeded weights, float32 compute), with
+    tensor parallelism: calibrated on the crops of ``frames`` (each data
+    rank on its rows, the abs-max over the data group), its calibrated
+    scales and a digest of its whole int8 state, one flip-tested batch's
+    launches, and this data rank's heatmaps of the crops."""
+    import hashlib
+
+    from infantposeestimation_gaussianbias_tpu_torch import PoseInference
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
+        full_state_dict, shard_batch)
+
+    out = {}
+    for label, cfg in _int8_cfgs():
+        crops = normalized_crops(cfg, frames, bboxes)
+        q = PoseInference(cfg, device="cuda", mesh=grid, tensor_parallel=True,
+                          quantize=True, calibration_crops=crops.cpu().numpy())
+        sd = full_state_dict(q.model)
+        reset_launches()
+        kpts, scores = q.predict_batch(frames, bboxes)
+        torch.cuda.synchronize()
+        got = launches()
+        with torch.inference_mode():
+            hm = q.model(shard_batch(crops, grid))["heatmaps"].cpu().numpy()
+        out[label] = dict(
+            state=({k: v.cpu() for k, v in sd.items()} if grid.rank == 0
+                   else None),
+            scales={k: v.item() for k, v in sd.items() if v.ndim == 0
+                    and v.is_floating_point()},
+            digest=hashlib.sha256(b"".join(
+                v.cpu().numpy().tobytes() for v in sd.values())).hexdigest(),
+            launches=got, hm=hm, finite=bool(np.isfinite(kpts).all()
+                                             and np.isfinite(scores).all()))
+        del q
+    return out
 
 
 def phase_grid_serving(smi: str) -> dict:
@@ -2740,16 +2921,168 @@ def phase_grid_serving(smi: str) -> dict:
         f"(left out {int(unsure.sum())} of {unsure.size} on a decode tie), "
         f"scores {s_err:.3e}")
     assert hm_err <= HEATMAP_ATOL and keep.any() and kp_err <= KEYPOINT_ATOL_PX
+    tp = grid_tp_check(results, hm.cpu().numpy(), k_one, s_one, keep,
+                       grid_stream_check(one, bboxes[:n]), smi)
+    t0 = time.perf_counter()
+    int8 = grid_int8_check(results, frames[:n], bboxes[:n], smi)
+    log(f"[time] 18's rank 0: tensor parallel "
+        f"{results[0]['seconds']['tp']:.1f} s, int8 "
+        f"{results[0]['seconds']['int8']:.1f} s; the parent's int8 "
+        f"{time.perf_counter() - t0:.1f} s")
     med = float(np.median(results[0]["batch_s"]))
     out = dict(crops_per_s=32 / med, batch32_ms=med * 1e3,
                launches=results[0]["launches"]["k3"], label=GRID_LABEL,
-               card=smi)
+               card=smi, tp=tp, int8=int8)
     log(f"[grid-serve] bf16 b=32 flip over the {GRID[0]}x{GRID[1]} grid: "
         f"K1 launches per rank {results[0]['launches']['k1']} (all through "
         f"K3), every rank the same {results[0]['kpts'].shape} keypoints; "
         f"{out['crops_per_s']:.1f} crops/s (median {med * 1e3:.1f} ms over "
         f"{len(results[0]['batch_s'])} batches, {GRID_LABEL}: a correctness "
         f"path, not a scaling figure); on {smi}")
+    return out
+
+
+def grid_stream_check(one, bboxes) -> tuple:
+    """One process's ``predict_stream`` of grid_stream_batches and, per
+    batch, which keypoints sit on a decode tie of its flip-averaged
+    heatmaps (left out of the comparison, as phase 18's)."""
+    from infantposeestimation_gaussianbias_tpu_torch.ops import decode
+
+    batches = grid_stream_batches(one.cfg, bboxes)
+    ref = list(one.predict_stream(iter(batches), max_in_flight=2))
+    mean = torch.tensor(one.cfg.data.pixel_mean, device="cuda") * 255.0
+    std = torch.tensor(one.cfg.data.pixel_std, device="cuda") * 255.0
+    unsure = []
+    with torch.inference_mode():
+        for b in batches:
+            crops = (torch.from_numpy(b["image_u8"]).cuda().float() - mean
+                     ) / std
+            hm = one.model(crops)["heatmaps"]
+            hm_f = decode.flip_heatmaps(one.model(torch.flip(
+                crops, [2]))["heatmaps"], one._flip_index)
+            unsure.append(_unsure_keypoints((hm + hm_f) * 0.5, "fusion"))
+    return ref, unsure
+
+
+def grid_tp_check(results, hm_one, k_one, s_one, keep, stream_one, smi
+                  ) -> dict:
+    """Phase 18's tensor-parallel checks (grid_tp_serve): every rank the
+    same keypoints, 88 K1 launches a batch a rank, all through K3, 178
+    tensors cut; float32 heatmaps and keypoints against one process on the
+    card under phase 4's bounds (the decode ties of phase 18 left out);
+    the stream over the grid, every rank the same, against one process's
+    stream (``stream_one``: grid_stream_check) under the same bounds;
+    parameter memory and the assembly all-reduces, logged."""
+    n2 = 2 * K1_CALLS_PER_FORWARD
+    tp0 = results[0]["tp"]
+    for r in results:
+        tp = r["tp"]
+        assert tp["launches"] == dict(no_launches(), k1=n2, k3=n2), (
+            r["rank"], tp["launches"])
+        np.testing.assert_array_equal(tp["kpts"], tp0["kpts"])
+        np.testing.assert_array_equal(tp["scores"], tp0["scores"])
+        assert tp["table"] == GRID_TP_TABLE, tp["table"]
+        for (c, s), (c0, s0) in zip(tp["stream"], tp0["stream"]):
+            np.testing.assert_array_equal(c, c0)
+            np.testing.assert_array_equal(s, s0)
+    ref, unsure = stream_one
+    assert [c.shape[0] for c, _ in tp0["stream"]] == [c.shape[0]
+                                                      for c, _ in ref]
+    st_kp = max(float(np.abs(c - rc)[~u].max())
+                for (c, _), (rc, _), u in zip(tp0["stream"], ref, unsure))
+    st_s = max(float(np.abs(s - rs).max())
+               for (_, s), (_, rs) in zip(tp0["stream"], ref))
+    hm_tp = np.concatenate([tp0["hm32"], results[GRID[1]]["tp"]["hm32"]])
+    hm_err = float(np.abs(hm_tp - hm_one).max())
+    kp_err = float(np.abs(tp0["kpts"] - k_one)[keep].max())
+    s_err = float(np.abs(tp0["scores"] - s_one).max())
+    mem = {r["rank"]: r["tp"]["param_bytes"] for r in results}
+    asm = tp0["assembly"]
+    log(f"[grid-tp] hrformer_base + fusion f32, tensor parallel over the "
+        f"model axis of the {GRID[0]}x{GRID[1]} grid ({tp0['table']} tensors "
+        f"cut): vs one process on the card, {GRID_F32_BATCH} frames: "
+        f"heatmaps max_abs_err={hm_err:.3e}, keypoints {kp_err:.3e} px, "
+        f"scores {s_err:.3e}; K1 launches per rank {tp0['launches']['k1']} "
+        f"(all through K3); predict_stream over the grid ("
+        f"{[c.shape[0] for c, _ in tp0['stream']]} crops) vs one process's: "
+        f"keypoints {st_kp:.3e} px (left out "
+        f"{sum(int(u.sum()) for u in unsure)} on a decode tie), scores "
+        f"{st_s:.3e}; parameter "
+        f"memory per rank replicated -> tensor parallel (MB): "
+        + ", ".join(f"rank {k} {a / 1e6:.1f} -> {b / 1e6:.1f}"
+                    for k, (a, b) in sorted(mem.items()))
+        + f"; all-reduces of one batch of {GRID_F32_BATCH} frames with flip "
+        f"on rank 0 by kind (count, ms): "
+        + ", ".join(f"{k} {c} {ms:.1f}" for k, (c, ms) in sorted(asm.items()))
+        + f" ({GRID_LABEL}; host-timed, synchronised); on {smi}")
+    assert hm_err <= HEATMAP_ATOL and kp_err <= KEYPOINT_ATOL_PX, (hm_err,
+                                                                   kp_err)
+    assert s_err <= HEATMAP_ATOL, s_err
+    assert st_kp <= KEYPOINT_ATOL_PX and st_s <= HEATMAP_ATOL, (st_kp, st_s)
+    return dict(launches=tp0["launches"]["k3"], tensors=tp0["table"],
+                hm_err=hm_err, kpt_err_px=kp_err, param_mb={
+                    k: (a / 1e6, b / 1e6) for k, (a, b) in mem.items()},
+                assembly_ms={k: ms for k, (_, ms) in asm.items()},
+                assembly_calls={k: c for k, (c, _) in asm.items()})
+
+
+def grid_int8_check(results, frames, bboxes, smi) -> dict:
+    """Phase 18's int8 checks (grid_int8_serve): the scales and the whole
+    int8 state the same on every rank, the scales against one process's
+    calibration on the same crops within GRID_INT8_SCALE_RTOL, the maps
+    against one process serving the grid's int8 state within
+    INT8_CARD_CPU_REL of their largest (against one process's own
+    calibration: logged), exact K9, K10 and K1 launches per rank."""
+    from infantposeestimation_gaussianbias_tpu_torch import PoseInference
+
+    n2 = 2 * K1_CALLS_PER_FORWARD
+    out = {}
+    for label, cfg in _int8_cfgs():
+        hrnet = label.startswith("hrnet")
+        want = (dict(no_launches(), k9=2 * HRNET_W32_QCONVS) if hrnet else
+                dict(no_launches(), k10=2 * HRFORMER_BASE_QDENSE, k1=n2,
+                     k3=n2))
+        r0 = results[0]["int8"][label]
+        for r in results:
+            got = r["int8"][label]
+            assert got["launches"] == want, (label, r["rank"],
+                                             got["launches"])
+            assert got["finite"] and got["scales"] == r0["scales"], label
+            assert got["digest"] == r0["digest"], (label, r["rank"])
+        crops = normalized_crops(cfg, frames, bboxes)
+        one = PoseInference(cfg, device="cuda", quantize=True,
+                            calibration_crops=crops.cpu().numpy())
+        scales = {k: v.item() for k, v in one.model.state_dict().items()
+                  if v.ndim == 0 and v.is_floating_point()}
+        with torch.inference_mode():
+            hm_own = one.model(crops)["heatmaps"].cpu().numpy()
+            one.install_quantized(r0["state"])
+            hm_one = one.model(crops)["heatmaps"].cpu().numpy()
+        del one
+        assert set(scales) == set(r0["scales"]), label
+        scale_err = max(abs(r0["scales"][k] - v) / max(abs(v), 1e-30)
+                        for k, v in scales.items())
+        hm = np.concatenate([r0["hm"], results[GRID[1]]["int8"][label]["hm"]])
+        peak = float(np.abs(hm_one).max())
+        map_err = float(np.abs(hm - hm_one).max())
+        own_err = float(np.abs(hm - hm_own).max())
+        log(f"[grid-int8] {label} f32, over the {GRID[0]}x{GRID[1]} grid "
+            f"(tensor parallel), calibrated on {len(frames)} crops (each data "
+            f"rank its rows, abs-max over the data group): {len(scales)} "
+            f"scales the same on every rank, vs one process's calibration "
+            f"max rel err {scale_err:.3e}; int8 state digest equal on all "
+            f"{len(results)} ranks; heatmaps vs one process serving that "
+            f"state max_abs_err {map_err:.3e} of peak {peak:.3e}"
+            f"{' (bit for bit)' if map_err == 0 else ''}, vs one process's "
+            f"own calibration {own_err:.3e}; launches per rank "
+            + ", ".join(f"{k.upper()} {v}" for k, v in r0["launches"].items()
+                        if v)
+            + f"; on {smi}")
+        assert scale_err <= GRID_INT8_SCALE_RTOL, (label, scale_err)
+        assert map_err <= INT8_CARD_CPU_REL * peak, (label, map_err, peak)
+        out[label] = dict(scale_rel_err=scale_err, map_abs_err=map_err,
+                          own_calibration_map_abs_err=own_err, peak=peak,
+                          launches=r0["launches"])
     return out
 
 
@@ -2790,6 +3123,9 @@ def grid_train_rank(grid, batch4, masks4, batch32) -> dict:
         out["stats"] = {n: b.cpu() for n, b in state.model.named_buffers()
                         if n.endswith(("running_mean", "running_var"))}
     del state
+    t0 = time.perf_counter()
+    out["tp"] = grid_tp_train(grid, batch4, masks4)
+    out["tp_s"] = time.perf_counter() - t0
     cfg = hrformer_cfg()
     state = create_train_state(cfg, device="cuda", grid=grid)
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -2803,6 +3139,126 @@ def grid_train_rank(grid, batch4, masks4, batch32) -> dict:
                bf16={k: v.item() for k, v in metrics.items()},
                digest=_state_digest(state.model))
     return out
+
+
+def _replicated_digest(state) -> str:
+    """sha256 of the parameters that tensor parallelism leaves whole and of
+    the BatchNorm statistics."""
+    import hashlib
+
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
+        sharded_parameters)
+
+    cut = sharded_parameters(state.model)
+    kept = [p for p in state.model.parameters() if id(p) not in cut]
+    kept += [b for n, b in state.model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    return hashlib.sha256(b"".join(
+        t.detach().cpu().numpy().tobytes() for t in kept)).hexdigest()
+
+
+def grid_tp_train(grid, batch4, masks4) -> dict:
+    """Phase 19's tensor-parallel half on one rank: the float32
+    hrformer_base step of grid_train_rank with ``cfg.parallel.
+    tensor_parallel`` (the same seeded weights, batch and masks): its
+    terms, the RPE-table and qkv-weight gradients (the cut ones
+    assembled) and BatchNorm statistics on rank 0, the shapes the cut
+    weights and their AdamW moments keep, a digest of what is replicated;
+    then a second step of the same state in bf16 at the same batch: its
+    launches, terms and digest."""
+    from infantposeestimation_gaussianbias_tpu_torch import (
+        create_train_state, get_variant, make_train_step)
+    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
+        sharded_parameters, tensor as tensor_mod)
+
+    dev = grid.device
+    cfg = get_variant("hrformer_base")
+    cfg.model.compute_dtype = "float32"
+    cfg.train.warmup_epochs = 0
+    cfg.parallel.tensor_parallel = True
+    state = create_train_state(cfg, device="cuda", grid=grid)
+    _, m = make_train_step(cfg, grid)(state, batch4, None,
+                                      drop_masks=masks4.to(dev))
+    cut = sharded_parameters(state.model)
+    named = dict(state.model.named_parameters())
+    grads = {n: (tensor_mod.assemble_rows(p.grad, cut[id(p)])
+                 if id(p) in cut else p.grad).cpu()
+             for n, p in named.items()
+             if n.endswith(("relative_position_bias_table",
+                            "attn.qkv.weight"))}
+    out = dict(f32={k: v.item() for k, v in m.items()},
+               f32_digest=_replicated_digest(state),
+               cut={n: (tuple(p.shape),
+                        tuple(state.optimizer.state[p]["exp_avg"].shape))
+                    for n, p in named.items() if id(p) in cut})
+    if grid.rank == 0:
+        out["grads"] = grads
+        out["stats"] = {n: b.cpu() for n, b in state.model.named_buffers()
+                        if n.endswith(("running_mean", "running_var"))}
+    # a second step of the same state in bf16: every layer reads its
+    # compute_dtype when it runs, so this is the bf16 model
+    for module in state.model.modules():
+        if hasattr(module, "compute_dtype"):
+            module.compute_dtype = torch.bfloat16
+    cfg = hrformer_cfg()
+    cfg.parallel.tensor_parallel = True
+    reset_launches()
+    _, metrics = make_train_step(cfg, grid)(
+        state, {k: v.to(dev) for k, v in batch4.items()},
+        torch.Generator(device=dev).manual_seed(6))
+    torch.cuda.synchronize()
+    out.update(launches=launches(), bf16={k: v.item()
+                                          for k, v in metrics.items()},
+               digest=_replicated_digest(state))
+    return out
+
+
+def grid_tp_train_check(results, m_one, one, smi) -> dict:
+    """Phase 19's tensor-parallel checks (grid_tp_train): the float32 step
+    against one process's under phase 6's bounds, every rank the same
+    terms and replicated bits, each cut weight and its moments out / 2
+    rows; the bf16 step: finite, 44 K1 and 44 K2 launches per rank through
+    K3, replicated bits equal."""
+    r0 = results[0]["tp"]
+    for k, v in m_one.items():
+        a, b = r0["f32"][k], v.item()
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        log(f"[grid-tp-train] f32 b={GRID_F32_BATCH} {k:14s} tensor parallel "
+            f"{a:.7e} one process {b:.7e} rel {rel:.2e}")
+        assert np.isfinite(a) and rel <= STEP_LOSS_RTOL, (k, a, b)
+    params = dict(one.model.named_parameters())
+    full = {n: tuple(p.shape) for n, p in params.items()}
+    for r in results:
+        tp = r["tp"]
+        assert tp["f32"] == r0["f32"] and tp["f32_digest"] == r0["f32_digest"]
+        assert tp["digest"] == r0["digest"], "replicated parameters differ"
+        assert len(tp["cut"]) == GRID_TP_TABLE
+        for n, (shape, moment) in tp["cut"].items():
+            assert shape == moment == (full[n][0] // 2, *full[n][1:]), n
+    errs = {n: _rel(g, params[n].grad.cpu()) for n, g in r0["grads"].items()}
+    assert len(errs) == 2 * K1_CALLS_PER_FORWARD
+    assert max(errs.values()) <= STEP_GRAD_RTOL, max(errs.values())
+    bufs = dict(one.model.named_buffers())
+    for name, b in r0["stats"].items():
+        torch.testing.assert_close(b, bufs[name].cpu(), atol=STEP_STAT_TOL,
+                                   rtol=STEP_STAT_TOL)
+    n1 = K1_CALLS_PER_FORWARD
+    for r in results:
+        assert r["tp"]["launches"] == dict(no_launches(), k1=n1, k2=n1, k3=n1,
+                                           k3b=n1), r["tp"]["launches"]
+        assert all(np.isfinite(v) for v in r["tp"]["bf16"].values())
+    log(f"[grid-tp-train] f32 RPE-table and qkv-weight gradients (the cut "
+        f"qkv assembled), tensor parallel vs one process: max rel err "
+        f"{max(errs.values()):.2e} over {len(errs)}; {GRID_TP_TABLE} cut "
+        f"weights and their AdamW moments keep out/2 rows; replicated "
+        f"parameters identical on all {len(results)} ranks; bf16 b="
+        f"{GRID_F32_BATCH} step: launches per rank K1 {r0['launches']['k1']} "
+        f"K2 {r0['launches']['k2']} (all through K3), "
+        + " ".join(f"{k}={v:.6g}" for k, v in r0["bf16"].items())
+        + f"; {GRID_LABEL}, on {smi}")
+    return dict(launches=r0["launches"]["k3"] + r0["launches"]["k3b"],
+                grad_rel_err=max(errs.values()),
+                loss=r0["bf16"]["total_loss"])
 
 
 def phase_grid_training(smi: str) -> dict:
@@ -2853,6 +3309,8 @@ def phase_grid_training(smi: str) -> dict:
         stat_err = max(stat_err, (b - bufs[name].cpu()).abs().max().item())
     log(f"[grid-train] f32 BN running stats (global over the data ranks) "
         f"grid vs one process: max_abs_err={stat_err:.3e}")
+    tp = grid_tp_train_check(results, m_one, one, smi)
+    log(f"[time] 19's rank 0: tensor parallel {r0['tp_s']:.1f} s")
     del one
     n1 = K1_CALLS_PER_FORWARD
     for r in results:
@@ -2868,7 +3326,8 @@ def phase_grid_training(smi: str) -> dict:
         + " ".join(f"{k}={v:.6g}" for k, v in r0["bf16"].items())
         + f"; on {smi}")
     return dict(launches=r0["launches"]["k3"] + r0["launches"]["k3b"],
-                first_step_ms=r0["step_ms"], loss=r0["bf16"]["total_loss"])
+                first_step_ms=r0["step_ms"], loss=r0["bf16"]["total_loss"],
+                tp=tp)
 
 
 # -- phases 21-25: the serving path's surfaces (BN-fold serving, the HTTP
@@ -3542,8 +4001,8 @@ class LoopProbe:
         self._loop = loop
         self._make, self._validate = loop.make_train_step, loop.validate
 
-        def make_train_step(cfg):
-            step = self._make(cfg)
+        def make_train_step(cfg, grid=None):
+            step = self._make(cfg, grid)
 
             def probed(state, batch, generator, **kw):
                 t, before = time.perf_counter(), launches()
@@ -6044,7 +6503,11 @@ def main(argv: list) -> int:
               k8["record"], root=JAX_PKG),
         dict(entry("window_msa_sharded", "window_msa.cu", "window_msa.py:483",
                    {"grid_serve_rank0": grid_serve["launches"],
-                    "grid_train_rank0": grid_train["launches"]}, k3),
+                    "grid_train_rank0": grid_train["launches"],
+                    "grid_tp_serve_rank0": grid_serve["tp"]["launches"],
+                    "grid_tp_train_rank0": grid_train["tp"]["launches"],
+                    "grid_int8_rank0": grid_serve["int8"][
+                        "hrformer_base fusion"]["launches"]["k3"]}, k3),
              sources=[CSRC + "window_msa.cu", CSRC + "window_msa_bwd.cu"],
              allreduce_ms=k3["allreduce_ms"], k1_ms=k3["k1_ms"],
              k2_ms=k3["k2_ms"],
@@ -6055,8 +6518,12 @@ def main(argv: list) -> int:
         *int8_entries(int8, parent, {
             "k9": {"export_c": ex["c"]["k9"],
                    "validate_int8": surf["validate"]["int8"]["launches"]["k9"],
-                   "probe_http": probe["k9"]},
-            "k10": {"export_d": ex["d"]["k10"]}}),
+                   "probe_http": probe["k9"],
+                   "grid_int8_rank0": grid_serve["int8"][
+                       "hrnet_w32 heatmap"]["launches"]["k9"]},
+            "k10": {"export_d": ex["d"]["k10"],
+                    "grid_int8_rank0": grid_serve["int8"][
+                        "hrformer_base fusion"]["launches"]["k10"]}}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,11 +6,14 @@ The port's twin of examples/streaming_serving.py:
 2. a copy thread staging batches on the card ahead of compute
    (``prefetch_to_device``: pinned memory, a side stream)
 3. bounded-in-flight dispatch (``PoseInference.predict_stream``)
-4. multi-card serving (``--mesh``): not ported (ROADMAP Queue 1 item 9),
-   raises
+4. optional data-parallel serving over a process grid (``--mesh``,
+   launched by torchrun: every rank reads the whole set, serves its rows
+   of each batch, and rank 0 prints; without torchrun, one process)
 5. optional int8 PTQ serving (``--int8``)
 
 Run:  python examples/streaming_serving_torch.py [--int8] [--device cpu]
+      python -m torch.distributed.run --nproc-per-node 2 \
+          examples/streaming_serving_torch.py --mesh --device cpu
 (a tiny demo config; for production use hrnet_w32/fusion + real data.)
 """
 
@@ -27,8 +30,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", action="store_true",
-                    help="shard batches over several cards (not ported: "
-                         "raises)")
+                    help="serve over a process grid launched by torchrun "
+                         "(data-parallel)")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="process-group backend under --mesh (default: "
+                         "nccl on a card, gloo on the CPU)")
     ap.add_argument("--int8", action="store_true",
                     help="serve the int8 PTQ path (hrnet backbones)")
     ap.add_argument("--images", type=int, default=32)
@@ -38,7 +44,7 @@ def main():
     args = ap.parse_args()
 
     from infantposeestimation_gaussianbias_tpu_torch.cli.common import (
-        MESH_TODO)
+        make_grid)
     from infantposeestimation_gaussianbias_tpu_torch.config import Config
     from infantposeestimation_gaussianbias_tpu_torch.data import (
         synthetic_coco_dataset)
@@ -48,8 +54,8 @@ def main():
         PoseInference)
     from infantposeestimation_gaussianbias_tpu_torch.schemas import COCO17
 
-    if args.mesh:
-        raise NotImplementedError(MESH_TODO)
+    grid = make_grid(args)
+    say = print if grid is None or grid.rank == 0 else (lambda *a: None)
 
     cfg = Config()
     # tiny demo config — for production use hrnet_w32 + fusion at 256x192
@@ -76,18 +82,20 @@ def main():
         cfg.data.val_ann = "annotations/val.json"
         cfg.data.val_img_prefix = "images/"
 
-        loader = build_dataloader(cfg, is_train=False)
-        infer = PoseInference(cfg, device=args.device, quantize=args.int8)
+        loader = build_dataloader(cfg, is_train=False,
+                                  per_process=grid is None)
+        infer = PoseInference(cfg, device=args.device, quantize=args.int8,
+                              mesh=grid)
 
         t0 = time.perf_counter()
         n = 0
         for coords, scores in infer.predict_stream(loader.epoch(0),
                                                    max_in_flight=2):
             n += coords.shape[0]
-            print(f"  batch of {coords.shape[0]}: "
+            say(f"  batch of {coords.shape[0]}: "
                   f"mean score {float(scores.mean()):.3f}")
         dt = time.perf_counter() - t0
-        print(f"streamed {n} crops in {dt:.2f}s "
+        say(f"streamed {n} crops in {dt:.2f}s "
               f"({n / dt:,.0f} crops/s incl. host decode; "
               f"precision={'int8' if args.int8 else 'float'}; "
               f"{infer.device})")

@@ -24,7 +24,15 @@ BatchNorm by default (``--no-fold`` serves it unfolded).
 ``--checkpoint`` takes a ``torch.save``d state dict in the reference's
 naming; ``--int8`` serves int8 PTQ, calibrated on ``--calibration-dir``'s
 images or else on the first request batch (``/healthz`` then reports
-``"precision": "int8-ptq"``); ``--mesh`` is not ported and raises.
+``"precision": "int8-ptq"``).
+
+``--mesh [MODEL_AXIS]`` serves over a process grid launched by torchrun
+(cli/common.py; above one, the weights are cut over the model axis).
+Rank 0 runs the HTTP front and the micro-batcher; before each formed
+batch it broadcasts the batch (a header with its shape, then the frames
+and the boxes) to the other ranks, which serve it with it in lockstep
+(``follow``).  Under a grid one group is in flight at a time, so that the
+ranks issue their collectives in one order; shutdown broadcasts a stop.
 """
 
 from __future__ import annotations
@@ -40,8 +48,8 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from .common import (add_config_args, add_serving_args, make_inference,
-                     resolve_config)
+from .common import (add_config_args, add_serving_args, make_grid,
+                     make_inference, resolve_config)
 
 class Overloaded(Exception):
     """Request rejected at admission: the pending queue is full."""
@@ -214,6 +222,69 @@ class MicroBatcher:
                         continue
                 self._pool.submit(self._predict_group, members)
                 first = False
+
+
+def _exchange(grid, frames: Optional[np.ndarray] = None,
+              bboxes: Optional[np.ndarray] = None) -> Optional[tuple]:
+    """Rank 0 broadcasts a batch (``frames``, ``bboxes``) or, with none, a
+    stop; every rank returns the batch, or None for the stop.  The
+    tensors cross on the CPU under gloo and on the card under nccl."""
+    import torch
+    import torch.distributed as dist
+
+    group = grid.world_group
+    dev = grid.device if dist.get_backend(group) == "nccl" else "cpu"
+    head = torch.zeros(4, dtype=torch.int64, device=dev)
+    if grid.rank == 0 and frames is not None:
+        head.copy_(torch.tensor([1, *frames.shape[:3]]))
+    dist.broadcast(head, 0, group=group)
+    go, n, h, w = head.tolist()
+    if not go:
+        return None
+    if grid.rank == 0:
+        f = torch.from_numpy(np.ascontiguousarray(frames, np.uint8)).to(dev)
+        b = torch.from_numpy(np.ascontiguousarray(bboxes, np.float32)).to(dev)
+    else:
+        f = torch.empty((n, h, w, 3), dtype=torch.uint8, device=dev)
+        b = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    dist.broadcast(f, 0, group=group)
+    dist.broadcast(b, 0, group=group)
+    return f.cpu().numpy(), b.cpu().numpy()
+
+
+class GridLeader:
+    """Rank 0's ``PoseInference`` under ``--mesh``: ``predict_batch``
+    broadcasts each batch to the other ranks (``_exchange``) before
+    serving it with them; ``stop`` ends their ``follow`` loops.  Calls are
+    serialised, so the ranks see one order.  Everything else is the
+    wrapped predictor's."""
+
+    def __init__(self, infer, grid):
+        self.infer = infer
+        self.grid = grid
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self.infer, name)
+
+    def predict_batch(self, frames: np.ndarray, bboxes: np.ndarray):
+        with self._lock:
+            _exchange(self.grid, frames, bboxes)
+            return self.infer.predict_batch(frames, bboxes)
+
+    def stop(self) -> None:
+        with self._lock:
+            _exchange(self.grid)
+
+
+def follow(infer, grid) -> None:
+    """A rank other than 0 under ``--mesh``: serve every batch rank 0
+    broadcasts, until the stop."""
+    while True:
+        batch = _exchange(grid)
+        if batch is None:
+            return
+        infer.predict_batch(*batch)
 
 
 def _decode_image(body: bytes, content_type: str) -> np.ndarray:
@@ -408,7 +479,14 @@ def main(argv=None):
                                         args.calibration_size)
         print(f"calibrating int8 PTQ on {len(calib)} crops from "
               f"{args.calibration_dir}", flush=True)
-    infer = make_inference(args, cfg, calib)
+    grid = make_grid(args)
+    infer = make_inference(args, cfg, calib, grid)
+    if grid is not None:
+        if grid.rank != 0:
+            follow(infer, grid)
+            return
+        infer = GridLeader(infer, grid)
+        args.dispatch_depth = 1  # one group in flight: one collective order
     W, H = cfg.data.input_size
     if args.int8 and calib is None:
         # a warm-up request would freeze the PTQ ranges on a black frame:
@@ -438,6 +516,8 @@ def main(argv=None):
     finally:
         batcher.stop()
         server.server_close()
+        if grid is not None:
+            infer.stop()
 
 
 if __name__ == "__main__":

@@ -9,6 +9,14 @@ Port of infantposeestimation_gaussianbias_tpu/cli/train.py.
 Checkpoints go to ``train.checkpoint_dir``; a run whose directory holds a
 ``latest`` checkpoint resumes from it ("resumed from epoch N").  Metrics go
 to ``<log_dir>/metrics.jsonl``.
+
+``--mesh [MODEL_AXIS]`` trains over a process grid launched by torchrun
+(cli/common.py), through ``train(use_mesh=True)``: every rank reads the
+whole data set and takes its rows of each global batch; MODEL_AXIS > 1
+sets ``parallel.model_axis`` and ``parallel.tensor_parallel``.  With
+``parallel.multihost`` set the process group comes from the config
+(``parallel.coordinator``, ``num_processes``, ``process_id``) instead.
+Rank 0 alone writes checkpoints and metrics.
 """
 
 from __future__ import annotations
@@ -17,9 +25,13 @@ import argparse
 import json
 import os
 
+import torch.distributed as dist
+
 from ..data.pipeline import build_dataloader
-from ..train.loop import MESH_TODO, setup_logging, train
-from .common import add_config_args, resolve_config
+from ..parallel import maybe_initialize_multihost
+from ..train.loop import setup_logging, train
+from .common import (add_config_args, add_mesh_args, backend,
+                     init_process_group, resolve_config)
 
 
 def main(argv=None):
@@ -39,6 +51,7 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda; "
                              "'cpu' runs the kernels' plain versions)")
+    add_mesh_args(parser)
     args = parser.parse_args(argv)
     profile_steps = None
     if args.profile:
@@ -48,8 +61,13 @@ def main(argv=None):
             parser.error(f"--profile window must satisfy 0 <= START < "
                          f"STOP, got {args.profile!r}")
     cfg = resolve_config(args)
-    if cfg.parallel.multihost:
-        raise NotImplementedError(MESH_TODO)
+    if args.mesh is not None:
+        cfg.parallel.model_axis = max(1, args.mesh)
+        cfg.parallel.tensor_parallel = cfg.parallel.model_axis > 1
+        init_process_group(args)  # train() meshes the group
+    else:
+        maybe_initialize_multihost(cfg, backend(args))
+    shared = dist.is_initialized()  # every rank reads the whole set
 
     os.makedirs(cfg.log_dir, exist_ok=True)
     setup_logging(os.path.join(cfg.log_dir, f"{cfg.exp_name}.log"))
@@ -60,10 +78,12 @@ def main(argv=None):
         if args.no_val:
             val_loader, gt = None, None
     else:
-        train_loader = build_dataloader(cfg, is_train=True)
+        train_loader = build_dataloader(cfg, is_train=True,
+                                        per_process=not shared)
         val_loader, gt = None, None
         if not args.no_val:
-            val_loader = build_dataloader(cfg, is_train=False)
+            val_loader = build_dataloader(cfg, is_train=False,
+                                          per_process=not shared)
             with open(os.path.join(cfg.data.data_root,
                                    cfg.data.val_ann)) as f:
                 gt = json.load(f)

@@ -46,7 +46,18 @@ the same full request; the rows, padded to their bucket and then to a
 multiple of the 'data' axis (the last row repeated, JAX's order), are
 split over the data ranks; each data rank crops, runs the model (its
 W-MSA is K3 over the grid) and decodes its rows; the keypoints and scores
-are gathered, so every rank returns the whole trimmed result.
+are gathered, so every rank returns the whole trimmed result.  With
+``tensor_parallel`` the weights JAX's rule shards are cut over the model
+axis after the fold (parallel/tensor.py): each model rank computes its
+block of those layers' output features and assembles the rest over the
+model group.  int8 over a grid calibrates each data rank on its rows and
+takes the maximum of every abs-max over the data group, so the scales are
+those of one process calibrating on the global batch; the int8 model is
+then built whole and cut by the same rule (which leaves the int8 buffers
+replicated, as JAX's rule leaves its ``w_int8`` leaves).
+``predict_stream`` over a grid pads each batch to a multiple of the
+'data' axis, stages the rank's rows, and gathers each result in order,
+every collective on the consumer's thread.
 """
 
 from __future__ import annotations
@@ -66,12 +77,8 @@ from .models import (build_model, flip_inference, fold_state_dict,
                      to_input_pixels, validate_serving_mode)
 from .ops import affine
 from .ops import decode as decode_ops
-from .parallel.mesh import TENSOR_PARALLEL_TODO, gather_data_rows, shard_batch
-
-GRID_STREAM_TODO = ("predict_stream over a process grid is not ported; "
-                    "serve each batch with predict_batch")
-GRID_INT8_TODO = ("int8 PTQ serving over a process grid is not ported yet: "
-                  "ROADMAP Queue 1 item 9")
+from .parallel.mesh import gather_data_rows, shard_batch
+from .parallel.tensor import full_state_dict, shard_params
 
 
 def detect_persons(image: np.ndarray) -> list:
@@ -106,9 +113,10 @@ class PoseInference:
     architecture can, True folds (or raises, as ``validate_serving_mode``),
     False never does.  ``mesh``: a ProcessGrid to serve over (see the
     module doc); the model then runs on the grid's device.
-    ``tensor_parallel`` is not ported and raises.  ``quantize``,
-    ``calibration_crops``: int8 PTQ serving (see the module doc; not over
-    a grid)."""
+    ``tensor_parallel``: under ``mesh``, cut the weights over its model
+    axis (a no-op without one, as in JAX).  ``quantize``,
+    ``calibration_crops``: int8 PTQ serving (see the module doc; under a
+    grid every rank passes the same global crops)."""
 
     # PTQ abs-max ranges freeze after the first calibration; below this
     # many crops a single unrepresentative batch (one dark frame, say)
@@ -120,14 +128,10 @@ class PoseInference:
                  device="cuda", mesh=None, tensor_parallel: bool = False,
                  fold: Optional[bool] = None, quantize: bool = False,
                  calibration_crops=None):
-        if tensor_parallel:
-            raise NotImplementedError(TENSOR_PARALLEL_TODO)
         if quantize:
             # fail fast on an architecture that does not quantize
             validate_serving_mode(cfg.model.backbone, cfg.model.head_type,
                                   cfg.model.norm, quant=True)
-            if mesh is not None:
-                raise NotImplementedError(GRID_INT8_TODO)
             fold = False  # int8 takes precedence over BN-fold
         elif fold is None:
             fold = serving_mode_supported(cfg.model.backbone,
@@ -138,6 +142,7 @@ class PoseInference:
         self.quantize = quantize
         self.schema = cfg.data.keypoint_schema
         self.mesh = mesh
+        self.tensor_parallel = tensor_parallel
         self.model = build_model(cfg, resolve_device(device), mesh,
                                  fold=fold)
         self.device = next(self.model.parameters()).device
@@ -145,12 +150,17 @@ class PoseInference:
             self.model.load_state_dict(
                 fold_state_dict(state_dict) if fold else state_dict,
                 strict=True)
+        shard_params(self.model, mesh, tensor_parallel)
         self._flip_index = torch.as_tensor(self.schema.flip_index(),
                                            device=self.device)
         self._quant_lock = threading.Lock()
         self._quant_installed = False
         if quantize and calibration_crops is not None:
-            self._install_quant(torch.as_tensor(calibration_crops))
+            crops = torch.as_tensor(calibration_crops)
+            if mesh is not None:  # this data rank's rows of the global crops
+                (rows,) = self._data_rows(crops.cpu().numpy())
+                crops = torch.from_numpy(rows)
+            self._install_quant(crops)
 
     # -- int8 serving -------------------------------------------------------
 
@@ -158,21 +168,26 @@ class PoseInference:
                           ) -> None:
         """Serve the int8 model of ``state_dict`` (``models.quantize_model``'s
         output, made here or elsewhere: on the card, say, for a CPU
-        replica) from now on, without calibrating."""
+        replica; whole, under a grid too) from now on, without
+        calibrating."""
         if not self.quantize:
             raise ValueError("install_quantized needs quantize=True")
         with torch.inference_mode(False):  # ordinary tensors in the model
-            qmodel = build_model(self.cfg, self.device, quant=True)
+            qmodel = build_model(self.cfg, self.device, self.mesh,
+                                 quant=True)
             qmodel.load_state_dict(state_dict, strict=True)
+            shard_params(qmodel, self.mesh, self.tensor_parallel)
         self.model = qmodel
         self._quant_installed = True
 
     def _install_quant(self, crops: torch.Tensor) -> None:
-        """Calibrate the float model on ``crops``, then serve its int8
-        model."""
+        """Calibrate the float model on ``crops`` (this data rank's rows
+        under a grid, the abs-max taken over the data group), then serve
+        its int8 model."""
+        group = None if self.mesh is None else self.mesh.data_group
         with torch.inference_mode(False):
-            qsd = quantize_model(self.cfg, self.model.state_dict(), [crops],
-                                 self.device)
+            qsd = quantize_model(self.cfg, full_state_dict(self.model),
+                                 [crops], self.device, group=group)
         self.install_quantized(qsd)
 
     def _maybe_calibrate(self, crops: torch.Tensor) -> None:
@@ -183,7 +198,7 @@ class PoseInference:
         with self._quant_lock:
             if self._quant_installed:
                 return
-            n = crops.shape[0]
+            n = crops.shape[0] * (1 if self.mesh is None else self.mesh.data)
             if n < self.MIN_SELF_CALIB_CROPS:
                 warnings.warn(
                     f"int8 PTQ self-calibrating on the first predicted batch "
@@ -248,17 +263,27 @@ class PoseInference:
                 [centers, np.repeat(centers[-1:], pad, 0)])
             scales = np.concatenate([scales, np.repeat(scales[-1:], pad, 0)])
         if self.mesh is not None:
-            pad = -frames.shape[0] % self.mesh.data
-            frames, centers, scales = (
-                np.concatenate([x, np.repeat(x[-1:], pad, 0)])
-                for x in (frames, centers, scales))
-            frames, centers, scales = (shard_batch(x, self.mesh)
-                                       for x in (frames, centers, scales))
+            frames, centers, scales = self._data_rows(frames, centers,
+                                                      scales)
 
         def put(x: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
-        coords, scores = self._pipeline(put(frames), put(centers), put(scales))
+        return self._host(*self._pipeline(put(frames), put(centers),
+                                          put(scales)), n)
+
+    def _data_rows(self, *arrays: np.ndarray) -> tuple:
+        """Each array padded to a multiple of the 'data' axis (its last row
+        repeated) and cut to this data rank's rows."""
+        pad = -arrays[0].shape[0] % self.mesh.data
+        return tuple(shard_batch(np.concatenate([x, np.repeat(x[-1:], pad,
+                                                              0)]),
+                                 self.mesh) for x in arrays)
+
+    def _host(self, coords: torch.Tensor, scores: torch.Tensor, n: int
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """A batch's results on the host, gathered over the grid, first
+        ``n`` rows."""
         coords, scores = coords.cpu().numpy(), scores.cpu().numpy()
         if self.mesh is not None:
             coords, scores = gather_data_rows((coords, scores), self.mesh)
@@ -283,25 +308,35 @@ class PoseInference:
         (``prefetch_to_device``); each batch's pipeline is queued on the
         device at once and its results read ``max_in_flight`` batches
         behind the front.  Yields (coords (B, K, 2) in source
-        coordinates, scores (B, K)) numpy arrays per batch, in order."""
+        coordinates, scores (B, K)) numpy arrays per batch, in order.
+        Under a grid every rank is handed the same batches and yields the
+        whole results (see the module doc)."""
         from .data.pipeline import prefetch_to_device
 
-        if self.mesh is not None:
-            raise NotImplementedError(GRID_STREAM_TODO)
+        keys = ("image_u8", "center", "scale")
+
+        def rows(it):
+            for b in it:
+                b = dict(b)
+                b["_n"] = len(b["image_u8"])
+                if self.mesh is not None:
+                    b.update(zip(keys, self._data_rows(
+                        *(np.asarray(b[k]) for k in keys))))
+                yield b
+
         pending: collections.deque = collections.deque()
-        staged = prefetch_to_device(batches, size=max_in_flight,
-                                    keys=("image_u8", "center", "scale"),
-                                    device=self.device)
+        staged = prefetch_to_device(rows(batches), size=max_in_flight,
+                                    keys=keys, device=self.device)
         for batch in staged:
             out = self.crops_pipeline(batch["image_u8"], batch["center"],
                                       batch["scale"])
-            pending.append(out)
+            pending.append((out, batch["_n"]))
             if len(pending) > max_in_flight:
-                c, s = pending.popleft()
-                yield c.cpu().numpy(), s.cpu().numpy()
+                (c, s), n = pending.popleft()
+                yield self._host(c, s, n)
         while pending:
-            c, s = pending.popleft()
-            yield c.cpu().numpy(), s.cpu().numpy()
+            (c, s), n = pending.popleft()
+            yield self._host(c, s, n)
 
     def predict_directory(self, directory: str,
                           exts=(".jpg", ".jpeg", ".png"),

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from ..kernels import ops as kops
 from ..kernels import quant as qk
 from ..ops.quant import QTensor, requantize
+from ..parallel.tensor import column_parallel
 
 # True while a checkpointed forward is recomputed in the backward: the
 # recomputation must not update the running statistics a second time.
@@ -129,8 +130,13 @@ class Linear(nn.Linear):
         self.compute_dtype = compute_dtype
         self.init = init
 
+    tp = None  # a parallel.tensor.Shard once shard_params cuts the weight
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.tp is not None:
+            return column_parallel(x.to(dt), self.weight.to(dt),
+                                   self.bias.to(dt), self.tp, F.linear)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -152,12 +158,21 @@ class Conv2d(nn.Conv2d):
         self.compute_dtype = compute_dtype
         self.init = init
 
+    tp = None  # a parallel.tensor.Shard once shard_params cuts the weight
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor,
+              b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding,
+                     groups=self.groups)
+        return y.permute(0, 2, 3, 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b,
-                     self.stride, self.padding, groups=self.groups)
-        return y.permute(0, 2, 3, 1)
+        if self.tp is not None:
+            return column_parallel(x.to(dt), self.weight.to(dt), b, self.tp,
+                                   self._conv)
+        return self._conv(x.to(dt), self.weight.to(dt), b)
 
 
 def same_transpose_padding(kernel: int, stride: int) -> tuple:

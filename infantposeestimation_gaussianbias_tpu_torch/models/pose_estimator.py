@@ -9,11 +9,14 @@ head's coords) come from the unflipped pass; the SimCC head has no
 heatmaps to flip, and the flip test raises for it (the JAX function fails
 on the missing key).
 
-``build_model(cfg, device, grid, fold, quant, calibrate)`` reads
-``cfg.model.norm`` (BatchNorm or GroupNorm in every ConvNorm, as the JAX
-package), under a process grid (parallel/mesh.py) hands the grid to every
-WindowAttention and BatchNorm, as the JAX ``build_model(cfg, mesh=...)``
-threads its mesh, with ``fold`` builds the BN-folded serving model
+``build_model(cfg, device, grid, fold, quant, calibrate,
+tensor_parallel)`` reads ``cfg.model.norm`` (BatchNorm or GroupNorm in
+every ConvNorm, as the JAX package), under a process grid
+(parallel/mesh.py) hands the grid to every WindowAttention and BatchNorm,
+as the JAX ``build_model(cfg, mesh=...)`` threads its mesh, and with
+``tensor_parallel`` cuts the weights the JAX rule shards over the grid's
+model axis (parallel/tensor.py ``shard_params``, after the fold), with
+``fold`` builds the BN-folded serving model
 (models/fold.py), with ``quant`` the int8 PTQ serving model (its buffers
 from models/quantize.py), and with ``calibrate`` the float model that
 records its calibration points on every forward.
@@ -182,8 +185,8 @@ def resolve_device(device) -> torch.device:
 
 
 def build_model(cfg, device="cuda", grid=None, fold: bool = False,
-                quant: bool = False, calibrate: bool = False
-                ) -> PoseEstimator:
+                quant: bool = False, calibrate: bool = False,
+                tensor_parallel: bool = False) -> PoseEstimator:
     """PoseEstimator from a Config, with seeded weights (``cfg.train.seed``,
     see weights.init_weights), in eval mode on ``device``.  ``grid``: a
     parallel.ProcessGrid whose device is ``device``'s kind; the model is
@@ -193,7 +196,12 @@ def build_model(cfg, device="cuda", grid=None, fold: bool = False,
     weights the fold of the seeded float model's.  ``calibrate``: the
     seeded float model, recording its calibration points.  ``quant``: the
     int8 PTQ serving model, its buffers unset until the state dict of
-    ``models.quantize.quantize_model`` is loaded into it."""
+    ``models.quantize.quantize_model`` is loaded into it (load it whole,
+    then ``parallel.shard_params``).  ``tensor_parallel``: under ``grid``,
+    the seeded (or folded) model is built whole and then cut by
+    ``parallel.shard_params``, so every rank holds the one-process
+    model's weights, its block of rows of each sharded one."""
+    from ..parallel.tensor import shard_params
     from ..weights import init_weights
 
     device = resolve_device(device)
@@ -216,22 +224,23 @@ def build_model(cfg, device="cuda", grid=None, fold: bool = False,
         input_size=tuple(cfg.data.input_size),
         simcc_split_ratio=cfg.model.simcc_split_ratio)
     if quant:
-        if grid is not None:
-            raise ValueError("int8 PTQ serving over a process grid is not "
-                             "ported")
-        return PoseEstimator(**kw, quant=True).to(device).eval()
-    model = init_weights(PoseEstimator(**kw, calibrate=calibrate),
-                         cfg.train.seed)
-    if fold:
-        folded = PoseEstimator(**kw, fold=True)
-        folded.load_state_dict(fold_state_dict(model.state_dict()),
-                               strict=True)
-        model = folded
+        model = PoseEstimator(**kw, quant=True)
+    else:
+        model = init_weights(PoseEstimator(**kw, calibrate=calibrate),
+                             cfg.train.seed)
+        if fold:
+            folded = PoseEstimator(**kw, fold=True)
+            folded.load_state_dict(fold_state_dict(model.state_dict()),
+                                   strict=True)
+            model = folded
     if grid is not None:
         for m in model.modules():
             if isinstance(m, (BatchNorm, WindowAttention)):
                 m.grid = grid
-    return model.to(device).eval()
+    model = model.to(device).eval()
+    if not quant:  # an int8 model is cut once its buffers are loaded
+        shard_params(model, grid, tensor_parallel)
+    return model
 
 
 def decode_outputs(outputs: Dict[str, torch.Tensor], head_type: str,

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Dict, Iterable, Mapping
 
 import torch
+import torch.distributed as dist
 
 from ..ops.quant import convert_tree
 from .pose_estimator import build_model, resolve_device
@@ -29,18 +30,28 @@ _FUSION_LOGITS = ("fusion_weight", "subpixel_refine.alpha")
 
 @torch.no_grad()
 def calibrate(cfg, state_dict: Mapping[str, torch.Tensor],
-              batches: Iterable, device="cuda") -> Dict[str, torch.Tensor]:
+              batches: Iterable, device="cuda",
+              group=None) -> Dict[str, torch.Tensor]:
     """Run the unfolded float model (eval mode, ``cfg.model.compute_dtype``)
     over ``batches`` and return the running abs-max of every calibration
-    point, ``{name: () float32}`` (models/layers.py ``sow_absmax``)."""
+    point, ``{name: () float32}`` (models/layers.py ``sow_absmax``).
+    ``group``: a process group whose ranks calibrate on their own rows of
+    one global batch (a grid's data group); each abs-max is then the
+    maximum over the group, one all-reduce of all of them, so every rank
+    gets the scales of one process calibrating on the global batch."""
     device = resolve_device(device)
     model = build_model(cfg, device, calibrate=True)
     model.load_state_dict(state_dict, strict=True)
     for batch in batches:
         model(torch.as_tensor(batch, dtype=torch.float32, device=device))
-    if not model.calibration.values:
+    values = dict(model.calibration.values)
+    if not values:
         raise ValueError("calibration needs at least one batch")
-    return dict(model.calibration.values)
+    if group is not None:
+        flat = torch.stack(list(values.values()))
+        dist.all_reduce(flat, op=dist.ReduceOp.MAX, group=group)
+        values = dict(zip(values, flat.unbind()))
+    return values
 
 
 def strip_float_params(state_dict: Mapping[str, torch.Tensor],
@@ -80,17 +91,18 @@ def _prune_non_dense_qparams(qparams: Mapping[str, torch.Tensor]
 
 
 def quantize_model(cfg, state_dict: Mapping[str, torch.Tensor],
-                   batches: Iterable, device="cuda"
+                   batches: Iterable, device="cuda", group=None
                    ) -> Dict[str, torch.Tensor]:
     """Float state dict (unfolded) + calibration batches -> the state dict
     of ``build_model(cfg, quant=True)``: the int8 buffers, plus the float
     entries the int8 forward still reads (an HRNet's head finals; an
     HRFormer's whole float model but its quantized Linears, BatchNorm
-    statistics included, which its float conv trunk needs)."""
+    statistics included, which its float conv trunk needs).  ``group``:
+    see ``calibrate``."""
     if (cfg.model.backbone.startswith("hrnet")
             and cfg.model.norm != "batchnorm"):
         raise ValueError("quantization requires batchnorm ConvNorms")
-    calib = calibrate(cfg, state_dict, batches, device)
+    calib = calibrate(cfg, state_dict, batches, device, group)
     qparams = convert_tree(state_dict, calib)
     if cfg.model.backbone.startswith("hrformer"):
         qparams = _prune_non_dense_qparams(qparams)

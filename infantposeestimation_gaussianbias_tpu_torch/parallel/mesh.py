@@ -19,12 +19,12 @@ index (they see the same rows: K3's head assembly).
 The backend is the caller's explicit choice, never switched behind its
 back: "nccl" needs a card per rank, "gloo" runs on the CPU and, for
 ``all_reduce`` and ``broadcast``, on CUDA tensors (several ranks on one
-card).  ``batch_sharding``, ``replicated``, ``shard_params``,
-``param_sharding_rules`` and ``sharding_table`` place JAX arrays on a
-mesh; they have no counterpart here (a rank holds its own rows and a full
-copy of the parameters), and tensor parallelism is not ported yet
-(ROADMAP Queue 1 item 9): ``tensor_parallel=True`` raises where the port
-is asked for it.
+card).  ``batch_sharding`` and ``replicated`` place JAX arrays on a
+mesh; they have no counterpart here (a rank holds its own rows).  Tensor
+parallelism (``param_sharding_rules``, ``shard_params``,
+``sharding_table``) is parallel/tensor.py: a column-parallel Linear or
+Conv2d holds its model rank's block of output rows and assembles its
+output over the model group.
 """
 
 from __future__ import annotations
@@ -40,9 +40,6 @@ import torch.distributed as dist
 
 BACKENDS = ("gloo", "nccl")
 TIMEOUT = timedelta(seconds=300)
-TENSOR_PARALLEL_TODO = ("tensor parallelism is not ported yet (ROADMAP "
-                        "Queue 1 item 9: param_sharding_rules, shard_params, "
-                        "sharding_table)")
 
 
 @dataclass(frozen=True)
@@ -155,23 +152,32 @@ def _rank_device(device, rank: int) -> torch.device:
     from ..models import resolve_device
 
     dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        local = int(os.environ.get("LOCAL_RANK", rank))
-        dev = torch.device("cuda", local % torch.cuda.device_count())
+    if dev.type == "cuda":
+        if dev.index is None:
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            dev = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(dev)  # "cuda" in this rank is its card
     return dev
 
 
 def create_mesh(data_axis: int = 0, model_axis: int = 1,
-                device="cuda") -> ProcessGrid:
+                device="cuda", ranks: Optional[int] = None
+                ) -> Optional[ProcessGrid]:
     """This rank's ProcessGrid over the initialised default process group;
     every rank must call it (it creates the groups).  data_axis <= 0 means
     "all remaining ranks" (world // model_axis).  ``device``: "cpu", or a
     CUDA device ("cuda" picks card LOCAL_RANK, else rank, modulo the cards
-    here)."""
+    here, which becomes this process's current card).  ``ranks``: a grid
+    over ranks [0, ranks) of a larger world (the
+    training loop's shrunk data axis, as the JAX loop meshes the first
+    devices); the ranks outside it get None."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("create_mesh needs an initialised process group "
                            "(initialize_multihost or parallel.run_grid)")
-    n = dist.get_world_size()
+    world = dist.get_world_size()
+    n = world if ranks is None else ranks
+    if not 0 < n <= world:
+        raise ValueError(f"a grid over {n} of {world} ranks")
     model = max(1, model_axis)
     data = n // model if data_axis <= 0 else data_axis
     if data * model != n:
@@ -182,10 +188,13 @@ def create_mesh(data_axis: int = 0, model_axis: int = 1,
                    for j in range(model)]
     model_groups = [dist.new_group([i * model + j for j in range(model)])
                     for i in range(data)]
+    world_group = (dist.group.WORLD if n == world
+                   else dist.new_group(list(range(n))))
+    if rank >= n:
+        return None
     return ProcessGrid(data=data, model=model, rank=rank, data_index=d,
                        model_index=m, data_group=data_groups[m],
-                       model_group=model_groups[d],
-                       world_group=dist.group.WORLD,
+                       model_group=model_groups[d], world_group=world_group,
                        device=_rank_device(device, rank))
 
 
@@ -214,9 +223,9 @@ def host_local_rows(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _gather_objects(obj) -> list:
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
+def _gather_objects(obj, group=None) -> list:
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
@@ -247,5 +256,5 @@ def gather_data_rows(tree, grid: ProcessGrid):
     ranks of a data index hold the same rows)."""
     if grid.size == 1:
         return tree
-    values = _gather_objects(tree)
+    values = _gather_objects(tree, grid.world_group)
     return _concat([values[d * grid.model] for d in range(grid.data)])

@@ -10,6 +10,14 @@ protecting ``best``) and the epoch's metrics.  A checkpoint is one
 ``torch.save`` of {model state dict, optimizer state dict, step}, written
 to a temporary file and renamed over the old one, so a reader never sees
 half a file.
+
+Over a process grid (the state's ``grid``) every rank holds the state, so
+rank 0 alone writes, after the tensor-parallel blocks (weights and their
+optimizer moments, parallel/tensor.py) are assembled, and the ranks meet
+at a barrier before going on.  The file is always the one-process state
+in the reference naming: every rank restores it whole and cuts its own
+blocks, so a checkpoint moves between one process and a grid, with or
+without tensor parallelism, either way.
 """
 
 from __future__ import annotations
@@ -20,8 +28,28 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.tensor import (assemble_rows, full_state_dict, local_rows,
+                               shard_state_dict, sharded_parameters)
 from .state import TrainState
+
+
+def _moments(opt_sd: Dict, state: TrainState, cut) -> Dict:
+    """The optimizer state dict with ``cut(tensor, shard)`` applied to each
+    moment (a tensor of its parameter's rows) of a sharded parameter."""
+    shards = sharded_parameters(state.model)
+    if not shards:
+        return opt_sd
+    entries = dict(opt_sd["state"])
+    for i, p in enumerate(state.params):
+        shard = shards.get(id(p))
+        if shard is None or i not in entries:
+            continue
+        entries[i] = {k: cut(v, shard)
+                      if torch.is_tensor(v) and v.ndim == p.ndim else v
+                      for k, v in entries[i].items()}
+    return dict(opt_sd, state=entries)
 
 
 class CheckpointManager:
@@ -38,15 +66,20 @@ class CheckpointManager:
 
     def _save(self, name: str, state: TrainState,
               metadata: Dict[str, Any]) -> None:
-        path = self._path(name)
-        tmp = f"{path}.tmp{os.getpid()}"
-        torch.save({"model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "step": int(state.step)}, tmp)
-        os.replace(tmp, path)
-        with open(tmp, "w") as f:
-            json.dump({k: float(v) for k, v in metadata.items()}, f)
-        os.replace(tmp, path + ".meta.json")
+        grid = state.grid
+        model_sd = full_state_dict(state.model)
+        opt_sd = _moments(state.optimizer.state_dict(), state, assemble_rows)
+        if grid is None or grid.rank == 0:
+            path = self._path(name)
+            tmp = f"{path}.tmp{os.getpid()}"
+            torch.save({"model": model_sd, "optimizer": opt_sd,
+                        "step": int(state.step)}, tmp)
+            os.replace(tmp, path)
+            with open(tmp, "w") as f:
+                json.dump({k: float(v) for k, v in metadata.items()}, f)
+            os.replace(tmp, path + ".meta.json")
+        if grid is not None and grid.size > 1:
+            dist.barrier(group=grid.world_group)
 
     def save(self, state: TrainState, epoch: int, metrics: Dict[str, float],
              best_metric: float, monitor: str = "AP",
@@ -89,8 +122,11 @@ class CheckpointManager:
             return state, None
         device = next(state.model.parameters()).device
         ckpt = torch.load(path, map_location=device, weights_only=True)
-        state.model.load_state_dict(ckpt["model"], strict=True)
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+        state.model.load_state_dict(
+            shard_state_dict(ckpt["model"], state.model), strict=True)
+        state.optimizer.load_state_dict(_moments(
+            ckpt["optimizer"], state,
+            lambda t, shard: local_rows(t, shard).clone()))
         state.step = int(ckpt["step"])
         meta = None
         if os.path.exists(path + ".meta.json"):

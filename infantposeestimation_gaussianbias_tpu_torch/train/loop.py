@@ -13,13 +13,26 @@ every step's terms to be checked.  The DropPath masks and jitter draws
 come from one generator on the model's device, seeded ``train.seed + 1``
 at every call of ``train``, as the JAX loop seeds its dropout key.
 
-The JAX loop's device mesh (``use_mesh``) waits for the port's
-multi-card training, ROADMAP Queue 1 item 9.
+``use_mesh`` (the default, as in JAX) trains over a process grid
+(parallel/mesh.py) when a process group with two or more ranks is
+initialised (torchrun, or ``parallel.run_grid``): the grid is
+``cfg.parallel``'s data x model axes, the data axis shrunk to its gcd
+with the global batch (with JAX's warning; ranks beyond the shrunk grid
+idle); every rank iterates the same loader, so the global batches are
+those of one process, and the train step takes each rank's rows
+(``make_train_step(cfg, grid)``); with ``cfg.parallel.tensor_parallel``
+and a model axis above one the weights are cut over it
+(parallel/tensor.py).  Validation splits each batch over the data ranks
+and gathers the predictions, so every rank evaluates the whole set once;
+checkpoints are written by rank 0 alone, whole (train/checkpoint.py).
+Without a process group, or in a world of one, the grid is the one
+process, as JAX's mesh is on one chip.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import os
 import signal
 import threading
@@ -28,12 +41,14 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.pipeline import DataLoader, device_batch
 from ..eval import COCOEvaluator, MetricLogger
 from ..models import flip_inference, to_input_pixels
 from ..ops import decode as decode_ops
+from ..parallel.mesh import create_mesh, gather_data_rows, shard_batch
 from .checkpoint import CheckpointManager
 from .logging import MetricsWriter
 from .optim import lr_schedule
@@ -41,9 +56,6 @@ from .state import TrainState
 from .step import create_train_state, make_eval_step, make_train_step
 
 log = logging.getLogger("ipe_torch.train")
-
-MESH_TODO = ("training over a device mesh (use_mesh) is not ported yet: "
-             "ROADMAP Queue 1 item 9")
 
 # Preemption flag: set by SIGTERM (what a preemptible machine receives
 # shortly before eviction) while ``train`` runs, checked once per step.
@@ -85,12 +97,18 @@ def _device(model: torch.nn.Module) -> torch.device:
 
 def validate(cfg: Config, state: TrainState, loader: DataLoader,
              gt_dataset: Dict, with_loss: bool = True,
-             model: Optional[torch.nn.Module] = None) -> Dict[str, float]:
+             model: Optional[torch.nn.Module] = None,
+             mesh=None) -> Dict[str, float]:
     """Flip-test validation: COCO AP (and the validation loss) over one
     pass of ``loader``.  ``model``: another serving model (the BN-folded
     one) in place of ``state.model``; the loss still runs on the state's
     model.  Each model is in eval mode during the pass and in its own mode
-    after."""
+    after.  ``mesh``: the ProcessGrid the models were built over
+    (data-parallel evaluation, as JAX's ``validate(mesh=...)``): every
+    rank iterates the same loader, whose batches must split over the data
+    ranks; each rank predicts its rows, the predictions are gathered and
+    every rank evaluates the whole set; the loss terms are global sums
+    over the data ranks."""
     schema = cfg.data.keypoint_schema
     serve = model if model is not None else state.model
     device = _device(serve)
@@ -99,7 +117,8 @@ def validate(cfg: Config, state: TrainState, loader: DataLoader,
     W, H = cfg.data.input_size
     to_input = torch.tensor(to_input_pixels(cfg), dtype=torch.float32,
                             device=device)
-    eval_step = make_eval_step(cfg) if with_loss else None
+    grid = mesh if mesh is not None and mesh.size > 1 else None
+    eval_step = make_eval_step(cfg, grid) if with_loss else None
     loss_meter = MetricLogger()
     n = 0
     t0 = time.time()
@@ -109,6 +128,13 @@ def validate(cfg: Config, state: TrainState, loader: DataLoader,
         for batch in loader.epoch(0):
             db = device_batch(batch, cfg.data.pixel_mean, cfg.data.pixel_std,
                               device)
+            if grid is not None:
+                rows = len(batch["valid"])
+                if rows % grid.data:
+                    raise ValueError(
+                        f"validation batch of {rows} rows does not split "
+                        f"over {grid.data} data ranks")
+                db = shard_batch(db, grid)
             with torch.no_grad():
                 coords, scores = flip_inference(
                     serve, db["image"], flip_idx, cfg.model.head_type,
@@ -116,9 +142,11 @@ def validate(cfg: Config, state: TrainState, loader: DataLoader,
                     flip=cfg.eval.flip_test)
                 coords = decode_ops.transform_preds(
                     coords * to_input, db["center"], db["scale"], (W, H))
+            coords, scores = coords.cpu().numpy(), scores.cpu().numpy()
+            if grid is not None:
+                coords, scores = gather_data_rows((coords, scores), grid)
             valid = batch["valid"] > 0
-            evaluator.update(batch["image_id"], coords.cpu().numpy(),
-                             scores.cpu().numpy(), valid=valid)
+            evaluator.update(batch["image_id"], coords, scores, valid=valid)
             if eval_step is not None:
                 _, terms = eval_step(state, db)
                 loss_meter.update(n=int(valid.sum()),
@@ -159,7 +187,7 @@ def train(cfg: Config, train_loader: DataLoader,
           state: Optional[TrainState] = None,
           device="cuda",
           profile_steps: Optional[Tuple[int, int]] = None,
-          use_mesh: bool = False) -> TrainState:
+          use_mesh: bool = True) -> Optional[TrainState]:
     """The training entry point; returns the final state.
 
     ``state``: start from this state (weights carried across from JAX, for
@@ -170,17 +198,26 @@ def train(cfg: Config, train_loader: DataLoader,
     (ignored with ``state``, which is on its device already).
     ``profile_steps=(start, stop)``: a torch.profiler trace of global
     steps [start, stop) of this call into ``<log_dir>/profile``.
+    ``use_mesh``: train over a process grid when one is initialised (see
+    the module doc; a ``state`` brings its own grid); a rank that the
+    shrunk grid leaves out returns ``state`` untrained.
     """
-    if use_mesh:
-        raise NotImplementedError(MESH_TODO)
     steps_per_epoch = len(train_loader)
     cfg.train.steps_per_epoch = steps_per_epoch
-    if state is None:
-        state = create_train_state(cfg, device=device)
-    else:
+    grid = None
+    if state is not None:
         _check_schedule(state, cfg, steps_per_epoch)
+        grid = state.grid
+    elif use_mesh and _world() > 1:
+        grid = training_grid(cfg, device)
+        if grid is None:
+            log.warning("rank %d is outside the shrunk training grid; it "
+                        "idles", dist.get_rank())
+            return state
+    if state is None:
+        state = create_train_state(cfg, device=device, grid=grid)
     device = _device(state.model)
-    step_fn = make_train_step(cfg)
+    step_fn = make_train_step(cfg, grid)
 
     ckpt = CheckpointManager(cfg.train.checkpoint_dir, cfg.train.save_every)
     state, meta = ckpt.restore(state)
@@ -191,11 +228,8 @@ def train(cfg: Config, train_loader: DataLoader,
 
     epochs = max_epochs if max_epochs is not None else cfg.train.max_epochs
     generator = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
-    initialised = (torch.distributed.is_available()
-                   and torch.distributed.is_initialized())
     writer = (MetricsWriter(cfg.log_dir)
-              if not initialised or torch.distributed.get_rank() == 0
-              else None)
+              if _world() == 1 or dist.get_rank() == 0 else None)
     profiler = _StepProfiler(profile_steps,
                              os.path.join(cfg.log_dir, "profile"))
     try:
@@ -208,6 +242,31 @@ def train(cfg: Config, train_loader: DataLoader,
         if writer is not None:
             writer.close()
     return state
+
+
+def _world() -> int:
+    """The initialised process group's size (1 without one)."""
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def training_grid(cfg: Config, device="cuda"):
+    """The JAX loop's mesh over the initialised process group: the model
+    axis ``cfg.parallel.model_axis``, the data axis ``data_axis`` (<= 0:
+    the remaining ranks) shrunk to its gcd with the global batch, with
+    JAX's warning.  Every rank must call it; the ranks beyond the shrunk
+    grid get None."""
+    world = _world()
+    model_ax = max(1, cfg.parallel.model_axis)
+    data_ax = cfg.parallel.data_axis
+    if data_ax <= 0:
+        data_ax = world // model_ax
+    usable = math.gcd(cfg.train.global_batch_size, data_ax)
+    if usable != data_ax:
+        log.warning("batch %d not divisible by data axis %d; using a "
+                    "%d-rank data axis", cfg.train.global_batch_size,
+                    data_ax, usable)
+    return create_mesh(usable, model_ax, device, ranks=usable * model_ax)
 
 
 class _StepProfiler:
@@ -297,7 +356,8 @@ def _epoch_loop(cfg, state, step_fn, generator, train_loader, val_loader,
         metrics_out = logger.summary()
         if (val_loader is not None and gt_dataset is not None
                 and (epoch + 1) % cfg.train.val_interval == 0):
-            results = validate(cfg, state, val_loader, gt_dataset)
+            results = validate(cfg, state, val_loader, gt_dataset,
+                               mesh=state.grid)
             metrics_out.update(results)
             if writer is not None:
                 writer.write(state.step, results, prefix="val/")

@@ -4,15 +4,23 @@ optimizer, the learning-rate schedule and the update count.
 Port of infantposeestimation_gaussianbias_tpu/train/state.py.  The JAX
 state is an immutable pytree; this one is updated in place by
 ``apply_gradients``.
+
+Under tensor parallelism (parallel/tensor.py) some parameters are a model
+rank's block of rows, so the global norm (the clip's and the step's
+``grad_norm``) sums the squares of the blocks over the model group and
+counts the replicated tensors once: every element once.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
+from ..parallel.tensor import sharded_parameters
 from .optim import Schedule
 
 
@@ -23,10 +31,20 @@ class TrainState:
     schedule: Schedule
     grad_clip_norm: float = 0.0  # 0 disables
     step: int = 0
+    grid: Any = None  # the ProcessGrid the model was built over
 
     @property
     def params(self) -> list[torch.nn.Parameter]:
         return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def global_norm(self, tensors) -> torch.Tensor:
+        """The global norm of ``tensors``, laid out as ``params``."""
+        shards = sharded_parameters(self.model)
+        if not shards:
+            return optax_global_norm(tensors)
+        return sharded_global_norm(
+            tensors, [id(p) in shards for p in self.params],
+            next(iter(shards.values())).group)
 
     @torch.no_grad()
     def apply_gradients(self) -> None:
@@ -35,7 +53,7 @@ class TrainState:
         the optional clip by global norm; then ``step += 1``."""
         grads = [p.grad for p in self.params]
         if self.grad_clip_norm > 0:
-            norm = optax_global_norm(grads)
+            norm = self.global_norm(grads)
             # optax.clip_by_global_norm: g if norm < max else g / norm * max
             scale = torch.where(norm < self.grad_clip_norm, 1.0,
                                 self.grad_clip_norm / norm)
@@ -52,3 +70,14 @@ def optax_global_norm(tensors) -> torch.Tensor:
     ``global_norm``), as the norm of the per-tensor norms."""
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def sharded_global_norm(tensors, sharded, group) -> torch.Tensor:
+    """The global norm of tensors of which those flagged in ``sharded`` are
+    blocks spread over ``group``: sqrt(sum of the replicated tensors'
+    squares + the group's sum of the blocks' squares), in float32."""
+    sq = torch.stack(torch._foreach_norm([t.float() for t in tensors])) ** 2
+    mask = torch.tensor(sharded, device=sq.device)
+    blocks = sq[mask].sum()
+    dist.all_reduce(blocks, group=group)
+    return torch.sqrt(sq[~mask].sum() + blocks)

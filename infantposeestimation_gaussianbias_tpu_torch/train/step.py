@@ -48,6 +48,15 @@ scatter-add, the bilinear upsample's backward), and two data groups would
 sum two such versions.  Then the global-norm clip and the same AdamW
 update run on every rank, which keeps the parameters equal bit for bit.
 No DDP: it would reduce the RPE tables a second time.
+
+Tensor parallelism (``cfg.parallel.tensor_parallel`` under a grid of more
+than one model rank, parallel/tensor.py): the weights JAX's rule shards
+hold their model rank's block of rows, and so do their gradients and
+AdamW moments.  The world sum would add different blocks together, so a
+sharded gradient is summed over the data group alone (the data ranks of
+one model index hold the same block), with no 1/m; the replicated ones
+take the world sum above.  The clip and ``grad_norm`` count each sharded
+element once (train/state.py).
 """
 
 from __future__ import annotations
@@ -63,9 +72,9 @@ from ..models import build_model
 from ..models.hrformer import WindowAttention
 from ..ops import heatmap as heatmap_ops
 from ..ops import photometric
-from ..parallel.mesh import TENSOR_PARALLEL_TODO
+from ..parallel.tensor import shard_params, sharded_parameters
 from .optim import build_optimizer
-from .state import TrainState, optax_global_norm
+from .state import TrainState
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -264,40 +273,54 @@ def make_train_step(cfg, grid=None) -> Callable:
             torch._foreach_mul_(grads, 1.0 / accum)
             sums = {k: v * (1.0 / accum) for k, v in sums.items()}
         metrics = dict(sums)
-        metrics["grad_norm"] = optax_global_norm(grads)
+        metrics["grad_norm"] = state.global_norm(grads)
         state.apply_gradients()
         return state, metrics
 
     return train_step
 
 
-def _sum_gradients(model: nn.Module, params, grid) -> None:
-    """Every gradient summed over the grid's data ranks, the same bits on
-    every rank: one all-reduce over the world group, flattened in
-    parameter order, then 1/m, and 1/(d m) for the RPE tables (K3 returns
-    those summed over the data ranks already); see the module doc."""
-    rpe = {id(m.relative_position_bias_table) for m in model.modules()
-           if isinstance(m, WindowAttention)}
-    grads = [p.grad for p in params]
+def _all_reduce_flat(grads, group) -> None:
+    """Sum ``grads`` over ``group`` in place, as one flat all-reduce."""
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=grid.world_group)
+    dist.all_reduce(flat, group=group)
     torch._foreach_copy_(grads, [t.view_as(g) for t, g in zip(
         flat.split([g.numel() for g in grads]), grads)])
-    for scale, group in ((1.0 / grid.model, [p.grad for p in params
+
+
+def _sum_gradients(model: nn.Module, params, grid) -> None:
+    """Every gradient summed over the grid's data ranks, the same bits on
+    every rank: the replicated ones by one all-reduce over the world
+    group, flattened in parameter order, then 1/m, and 1/(d m) for the
+    RPE tables (K3 returns those summed over the data ranks already); the
+    tensor-parallel blocks by one over the data group; see the module
+    doc."""
+    rpe = {id(m.relative_position_bias_table) for m in model.modules()
+           if isinstance(m, WindowAttention)}
+    sharded = sharded_parameters(model)
+    replicated = [p for p in params if id(p) not in sharded]
+    _all_reduce_flat([p.grad for p in replicated], grid.world_group)
+    blocks = [p.grad for p in params if id(p) in sharded]
+    if blocks and grid.data > 1:
+        _all_reduce_flat(blocks, grid.data_group)
+    for scale, group in ((1.0 / grid.model, [p.grad for p in replicated
                                              if id(p) not in rpe]),
-                         (1.0 / grid.size, [p.grad for p in params
+                         (1.0 / grid.size, [p.grad for p in replicated
                                             if id(p) in rpe])):
         if scale != 1.0 and group:
             torch._foreach_mul_(group, scale)
 
 
-def make_eval_step(cfg) -> Callable:
+def make_eval_step(cfg, grid=None) -> Callable:
     """Eval forward and loss, no update: ``(state, batch) -> (outputs,
-    terms)``.  The model's train/eval mode is restored afterwards."""
+    terms)``.  The model's train/eval mode is restored afterwards.
+    ``grid``: the batch is this data rank's rows, and each loss term the
+    global one (summed over the data ranks, as the train step's)."""
     heatmap_size = tuple(cfg.data.heatmap_size)
     input_size = tuple(cfg.data.input_size)
     sigma = cfg.data.sigma
-    loss_fn = make_loss_fn(cfg)
+    data_sum = _data_sum(grid)
+    loss_fn = make_loss_fn(cfg, data_sum)
 
     def eval_step(state: TrainState, batch: Batch):
         model = state.model
@@ -310,6 +333,9 @@ def make_eval_step(cfg) -> Callable:
                                           sigma)
                 outputs = model(batch["image"])
                 _, terms = loss_fn(outputs, batch, target, weight)
+                if data_sum is not None:  # each rank's share -> the term
+                    terms = dict(zip(terms, data_sum(torch.stack(
+                        [v.float() for v in terms.values()]))))
         finally:
             model.train(was_training)
         return outputs, terms
@@ -320,18 +346,19 @@ def make_eval_step(cfg) -> Callable:
 def create_train_state(cfg, device="cuda", state_dict=None,
                        grid=None) -> TrainState:
     """Model (seeded weights from ``cfg.train.seed``, or ``state_dict`` in
-    the reference checkpoint's naming) in train mode on ``device`` (the
-    CUDA card unless the caller asks for ``"cpu"``), with its optimizer and
-    schedule.  ``grid``: build the model over this ProcessGrid (see
-    models.build_model); ``cfg.parallel.tensor_parallel`` is not ported
-    and raises."""
-    if grid is not None and cfg.parallel.tensor_parallel:
-        raise NotImplementedError(TENSOR_PARALLEL_TODO)
+    the reference checkpoint's naming, whole) in train mode on ``device``
+    (the CUDA card unless the caller asks for ``"cpu"``), with its
+    optimizer and schedule.  ``grid``: build the model over this
+    ProcessGrid (see models.build_model); with
+    ``cfg.parallel.tensor_parallel`` its weights are then cut over the
+    grid's model axis (parallel/tensor.py), before the optimizer, whose
+    moments take the blocks' shapes."""
     model = build_model(cfg, device, grid)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
+    shard_params(model, grid, cfg.parallel.tensor_parallel)
     model.train()
     optimizer, schedule = build_optimizer(
         cfg, model, cfg.train.steps_per_epoch or 1000)
     return TrainState(model=model, optimizer=optimizer, schedule=schedule,
-                      grad_clip_norm=cfg.train.grad_clip_norm)
+                      grad_clip_norm=cfg.train.grad_clip_norm, grid=grid)

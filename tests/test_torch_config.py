@@ -226,25 +226,6 @@ def test_initialize_multihost_refuses_what_it_cannot_run(monkeypatch):
         initialize_multihost("nccl")
 
 
-def test_tensor_parallel_is_refused():
-    """The JAX package's tensor_parallel is not ported yet: asked for, it
-    raises and names the roadmap item."""
-    from infantposeestimation_gaussianbias_tpu_torch import (
-        PoseInference, create_train_state)
-    from infantposeestimation_gaussianbias_tpu_torch.parallel import (
-        ProcessGrid)
-
-    cfg = config.get_variant("hrformer_small")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        PoseInference(cfg, device="cpu", tensor_parallel=True)
-    cfg.parallel.tensor_parallel = True
-    grid = ProcessGrid(data=2, model=1, rank=0, data_index=0, model_index=0,
-                       data_group=None, model_group=None, world_group=None,
-                       device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        create_train_state(cfg, device="cpu", grid=grid)
-
-
 def test_run_grid_fails_when_a_rank_raises():
     """A rank's exception fails the call, with the rank's message."""
     from infantposeestimation_gaussianbias_tpu_torch.parallel import run_grid

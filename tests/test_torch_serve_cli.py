@@ -333,7 +333,8 @@ def test_infer_cli(servers, tmp_path, capsys):
     image (with the skeleton drawn), a directory and a video print what
     the port's PoseInference predicts; a video's --output (the video with
     the skeleton drawn, every frame) and --clinical-report (the figure);
-    the video again with --int8; --mesh raises."""
+    the video again with --int8; --mesh without torchrun's environment
+    serves as the one process (a 1 x 1 grid) and prints the same."""
     _, _, port, variables = servers
     ckpt = tmp_path / "tiny.pt"
     torch.save(state_dict_from_jax(variables["params"],
@@ -380,5 +381,8 @@ def test_infer_cli(servers, tmp_path, capsys):
         with pytest.warns(UserWarning, match="self-calibrating"):
             infer.main(["--input", video, "--int8", *args])
         assert "processed 3 frames @ 10.0 fps" in capsys.readouterr().out
-        with pytest.raises(NotImplementedError, match="item 9"):
-            infer.main(["--input", video, "--mesh", *args])
+        infer.main(["--input", str(tmp_path / "im.png"), *args])
+        plain = capsys.readouterr().out
+        infer.main(["--input", str(tmp_path / "im.png"), "--mesh",
+                    "--backend", "gloo", *args])
+        assert capsys.readouterr().out == plain

@@ -592,6 +592,76 @@ def test_grid_train_step_with_drop_path_matches_one_process(tiny, grid_steps):
                                    atol=1e-6, rtol=1e-3, err_msg=n)
 
 
+# Tensor parallelism (cfg.parallel.tensor_parallel) over the same 2 x 2
+# grid and batch, three steps (torch_grid.tp_train_rank): against the JAX
+# step above, the total loss's bound in test_train_loss_trajectory_matches_jax
+# (JAX's own 2 x 4 tensor-parallel step, tests/test_train.py, agrees with
+# that step to 5e-3); against the port's one process at lr 1e-5, where
+# AdamW's +-lr moves of the weights whose gradient is rounding noise are
+# too small to part the runs (at the config's 5e-4 they move grad_norm
+# by ~4e-3 in two steps): the terms within 1e-5 relative, grad_norm 1e-4
+# (the blocks' squares summed over the model group), the weights within
+# 2 lr a step.
+TP_JAX_RTOL = 1e-3
+TP_TERM_RTOL, TP_NORM_RTOL, TP_LR = 1e-5, 1e-4, 1e-5
+
+
+def test_grid_tp_steps_match_jax(grid_steps, jax_steps):
+    """Every loss term of each of the three tensor-parallel steps against
+    the JAX step's; the loss falls."""
+    got = grid_steps[0]["tp"]["metrics"]
+    for g, (_, want) in zip(got, jax_steps):
+        for k, v in want.items():
+            if k != "grad_norm":
+                np.testing.assert_allclose(g[k], v, rtol=TP_JAX_RTOL,
+                                           err_msg=k)
+    assert got[2]["total_loss"] < got[0]["total_loss"]
+
+
+def test_grid_tp_steps_match_one_process(tiny, grid_steps):
+    """Three tensor-parallel steps at lr 1e-5 against one process's: terms
+    and grad_norm each step, the weights after; every rank reports the
+    same terms and holds the same replicated parameters bit for bit."""
+    cfg, _, _, variables = tiny
+    cfg = _tiny_cfg()
+    cfg.train.lr = TP_LR
+    state = _port_state(cfg, variables)
+    step = make_train_step(cfg)
+    batch = {k: _t(v) for k, v in _batch(12).items()}
+    want = [{k: v.item() for k, v in step(state, batch, None)[1].items()}
+            for _ in range(3)]
+    first = grid_steps[0]["tp_low"]
+    for g, w in zip(first["metrics"], want):
+        for k, v in w.items():
+            rtol = TP_NORM_RTOL if k == "grad_norm" else TP_TERM_RTOL
+            np.testing.assert_allclose(g[k], v, rtol=rtol, err_msg=k)
+    for n, p in state.model.named_parameters():
+        np.testing.assert_allclose(first["full"][n], p.detach().numpy(),
+                                   atol=2 * TP_LR * 3, rtol=0, err_msg=n)
+    for r in grid_steps[1:]:
+        for run in ("tp", "tp_low"):
+            assert r[run]["metrics"] == grid_steps[0][run]["metrics"]
+            for n, v in r[run]["replicated"].items():
+                np.testing.assert_array_equal(
+                    v, grid_steps[0][run]["replicated"][n], err_msg=n)
+
+
+def test_grid_tp_blocks_and_moments_keep_their_rows(tiny, grid_steps):
+    """After the steps every cut weight holds out / 2 rows on its model
+    rank and its AdamW moments are blocks of that shape (JAX's
+    assert_partitioned): every Dense of the tiny model's 9 branches x 2
+    blocks and both shared convs, 74 tensors."""
+    _, _, _, variables = tiny
+    sd = state_dict_from_jax(variables["params"], variables["batch_stats"])
+    for r in grid_steps:
+        tp = r["tp"]
+        assert len(tp["table"]) == 4 * 2 * (2 + 3 + 4) + 2
+        for n, dim in tp["table"].items():
+            full = sd[n].shape
+            assert dim == 0 and tp["shapes"][n] == (full[0] // 2, *full[1:])
+            assert tp["moments"][n] == tp["shapes"][n], n
+
+
 def test_train_step_matches_jax(tiny, jax_steps):
     """One step: every loss term and grad_norm; every gradient (JAX's from
     AdamW's first moment, mu = 0.1 g); the parameters after the update

@@ -167,8 +167,9 @@ def test_debug_nans_raises(tmp_path):
 
 
 def test_state_and_mesh_checks(tmp_path):
-    """A caller's state built for another epoch length raises; the device
-    mesh names its ROADMAP item."""
+    """A caller's state built for another epoch length raises; the mesh
+    (``use_mesh=True``, the default) without a process group is the one
+    process."""
     cfg = _tiny_cfg(tmp_path, "checks")
     train_loader, _, _ = _loaders(cfg)
     cfg.train.warmup_epochs = 2
@@ -176,9 +177,10 @@ def test_state_and_mesh_checks(tmp_path):
     state = create_train_state(cfg, device="cpu")
     with pytest.raises(ValueError, match="another epoch length"):
         loop.train(cfg, train_loader, max_epochs=1, state=state)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        loop.train(cfg, train_loader, max_epochs=1, device="cpu",
-                   use_mesh=True)
+    cfg.train.warmup_epochs = 0
+    state = loop.train(cfg, train_loader, max_epochs=1, device="cpu",
+                       use_mesh=True)
+    assert state.grid is None and state.step == len(train_loader)
 
 
 def test_preemption_guard_catches_sigterm():
@@ -250,8 +252,10 @@ def test_cli_train_resume_and_validate(tmp_path, disk, capsys):
 
 def test_cli_options_not_ported_raise_and_profile(tmp_path, disk, capsys):
     """validate --int8 serves int8 PTQ, calibrated on the first validation
-    batch, and reports AP without a loss; --mesh names its ROADMAP item;
-    train's --profile writes a torch.profiler trace of the window."""
+    batch, and reports AP without a loss; --mesh without torchrun's
+    environment evaluates as the one process, the same AP; train's
+    --profile writes a torch.profiler trace of the window (under --mesh,
+    which without torchrun's environment trains as the one process)."""
     capsys.readouterr()
     cli_validate.main(["--int8", "--device", "cpu", "--set", *TINY_SET,
                        f"data.data_root={disk}",
@@ -259,10 +263,14 @@ def test_cli_options_not_ported_raise_and_profile(tmp_path, disk, capsys):
                        "data.val_img_prefix=val/"])
     printed = capsys.readouterr().out
     assert "AP:" in printed and "val_loss" not in printed, printed
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        cli_validate.main(["--mesh", "--device", "cpu"])
+    cli_validate.main(["--int8", "--mesh", "--device", "cpu", "--set",
+                       *TINY_SET, f"data.data_root={disk}",
+                       "data.val_ann=annotations/val.json",
+                       "data.val_img_prefix=val/"])
+    assert capsys.readouterr().out == printed
     cli_train.main(["--synthetic", "8", "--epochs", "1", "--no-val",
-                    "--profile", "1:2", "--device", "cpu", "--set",
+                    "--profile", "1:2", "--device", "cpu", "--mesh",
+                    "--backend", "gloo", "--set",
                     *TINY_SET, f"train.checkpoint_dir={tmp_path}/ck",
                     f"log_dir={tmp_path}/logs"])
     trace = tmp_path / "logs" / "profile" / "steps_1_2.json"

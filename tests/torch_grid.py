@@ -9,6 +9,7 @@ values, which the test compares in its own process.
 import functools
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,8 +20,10 @@ from infantposeestimation_gaussianbias_tpu_torch.kernels.window_msa import (
     window_attention_sharded)
 from infantposeestimation_gaussianbias_tpu_torch.models import (
     hrformer, pose_estimator)
+from infantposeestimation_gaussianbias_tpu_torch.models import hrnet
 from infantposeestimation_gaussianbias_tpu_torch.parallel import (
-    allgather_host_values, create_mesh, gather_data_rows, shard_batch)
+    allgather_host_values, create_mesh, full_state_dict, gather_data_rows,
+    shard_batch, sharded_parameters, sharding_table)
 from infantposeestimation_gaussianbias_tpu_torch.train import (
     create_train_state, make_train_step)
 
@@ -46,6 +49,13 @@ def register_tiny() -> None:
         "tiny_hrformer"]
     pose_estimator.BACKBONES["tiny_hrformer_dp"] = functools.partial(
         hrformer.HRFormer, drop_path_rate=0.2, **TINY)
+
+
+def register_hrnet_tiny() -> None:
+    """The tiny HRNet of tests/torch_tiny.py (base channels 8), in the
+    port's BACKBONES only (a rank imports no JAX)."""
+    pose_estimator.BACKBONES["hrnet_tiny"] = functools.partial(
+        hrnet.HRNet, base_channels=8)
 
 
 def tiny_cfg(backbone: str = "tiny_hrformer"):
@@ -118,7 +128,9 @@ def serve_rank(grid, state_dict, frames, bboxes) -> dict:
 
 def train_rank(grid, state_dict, batch, dp_masks) -> dict:
     """One train step of the tiny model at the global batch, and one of
-    the DropPath model (the same weights) with given global masks."""
+    the DropPath model (the same weights) with given global masks; then
+    three tensor-parallel steps at the config's learning rate (``tp``)
+    and three at 1e-5 (``tp_low``), see ``tp_train_rank``."""
     register_tiny()
     out = dict(jax_modules=no_jax())
     for name, backbone, masks in (("train", "tiny_hrformer", None),
@@ -136,4 +148,155 @@ def train_rank(grid, state_dict, batch, dp_masks) -> dict:
             buffers={n: b.numpy().copy()
                      for n, b in state.model.named_buffers()
                      if n.endswith(("running_mean", "running_var"))})
+    out["tp"] = tp_train_rank(grid, state_dict, batch, 3)
+    out["tp_low"] = tp_train_rank(grid, state_dict, batch, 3, lr=1e-5)
     return out
+
+
+def _numpy(sd) -> dict:
+    return {k: v.detach().cpu().numpy().copy() for k, v in sd.items()}
+
+
+def tp_serve_rank(grid, state_dict, frames, bboxes, calib, hrnet_sd,
+                  hrnet_calib, stream) -> dict:
+    """Tensor-parallel serving of the tiny HRFormer + fusion (folded, the
+    default; flip test off, as JAX's tensor-parallel serving test) on the
+    frames; its sharding table and the shapes it holds;
+    int8 over the grid (the HRFormer with tensor parallelism, and the
+    tiny HRNet + heatmap head) calibrated on ``calib``: the whole int8
+    state dicts and the predictions; ``predict_stream`` of the TP model
+    over ``stream``; and, on a 2 x 2 grid, two batches served through the
+    server's ``GridLeader`` on rank 0 while the others ``follow``."""
+    from infantposeestimation_gaussianbias_tpu_torch.cli import serve
+
+    register_tiny()
+    register_hrnet_tiny()
+    out = dict(jax_modules=no_jax(), rank=grid.rank)
+    cfg = tiny_cfg("hrformer_tiny")
+    cfg.eval.flip_test = False
+    inf = PoseInference(cfg, state_dict=state_dict, device="cpu", mesh=grid,
+                        tensor_parallel=True)
+    out["table"] = sharding_table(inf.model)
+    out["shapes"] = {n: tuple(p.shape)
+                     for n, p in inf.model.named_parameters()}
+    out["serve"] = inf.predict_batch(frames, bboxes)
+    out["stream"] = list(inf.predict_stream(iter(stream), max_in_flight=2))
+    if grid.size < 4:
+        return out
+    q = PoseInference(cfg, state_dict=state_dict, device="cpu", mesh=grid,
+                      tensor_parallel=True, quantize=True,
+                      calibration_crops=calib)
+    out["int8_table"] = sharding_table(q.model)
+    out["int8_sd"] = _numpy(full_state_dict(q.model))
+    out["int8"] = q.predict_batch(frames, bboxes)
+    hcfg = tiny_cfg("hrnet_tiny")
+    hcfg.model.head_type = "heatmap"
+    hcfg.model.hrnet_stage_modules = (1, 1, 1)
+    hcfg.data.input_size = (64, 64)
+    hcfg.data.heatmap_size = (16, 16)
+    h = PoseInference(hcfg, state_dict=hrnet_sd, device="cpu", mesh=grid,
+                      tensor_parallel=True, quantize=True,
+                      calibration_crops=hrnet_calib)
+    out["hrnet_int8_sd"] = _numpy(full_state_dict(h.model))
+    out["hrnet_int8"] = h.predict_batch(frames, bboxes)
+    if grid.rank == 0:
+        leader = serve.GridLeader(inf, grid)
+        out["leader"] = [leader.predict_batch(frames[:n], bboxes[:n])
+                         for n in (3, 5)]
+        leader.stop()
+    else:
+        serve.follow(inf, grid)
+    return out
+
+
+def tp_train_rank(grid, state_dict, batch, steps: int,
+                  lr: Optional[float] = None) -> dict:
+    """``steps`` float32 steps of the tiny HRFormer under
+    ``cfg.parallel.tensor_parallel`` at the global batch and learning rate
+    ``lr`` (None: the config's): the metrics of
+    each, the sharded names with the shapes of the blocks, their AdamW
+    moments' shapes, the replicated parameters after the steps and the
+    whole state dict (assembled)."""
+    register_tiny()
+    cfg = tiny_cfg()
+    cfg.parallel.tensor_parallel = True
+    if lr is not None:
+        cfg.train.lr = lr
+    state = create_train_state(cfg, device="cpu", state_dict=state_dict,
+                               grid=grid)
+    step = make_train_step(cfg, grid)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    metrics = []
+    for _ in range(steps):
+        _, m = step(state, tb, None)
+        metrics.append({k: v.item() for k, v in m.items()})
+    sharded = sharded_parameters(state.model)
+    named = dict(state.model.named_parameters())
+    moments = {n: tuple(state.optimizer.state[p]["exp_avg"].shape)
+               for n, p in named.items() if id(p) in sharded}
+    return dict(
+        jax_modules=no_jax(), rank=grid.rank, metrics=metrics,
+        table=sharding_table(state.model),
+        shapes={n: tuple(p.shape) for n, p in named.items()},
+        moments=moments,
+        replicated={n: p.detach().numpy().copy() for n, p in named.items()
+                    if id(p) not in sharded},
+        full=_numpy(full_state_dict(state.model)))
+
+
+def loop_rank(grid, cfg, train_records, val_records, images, gt,
+              one_process_dir) -> dict:
+    """``train(use_mesh=True)`` over the process group (one epoch, with
+    validation; the grid is ``cfg.parallel``'s), then a checkpoint of one
+    process restored into a fresh state over that grid; and the loop's
+    grid for a global batch of 3 on a data axis of every rank (JAX's gcd
+    shrink: a grid of rank 0 alone)."""
+    import copy
+
+    from infantposeestimation_gaussianbias_tpu_torch.data import (
+        DataLoader, PoseDataset)
+    from infantposeestimation_gaussianbias_tpu_torch.train import (
+        checkpoint, loop)
+
+    register_tiny()
+    sys.modules["torch.utils.tensorboard"] = None  # JSONL metrics only
+    bs = cfg.train.global_batch_size
+    train_loader = DataLoader(PoseDataset(cfg, train_records, "", True,
+                                          image_cache=images), bs,
+                              shuffle=True, seed=cfg.train.seed)
+    val_loader = DataLoader(PoseDataset(cfg, val_records, "", False,
+                                        image_cache=images),
+                            cfg.eval.batch_size, shuffle=False)
+    results = {}
+    orig = loop.validate
+
+    def keep(*a, **kw):
+        results.update(orig(*a, **kw))
+        return results
+
+    loop.validate = keep
+    state = loop.train(cfg, train_loader, val_loader, gt, max_epochs=1,
+                       device="cpu")
+    loop.validate = orig
+    fresh = create_train_state(cfg, device="cpu", grid=state.grid)
+    checkpoint.CheckpointManager(one_process_dir).restore(fresh)
+    opt = fresh.optimizer.state
+    named = dict(fresh.model.named_parameters())
+    moments = checkpoint._moments(fresh.optimizer.state_dict(), fresh,
+                                  checkpoint.assemble_rows)["state"]
+    odd = copy.deepcopy(cfg)
+    odd.train.global_batch_size = 3
+    odd.parallel.data_axis, odd.parallel.model_axis = 0, 1
+    shrunk = loop.training_grid(odd, "cpu")
+    return dict(
+        jax_modules=no_jax(), rank=grid.rank, step=state.step,
+        grid=(state.grid.data, state.grid.model),
+        table=sharding_table(state.model), val=dict(results),
+        trained=_numpy(full_state_dict(state.model)),
+        restored=_numpy(full_state_dict(fresh.model)),
+        restored_moments={n: tuple(opt[p]["exp_avg"].shape)
+                          for n, p in named.items()},
+        restored_opt={i: {k: v.numpy().copy() for k, v in e.items()}
+                      for i, e in moments.items()},
+        restored_step=fresh.step,
+        shrunk=None if shrunk is None else (shrunk.data, shrunk.model))
