@@ -2469,14 +2469,20 @@ GRID_TP_KINDS = (("attn.qkv", "qkv"), ("attn.proj", "proj"),
 # 4), so an abs-max may part by float32 rounding before the maximum over
 # the data group: the scales are held to 1e-5 of their value.  Serving:
 # one process serving the grid's int8 state (install_quantized) against
-# the grid, held to phase 27's bound for int8 maps whose float32 steps
-# round apart (INT8_CARD_CPU_REL of the largest: K9 and K10 are exact in
-# int32, but a float32 value before a requantize that rounds an ulp apart
-# at another batch shape moves an int8 value across a .5 boundary).  The
-# maps of one process's own calibration are logged beside them: on the
-# seeded weights (identity BatchNorm, activations ~1e6) a scale 1e-6
-# apart moves many int8 values and the maps part by percents.
+# the grid (GRID_INT8_MAP_ATOL).  hrnet_w32 + heatmap has no tensor that
+# the model axis cuts, and K9 is exact in int32 row by row: its maps must
+# be equal bit for bit.  hrformer_base + fusion cuts only the fusion
+# head's two shared 3x3 convs (JAX's rule cuts no int8 w_int8, so K10's
+# weights stay whole): float32 cuDNN convs on half the output channels
+# may round an ulp apart from the whole conv, after the last requantize,
+# so its maps are held to phase 4's float32 HEATMAP_ATOL.  Both read 0 on
+# the H100 (PERF.md, PR 18).  The maps of one process's own calibration
+# are logged beside them and not bounded: on the seeded weights (identity
+# BatchNorm, activations ~1e6) a scale 1e-6 apart moves many int8 values
+# and the maps part by percents.
 GRID_INT8_SCALE_RTOL = 1e-5
+GRID_INT8_MAP_ATOL = {"hrnet_w32 heatmap": 0.0,
+                      "hrformer_base fusion": HEATMAP_ATOL}
 
 
 def jax_modules() -> list:
@@ -3031,7 +3037,7 @@ def grid_int8_check(results, frames, bboxes, smi) -> dict:
     int8 state the same on every rank, the scales against one process's
     calibration on the same crops within GRID_INT8_SCALE_RTOL, the maps
     against one process serving the grid's int8 state within
-    INT8_CARD_CPU_REL of their largest (against one process's own
+    GRID_INT8_MAP_ATOL (hrnet_w32 bit for bit; against one process's own
     calibration: logged), exact K9, K10 and K1 launches per rank."""
     from infantposeestimation_gaussianbias_tpu_torch import PoseInference
 
@@ -3079,7 +3085,7 @@ def grid_int8_check(results, frames, bboxes, smi) -> dict:
                         if v)
             + f"; on {smi}")
         assert scale_err <= GRID_INT8_SCALE_RTOL, (label, scale_err)
-        assert map_err <= INT8_CARD_CPU_REL * peak, (label, map_err, peak)
+        assert map_err <= GRID_INT8_MAP_ATOL[label], (label, map_err, peak)
         out[label] = dict(scale_rel_err=scale_err, map_abs_err=map_err,
                           own_calibration_map_abs_err=own_err, peak=peak,
                           launches=r0["launches"])

@@ -82,8 +82,7 @@ def main():
         cfg.data.val_ann = "annotations/val.json"
         cfg.data.val_img_prefix = "images/"
 
-        loader = build_dataloader(cfg, is_train=False,
-                                  per_process=grid is None)
+        loader = build_dataloader(cfg, is_train=False)
         infer = PoseInference(cfg, device=args.device, quantize=args.int8,
                               mesh=grid)
 

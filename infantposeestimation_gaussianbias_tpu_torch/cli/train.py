@@ -25,8 +25,6 @@ import argparse
 import json
 import os
 
-import torch.distributed as dist
-
 from ..data.pipeline import build_dataloader
 from ..parallel import maybe_initialize_multihost
 from ..train.loop import setup_logging, train
@@ -67,7 +65,6 @@ def main(argv=None):
         init_process_group(args)  # train() meshes the group
     else:
         maybe_initialize_multihost(cfg, backend(args))
-    shared = dist.is_initialized()  # every rank reads the whole set
 
     os.makedirs(cfg.log_dir, exist_ok=True)
     setup_logging(os.path.join(cfg.log_dir, f"{cfg.exp_name}.log"))
@@ -78,12 +75,10 @@ def main(argv=None):
         if args.no_val:
             val_loader, gt = None, None
     else:
-        train_loader = build_dataloader(cfg, is_train=True,
-                                        per_process=not shared)
+        train_loader = build_dataloader(cfg, is_train=True)
         val_loader, gt = None, None
         if not args.no_val:
-            val_loader = build_dataloader(cfg, is_train=False,
-                                          per_process=not shared)
+            val_loader = build_dataloader(cfg, is_train=False)
             with open(os.path.join(cfg.data.data_root,
                                    cfg.data.val_ann)) as f:
                 gt = json.load(f)

@@ -69,7 +69,7 @@ def main(argv=None):
         if meta is None:
             raise SystemExit(f"no checkpoint at {args.checkpoint}")
 
-    loader = build_dataloader(cfg, is_train=False, per_process=False)
+    loader = build_dataloader(cfg, is_train=False)
     with open(os.path.join(cfg.data.data_root, cfg.data.val_ann)) as f:
         gt = json.load(f)
 

@@ -36,7 +36,6 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..parallel.mesh import process_shard
 from ..schemas import KeypointSchema
 from . import transforms as T
 from .coco import CocoIndex, build_records
@@ -323,31 +322,22 @@ class DataLoader:
 
 def build_dataloader(cfg: Config, is_train: bool,
                      image_cache: Optional[Dict] = None,
-                     one_per_image: bool = False,
-                     per_process: bool = True) -> DataLoader:
-    """A loader over ``cfg.data``'s COCO annotation file and images.
-    Across processes (torch.distributed initialised) each loads its shard
-    of the records and 1/world of the batch; identity on one process.
-    ``per_process=False``: every process loads every record at the whole
-    batch (a process grid, whose step and validation take each rank's
-    rows of the global batch)."""
+                     one_per_image: bool = False) -> DataLoader:
+    """A loader over ``cfg.data``'s COCO annotation file and images, of
+    every record at the whole batch (``train.global_batch_size`` or
+    ``eval.batch_size``).  Under a process group every process loads the
+    same batches: the grid's train step and validation take each rank's
+    rows of the global batch (train/loop.py)."""
     d = cfg.data
     ann = os.path.join(d.data_root, d.train_ann if is_train else d.val_ann)
     prefix = d.train_img_prefix if is_train else d.val_img_prefix
     records = build_records(CocoIndex(ann), img_prefix="",
                             bbox_padding=d.bbox_padding,
                             one_per_image=one_per_image)
-    world = 1
-    if per_process:
-        records = process_shard(records,
-                                equalize="truncate" if is_train else "pad")
-        world = (torch.distributed.get_world_size()
-                 if torch.distributed.is_available()
-                 and torch.distributed.is_initialized() else 1)
     ds = PoseDataset(cfg, records, os.path.join(d.data_root, prefix),
                      is_train, image_cache=image_cache)
     bs = cfg.train.global_batch_size if is_train else cfg.eval.batch_size
-    return DataLoader(ds, max(1, bs // world), shuffle=is_train,
+    return DataLoader(ds, bs, shuffle=is_train,
                       seed=cfg.train.seed, drop_last=is_train)
 
 

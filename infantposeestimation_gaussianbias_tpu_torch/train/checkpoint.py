@@ -31,14 +31,14 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.tensor import (assemble_rows, full_state_dict, local_rows,
-                               shard_state_dict, sharded_parameters)
+                               shard_state_dict)
 from .state import TrainState
 
 
 def _moments(opt_sd: Dict, state: TrainState, cut) -> Dict:
     """The optimizer state dict with ``cut(tensor, shard)`` applied to each
     moment (a tensor of its parameter's rows) of a sharded parameter."""
-    shards = sharded_parameters(state.model)
+    shards = state.shards
     if not shards:
         return opt_sd
     entries = dict(opt_sd["state"])

@@ -236,7 +236,7 @@ def train(cfg: Config, train_loader: DataLoader,
         with _PreemptionGuard():
             _epoch_loop(cfg, state, step_fn, generator, train_loader,
                         val_loader, gt_dataset, ckpt, start_epoch, epochs,
-                        best, writer, profiler, device)
+                        best, writer, profiler, device, grid)
     finally:
         profiler.stop()  # a window that ran past the end of training
         if writer is not None:
@@ -310,7 +310,7 @@ class _StepProfiler:
 
 def _epoch_loop(cfg, state, step_fn, generator, train_loader, val_loader,
                 gt_dataset, ckpt, start_epoch, epochs, best, writer,
-                profiler, device) -> None:
+                profiler, device, grid=None) -> None:
     mean, std = cfg.data.pixel_mean, cfg.data.pixel_std
     steps_per_epoch = cfg.train.steps_per_epoch
     steps_done = 0
@@ -318,6 +318,13 @@ def _epoch_loop(cfg, state, step_fn, generator, train_loader, val_loader,
         logger = MetricLogger()
         t0 = time.time()
         for i, batch in enumerate(train_loader.epoch(epoch)):
+            rows = len(batch["image_u8"])
+            if grid is not None and rows != cfg.train.global_batch_size:
+                # the grid step would cut a process's share again
+                raise ValueError(
+                    f"a grid trains on global batches of "
+                    f"train.global_batch_size={cfg.train.global_batch_size}"
+                    f" rows; the loader gave {rows}")
             profiler.before_step(steps_done)
             db = device_batch(batch, mean, std, device)
             state, metrics = step_fn(state, db, generator)

@@ -13,14 +13,14 @@ counts the replicated tensors once: every element once.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any
+from dataclasses import dataclass, field
+from typing import Any, Dict
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 
-from ..parallel.tensor import sharded_parameters
+from ..parallel.tensor import Shard, sharded_parameters
 from .optim import Schedule
 
 
@@ -32,6 +32,12 @@ class TrainState:
     grad_clip_norm: float = 0.0  # 0 disables
     step: int = 0
     grid: Any = None  # the ProcessGrid the model was built over
+    # {id(parameter): its Shard} of the cut parameters, mapped once: the
+    # model is cut before its state is made (create_train_state)
+    shards: Dict[int, Shard] = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.shards = sharded_parameters(self.model)
 
     @property
     def params(self) -> list[torch.nn.Parameter]:
@@ -39,12 +45,11 @@ class TrainState:
 
     def global_norm(self, tensors) -> torch.Tensor:
         """The global norm of ``tensors``, laid out as ``params``."""
-        shards = sharded_parameters(self.model)
-        if not shards:
+        if not self.shards:
             return optax_global_norm(tensors)
         return sharded_global_norm(
-            tensors, [id(p) in shards for p in self.params],
-            next(iter(shards.values())).group)
+            tensors, [id(p) in self.shards for p in self.params],
+            next(iter(self.shards.values())).group)
 
     @torch.no_grad()
     def apply_gradients(self) -> None:

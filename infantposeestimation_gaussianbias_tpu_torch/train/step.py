@@ -72,7 +72,7 @@ from ..models import build_model
 from ..models.hrformer import WindowAttention
 from ..ops import heatmap as heatmap_ops
 from ..ops import photometric
-from ..parallel.tensor import shard_params, sharded_parameters
+from ..parallel.tensor import shard_params
 from .optim import build_optimizer
 from .state import TrainState
 
@@ -266,7 +266,7 @@ def make_train_step(cfg, grid=None) -> Callable:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         if grid is not None and grid.size > 1:
-            _sum_gradients(model, params, grid)
+            _sum_gradients(model, params, state.shards, grid)
         if data_sum is not None:
             sums = dict(zip(sums, data_sum(torch.stack(list(sums.values())))))
         if accum > 1:  # gradients were summed in float32; average them
@@ -288,16 +288,15 @@ def _all_reduce_flat(grads, group) -> None:
         flat.split([g.numel() for g in grads]), grads)])
 
 
-def _sum_gradients(model: nn.Module, params, grid) -> None:
+def _sum_gradients(model: nn.Module, params, sharded, grid) -> None:
     """Every gradient summed over the grid's data ranks, the same bits on
     every rank: the replicated ones by one all-reduce over the world
     group, flattened in parameter order, then 1/m, and 1/(d m) for the
     RPE tables (K3 returns those summed over the data ranks already); the
-    tensor-parallel blocks by one over the data group; see the module
-    doc."""
+    tensor-parallel blocks (``sharded``, TrainState.shards) by one over
+    the data group; see the module doc."""
     rpe = {id(m.relative_position_bias_table) for m in model.modules()
            if isinstance(m, WindowAttention)}
-    sharded = sharded_parameters(model)
     replicated = [p for p in params if id(p) not in sharded]
     _all_reduce_flat([p.grad for p in replicated], grid.world_group)
     blocks = [p.grad for p in params if id(p) in sharded]

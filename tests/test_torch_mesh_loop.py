@@ -191,3 +191,20 @@ def test_cli_mesh_is_one_process_below_two_ranks(monkeypatch):
     assert common.make_grid(flag.parse_args(["--mesh"])) is None
     with pytest.raises(SystemExit):
         parser.parse_args(["--backend", "mpi"])
+
+
+def test_grid_loop_refuses_a_share_of_the_batch():
+    """Over a grid the loop trains on global batches only: a loader that
+    gives a process's share (half of ``train.global_batch_size`` rows)
+    raises before a step, as the grid step would cut it again."""
+    cfg = _cfg()
+    half = cfg.train.global_batch_size // 2
+    loader = SimpleNamespace(epoch=lambda e: iter(
+        [{"image_u8": np.zeros((half, 8, 8, 3), np.uint8)}]))
+
+    def step(*a):
+        raise AssertionError("stepped on a share of the batch")
+
+    with pytest.raises(ValueError, match="global batches"):
+        loop._epoch_loop(cfg, None, step, None, loader, None, None, None,
+                         0, 1, -np.inf, None, None, "cpu", grid=object())

@@ -23,7 +23,9 @@ from infantposeestimation_gaussianbias_tpu_torch.models import (
 from infantposeestimation_gaussianbias_tpu_torch.models import hrnet
 from infantposeestimation_gaussianbias_tpu_torch.parallel import (
     allgather_host_values, create_mesh, full_state_dict, gather_data_rows,
-    shard_batch, sharded_parameters, sharding_table)
+    shard_batch, sharding_table)
+from infantposeestimation_gaussianbias_tpu_torch.parallel.tensor import (
+    assemble_rows)
 from infantposeestimation_gaussianbias_tpu_torch.train import (
     create_train_state, make_train_step)
 
@@ -214,9 +216,10 @@ def tp_train_rank(grid, state_dict, batch, steps: int,
     """``steps`` float32 steps of the tiny HRFormer under
     ``cfg.parallel.tensor_parallel`` at the global batch and learning rate
     ``lr`` (None: the config's): the metrics of
-    each, the sharded names with the shapes of the blocks, their AdamW
-    moments' shapes, the replicated parameters after the steps and the
-    whole state dict (assembled)."""
+    each, the first step's gradients (the blocks assembled), the sharded
+    names with the shapes of the blocks, their AdamW moments' shapes, the
+    replicated parameters after the steps and the whole state dict
+    (assembled)."""
     register_tiny()
     cfg = tiny_cfg()
     cfg.parallel.tensor_parallel = True
@@ -226,16 +229,20 @@ def tp_train_rank(grid, state_dict, batch, steps: int,
                                grid=grid)
     step = make_train_step(cfg, grid)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    metrics = []
+    named = dict(state.model.named_parameters())
+    sharded = state.shards
+    metrics, grads = [], None
     for _ in range(steps):
         _, m = step(state, tb, None)
         metrics.append({k: v.item() for k, v in m.items()})
-    sharded = sharded_parameters(state.model)
-    named = dict(state.model.named_parameters())
+        if grads is None:  # every model rank assembles, in one order
+            grads = {n: (assemble_rows(p.grad, sharded[id(p)])
+                         if id(p) in sharded else p.grad).numpy().copy()
+                     for n, p in named.items()}
     moments = {n: tuple(state.optimizer.state[p]["exp_avg"].shape)
                for n, p in named.items() if id(p) in sharded}
     return dict(
-        jax_modules=no_jax(), rank=grid.rank, metrics=metrics,
+        jax_modules=no_jax(), rank=grid.rank, metrics=metrics, grads=grads,
         table=sharding_table(state.model),
         shapes={n: tuple(p.shape) for n, p in named.items()},
         moments=moments,
