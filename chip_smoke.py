@@ -35,7 +35,7 @@ Phases, in order; any failure exits non-zero:
      against the same step on the CPU (plain path), same weights, batch and
      DropPath masks; then bf16 steps at b=32 on one seeded batch: finite
      terms, K1 and K2 44 launches each per step, a falling loss, step time,
-     images/s and peak memory, and a profile of two steps by kernel; then
+     images/s and peak memory, and a profile of one step by kernel; then
      one bf16 step with model.remat against one without;
   7. K4 and K5 (CUDA fused attention and MLP half-blocks, forward and
      backward) against their plain versions at every hrformer_base branch
@@ -210,7 +210,8 @@ Phases, in order; any failure exits non-zero:
      per step, no K1 or K2); ``preemie`` (hrnet_w32 + heatmap, infant13,
      256x256, jitter 0.2, its heatmaps at the model's stride 4): an epoch
      of 2 steps, every crop moved by the jitter; the pipeline proof
-     (tools/pipeline_proof.py) on the card, AP held to PROOF_AP_MIN.
+     (tools/pipeline_proof.py) on the card, AP held to PROOF_AP_MIN, in a
+     spawned process (in the spawned step after phase 28: run_step).
  27. int8 PTQ serving (K9, the int8 conv, and K10, the int8 Dense, of
      csrc/qgemm.cu and csrc/qdense.cu): hrnet_w32 with the heatmap and the
      fusion head
@@ -255,7 +256,8 @@ Phases, in order; any failure exits non-zero:
      card against CPU); CBAM, TransformerNeck and a deconv heatmap head on
      hrnet_w32's stride-4 features at b = 32, float32 card against CPU;
      the pipeline proof at its litehrnet default (AP held to
-     PROOF_AP_MIN) and the overfit check (OVERFIT_STEPS steps).
+     PROOF_AP_MIN) and the overfit check (OVERFIT_STEPS steps), in
+     spawned processes (in the spawned step after phase 28: run_step).
  29. the last surfaces: four served pipelines exported by
      tools/export_model.py (torch.export; the served kernels as the
      registered operators of kernels/ops.py), saved, loaded and called at
@@ -275,7 +277,38 @@ Phases, in order; any failure exits non-zero:
      viz/clinical.create_video_with_pose over it; the host microseconds
      of a K1, K9 and K10 call through the registered operator against the
      wrapper (``[operator]`` lines).
-Phases 21-29 run after 19 and before 20.  ``--phases N,N,...`` runs the
+ 30. the named configurations hrformer_small, hrformer_base_384,
+     hrnet_w48 and hrnet_w48_384 at full width, one spawned process each
+     (their untimed checks at once, their timed sections in turns behind a
+     barrier): the default serving (folded, bf16) at b = 1, 3 and 8 with
+     exact launches (HRFormer: 88 K1 a flip-tested batch; under
+     IPE_FUSED_BLOCK=1 88 K4 and 88 K5; under auto 56/32/32 for
+     hrformer_small, 28/60/60 for hrformer_base_384), float32 card against
+     CPU (phase 4's bounds), float32 fused against unfused (HRFormer), a
+     float32 step at b = 2 card against CPU (phase 6's or 13's bounds),
+     HRFormer's fused bf16 steps at its batch (44 launches of K4 and K5,
+     forward and backward, a step; a falling loss; peak memory) and
+     hrformer_small's at window 8; K1 / K2 / K4 / K5 at the HRFormer
+     configs' shapes (NAMED_BRANCH_SHAPES, NAMED_MAPS), float32 and bf16,
+     against their plain versions (phases 2, 3 and 7's bounds); int8
+     hrnet_w48 + heatmap, hrnet_w48_384 + heatmap and hrformer_small +
+     fusion: exact K9 / K10 launches from the model's own count, K9 / K10
+     at every int8 shape at b = 64 equal to the plain version, and (not
+     for hrnet_w48_384) card against CPU on the JAX test's weights, every
+     K9 / K10 call of a crop's forward and of its mirror equal to the
+     CPU's plain version on the card's own inputs; then in turns crops/s
+     at b = 32 with flip and b = 1 with one profiled batch, and unfused
+     bf16 steps at the config's own batch (32, 16, 24, 16; 44 K1 and 44
+     K2 a step for HRFormer; a falling loss, step ms, images/s, peak
+     memory).
+Phases 21-30 run after 19 and before 20.
+After phase 28 one spawned step (run_step) runs, in a process each and
+all at once, the tools of phases 26 and 28, phase 27's three CLIs, phase
+29's four exports and its untimed surfaces (analyze, the validator, the
+video) and phase 30's four configs: their untimed work side by side,
+then the timed sections (the CLI server's burst, the programs' and the
+configs' timings) in turns, each with the card and the host to itself;
+phase 29's operator costs and HTTP probe then run in this process.  ``--phases N,N,...`` runs the
 chosen phases alone (and what they need: 5 and 8 need 4, 23 needs 22, 26
 needs 6 and 9; 0 and 1 always run); the default is every phase.
 The ranks import no JAX (each asserts it).
@@ -294,6 +327,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -443,7 +477,15 @@ BRANCH_SHAPES = [
 ]
 
 
+# With --stamp, main sets this to the run's start (time.time()): every
+# line, spawned processes' too, then starts with its second in the run.
+STAMP_ENV = "CHIP_SMOKE_T0"
+
+
 def log(*args) -> None:
+    start = os.environ.get(STAMP_ENV)
+    if start:
+        args = (f"[t+{time.time() - float(start):7.1f}]", *args)
     print(*args, flush=True)
 
 
@@ -719,6 +761,48 @@ def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
     return t.reshape(nW, N, H, C // H).permute(0, 2, 1, 3).contiguous()
 
 
+def k1_against_plain(qkv: torch.Tensor, bias, H: int, label: str) -> float:
+    """K1 on (nW, N, 3C) qkv against its plain version (float32 within
+    F32_ATOL, bf16 within BF16_TOL), and the last head alone (K3's head
+    range) equal to its columns of the whole launch bit for bit, zeros
+    elsewhere; returns the largest error."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import window_msa
+
+    out = window_msa.window_attention_qkv(qkv, bias, H)
+    last = window_msa.window_attention_qkv(qkv, bias, H, heads=(H - 1, 1))
+    torch.cuda.synchronize()
+    ref = window_msa.window_attention_qkv_reference(qkv, bias, H)
+    err = (out.float() - ref.float()).abs().max().item()
+    if qkv.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=F32_ATOL, rtol=0)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=BF16_TOL,
+                                   rtol=BF16_TOL)
+    cut = (H - 1) * (qkv.shape[-1] // (3 * H))
+    assert torch.equal(last[..., cut:], out[..., cut:]), label
+    assert not last[..., :cut].any(), label
+    return err
+
+
+def k2_against_plain(qkv: torch.Tensor, bias: torch.Tensor,
+                     dout: torch.Tensor, H: int) -> tuple:
+    """K2 against its plain version: dqkv within F32_ATOL (float32) or
+    BF16_TOL (bf16), dbias within DBIAS_TOL; returns (dqkv error, dbias
+    error, the plain dbias)."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import window_msa
+
+    dqkv, dbias = window_msa.window_attention_qkv_bwd(qkv, bias, dout, H)
+    torch.cuda.synchronize()
+    r_dqkv, r_dbias = window_msa.window_attention_qkv_bwd_reference(
+        qkv, bias, dout, H)
+    tol = F32_ATOL if qkv.dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(dqkv.float(), r_dqkv.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(dbias, r_dbias, atol=DBIAS_TOL, rtol=DBIAS_TOL)
+    return ((dqkv.float() - r_dqkv.float()).abs().max().item(),
+            (dbias - r_dbias).abs().max().item(), r_dbias)
+
+
 def phase_k1() -> dict:
     from infantposeestimation_gaussianbias_tpu_torch.kernels import window_msa
 
@@ -735,22 +819,7 @@ def phase_k1() -> dict:
                 if with_bias else None)
         for dt in (torch.float32, torch.bfloat16):
             qkv = qkv32.to(dt)
-            out = window_msa.window_attention_qkv(qkv, bias, H)
-            # the last head alone (K3's head range): its columns of the
-            # whole launch bit for bit, zeros elsewhere
-            last = window_msa.window_attention_qkv(qkv, bias, H,
-                                                   heads=(H - 1, 1))
-            torch.cuda.synchronize()
-            ref = window_msa.window_attention_qkv_reference(qkv, bias, H)
-            err = (out.float() - ref.float()).abs().max().item()
-            if dt == torch.float32:
-                torch.testing.assert_close(out, ref, atol=F32_ATOL, rtol=0)
-            else:
-                torch.testing.assert_close(out.float(), ref.float(),
-                                           atol=BF16_TOL, rtol=BF16_TOL)
-            cut = (H - 1) * hd
-            assert torch.equal(last[..., cut:], out[..., cut:]), label
-            assert not last[..., :cut].any(), label
+            err = k1_against_plain(qkv, bias, H, label)
             worst = max(worst, err)
             ms = cuda_median_ms(
                 lambda: window_msa.window_attention_qkv(qkv, bias, H))
@@ -804,18 +873,7 @@ def phase_k2() -> dict:
         bias = torch.randn(H, N, N, device="cuda", generator=g)
         for dt in (torch.float32, torch.bfloat16):
             qkv, dout = qkv32.to(dt), dout32.to(dt)
-            dqkv, dbias = window_msa.window_attention_qkv_bwd(qkv, bias, dout,
-                                                              H)
-            torch.cuda.synchronize()
-            r_dqkv, r_dbias = window_msa.window_attention_qkv_bwd_reference(
-                qkv, bias, dout, H)
-            tol = F32_ATOL if dt == torch.float32 else BF16_TOL
-            torch.testing.assert_close(dqkv.float(), r_dqkv.float(),
-                                       atol=tol, rtol=tol)
-            torch.testing.assert_close(dbias, r_dbias, atol=DBIAS_TOL,
-                                       rtol=DBIAS_TOL)
-            err_q = (dqkv.float() - r_dqkv.float()).abs().max().item()
-            err_b = (dbias - r_dbias).abs().max().item()
+            err_q, err_b, r_dbias = k2_against_plain(qkv, bias, dout, H)
             worst = max(worst, err_q, err_b)
             ms = cuda_median_ms(lambda: window_msa.window_attention_qkv_bwd(
                 qkv, bias, dout, H))
@@ -952,7 +1010,7 @@ def compare_f32_serving(sd, frames, bboxes, tag: str, hm_tol: float,
     PoseInference's (None, the default, folds where the model allows)."""
     from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
                                                               get_variant)
-    from infantposeestimation_gaussianbias_tpu_torch.ops import affine, decode
+    from infantposeestimation_gaussianbias_tpu_torch.ops import decode
 
     if cfg32 is None:
         cfg32 = get_variant("hrformer_base")
@@ -962,23 +1020,23 @@ def compare_f32_serving(sd, frames, bboxes, tag: str, hm_tol: float,
     cpu = PoseInference(cfg32, state_dict={k: v.cpu() for k, v in sd.items()},
                         device="cpu", fold=fold)
     n = 3
-    k_gpu, s_gpu = gpu.predict_batch(frames[:n], bboxes[:n])
-    k_cpu, s_cpu = cpu.predict_batch(frames[:n], bboxes[:n])
-    centers = (bboxes[:n, :2] + bboxes[:n, 2:]) / 2
-    scales = (bboxes[:n, 2:] - bboxes[:n, :2]) * cfg32.data.bbox_padding
-    hms = {}
+    hms, out = {}, {}
     for name, p in (("cuda", gpu), ("cpu", cpu)):
-        with torch.inference_mode():
-            crops = affine.crop_and_normalize(
-                torch.from_numpy(frames[:n]).to(p.device),
-                torch.from_numpy(centers).to(p.device),
-                torch.from_numpy(scales).to(p.device), cfg32.data.input_size)
-            hm = p.model(crops)["heatmaps"]
-            hm_f = decode.flip_heatmaps(
-                p.model(torch.flip(crops, [2]))["heatmaps"], p._flip_index)
-            unsure = _unsure_keypoints((hm + hm_f) * 0.5,
-                                       cfg32.model.head_type)
+        # the heatmaps of predict_batch's own two forwards (the crops and
+        # their mirror; the first n rows of its padded batch)
+        seen = []
+        hook = p.model.register_forward_hook(
+            lambda m, i, o: seen.append(o["heatmaps"][:n].clone()))
+        try:
+            out[name] = p.predict_batch(frames[:n], bboxes[:n])
+        finally:
+            hook.remove()
+        assert len(seen) == 2, len(seen)
+        hm = seen[0]
+        hm_f = decode.flip_heatmaps(seen[1], p._flip_index)
+        unsure = _unsure_keypoints((hm + hm_f) * 0.5, cfg32.model.head_type)
         hms[name] = (hm.cpu(), unsure)
+    (k_gpu, s_gpu), (k_cpu, s_cpu) = out["cuda"], out["cpu"]
     hm_err = (hms["cuda"][0] - hms["cpu"][0]).abs().max().item()
     log(f"[{tag}] f32 heatmaps card vs CPU: max_abs_err={hm_err:.3e} "
         f"(|hm| max {hms['cpu'][0].abs().max().item():.3e})")
@@ -992,18 +1050,24 @@ def compare_f32_serving(sd, frames, bboxes, tag: str, hm_tol: float,
     assert kp_err <= kp_tol, kp_err
 
 
+# phase_throughput's depth: warm-up and timed batches of 32 frames, and
+# single-frame calls (the first two of them warm-up).  12 batches after 3
+# and 10 calls until the script outgrew its time limit.
+THROUGHPUT_WARMUP, THROUGHPUT_BATCHES, THROUGHPUT_B1_CALLS = 2, 8, 6
+
+
 def phase_throughput(inf, smi: str, tag: str = "throughput") -> dict:
     frames, bboxes = make_requests(32, seed=2)
-    for _ in range(3):
+    for _ in range(THROUGHPUT_WARMUP):
         inf.predict_batch(frames, bboxes)
     times = []
-    for _ in range(12):
+    for _ in range(THROUGHPUT_BATCHES):
         t0 = time.perf_counter()
         kpts, _ = inf.predict_batch(frames, bboxes)
         times.append(time.perf_counter() - t0)
         assert np.isfinite(kpts).all()
     b1 = []
-    for _ in range(10):
+    for _ in range(THROUGHPUT_B1_CALLS):
         t0 = time.perf_counter()
         inf.predict_batch(frames[:1], bboxes[:1])
         b1.append(time.perf_counter() - t0)
@@ -1123,10 +1187,32 @@ def phase_fused_kernels() -> dict:
     every hrformer_base branch shape: forward at the serving batch, forward
     and backward at the training batch, float32 and bf16; kernel, plain
     and stock-chain times and the bound (bf16 tensor-core rate)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    # hrformer_base's branches at window 7 (serving and training batch),
+    # then at window 8 (N = 64, the training batch; F2 in ROADMAP.md).
+    runs = [(label, Hm, Wm, C, heads, B, train, 7)
+            for label, Hm, Wm, C, heads in BASE_MAPS
+            for B, train in ((SERVE_BATCH, False), (TRAIN_BATCH, True))]
+    runs += [(f"{label} ws8", Hm, Wm, C, heads, TRAIN_BATCH, True, 8)
+             for label, Hm, Wm, C, heads in BASE_MAPS]
+    # batch 2: one flip-tested frame served, or the float32 step of phase 9;
+    # K5's plan takes its 64 x 64 tile there (never at the batches above)
+    runs += [(label, Hm, Wm, C, heads, SMALL_BATCH, True, 7)
+             for label, Hm, Wm, C, heads in BASE_MAPS]
+    return fused_half_runs(runs, g)
+
+
+def fused_half_runs(runs, g, full: bool = True) -> dict:
+    """K4 and K5 at each of ``runs`` ((label, map H, map W, C, heads,
+    batch, with the backward, window)), float32 and bf16, every output
+    against the plain version's (FUSED_REL_TOL, FUSED_LOCAL_TOL); with
+    ``full`` the kernel's, the plain version's and the stock chain's ms,
+    the bound, the hrformer_base b0 bf16 record and the ``[kN-split]``
+    lines at b0 and b3.  Returns each kernel's worst errors (and
+    record)."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import (
         fused_block as fb)
 
-    g = torch.Generator(device="cuda").manual_seed(9)
     rec = {k: dict(max_abs_err=0.0, max_rel_err=0.0)
            for k in ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")}
     fwd_names = ["y"]
@@ -1142,31 +1228,23 @@ def phase_fused_kernels() -> dict:
         refs = plain()
         refs = refs if isinstance(refs, tuple) else (refs,)
         err, rel = _compare(f"{key} {label}", names, outs, refs, dt)
-        ms = cuda_median_ms(fn, warmup=2, runs=10)
-        plain_ms = cuda_median_ms(plain, warmup=2, runs=10)
-        lib_ms = cuda_median_ms(chain, warmup=2, runs=10)
-        b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
-        log(f"[{key}] {label} {what}: max_abs_err={err:.3e} rel={rel:.2e} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
         r = rec[key]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["max_rel_err"] = max(r["max_rel_err"], rel)
+        if not full:
+            log(f"[{key}] {label} {what}: max_abs_err={err:.3e} rel={rel:.2e}")
+            return
+        ms = cuda_median_ms(fn, warmup=2, runs=10)
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+        plain_ms = cuda_median_ms(plain, warmup=2, runs=10)
+        lib_ms = cuda_median_ms(chain, warmup=2, runs=10)
+        log(f"[{key}] {label} {what}: max_abs_err={err:.3e} rel={rel:.2e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
         if record:
             r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      bound_ms=b_ms, bound_by=b_by, shape=label)
 
-    # hrformer_base's branches at window 7 (serving and training batch),
-    # then at window 8 (N = 64, the training batch; F2 in ROADMAP.md).
-    runs = [(label, Hm, Wm, C, heads, B, train, 7)
-            for label, Hm, Wm, C, heads in BASE_MAPS
-            for B, train in ((SERVE_BATCH, False), (TRAIN_BATCH, True))]
-    runs += [(f"{label} ws8", Hm, Wm, C, heads, TRAIN_BATCH, True, 8)
-             for label, Hm, Wm, C, heads in BASE_MAPS]
-    # batch 2: one flip-tested frame served, or the float32 step of phase 9;
-    # K5's plan takes its 64 x 64 tile there (never at the batches above)
-    runs += [(label, Hm, Wm, C, heads, SMALL_BATCH, True, 7)
-             for label, Hm, Wm, C, heads in BASE_MAPS]
     for label, Hm, Wm, C, heads, B, train, ws in runs:
         for dt in (torch.float32, torch.bfloat16):
             a = _half_inputs(Hm, Wm, C, heads, B, dt, g, ws)
@@ -1174,7 +1252,7 @@ def phase_fused_kernels() -> dict:
             M, es = nW * N, a["xw"].element_size()
             nm = "f32" if dt == torch.float32 else "bf16"
             shape = f"{label} b={B} nW={nW} M={M} C={C} H={heads} {nm}"
-            b0_bf16 = (label == "base b0" and dt == torch.bfloat16
+            b0_bf16 = (full and label == "base b0" and dt == torch.bfloat16
                        and B != SMALL_BATCH)
             aa, ma = _attn_args(a), _mlp_args(a)
             vec = 4 * (heads * N * N + 6 * C)
@@ -1192,7 +1270,7 @@ def phase_fused_kernels() -> dict:
                     lambda: mlp_chain(*ma, a["tps"]), fwd_names,
                     2 * M * C * es + 2 * C * Hd * es + 4 * (Hd + 3 * C),
                     4 * M * C * Hd, dt, b0_bf16 and not train)
-            split_shape = (B == TRAIN_BATCH and ws == 7
+            split_shape = (full and B == TRAIN_BATCH and ws == 7
                            and dt == torch.bfloat16
                            and label in ("base b0", "base b3"))
             if split_shape:
@@ -1333,14 +1411,18 @@ def _output_grads(state, cfg, batch, masks) -> dict:
 
 def train_agreement_f32(tag: str = "train", loss_rtol: float = STEP_LOSS_RTOL,
                         grad_rtol: float = STEP_GRAD_RTOL,
-                        stat_tol: float = STEP_STAT_TOL) -> None:
-    """One float32 hrformer_base step at b=2, card against CPU."""
+                        stat_tol: float = STEP_STAT_TOL,
+                        name: str = "hrformer_base",
+                        diagnose: bool = True) -> None:
+    """One float32 step of the HRFormer config ``name`` at b=2, card
+    against CPU; ``diagnose``: first log where the gradients part (at the
+    head's outputs already?)."""
     from infantposeestimation_gaussianbias_tpu_torch import (
         create_train_state, get_variant, make_train_step)
     from infantposeestimation_gaussianbias_tpu_torch.train import (
         draw_drop_masks)
 
-    cfg = get_variant("hrformer_base")
+    cfg = get_variant(name)
     cfg.model.compute_dtype = "float32"
     cfg.train.warmup_epochs = 0
     gpu = create_train_state(cfg, device="cuda")
@@ -1348,11 +1430,14 @@ def train_agreement_f32(tag: str = "train", loss_rtol: float = STEP_LOSS_RTOL,
         k: v.cpu() for k, v in gpu.model.state_dict().items()})
     batch = make_train_batch(cfg, 2, seed=3)
     masks = draw_drop_masks(cpu.model, 2, torch.Generator().manual_seed(4))
-    # Where the gradients part: at the loss's inputs already?  (This extra
-    # forward moves the running statistics once more on both sides.)
-    g_out, c_out = (_output_grads(st, cfg, batch, masks) for st in (gpu, cpu))
-    log(f"[{tag}] f32 dloss/d(head outputs) card vs CPU, rel err: " + ", ".join(
-        f"{k} {_rel(g_out[k], c_out[k]):.1e}" for k in g_out))
+    if diagnose:
+        # Where the gradients part: at the loss's inputs already?  (This
+        # extra forward moves the running statistics once more on both
+        # sides.)
+        g_out, c_out = (_output_grads(st, cfg, batch, masks)
+                        for st in (gpu, cpu))
+        log(f"[{tag}] f32 dloss/d(head outputs) card vs CPU, rel err: "
+            + ", ".join(f"{k} {_rel(g_out[k], c_out[k]):.1e}" for k in g_out))
     step = make_train_step(cfg)
     t0 = time.perf_counter()
     _, m_gpu = step(gpu, batch, None, drop_masks=masks.cuda())
@@ -1401,10 +1486,10 @@ def compare_bn_stats(gpu, cpu, tol: float, tag: str) -> None:
     log(f"[{tag}] f32 BN running stats max_abs_err={stat_err:.3e}")
 
 
-def hrformer_cfg():
+def hrformer_cfg(name: str = "hrformer_base"):
     from infantposeestimation_gaussianbias_tpu_torch import get_variant
 
-    cfg = get_variant("hrformer_base")
+    cfg = get_variant(name)
     cfg.train.warmup_epochs = 0  # else the lr stays near warmup_lr = 5e-7
     return cfg
 
@@ -1415,11 +1500,13 @@ def no_launches() -> dict:
 
 
 def train_bf16(smi: str, cfg, tag: str, want: dict, batch_size: int =
-               TRAIN_BATCH, warmup: int = 3, timed: int = 10) -> dict:
+               TRAIN_BATCH, warmup: int = 3, timed: int = 10,
+               profile: bool = True) -> dict:
     """bf16 steps of ``cfg`` at b = ``batch_size`` (32) on one seeded
     batch: finite terms, exactly the kernel launches ``want`` in every
     step, a loss that falls over the ``warmup`` + ``timed`` steps, step
-    time, images/s, peak memory and the profile by kernel.  HRFormer runs
+    time, images/s, peak memory and (``profile``) the profile by kernel.
+    HRFormer runs
     through K1/K2, or K4/K5 in every block under IPE_FUSED_BLOCK=1 (which
     the caller sets); HRNet and LiteHRNet through no kernel of the
     port."""
@@ -1465,8 +1552,9 @@ def train_bf16(smi: str, cfg, tag: str, want: dict, batch_size: int =
         f"images/s, peak memory {result['peak_gib']:.2f} GiB; total loss "
         f"{losses[0]:.6g} -> {losses[-1]:.6g} over {len(losses)} steps; "
         f"on {smi}")
-    result.update(profile_steps(lambda: step(state, batch, gen),
-                                result["step_ms"], tag=tag))
+    if profile:
+        result.update(profile_steps(lambda: step(state, batch, gen),
+                                    result["step_ms"], tag=tag))
     return result
 
 
@@ -1528,18 +1616,21 @@ def train_remat() -> dict:
     return {"peak_gib_remat": on["peak_gib"]}
 
 
-def fused_train_ws8() -> dict:
-    """One fused bf16 hrformer_base step at window 8 (N = 64) at b = 32,
-    the configuration ROADMAP.md's F2 said could not train: 44 launches of
-    each of K4 and K5, forward and backward, and finite terms."""
+def fused_train_ws8(name: str = "hrformer_base",
+                    tag: str = "fused-train") -> dict:
+    """One fused bf16 step of the HRFormer config ``name`` at window 8 (N =
+    64) at its batch (32), the configuration ROADMAP.md's F2 said could not
+    train: 44 launches of each of K4 and K5, forward and backward, and
+    finite terms."""
     from infantposeestimation_gaussianbias_tpu_torch import (
         create_train_state, make_train_step)
 
-    cfg = hrformer_cfg()
+    cfg = hrformer_cfg(name)
     cfg.model.hrformer_window_size = 8
+    B = cfg.train.global_batch_size
     state = create_train_state(cfg, device="cuda")
     batch = {k: v.cuda() for k, v in
-             make_train_batch(cfg, TRAIN_BATCH, seed=5).items()}
+             make_train_batch(cfg, B, seed=5).items()}
     gen = torch.Generator(device="cuda").manual_seed(6)
     reset_launches()
     t0 = time.perf_counter()
@@ -1548,7 +1639,7 @@ def fused_train_ws8() -> dict:
     ms = (time.perf_counter() - t0) * 1e3
     got = launches()
     values = {k: v.item() for k, v in metrics.items()}
-    log(f"[fused-train] window 8 bf16 b={TRAIN_BATCH} one step: {ms:.1f} ms "
+    log(f"[{tag}] window 8 bf16 b={B} one step: {ms:.1f} ms "
         f"(first call), launches "
         + " ".join(f"{k.upper()} {v}" for k, v in got.items() if v)
         + ", " + " ".join(f"{k}={v:.6g}" for k, v in values.items()))
@@ -1578,17 +1669,19 @@ def launch_device_ms(fn, runs: int = 10) -> float:
     return float(np.median(times))
 
 
-def profile_steps(run, step_ms: float, n: int = 2, tag: str = "train",
+def profile_steps(run, step_ms: float, n: int = 1, tag: str = "train",
                   what: str = "step") -> dict:
     """Device kernel time of ``n`` calls of ``run`` (a train step or a
     served batch), by kernel (torch.profiler), against the unprofiled
-    median time of one call."""
+    median time of one call.  The profiler records the device's activity
+    alone: recording the host's ops too slowed the profiled calls many
+    times over and added nothing to these totals (the same kernels and
+    device ms either way)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             run()
         torch.cuda.synchronize()
@@ -1607,6 +1700,7 @@ def profile_steps(run, step_ms: float, n: int = 2, tag: str = "train",
                   reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3 / n
     kernels = sum(r[1] for r in rows) // n
+    assert kernels > 0 and device_ms > 0, (tag, rows[:5])
     log(f"[profile] bf16 {tag} {what}: {device_ms:.1f} ms of device kernels "
         f"({kernels} kernels) per {what} against the {step_ms:.1f} ms median "
         f"{what}: idle share {max(0.0, 1 - device_ms / step_ms):.1%}")
@@ -4134,11 +4228,31 @@ def latest_meta(cfg) -> dict:
         return json.load(f)
 
 
+def hrnet_proof() -> dict:
+    """Phase 26's pipeline proof: hrnet_w32's widths at stage modules (1,
+    1, 1), PROOF_EPOCHS epochs, AP held to PROOF_AP_MIN."""
+    from infantposeestimation_gaussianbias_tpu_torch.tools import (
+        pipeline_proof)
+
+    return pipeline_proof.run(
+        epochs=PROOF_EPOCHS, ap_threshold=PROOF_AP_MIN, backbone="hrnet_w32",
+        hrnet_stage_modules=(1, 1, 1), device="cuda", verbose=False)
+
+
+def log_hrnet_proof(proof: dict) -> None:
+    log(f"[train-loop] pipeline proof (hrnet_w32 widths, stage modules "
+        f"1/1/1, 128x128, b = 16, {PROOF_EPOCHS} epochs of 64 rendered "
+        f"images, {int(proof['steps'])} steps): AP {proof['AP']:.4f} (bound "
+        f"{PROOF_AP_MIN}), AP50 {proof['AP50']:.4f}; training "
+        f"{proof['train_s']:.1f} s, validation {proof['val_s']:.2f} s")
+
+
 def phase_train_loop(smi: str, bare: float, bare_fused: float) -> dict:
     """Phase 26, the training loop: the host loader alone (native against
     cv2), hrformer_base + fusion bf16 b = 32 through train() with
     validation (unfused: 2 epochs, the resume to 3, a preemption and its
-    resume; fused: 2 epochs), preemie with jitter, the pipeline proof."""
+    resume; fused: 2 epochs), preemie with jitter.  Its pipeline proof
+    runs in the spawned step after phase 28 (run_step)."""
     import logging
     import tempfile
 
@@ -4151,8 +4265,6 @@ def phase_train_loop(smi: str, bare: float, bare_fused: float) -> dict:
         CheckpointManager)
     from infantposeestimation_gaussianbias_tpu_torch.train.step import (
         create_train_state)
-    from infantposeestimation_gaussianbias_tpu_torch.tools import (
-        pipeline_proof)
 
     out = {"machine": machine_libraries(), "card": smi}
     messages = []
@@ -4362,21 +4474,6 @@ def phase_train_loop(smi: str, bare: float, bare_fused: float) -> dict:
                 + f"; every jittered crop moved by >= {moved:.3f} "
                 f"(normalised units) from its unjittered self")
             del prun
-
-            # the pipeline proof on rendered images
-            t0 = time.perf_counter()
-            proof = pipeline_proof.run(
-                epochs=PROOF_EPOCHS, ap_threshold=PROOF_AP_MIN,
-                backbone="hrnet_w32", hrnet_stage_modules=(1, 1, 1),
-                device="cuda", verbose=False)
-            out["pipeline_proof"] = dict(proof,
-                                         seconds=time.perf_counter() - t0)
-            log(f"[train-loop] pipeline proof (hrnet_w32 widths, stage "
-                f"modules 1/1/1, 128x128, b = 16, {PROOF_EPOCHS} epochs of "
-                f"64 rendered images, {int(proof['steps'])} steps): AP "
-                f"{proof['AP']:.4f} (bound {PROOF_AP_MIN}), AP50 "
-                f"{proof['AP50']:.4f}; training {proof['train_s']:.1f} s, "
-                f"validation {proof['val_s']:.2f} s")
     finally:
         tloop.log.removeHandler(handler)
     log("[train-loop] " + json.dumps({k: v for k, v in out.items()
@@ -4406,6 +4503,15 @@ INT8_CALIB_CROPS = 32     # PoseInference.MIN_SELF_CALIB_CROPS
 # boundary; the maps then agree to INT8_CARD_CPU_REL of their largest.
 INT8_CARD_CPU_REL = 1e-2        # heatmaps, of their largest magnitude
 INT8_KEYPOINT_ATOL_PX = 0.5     # frame pixels, off decode ties
+# Where such a parting is carried to the maps (hrnet_w48 on the JAX test's
+# weights: the mirrored crop's layers part after stage 3's second fuse, 8
+# of 147,456 int8 values by 1 lsb, and ~200 int8 convs carry that to 2.2e-2
+# of the flip-averaged maps), the parting itself is held: the unflipped
+# crop bit for bit, the mirrored crop's first difference right after a
+# fuse layer, at most INT8_MIRROR_LSB apart on at most INT8_MIRROR_SHARE of
+# that layer's values (5.4e-5 read on the H100).
+INT8_MIRROR_LSB = 1
+INT8_MIRROR_SHARE = 1e-4
 # K9 per forward: stem 2, layer1 13, transitions 2 + 1 + 1, exchange
 # modules 18 + 4 x 31 + 3 x 48; the fusion head adds 5.  K10: the wide
 # Dense layers of hrformer_base (C >= 128: qkv, proj, fc1, fc2; C = 78:
@@ -4569,11 +4675,11 @@ def int_mm_ms(a: torch.Tensor, b: torch.Tensor, tag: str):
         return None
 
 
-def k9_record(args, kw, smi: str) -> dict:
-    """K9 against its plain version (bit for bit), its ms, the plain
-    version's, cuDNN bf16's at the same conv shape and, at 1x1 stride-1
-    shapes, padded ``torch._int_mm``'s (the same int32 product), and the
-    bound."""
+def k9_record(args, kw, smi: str, full: bool = True) -> dict:
+    """K9 against its plain version (bit for bit) and, with ``full``, its
+    ms, the plain version's, cuDNN bf16's at the same conv shape and, at
+    1x1 stride-1 shapes, padded ``torch._int_mm``'s (the same int32
+    product), and the bound."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
 
     x, w = args[0], args[2]
@@ -4589,7 +4695,10 @@ def k9_record(args, kw, smi: str) -> dict:
     res = kw.get("residual")
     nbytes = (x.numel() + w.numel() + 8 * Co + got.numel() * got.element_size()
               + (0 if res is None else res.numel() * res.element_size()))
+    if not full:
+        return dict(shape=k9_shape(args, kw), max_abs_err=err)
     b_ms, b_by = bound_ms(nbytes, 2.0 * M * Co * k * k * C, INT8_OP_PER_S)
+    ms = cuda_median_ms(lambda: qk.qconv(*args, **kw))
     xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
     wb = w.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
         memory_format=torch.channels_last)
@@ -4597,9 +4706,7 @@ def k9_record(args, kw, smi: str) -> dict:
                                           padding=k // 2))
     int_mm = (int_mm_ms(x.reshape(-1, C), w.reshape(Co, C), "k9")
               if k == 1 and stride == 1 else None)
-    return dict(shape=k9_shape(args, kw),
-                max_abs_err=err, ms=cuda_median_ms(lambda: qk.qconv(*args,
-                                                                    **kw)),
+    return dict(shape=k9_shape(args, kw), max_abs_err=err, ms=ms,
                 plain_ms=cuda_median_ms(lambda: qk.qconv_reference(*args,
                                                                    **kw),
                                         warmup=1, runs=5),
@@ -4609,10 +4716,11 @@ def k9_record(args, kw, smi: str) -> dict:
                         "stride 1 also torch._int_mm, padded")
 
 
-def k10_record(args, kw) -> dict:
-    """K10 against its plain version (bit for bit), its ms, the plain
-    version's, ``torch._int_mm`` on operands padded to multiples of 8 and
-    a bf16 matmul at the same shape, and the bound."""
+def k10_record(args, kw, full: bool = True) -> dict:
+    """K10 against its plain version (bit for bit) and, with ``full``, its
+    ms, the plain version's, ``torch._int_mm``'s on operands padded to
+    multiples of 8 and a bf16 matmul's at the same shape, and the
+    bound."""
     from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
 
     x, w = args[0], args[1]
@@ -4625,14 +4733,16 @@ def k10_record(args, kw) -> dict:
     M = x.numel() // K
     nbytes = (x.numel() * x.element_size() + w.numel() + 8 * N
               + got.numel() * got.element_size())
+    if not full:
+        return dict(shape=k10_shape(args, kw), max_abs_err=err)
     b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OP_PER_S)
+    ms = cuda_median_ms(lambda: qk.qdense(*args, **kw))
     g = torch.Generator(device=x.device).manual_seed(M + K + N)
     int_mm = int_mm_ms(torch.randint(-127, 128, (M, K), dtype=torch.int8,
                                      device=x.device, generator=g), w, "k10")
     xb = x.reshape(M, K).to(torch.bfloat16)
     wb = w.to(torch.bfloat16).t()
-    return dict(shape=k10_shape(args, kw), max_abs_err=err,
-                ms=cuda_median_ms(lambda: qk.qdense(*args, **kw)),
+    return dict(shape=k10_shape(args, kw), max_abs_err=err, ms=ms,
                 plain_ms=cuda_median_ms(lambda: qk.qdense_reference(
                     *args, **kw), warmup=1, runs=5),
                 bound_ms=b_ms, bound_by=b_by, library_ms=int_mm,
@@ -4692,18 +4802,32 @@ def qgemm_split(kind: str, label: str, call) -> dict:
     return out
 
 
-def int8_sass() -> dict:
-    """``[k9-sass]`` lines: the number of integer warpgroup products
-    (IGMMA) in each of K9's and K10's compiled kernels, from ``cuobjdump
-    --dump-sass`` of the built library; every kernel compiled with the
-    products (the serving kernels and the products-only variants) must
-    have some.  Returns those kernels' counts."""
+def int8_sass_start():
+    """``cuobjdump --dump-sass`` of the built library, started in a thread
+    (int8_sass reads its output): it runs on the host while phase 27
+    builds its models.  Returns the future of its ``subprocess.run``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from infantposeestimation_gaussianbias_tpu_torch.kernels import build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "--dump-sass", str(build.library_path())],
-                          check=True, capture_output=True, text=True,
-                          timeout=600).stdout
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(subprocess.run,
+                         [tool, "--dump-sass", str(build.library_path())],
+                         check=True, capture_output=True, text=True,
+                         timeout=600)
+    pool.shutdown(wait=False)
+    return future
+
+
+def int8_sass(dump) -> dict:
+    """``[k9-sass]`` lines: the number of integer warpgroup products
+    (IGMMA) in each of K9's and K10's compiled kernels, from the
+    ``cuobjdump --dump-sass`` that int8_sass_start began (``dump``, its
+    future); every kernel compiled with the products (the serving kernels
+    and the products-only variants) must have some.  Returns those
+    kernels' counts."""
+    sass = dump.result().stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -4721,7 +4845,7 @@ def int8_sass() -> dict:
     return products
 
 
-def phase_int8_kernels(smi: str, models) -> dict:
+def phase_int8_kernels(smi: str, models, sass) -> dict:
     """K9 at every distinct int8 conv call of a served hrnet_w32 + fusion
     forward at b = 64 (32 crops with flip) and K10 at every wide Dense call
     of a served hrformer_base forward at b = 64, each held to its plain
@@ -4730,7 +4854,7 @@ def phase_int8_kernels(smi: str, models) -> dict:
     from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
 
     frames, bboxes = make_requests(SERVE_BATCH, seed=27)
-    out = {"sass_igmma": int8_sass()}
+    out = {"sass_igmma": int8_sass(sass)}
     for label, kind, fn, key_fn, record in (
             ("hrnet_w32 fusion", "k9", "qconv", _qconv_key,
              lambda a, k: k9_record(a, k, smi)),
@@ -4813,7 +4937,7 @@ def int8_layer_outputs(model, x: torch.Tensor) -> tuple:
 
 
 def int8_card_against_cpu(label: str, head: str, cfg32, inf32, frames,
-                          bboxes, bounded: bool) -> dict:
+                          bboxes, bounded: bool, mirror: bool = False) -> dict:
     """float32 int8 serving on the card against the port on the CPU with
     the card's quantized state, on the same crops.  HRNet: every int8 conv
     and block output in call order, bit for bit up to the first fuse (K9
@@ -4822,7 +4946,10 @@ def int8_card_against_cpu(label: str, head: str, cfg32, inf32, frames,
     two devices and an int8 value crosses a .5 boundary), and the share
     of the backbone's int8 output that differs at the end.  Then the
     flip-averaged heatmaps and the keypoints off decode ties, held to the
-    INT8_CARD_CPU bounds when ``bounded``."""
+    INT8_CARD_CPU bounds when ``bounded``.  ``mirror`` (HRNet): the parting
+    held instead (INT8_MIRROR_*): every int8 layer of the crop and its
+    heatmaps (to INT8_CARD_CPU_REL) equal, the mirrored crop's (the flip
+    test's second forward) first difference right after a fuse layer."""
     from infantposeestimation_gaussianbias_tpu_torch import PoseInference
 
     cpu = PoseInference(cfg32, device="cpu", quantize=True)
@@ -4830,10 +4957,11 @@ def int8_card_against_cpu(label: str, head: str, cfg32, inf32, frames,
                            inf32.model.state_dict().items()})
     n = 1  # one frame: the full-width int8 model runs on the CPU too
     crops = normalized_crops(cfg32, frames[:n], bboxes[:n], "cpu")
-    layers, hms = {}, {}
+    layers, hms, crop_hms = {}, {}, {}
     for name, p in (("cuda", inf32), ("cpu", cpu)):
         x = crops.to(p.device)
         layers[name], hm = int8_layer_outputs(p.model, x)
+        crop_hms[name] = hm.float().cpu()
         with torch.inference_mode():
             hms[name] = ((hm + decode_flip(p, x)) * 0.5).float().cpu()
     rec = {}
@@ -4851,6 +4979,37 @@ def int8_card_against_cpu(label: str, head: str, cfg32, inf32, frames,
                    int8_mismatch=(a != b).float().mean().item(),
                    int8_max_diff=(a.int() - b.int()).abs().max().item())
         assert first > last_fuse, rec
+        if mirror:
+            rec["crop_heatmap_rel"] = rel_max(crop_hms["cuda"],
+                                              crop_hms["cpu"])
+            outs = [int8_layer_outputs(p.model, torch.flip(crops, [2]).to(
+                p.device))[0] for p in (inf32, cpu)]
+            same = [torch.equal(a, b) for (_, a), (_, b) in zip(*outs)]
+            i = same.index(False) if False in same else len(same)
+            d = ((outs[0][i][1].int() - outs[1][i][1].int()).abs()
+                 if i < len(same) else torch.zeros(1))
+            m = rec["mirror"] = dict(
+                equal_prefix=i,
+                first_difference=names[i] if i < len(same) else None,
+                after=names[i - 1] if 0 < i < len(same) else None,
+                elements=int((d > 0).sum()), of=d.numel(),
+                max_lsb=int(d.max()))
+            log(f"[int8] {label} crop: all {len(same)} int8 layer outputs "
+                f"bit for bit: {first == len(same)}, its heatmaps "
+                f"{rec['crop_heatmap_rel']:.3e} of their largest (bound "
+                f"{INT8_CARD_CPU_REL}); mirrored crop: {i} of {len(same)} "
+                f"int8 layer outputs equal bit for bit before the first "
+                f"difference ({m['first_difference']}, after {m['after']}: "
+                f"{m['elements']} of {m['of']} values, at most "
+                f"{m['max_lsb']} lsb apart; bounds: right after a fuse "
+                f"layer, {INT8_MIRROR_LSB} lsb, a share of "
+                f"{INT8_MIRROR_SHARE})")
+            assert first == len(same), rec
+            assert rec["crop_heatmap_rel"] <= INT8_CARD_CPU_REL, rec
+            if m["first_difference"] is not None:
+                assert ".fuse_layers." in m["after"], rec
+                assert m["max_lsb"] <= INT8_MIRROR_LSB, rec
+                assert m["elements"] <= INT8_MIRROR_SHARE * m["of"], rec
     rec["heatmap_rel"] = rel_max(hms["cuda"], hms["cpu"])
     unsure = _unsure_keypoints(hms["cuda"], head) | _unsure_keypoints(
         hms["cpu"], head)
@@ -4869,12 +5028,48 @@ def int8_card_against_cpu(label: str, head: str, cfg32, inf32, frames,
         + f"heatmaps {rec['heatmap_rel']:.3e} of their largest; keypoints "
         f"{rec['keypoint_err_px']:.3e} px off decode ties (left out "
         f"{rec['left_out']} of {unsure.size})"
-        + ("" if bounded else " (logged, not bounded)"))
+        + ("" if bounded else " (logged, not bounded)" if not mirror
+           else " (flip-averaged: logged, the parting held)"))
     assert keep.any()
     if bounded:
         assert rec["heatmap_rel"] <= INT8_CARD_CPU_REL, rec
         assert rec["keypoint_err_px"] <= INT8_KEYPOINT_ATOL_PX, rec
     return rec
+
+
+def int8_calls_replayed(inf, crops: torch.Tensor) -> int:
+    """Every K9 and K10 call of the card's int8 forward of ``crops`` and of
+    their mirror, each against the CPU's plain version on the same
+    arguments, bit for bit; returns the number of calls."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
+
+    def cpu(v):
+        return v.cpu() if torch.is_tensor(v) else v
+
+    calls = []
+
+    def recording(name, fn):
+        def wrapper(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, [cpu(a) for a in args],
+                          {k: cpu(v) for k, v in kw.items()}, out.cpu()))
+            return out
+        return wrapper
+
+    saved = {name: getattr(qk, name) for name in ("qconv", "qdense")}
+    try:
+        for name, fn in saved.items():
+            setattr(qk, name, recording(name, fn))
+        with torch.inference_mode():
+            inf.model(crops)
+            inf.model(torch.flip(crops, [2]))
+    finally:
+        for name, fn in saved.items():
+            setattr(qk, name, fn)
+    for name, args, kw, out in calls:
+        ref = getattr(qk, f"{name}_reference")(*args, **kw)
+        assert torch.equal(out, ref), (name, tuple(args[0].shape))
+    return len(calls)
 
 
 def decode_flip(inf, crops: torch.Tensor) -> torch.Tensor:
@@ -4960,10 +5155,20 @@ def phase_int8_serving(smi: str, models) -> dict:
     return out
 
 
-def phase_int8_clis(smi: str, models) -> dict:
-    """``cli.serve --int8 --calibration-dir`` in its own process answering
-    a burst (/healthz reporting int8-ptq), ``cli.infer --int8`` on an
-    image and ``cli.validate --int8`` on a COCO directory of JPEGs."""
+def int8_checkpoint(models, path: str) -> None:
+    """Phase 27's hrnet_w32 + heatmap weights (Config(); BatchNorm
+    calibrated) saved for its CLIs (int8_clis)."""
+    _, _, _, sd = models[0]
+    torch.save({k: v.cpu() for k, v in sd.items()}, path)
+
+
+def int8_clis(smi: str, ckpt: str, turn=contextlib.nullcontext) -> dict:
+    """Phase 27's CLIs on the checkpoint ``ckpt`` (int8_checkpoint), in a
+    process of the spawned step: ``cli.serve --int8 --calibration-dir`` in
+    its own process (calibrated, up), ``cli.infer --int8`` on an image and
+    ``cli.validate --int8`` on a COCO directory of JPEGs, then, inside
+    ``turn()``, the server answering a burst and /healthz reporting
+    int8-ptq."""
     import io
     import socket
     import tempfile
@@ -4976,11 +5181,8 @@ def phase_int8_clis(smi: str, models) -> dict:
     from infantposeestimation_gaussianbias_tpu_torch.cli import (
         infer as cli_infer, validate as cli_validate)
 
-    _, _, _, sd = models[0]  # hrnet_w32 + heatmap: Config()
     out = {}
     with tempfile.TemporaryDirectory() as root:
-        ckpt = os.path.join(root, "hrnet_w32.pt")
-        torch.save({k: v.cpu() for k, v in sd.items()}, ckpt)
         calib_dir = os.path.join(root, "calib")
         os.makedirs(calib_dir)
         frames, bboxes = make_requests(16, seed=30)
@@ -4999,7 +5201,7 @@ def phase_int8_clis(smi: str, models) -> dict:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True,
                                 cwd=os.path.dirname(os.path.abspath(__file__)))
-        lines = []
+        lines, up = [], []
         try:
             ready = threading.Event()
 
@@ -5007,14 +5209,43 @@ def phase_int8_clis(smi: str, models) -> dict:
                 for line in proc.stdout:
                     lines.append(line.rstrip())
                     if line.startswith("serving "):
+                        up.append(time.perf_counter() - t0)
                         ready.set()
 
             reader = threading.Thread(target=read, daemon=True)
             reader.start()
+
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli_infer.main(["--input",
+                                os.path.join(calib_dir, "00.jpg"),
+                                "--int8", "--checkpoint", ckpt])
+            printed = buf.getvalue().splitlines()
+            log(f"[int8-infer] cli.infer --int8: {printed[0]} ... "
+                f"({len(printed)} lines)")
+            assert len(printed) == 17, printed
+
+            schema = Config().data.keypoint_schema
+            write_jpeg_set(root, "val", 16, seed=31, schema=schema)
+            buf = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli_validate.main(["--int8", "--set",
+                                   f"data.data_root={root}",
+                                   "data.val_ann=annotations/val.json",
+                                   "data.val_img_prefix=val/",
+                                   "eval.batch_size=16"])
+            printed = buf.getvalue()
+            log(f"[int8-validate] cli.validate --int8 on 16 JPEGs in "
+                f"{time.perf_counter() - t1:.1f} s: "
+                + " | ".join(printed.split("\n")[:5]))
+            assert "AP:" in printed and "val_loss" not in printed, printed
+
             assert ready.wait(SERVER_TIMEOUT_S), "\n".join(lines)
-            start_s = time.perf_counter() - t0
+            start_s = up[0]
             base = f"http://127.0.0.1:{port}"
-            results, lat, wall = burst(base, frames, bboxes, 32, 8)
+            with turn():
+                results, lat, wall = burst(base, frames, bboxes, 32, 8)
             with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
                 health = json.loads(r.read())
         finally:
@@ -5027,8 +5258,9 @@ def phase_int8_clis(smi: str, models) -> dict:
         codes = [r[0] for r in results]
         failed = [r[:2] for r in results if r[0] != 200]
         log(f"[int8-serve] cli.serve --int8 --calibration-dir (16 JPEGs), "
-            f"up in {start_s:.1f} s: {' | '.join(lines[:2])}; 32 requests "
-            f"from 8 threads: {32 / wall:.1f} requests/s, p50 "
+            f"up in {start_s:.1f} s (beside cli.infer and cli.validate): "
+            f"{' | '.join(lines[:2])}; 32 requests from 8 threads: "
+            f"{32 / wall:.1f} requests/s, p50 "
             f"{np.percentile(lat, 50) * 1e3:.1f} ms, codes {set(codes)}; "
             f"/healthz {health}; on {smi}")
         assert all(c == 200 for c in codes), (codes, failed[:3])
@@ -5037,30 +5269,6 @@ def phase_int8_clis(smi: str, models) -> dict:
                    for line in lines), lines
         out["serve"] = dict(requests_per_s=32 / wall, start_s=start_s,
                             p50_ms=float(np.percentile(lat, 50)) * 1e3)
-
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            cli_infer.main(["--input", os.path.join(calib_dir, "00.jpg"),
-                            "--int8", "--checkpoint", ckpt])
-        printed = buf.getvalue().splitlines()
-        log(f"[int8-infer] cli.infer --int8: {printed[0]} ... "
-            f"({len(printed)} lines)")
-        assert len(printed) == 17, printed
-
-        schema = Config().data.keypoint_schema
-        write_jpeg_set(root, "val", 16, seed=31, schema=schema)
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            cli_validate.main(["--int8", "--set", f"data.data_root={root}",
-                               "data.val_ann=annotations/val.json",
-                               "data.val_img_prefix=val/",
-                               "eval.batch_size=16"])
-        printed = buf.getvalue()
-        log(f"[int8-validate] cli.validate --int8 on 16 JPEGs in "
-            f"{time.perf_counter() - t0:.1f} s: "
-            + " | ".join(printed.split("\n")[:5]))
-        assert "AP:" in printed and "val_loss" not in printed, printed
     return out
 
 
@@ -5150,16 +5358,18 @@ def int8_threads(smi: str) -> dict:
                 seconds=seconds)
 
 
-def phase_int8(smi: str) -> dict:
-    """Phase 27: K9 and K10 at every shape of the int8 path, launched from
-    several host threads at once, the int8 served batches and the three
-    int8 CLIs."""
+def phase_int8(smi: str, ckpt: str) -> dict:
+    """Phase 27 in this process: K9 and K10 at every shape of the int8
+    path, launched from several host threads at once, and the int8 served
+    batches; its hrnet_w32 weights saved to ``ckpt`` for its three CLIs,
+    which run in the spawned step (int8_clis)."""
+    sass = int8_sass_start()
     models = int8_models()
-    kernels = phase_int8_kernels(smi, models)
+    kernels = phase_int8_kernels(smi, models, sass)
     threads = int8_threads(smi)
     serving = phase_int8_serving(smi, models)
-    clis = phase_int8_clis(smi, models)
-    return dict(kernels=kernels, threads=threads, serving=serving, clis=clis)
+    int8_checkpoint(models, ckpt)
+    return dict(kernels=kernels, threads=threads, serving=serving)
 
 
 # -- phase 28: LiteHRNet, the fused and SimCC heads, the add-ons, the tools --
@@ -5362,39 +5572,67 @@ def lite_addons(smi: str) -> dict:
     return out
 
 
-def lite_tools(smi: str) -> dict:
-    """The tools that default to LiteHRNet: the pipeline proof (AP held
-    to PROOF_AP_MIN) and the overfit check (OVERFIT_STEPS steps)."""
+# The tools, each a host-bound loop of small steps (idle ~87%), and the
+# phase each belongs to: they run in spawned processes, at once with
+# phase 29's exports and phase 30's configs (run_step).
+TOOLS = {"lite_proof": 28, "overfit": 28, "hrnet_proof": 26}
+
+
+def run_tool(name: str) -> dict:
+    """Tool ``name``: phase 28's pipeline proof at its litehrnet default
+    (AP held to PROOF_AP_MIN) or its overfit check (OVERFIT_STEPS steps),
+    or phase 26's pipeline proof (hrnet_proof); its record, with the
+    seconds it took."""
     from infantposeestimation_gaussianbias_tpu_torch.tools import (
         overfit_check, pipeline_proof)
 
     t0 = time.perf_counter()
-    proof = pipeline_proof.run(epochs=LITE_PROOF_EPOCHS,
-                               ap_threshold=PROOF_AP_MIN, device="cuda",
-                               verbose=False)
-    proof["seconds"] = time.perf_counter() - t0
-    log(f"[lite-tools] pipeline proof (litehrnet + heatmap, 128x128, b = "
-        f"16, {LITE_PROOF_EPOCHS} epochs of 64 rendered images, "
-        f"{int(proof['steps'])} steps): AP {proof['AP']:.4f} (bound "
-        f"{PROOF_AP_MIN}), AP50 {proof['AP50']:.4f}; training "
-        f"{proof['train_s']:.1f} s, validation {proof['val_s']:.2f} s; "
-        f"on {smi}")
-    over = overfit_check.run(steps=OVERFIT_STEPS, device="cuda",
-                             verbose=False)
-    log(f"[lite-tools] overfit check (litehrnet + fusion, 256x192, b = 16, "
-        f"bf16, {OVERFIT_STEPS} steps): keypoint error {over['e0']:.2f} -> "
-        f"{over['e1']:.2f} px (bound 0.3 x), final loss {over['loss']:.4g}, "
-        f"{over['train_s']:.1f} s ({over['train_s'] / OVERFIT_STEPS * 1e3:.1f}"
-        f" ms a step); on {smi}")
-    return dict(pipeline_proof=proof, overfit=over)
+    if name == "lite_proof":
+        out = pipeline_proof.run(epochs=LITE_PROOF_EPOCHS,
+                                 ap_threshold=PROOF_AP_MIN, device="cuda",
+                                 verbose=False)
+    elif name == "overfit":
+        out = overfit_check.run(steps=OVERFIT_STEPS, device="cuda",
+                                verbose=False)
+    else:
+        out = hrnet_proof()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def log_tools(out: dict, smi: str) -> None:
+    """The tools' lines, from their records by name."""
+    if "lite_proof" in out:
+        proof = out["lite_proof"]
+        log(f"[lite-tools] pipeline proof (litehrnet + heatmap, 128x128, b "
+            f"= 16, {LITE_PROOF_EPOCHS} epochs of 64 rendered images, "
+            f"{int(proof['steps'])} steps): AP {proof['AP']:.4f} (bound "
+            f"{PROOF_AP_MIN}), AP50 {proof['AP50']:.4f}; training "
+            f"{proof['train_s']:.1f} s, validation {proof['val_s']:.2f} s; "
+            f"on {smi}")
+    if "overfit" in out:
+        over = out["overfit"]
+        log(f"[lite-tools] overfit check (litehrnet + fusion, 256x192, b = "
+            f"16, bf16, {OVERFIT_STEPS} steps): keypoint error "
+            f"{over['e0']:.2f} -> {over['e1']:.2f} px (bound 0.3 x), final "
+            f"loss {over['loss']:.4g}, {over['train_s']:.1f} s "
+            f"({over['train_s'] / OVERFIT_STEPS * 1e3:.1f} ms a step); on "
+            f"{smi}")
+    if "hrnet_proof" in out:
+        log_hrnet_proof(out["hrnet_proof"])
+    if out:
+        log("[tools] " + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in
+                                   out.items())
+            + " (beside phase 29's exports and phase 30's configs, before "
+            "any timed turn)")
 
 
 def phase_lite(smi: str) -> dict:
     """Phase 28: the lightweight config (LiteHRNet + heatmap) served and
     trained, litehrnet with the fusion, fused and SimCC heads, the
-    attention add-ons and the deconv head, and the tools that default to
-    LiteHRNet.  No hand-written kernel lies on this path: every launch
-    count stays 0."""
+    attention add-ons and the deconv head.  Its two tools, which default
+    to LiteHRNet, run in the spawned step after it (run_step).  No hand-written kernel
+    lies on this path: every launch count stays 0."""
     out = dict(serving=lite_serving(smi))
     conv_train_agreement_f32(lite_cfg(dtype="float32"), "lite-train")
     cfg = lite_cfg()
@@ -5404,7 +5642,6 @@ def phase_lite(smi: str) -> dict:
                               timed=LITE_TRAIN_STEPS - 3)
     out["heads"] = lite_heads(smi)
     out["addons"] = lite_addons(smi)
-    out["tools"] = lite_tools(smi)
     t = out["train"]
     log(f"[lite] lightweight bf16 training b={LITE_TRAIN_BATCH}: "
         f"{t['step_ms']:.2f} ms a step, {t['images_per_s']:.1f} images/s, "
@@ -5830,7 +6067,6 @@ EXPORTS = (
      dict(k1=2 * K1_CALLS_PER_FORWARD, k10=2 * HRFORMER_BASE_QDENSE)),
 )
 VIDEO_FRAMES = 16
-EXPORT_WORKER_TIMEOUT_S = 600.0
 PROBE_ENV = dict(PROBE_CLIENTS="16", PROBE_REQS="8", PROBE_QUANT="0")
 
 
@@ -6082,37 +6318,6 @@ def surfaces_video(inf) -> dict:
     return dict(launches=got, frames=n)
 
 
-def export_worker(i: int, smi: str, barrier, lock, results) -> None:
-    """EXPORTS[i]'s ``export_case`` in a process of its own (phase 29 runs
-    the four at once: tracing and loading a program is single-threaded
-    host work, tens of seconds each); the timed section waits until every
-    worker has loaded its program, then takes the card and the host in
-    turns.  Puts (i, record, None) or (i, None, traceback) on
-    ``results``."""
-    import traceback
-
-    from infantposeestimation_gaussianbias_tpu_torch.kernels import build
-
-    @contextlib.contextmanager
-    def turn():
-        barrier.wait(timeout=EXPORT_WORKER_TIMEOUT_S)
-        with lock:
-            yield
-
-    label, variant, head, flag, int8, want = EXPORTS[i]
-    try:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        os.environ[FUSED_ENV] = flag
-        build.load()  # built by the parent's phase 1
-        results.put((i, export_case(label, variant, head, int8, want, smi,
-                                    turn), None))
-    except BaseException:
-        barrier.abort()  # the others' waits raise instead of hanging
-        results.put((i, None, traceback.format_exc()))
-
-
-
 def operator_host_us(smi: str) -> dict:
     """Host microseconds of one call of K1, K9 and K10 through the
     registered operator (kernels/ops.py, the exported programs' route)
@@ -6162,42 +6367,511 @@ def operator_host_us(smi: str) -> dict:
     return out
 
 
-def phase_surfaces(smi: str) -> dict:
-    """Phase 29: the exported programs (a)-(d), one process each (spawned,
-    run at once, timed in turns), cli/analyze, the validator's dry run,
-    the HTTP probe, the video overlay."""
-    import multiprocessing
-
+def surfaces_untimed() -> dict:
+    """Phase 29's untimed surfaces, in a process of the spawned step:
+    cli/analyze, the validator's dry run, the video overlay."""
     from infantposeestimation_gaussianbias_tpu_torch import (PoseInference,
                                                               get_variant)
 
+    return dict(analyze=surfaces_analyze(), validate=surfaces_validate(),
+                video=surfaces_video(PoseInference(
+                    get_variant("hrformer_base"), device="cuda")))
+
+
+def phase_surfaces(smi: str, exports: list, untimed: dict) -> dict:
+    """Phase 29 in this process, after the spawned step ran its exported
+    programs (a)-(d) (``exports``, one process each) and its untimed
+    surfaces (``untimed``: surfaces_untimed): the host cost of the
+    operators and the HTTP probe."""
+    out = {"exports": {EXPORTS[i][0]: rec for i, rec in enumerate(exports)},
+           "operator_host_us": operator_host_us(smi), **untimed}
+    with fused_blocks("0"):
+        out["probe"] = surfaces_probe(smi)
+    return out
+
+
+# -- phase 30: the named configurations the card had never run --------------
+
+NAMED_CONFIGS = ("hrformer_small", "hrformer_base_384", "hrnet_w48",
+                 "hrnet_w48_384")
+# K1 (at b = 64) and K2 (at the config's training batch) at the named
+# HRFormer configs' shapes that phases 2 and 3 (BRANCH_SHAPES, which phase
+# 20 also times) do not hold: (label, windows per image, N, heads, head
+# dim); hrformer_small's branches 1-3 and its branch 0 at window 8,
+# hrformer_base_384's four branches (384x288: 154 / 42 / 12 / 4 windows).
+NAMED_BRANCH_SHAPES = {
+    "hrformer_small": [("small b1", 20, 49, 2, 32), ("small b2", 6, 49, 4, 32),
+                       ("small b3", 2, 49, 8, 32),
+                       ("small b0 ws8", 48, 64, 1, 32)],
+    "hrformer_base_384": [("base_384 b0", 154, 49, 2, 39),
+                          ("base_384 b1", 42, 49, 4, 39),
+                          ("base_384 b2", 12, 49, 8, 39),
+                          ("base_384 b3", 4, 49, 16, 39)],
+}
+# Their branches for K4 and K5: (label, map H, map W, C, heads).
+NAMED_MAPS = {
+    "hrformer_small": [("small b0", 64, 48, 32, 1), ("small b1", 32, 24, 64, 2),
+                       ("small b2", 16, 12, 128, 4), ("small b3", 8, 6, 256, 8)],
+    "hrformer_base_384": [("base_384 b0", 96, 72, 78, 2),
+                          ("base_384 b1", 48, 36, 156, 4),
+                          ("base_384 b2", 24, 18, 312, 8),
+                          ("base_384 b3", 12, 9, 624, 16)],
+}
+# Fused blocks per forward under IPE_FUSED_BLOCK=auto (width >= 128):
+# hrformer_small's branches 2 and 3 (12 + 4 blocks), hrformer_base_384's
+# branches 1-3 as hrformer_base's.
+NAMED_AUTO_FUSED = {"hrformer_small": 16,
+                    "hrformer_base_384": AUTO_FUSED_PER_FORWARD}
+# hrformer_small's QDense layers (input >= 128 wide): fc2 of branches 0 and
+# 1 (hidden 128, 256), qkv, proj, fc1 and fc2 of branches 2 and 3.
+HRFORMER_SMALL_QDENSE = (2 * (1 + 1) + 4 * 2 * (1 + 1 + 4)
+                         + 2 * 2 * (1 + 1 + 2 * 4))
+# The named config whose int8 kernel phase 30 holds at every shape: K9 on
+# hrnet_w48 + heatmap, K10 on hrformer_small + fusion; hrnet_w48_384's K9
+# shapes too (the only int8 path where Co = 384 spans two 256-wide N
+# tiles, the last half empty: kernels/quant.py conv_plan).
+NAMED_INT8 = ("hrformer_small", "hrnet_w48", "hrnet_w48_384")
+# The spawned step (run_step): how long a process may take, and the
+# intra-op threads of each.  The card's machine has 8 cores: each of
+# phase 30's four workers' CPU references runs on 2 of them, and so does
+# each tool's and export's host work beside them.
+STEP_TIMEOUT_S = 900.0
+STEP_CPU_THREADS = 2
+
+
+def named_cfg(name: str, dtype: str = "bfloat16"):
+    """``get_variant(name)`` in ``dtype`` (its default is bf16), warm-up
+    off (else the lr stays near warmup_lr for the few steps run here)."""
+    from infantposeestimation_gaussianbias_tpu_torch import get_variant
+
+    cfg = get_variant(name)
+    assert cfg.model.compute_dtype == "bfloat16" and cfg.eval.flip_test
+    cfg.model.compute_dtype = dtype
+    cfg.train.warmup_epochs = 0
+    return cfg
+
+
+def named_state(name: str, cfg) -> dict:
+    """The float weights phase 30 serves ``name`` from, on the card: the
+    seeded init, HRNet's BatchNorm calibrated as in phase 12."""
+    from infantposeestimation_gaussianbias_tpu_torch.models import (
+        build_model)
+
+    model = build_model(cfg, "cuda")
+    if name.startswith("hrnet"):
+        calibrate_batch_stats(model, cfg)
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def named_serving(name: str, inf, frames, bboxes) -> dict:
+    """Batches of 1, 3 and 8 frames, under IPE_FUSED_BLOCK=0, and for
+    HRFormer =1 and auto too: finite keypoints of the right shape and
+    exactly the launches of a flip-tested batch (two forwards) each time;
+    returns the launches by flag."""
+    n = K1_CALLS_PER_FORWARD
+    fused = NAMED_AUTO_FUSED.get(name, 0)
+    if fused:
+        assert fused == sum(getattr(m, "dim", 0) >= 128 for m in
+                            inf.model.modules() if hasattr(m, "attn")), name
+        per_forward = {"0": dict(k1=n), "1": dict(k4=n, k5=n),
+                       "auto": dict(k1=n - fused, k4=fused, k5=fused)}
+    else:
+        per_forward = {"0": {}}
+    totals = {}
+    for flag, want in per_forward.items():
+        total = no_launches()
+        with fused_blocks(flag):
+            for b in (1, 3, 8):
+                reset_launches()
+                t0 = time.perf_counter()
+                kpts, scores = inf.predict_batch(frames[:b], bboxes[:b])
+                dt = time.perf_counter() - t0
+                got = launches()
+                log(f"[named] {name} IPE_FUSED_BLOCK={flag} bf16 batch {b}: "
+                    f"{dt * 1e3:.1f} ms, launches "
+                    + (" ".join(f"{k.upper()} {v}" for k, v in got.items()
+                                if v) or "none"))
+                assert kpts.shape == (b, 17, 2) and scores.shape == (b, 17)
+                assert np.isfinite(kpts).all() and np.isfinite(scores).all()
+                assert got == dict(no_launches(), **{
+                    k: 2 * v for k, v in want.items()}), (name, flag, got)
+                total = {k: total[k] + got[k] for k in total}
+        totals[flag] = total
+    return totals
+
+
+def named_fused_vs_unfused(name: str, cfg32, sd, frames, bboxes) -> float:
+    """float32 heatmaps of 8 crops under IPE_FUSED_BLOCK=1 against =0 on
+    the card, same weights (44 K4 and K5, or 44 K1, a forward): within
+    FUSED_VS_UNFUSED_TOL of the largest (the fused path rounds its
+    activations to bf16 in every dtype and takes tanh GELU)."""
+    from infantposeestimation_gaussianbias_tpu_torch import PoseInference
+
+    inf = PoseInference(cfg32, state_dict=sd, device="cuda")
+    crops = normalized_crops(cfg32, frames[:8], bboxes[:8])
+    n = K1_CALLS_PER_FORWARD
+    hms = {}
+    for flag, want in (("0", dict(k1=n)), ("1", dict(k4=n, k5=n))):
+        with fused_blocks(flag), torch.inference_mode():
+            reset_launches()
+            hms[flag] = inf.model(crops)["heatmaps"].float()
+            assert launches() == dict(no_launches(), **want), launches()
+    diff = (hms["1"] - hms["0"]).abs().max().item()
+    big = hms["0"].abs().max().item()
+    log(f"[named] {name} f32 heatmaps fused vs unfused, same weights: "
+        f"max_abs_diff={diff:.3e} (|hm| max {big:.3e}, relative "
+        f"{diff / big:.3e})")
+    assert diff <= FUSED_VS_UNFUSED_TOL * big, (diff, big)
+    return diff / big
+
+
+def named_kernels(name: str, train_batch: int) -> dict:
+    """K1 at b = 64 and K2 at the training batch at NAMED_BRANCH_SHAPES,
+    K4 and K5 forward at b = 64 and forward and backward at the training
+    batch at every branch (hrformer_small also at window 8), float32 and
+    bf16, each against its plain version within phases 2, 3 and 7's
+    bounds (untimed: phase 30 runs them beside the other workers).
+    Returns the worst errors."""
+    g = torch.Generator(device="cuda").manual_seed(30)
+    worst = dict(k1=0.0, k2=0.0)
+    for label, w, N, H, hd in NAMED_BRANCH_SHAPES[name]:
+        C = H * hd
+        for kind, B in (("k1", SERVE_BATCH), ("k2", train_batch)):
+            nW = B * w
+            qkv32 = torch.randn(nW, N, 3 * C, device="cuda", generator=g)
+            dout32 = torch.randn(nW, N, C, device="cuda", generator=g)
+            bias = torch.randn(H, N, N, device="cuda", generator=g)
+            for dt in (torch.float32, torch.bfloat16):
+                qkv, dout = qkv32.to(dt), dout32.to(dt)
+                err = (k1_against_plain(qkv, bias, H, label) if kind == "k1"
+                       else max(k2_against_plain(qkv, bias, dout, H)[:2]))
+                worst[kind] = max(worst[kind], err)
+                log(f"[named-{kind}] {label} nW={nW} N={N} H={H} hd={hd} "
+                    f"{'f32' if dt == torch.float32 else 'bf16'}: "
+                    f"max_abs_err={err:.3e}")
+            del qkv32, dout32, qkv, dout
+    maps = NAMED_MAPS[name]
+    runs = [(label, Hm, Wm, C, heads, B, train, 7)
+            for label, Hm, Wm, C, heads in maps
+            for B, train in ((SERVE_BATCH, False), (train_batch, True))]
+    if name == "hrformer_small":  # its window-8 step (phase 30) runs these
+        runs += [(f"{label} ws8", Hm, Wm, C, heads, train_batch, True, 8)
+                 for label, Hm, Wm, C, heads in maps]
+    fused = fused_half_runs(runs, g, full=False)
+    worst.update({k: v["max_rel_err"] for k, v in fused.items()})
+    torch.cuda.empty_cache()
+    return worst
+
+
+def named_int8(name: str, cfg, sd, smi: str) -> dict:
+    """int8 ``name`` (calibrated on 32 crops of the served frames):
+    exactly 2 x its QConvNorm K9 or 2 x its QDense K10 launches (and 88
+    K1 for HRFormer) a served batch of 32 with flip and of 1; every
+    distinct K9 or K10 call of a forward at b = 64 against its plain
+    version bit for bit; for hrnet_w48 and hrformer_small the float32
+    int8 model on the JAX test's weights against the float model (cosine
+    >= INT8_COS_MIN) and against the CPU (int8_card_against_cpu: bounded
+    for hrformer_small, the parting held for hrnet_w48), and every K9 / K10
+    call of its forwards on the card's own inputs (int8_calls_replayed,
+    2 x its layers)."""
+    from infantposeestimation_gaussianbias_tpu_torch import PoseInference
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import quant as qk
+    from infantposeestimation_gaussianbias_tpu_torch.models.layers import (
+        QConvNorm, QDense)
+
+    hrnet = name.startswith("hrnet")
+    frames, bboxes = make_requests(SERVE_BATCH, seed=27)
+    crops = normalized_crops(cfg, frames, bboxes)
+    inf = PoseInference(cfg, state_dict=sd, device="cuda", quantize=True,
+                        calibration_crops=crops[:INT8_CALIB_CROPS])
+    n9 = sum(isinstance(m, QConvNorm) for m in inf.model.modules())
+    n10 = sum(isinstance(m, QDense) for m in inf.model.modules())
+    assert (n9, n10) == ((HRNET_W32_QCONVS, 0) if hrnet
+                         else (0, HRFORMER_SMALL_QDENSE)), (name, n9, n10)
+    launched = int8_served(inf, frames, bboxes, n9, n10,
+                           0 if hrnet else K1_CALLS_PER_FORWARD)
+    kind, fn, key_fn = (("k9", "qconv", _qconv_key) if hrnet
+                        else ("k10", "qdense", _qdense_key))
+    with torch.inference_mode(), captured(qk, fn, {}, key_fn) as calls:
+        inf.model(crops)
+    del inf
+    rows = []
+    with torch.inference_mode():
+        for args, kw in calls.values():
+            rows.append(k9_record(args, kw, smi, full=False) if hrnet
+                        else k10_record(args, kw, full=False))
+            log(f"[named-{kind}] {name} b={SERVE_BATCH} {rows[-1]['shape']}:"
+                f" equal to the plain version bit for bit")
+    del calls
+    rec = dict(qconvs=n9, qdense=n10, launches=launched[SERVE_BATCH // 2],
+               launches_b1=launched[1], shapes=[r["shape"] for r in rows])
+    log(f"[named-int8] {name}: {n9} K9 and {n10} K10 layers a forward; a "
+        f"served batch of {SERVE_BATCH // 2} with flip launched K9 "
+        f"{rec['launches']['k9']}, K10 {rec['launches']['k10']}, K1 "
+        f"{rec['launches']['k1']}; {len(rows)} distinct {kind.upper()} "
+        f"calls at b = {SERVE_BATCH}, each equal to its plain version")
+    if name == "hrnet_w48_384":
+        return rec
+
+    def make(dtype: str = "bfloat16"):
+        return named_cfg(name, dtype)
+
+    cfg32 = make("float32")
+    calib = normalized_crops(cfg32, *make_requests(INT8_CALIB_CROPS, seed=29))
+    rec["cos_int8_float_jax_test"], inf32 = int8_cosine(
+        cfg32, jax_test_state(name, make), calib, frames[:8], bboxes[:8])
+    log(f"[named-int8] {name} heatmap cosine int8 vs float32 on the JAX "
+        f"test's weights: {rec['cos_int8_float_jax_test']:.5f} (bound "
+        f"{INT8_COS_MIN})")
+    assert rec["cos_int8_float_jax_test"] >= INT8_COS_MIN, rec
+    # HRNet: a float32 resize that rounds an ulp apart on the two devices
+    # may move an int8 value of the mirrored crop by one after a fuse, and
+    # ~200 int8 convs of these weights (maps ~3e6) carry that to the
+    # flip-averaged heatmaps: the parting is held instead (INT8_MIRROR_*),
+    # and every K9 / K10 call of both forwards bit for bit on the card's
+    # own inputs.
+    rec["card_cpu_jax_test"] = int8_card_against_cpu(
+        f"{name} (JAX test weights)", cfg32.model.head_type, cfg32, inf32,
+        frames, bboxes, not hrnet, mirror=hrnet)
+    rec["calls_replayed"] = int8_calls_replayed(inf32, normalized_crops(
+        cfg32, frames[:1], bboxes[:1]))
+    assert rec["calls_replayed"] == 2 * (n9 + n10), rec
+    log(f"[named-int8] {name} (JAX test weights): each of the "
+        f"{rec['calls_replayed']} K9 / K10 calls of a float32 forward of one "
+        f"crop and of its mirror equal to the CPU's plain version on the "
+        f"same arguments, bit for bit")
+    return rec
+
+
+def named_config(name: str, smi: str, turn) -> dict:
+    """Phase 30 for one config, in its own process: untimed, its default
+    serving (folded, bf16) at b = 1, 3, 8 with exact launches (HRFormer
+    also under IPE_FUSED_BLOCK=1 and auto), float32 serving card against
+    CPU (phase 4's bounds), for HRFormer float32 fused against unfused, a
+    float32 step at b = 2 card against CPU (phase 6's or 13's bounds),
+    HRFormer's fused bf16 steps at its batch (and hrformer_small's at
+    window 8), its kernels against their plain versions at its shapes, the
+    int8 checks; then, in its turn (``turn()``: every worker done with the
+    untimed part, one at a time), crops/s at b = 32 with flip and b = 1
+    and a profiled batch, and the bf16 steps at the config's batch (step
+    ms, images/s, peak memory)."""
+    from infantposeestimation_gaussianbias_tpu_torch import PoseInference
+
+    t0 = time.perf_counter()
+    hrformer = name.startswith("hrformer")
+    cfg = named_cfg(name)
+    cfg32 = named_cfg(name, "float32")
+    B = cfg.train.global_batch_size
+    sd = named_state(name, cfg)
+    inf = PoseInference(cfg, state_dict=sd, device="cuda")
+    assert inf.fold, name
+    frames, bboxes = make_requests(8, seed=40)
+    rec = dict(input_size=list(cfg.data.input_size), train_batch=B, card=smi)
+    paths = {f"serve{'' if f == '0' else '_fused' if f == '1' else '_auto'}":
+             got for f, got in named_serving(name, inf, frames,
+                                             bboxes).items()}
+    compare_f32_serving(sd, frames, bboxes, f"named {name}", HEATMAP_ATOL,
+                        KEYPOINT_ATOL_PX, cfg32)
+    n = K1_CALLS_PER_FORWARD
+    if hrformer:
+        rec["fused_vs_unfused_f32"] = named_fused_vs_unfused(
+            name, cfg32, sd, frames, bboxes)
+        train_agreement_f32(f"named {name}", name=name, diagnose=False)
+        # the fused steps: launches, finite terms, a falling loss and the
+        # peak memory (a process's own); their time is not taken here
+        with fused_blocks("1"):
+            fused = train_bf16(smi, named_cfg(name), f"named {name} "
+                               "train_fused", dict(no_launches(), k4=n, k4b=n,
+                                                   k5=n, k5b=n),
+                               batch_size=B, warmup=1, timed=2,
+                               profile=False)
+            rec["train_fused_peak_gib"] = fused["peak_gib"]
+            paths["train_fused"] = fused["launches"]
+            if name == "hrformer_small":
+                paths["train_fused_ws8"] = fused_train_ws8(
+                    name, f"named {name}")["launches"]
+        rec["kernels"] = named_kernels(name, B)
+    else:
+        conv_train_agreement_f32(cfg32, f"named {name}")
+    if name in NAMED_INT8:
+        rec["int8"] = named_int8(name, cfg, sd, smi)
+        paths["int8"] = {k: rec["int8"]["launches"][k]
+                         + rec["int8"]["launches_b1"][k]
+                         for k in rec["int8"]["launches"]}
+    torch.cuda.empty_cache()
+    rec["untimed_s"] = time.perf_counter() - t0
+    frames32, bboxes32 = make_requests(32, seed=2)
+    with turn():
+        t1 = time.perf_counter()
+        rec["serve"] = phase_throughput(inf, smi, f"named {name} throughput")
+        rec["serve"].update(profile_steps(
+            lambda: inf.predict_batch(frames32, bboxes32),
+            rec["serve"]["batch32_ms"], n=1, tag=f"named-{name}-serve",
+            what="batch"))
+        del inf
+        torch.cuda.empty_cache()
+        with fused_blocks("0"):
+            rec["train"] = train_bf16(
+                smi, named_cfg(name), f"named {name} train",
+                dict(no_launches(), **(dict(k1=n, k2=n) if hrformer else {})),
+                batch_size=B, profile=False)
+        paths["train"] = rec["train"]["launches"]
+        torch.cuda.synchronize()
+        rec["timed_s"] = time.perf_counter() - t1
+    rec["paths"] = paths
+    return rec
+
+
+def step_worker(i: int, jobs: list, smi: str, barrier, lock,
+                results) -> None:
+    """``jobs[i]`` in a process of its own, pinned to STEP_CPU_THREADS
+    intra-op threads: ("tool", name) runs run_tool(name), ("clis", path)
+    phase 27's int8_clis on that checkpoint, ("surfaces", None) phase 29's
+    surfaces_untimed, ("export", j) phase 29's ``export_case`` of
+    EXPORTS[j], ("named", j) phase 30's ``named_config`` of
+    NAMED_CONFIGS[j] (run_step runs them all at once).  Every job's timed
+    section waits until every job is done with its untimed work (a tool
+    or the surfaces with all of their own), then takes the card and the
+    host in turns (``turn()``).  Puts (i, record, None) or (i, None,
+    traceback) on ``results``."""
+    import traceback
+
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import build
+
+    @contextlib.contextmanager
+    def turn():
+        barrier.wait(timeout=STEP_TIMEOUT_S)
+        with lock:
+            yield
+
+    kind, j = jobs[i]
+    try:
+        torch.set_num_threads(STEP_CPU_THREADS)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ[FUSED_ENV] = "0"
+        if kind != "tool":
+            build.load()  # built by the parent's phase 1
+        if kind == "tool":
+            rec = run_tool(j)
+        elif kind == "surfaces":
+            rec = surfaces_untimed()
+        elif kind == "clis":
+            rec = int8_clis(smi, j, turn)
+        elif kind == "export":
+            label, variant, head, flag, int8, want = EXPORTS[j]
+            os.environ[FUSED_ENV] = flag
+            rec = export_case(label, variant, head, int8, want, smi, turn)
+        else:
+            rec = named_config(NAMED_CONFIGS[j], smi, turn)
+        if kind in ("tool", "surfaces"):  # no timed turn before they end
+            barrier.wait(timeout=STEP_TIMEOUT_S)
+        results.put((i, rec, None))
+    except BaseException:
+        barrier.abort()  # the others' waits raise instead of hanging
+        results.put((i, None, traceback.format_exc()))
+
+
+def run_step(smi: str, jobs: list) -> dict:
+    """The spawned step after phase 28: ``jobs`` (step_worker's) all at
+    once, in spawned processes.  Returns their records by kind: the tools'
+    by name, the exports' and the configs' as lists in order of j, the
+    CLIs' and the surfaces' as they are."""
+    import multiprocessing
+
     ctx = multiprocessing.get_context("spawn")
-    barrier, lock, results = ctx.Barrier(len(EXPORTS)), ctx.Lock(), ctx.Queue()
-    procs = [ctx.Process(target=export_worker,
-                         args=(i, smi, barrier, lock, results))
-             for i in range(len(EXPORTS))]
+    n = len(jobs)
+    recs = run_spawned(ctx, step_worker, n, (jobs, smi, ctx.Barrier(n),
+                                             ctx.Lock()), STEP_TIMEOUT_S)
+    out: dict = {"tool": {}, "export": [], "named": []}
+    for (kind, j), rec in zip(jobs, recs):
+        if kind == "tool":
+            out["tool"][j] = rec
+        elif kind in ("export", "named"):
+            out[kind].append(rec)
+        else:
+            out[kind] = rec
+    return out
+
+
+def run_spawned(ctx, target, n: int, args: tuple, timeout: float) -> list:
+    """``target(i, *args, results)`` for i < n, each in a process of
+    ``ctx`` (spawn), all at once; each puts (i, record, None) or (i, None,
+    traceback) on ``results``.  Returns the records in order of i; raises
+    with every traceback if any failed, and at once, killing the others,
+    when a process exits without a result (a crash the others may wait
+    on at a barrier)."""
+    import queue
+
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(i, *args, results))
+             for i in range(n)]
     for p in procs:
         p.start()
     got = {}
+    deadline = time.monotonic() + timeout
     try:
-        for _ in procs:  # drain the queue before joining
-            i, rec, err = results.get(timeout=EXPORT_WORKER_TIMEOUT_S)
+        while len(got) < n:  # drain the queue before joining
+            try:
+                i, rec, err = results.get(timeout=5)
+            except queue.Empty:  # a process that died puts nothing
+                dead = {j: p.exitcode for j, p in enumerate(procs)
+                        if p.exitcode is not None and j not in got}
+                if dead:  # its result may have come since the wait ended
+                    try:
+                        i, rec, err = results.get(timeout=1)
+                        got[i] = (rec, err)
+                        continue
+                    except queue.Empty:
+                        pass
+                assert not dead, (
+                    f"spawned processes {sorted(dead)} exited without a "
+                    f"result (exit codes {dead})")
+                assert time.monotonic() < deadline, (
+                    f"{n - len(got)} of {n} spawned processes gave no result "
+                    f"in {timeout:.0f} s")
+                continue
             got[i] = (rec, err)
     finally:
         for p in procs:
-            p.join(timeout=60)
+            p.join(timeout=60 if len(got) == n else 0)
             if p.is_alive():
                 p.kill()
+                p.join()
     errors = [err for rec, err in got.values() if err]
-    assert not errors and len(got) == len(EXPORTS), "\n".join(errors)
-    out = {"exports": {EXPORTS[i][0]: got[i][0] for i in sorted(got)},
-           "operator_host_us": operator_host_us(smi)}
-    with fused_blocks("0"):
-        out["analyze"] = surfaces_analyze()
-        out["validate"] = surfaces_validate()
-        out["probe"] = surfaces_probe(smi)
-        out["video"] = surfaces_video(PoseInference(
-            get_variant("hrformer_base"), device="cuda"))
+    assert not errors and len(got) == n, "\n".join(errors)
+    return [got[i][0] for i in range(n)]
+
+
+def named_paths(named) -> dict:
+    """Phase 30's launches by kernel ("k1", "k2", "k4", ...), each by path
+    and config (``serve_hrformer_small``, ``train_fused_hrformer_base_384``,
+    ``int8_hrnet_w48``, ...); empty without phase 30."""
+    out: dict = {}
+    for name, rec in (named or {}).items():
+        for path, got in rec["paths"].items():
+            for k, v in got.items():
+                if v:
+                    out.setdefault(k, {})[f"{path}_{name}"] = v
+    return out
+
+
+def phase_named(smi: str, recs: list) -> dict:
+    """Phase 30's lines: NAMED_CONFIGS served and trained on the card, their
+    records ``recs`` from run_step (one spawned process each)."""
+    out = dict(zip(NAMED_CONFIGS, recs))
+    for name, r in out.items():
+        sv, tr = r["serve"], r["train"]
+        log(f"[named] {name} {r['input_size']}: bf16 b=32 flip "
+            f"{sv['crops_per_s']:.1f} crops/s, b=1 {sv['batch1_ms']:.1f} ms, "
+            f"device {sv['device_ms']:.1f} ms in {sv['kernels_per_step']} "
+            f"kernels, idle {max(0.0, 1 - sv['device_ms'] / sv['batch32_ms']):.1%}; "
+            f"bf16 b={r['train_batch']} step {tr['step_ms']:.1f} ms, "
+            f"{tr['images_per_s']:.1f} images/s, peak {tr['peak_gib']:.2f} GiB"
+            + (f"; fused peak {r['train_fused_peak_gib']:.2f} GiB"
+               if "train_fused_peak_gib" in r else "")
+            + f"; untimed {r['untimed_s']:.1f} s, timed {r['timed_s']:.1f} s;"
+            f" on {smi}")
     return out
 
 
@@ -6206,7 +6880,7 @@ PHASE_SECONDS: dict = {}
 # before it when --phases chooses it (the served model of 4, the server's
 # PoseInference of 22, the bare steps' images/s of 6 and 9).
 ALL_PHASES = (2, 3, 4, 5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
-              21, 22, 23, 24, 25, 26, 27, 28, 29, 20)
+              21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 20)
 PHASE_NEEDS = {5: {4}, 8: {4}, 23: {22}, 26: {6, 9}}
 
 
@@ -6303,10 +6977,16 @@ def main(argv: list) -> int:
                         "4, 23 needs 22, 26 needs 6 and 9; 20 needs "
                         "--parent.  The kernels' JSON line then holds the "
                         "kernels of phase 27 only, if it ran")
+    parser.add_argument("--stamp", action="store_true",
+                        help="start every line with its second in the run "
+                        "(where the time goes between the phases' [time] "
+                        "lines)")
     parser.add_argument("--bwd-times", action="store_true",
                         help=argparse.SUPPRESS)  # phase 20's subprocess
     parser.add_argument("--package-root", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.stamp:
+        os.environ[STAMP_ENV] = repr(time.time())
     if args.package_root:
         sys.path.insert(0, args.package_root)
     if args.bwd_times:
@@ -6398,10 +7078,37 @@ def main(argv: list) -> int:
     train_loop = (timed("26 training loop", phase_train_loop, smi,
                         train["images_per_s"], fused_train["images_per_s"])
                   if on(26) else None)
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    ckpt = os.path.join(scratch.name, "hrnet_w32.pt")  # phase 27's CLIs'
     with fused_blocks("0"):
-        int8 = timed("27 int8", phase_int8, smi) if on(27) else None
+        int8 = timed("27 int8", phase_int8, smi, ckpt) if on(27) else None
     lite = timed("28 litehrnet", phase_lite, smi) if on(28) else None
-    surf = timed("29 surfaces", phase_surfaces, smi) if on(29) else None
+    # One spawned step: the tools of phases 26 and 28, phase 27's CLIs,
+    # phase 29's untimed surfaces and exported programs and phase 30's
+    # configs, all at once, their timed sections in turns after every
+    # process's untimed work; each record filed under its own phase
+    jobs = ([("tool", name) for name, phase in TOOLS.items() if on(phase)]
+            + ([("clis", ckpt)] if on(27) else [])
+            + ([("surfaces", None)] if on(29) else [])
+            + [("export", j) for j in range(len(EXPORTS)) if on(29)]
+            + [("named", j) for j in range(len(NAMED_CONFIGS)) if on(30)])
+    with scratch:
+        step = (timed("spawned step (26/28 tools, 27 CLIs, 29, 30)",
+                      run_step, smi, jobs) if jobs else {})
+    if step:
+        log_tools(step["tool"], smi)
+    if on(26):
+        train_loop["pipeline_proof"] = step["tool"]["hrnet_proof"]
+    if on(27):
+        int8["clis"] = step["clis"]
+    if on(28):
+        lite["tools"] = dict(pipeline_proof=step["tool"]["lite_proof"],
+                             overfit=step["tool"]["overfit"])
+    surf = (timed("29 surfaces", phase_surfaces, smi, step["export"],
+                  step["surfaces"]) if on(29) else None)
+    named = (timed("30 named configs", phase_named, smi, step["named"])
+             if on(30) else None)
+    npaths = named_paths(named)
     parent = timed("20 parent", phase_parent, args.parent) if on(20) else None
     loaded = jax_modules()
     assert not loaded, loaded
@@ -6413,6 +7120,9 @@ def main(argv: list) -> int:
             log(json.dumps({"kernels": int8_entries(int8, parent)}))
         if surf is not None:
             log(json.dumps({"surfaces": surf}))
+        if named is not None:
+            log(json.dumps({"named_configs": named,
+                            "launches_by_path": npaths}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -6439,7 +7149,7 @@ def main(argv: list) -> int:
                     "graft_entry": graft, "post": post,
                     "train_loop": train_loop, "int8": int8["serving"],
                     "int8_clis": int8["clis"], "lite": lite,
-                    "surfaces": surf}))
+                    "surfaces": surf, "named_configs": named}))
     # The redesigned kernels, from phase 20 of this call (null without
     # --parent): the parent commit's ms and this checkout's, both timed the
     # same way in fresh processes (``ms`` is phase 2's, 3's, 7's, 10's,
@@ -6476,26 +7186,31 @@ def main(argv: list) -> int:
                "export_a": ex["a"]["k1"], "export_d": ex["d"]["k1"],
                "analyze_cli": an["k1"],
                "video_overlay": surf["video"]["launches"]["k1"],
-               "probe_http": probe["k1"]},
+               "probe_http": probe["k1"], **npaths.get("k1", {})},
               k1),
         entry("window_msa_bwd", "window_msa_bwd.cu", "window_msa.py:422",
               {"train": t["k2"], "analysis_saliency": sal["k2"],
-               "train_loop": tl["k2"], "analyze_cli": an["k2"]}, k2),
+               "train_loop": tl["k2"], "analyze_cli": an["k2"],
+               **npaths.get("k2", {})}, k2),
         entry("fused_attn_half_fwd", "fused_attn.cu", "fused_block.py:562",
               {"serve_fused": fused_serve["k4"], "train_fused": ft["k4"],
                "serve_http": server["serve_http_k4"],
-               "train_loop_fused": tlf["k4"], "export_b": ex["b"]["k4"]},
+               "train_loop_fused": tlf["k4"], "export_b": ex["b"]["k4"],
+               **npaths.get("k4", {})},
               k45["attn_fwd"]),
         entry("fused_attn_half_bwd", "fused_attn.cu", "fused_block.py:608",
-              {"train_fused": ft["k4b"], "train_loop_fused": tlf["k4b"]},
+              {"train_fused": ft["k4b"], "train_loop_fused": tlf["k4b"],
+               **npaths.get("k4b", {})},
               k45["attn_bwd"]),
         entry("fused_mlp_half_fwd", "fused_mlp.cu", "fused_block.py:220",
               {"serve_fused": fused_serve["k5"], "train_fused": ft["k5"],
                "serve_http": server["serve_http_k5"],
-               "train_loop_fused": tlf["k5"], "export_b": ex["b"]["k5"]},
+               "train_loop_fused": tlf["k5"], "export_b": ex["b"]["k5"],
+               **npaths.get("k5", {})},
               k45["mlp_fwd"]),
         entry("fused_mlp_half_bwd", "fused_mlp.cu", "fused_block.py:260",
-              {"train_fused": ft["k5b"], "train_loop_fused": tlf["k5b"]},
+              {"train_fused": ft["k5b"], "train_loop_fused": tlf["k5b"],
+               **npaths.get("k5b", {})},
               k45["mlp_bwd"]),
         entry("conv3x3_wgrad", "conv_wgrad.cu", "conv_wgrad.py:106",
               {"hrnet_train_fusion": hr_k6["launches"]}, k6),
@@ -6526,10 +7241,12 @@ def main(argv: list) -> int:
                    "validate_int8": surf["validate"]["int8"]["launches"]["k9"],
                    "probe_http": probe["k9"],
                    "grid_int8_rank0": grid_serve["int8"][
-                       "hrnet_w32 heatmap"]["launches"]["k9"]},
+                       "hrnet_w32 heatmap"]["launches"]["k9"],
+                   **npaths.get("k9", {})},
             "k10": {"export_d": ex["d"]["k10"],
                     "grid_int8_rank0": grid_serve["int8"][
-                        "hrformer_base fusion"]["launches"]["k10"]}}),
+                        "hrformer_base fusion"]["launches"]["k10"],
+                    **npaths.get("k10", {})}}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,13 +32,38 @@ from infantposeestimation_gaussianbias_tpu_torch.kernels import (  # noqa: E402
     fused_block as fb)
 
 SMS = 132  # the H100's SMs
-# hrformer_base's branches at 256x192: (map H, map W, C), hidden = 4C
-BRANCHES = {"b0": (64, 48, 78), "b1": (32, 24, 156), "b2": (16, 12, 312),
-            "b3": (8, 6, 624)}
+# The branches of the named HRFormer configs: (map H, map W, C, heads),
+# hidden = 4C.  hrformer_base at 256x192 ("b0"-"b3"), hrformer_small at
+# 256x192 (C 32-256), hrformer_base_384 at 384x288 (base's widths, 154 /
+# 42 / 12 / 4 windows an image).
+BRANCHES = {"b0": (64, 48, 78, 2), "b1": (32, 24, 156, 4),
+            "b2": (16, 12, 312, 8), "b3": (8, 6, 624, 16),
+            "small_b0": (64, 48, 32, 1), "small_b1": (32, 24, 64, 2),
+            "small_b2": (16, 12, 128, 4), "small_b3": (8, 6, 256, 8),
+            "b384_b0": (96, 72, 78, 2), "b384_b1": (48, 36, 156, 4),
+            "b384_b2": (24, 18, 312, 8), "b384_b3": (12, 9, 624, 16)}
+# Each config's training batch and the served batch (32 crops, flipped).
+BATCHES = {"": (32, 64), "small_": (32, 64), "b384_": (16, 64)}
+PLAN_CASES = [(branch, ws, batch, terms)
+              for branch in BRANCHES for ws in (7, 8)
+              for batch in BATCHES[branch[:branch.index("b", 1)]
+                                   if "_" in branch else ""]
+              for terms in (1, 3)]
+# The plans whose grids fall short of one wave of 132 blocks, by stage: at
+# window 8 and the training batch hrformer_small's two narrow maps hold
+# few rows (b2: 12 windows of 64 tokens an image, 8,192 rows; b3: 2, 2,048
+# rows), so its weight-gradient reductions (atb), b3's fc2 and dln
+# products, b2's float32 single-block forward (one block per 64 rows) and
+# b3's proj tile of K4's forward take fewer blocks than SMs.  Everywhere
+# else every stage fills the card.
+MLP_SHORT = {("small_b2", 8, 32): {"atb", "single"},
+             ("small_b3", 8, 32): {"fc2", "dln", "atb"}}
+ATTN_SHORT = {("small_b3", 8, 32): {"proj"}}
+ATTN_CASES = sorted({case[:3] for case in PLAN_CASES})
 
 
 def _rows(branch: str, ws: int, batch: int) -> int:
-    Hm, Wm, _ = BRANCHES[branch]
+    Hm, Wm = BRANCHES[branch][:2]
     return batch * -(-Hm // ws) * -(-Wm // ws) * ws * ws
 
 
@@ -63,35 +88,72 @@ def staged(w: torch.Tensor, width: int) -> torch.Tensor:
     return split_terms(w, width).float().sum(dim=0)
 
 
-@pytest.mark.parametrize("terms", [1, 3])
-@pytest.mark.parametrize("batch", [32, 64])
-@pytest.mark.parametrize("ws", [7, 8])
-@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def _case_id(case) -> str:
+    return "-".join(map(str, case))
+
+
+@pytest.mark.parametrize("branch,ws,batch,terms", PLAN_CASES,
+                         ids=map(_case_id, PLAN_CASES))
 def test_mlp_plan_fits_and_fills_the_card(branch, ws, batch, terms):
-    """Every product stage's grid holds one full wave of 132 blocks (so do
-    the LayerNorm stages' and the weight-gradient reduction's); the partial
-    rows match the grids that write them.  That every tile fits the
-    232,448 B a block may opt in to, csrc/fused_mlp.cu asserts when it
-    compiles."""
+    """At every branch of hrformer_base, hrformer_small and
+    hrformer_base_384, window 7 and 8, the training and the served batch:
+    the plan takes the rows (within the grid's row bound) and every tile
+    stays a legal one; every product stage's grid holds one full wave of
+    132 blocks (so do the LayerNorm stages' and the weight-gradient
+    reduction's), except the stages MLP_SHORT names; the partial rows
+    match the grids that write them.  That every tile fits the 232,448 B
+    a block may opt in to, csrc/fused_mlp.cu asserts when it compiles."""
     C = BRANCHES[branch][2]
     M = _rows(branch, ws, batch)
     plan = fb.mlp_plan(M, C, 4 * C, SMS, terms)
+    assert -(-M // fb.MLP_TILES[0][0]) <= 65535  # the rows' grid bound
     assert plan["width"] % 8 == 0 and 0 <= plan["width"] - C < 8
-    for stage in ("fc1", "fc2", "hidden", "dln"):
-        n = 4 * C if stage in ("fc1", "hidden") else C
-        assert fb.mlp_blocks(M, n, plan[stage]) >= SMS, (stage, plan)
+    assert all(plan[stage] in range(len(fb.MLP_TILES))
+               for stage in ("fc1", "fc2", "hidden", "dln"))
+    short = {stage for stage in ("fc1", "fc2", "hidden", "dln")
+             if fb.mlp_blocks(M, 4 * C if stage in ("fc1", "hidden") else C,
+                              plan[stage]) < SMS}
     assert plan["hidden"] <= 1  # two accumulator sets
-    # the float32 single-block form at b0 and b1 only, one block per 64 rows
-    assert plan["single"] == (C <= 156 and terms == 3)
-    if plan["single"]:
-        assert -(-M // 64) >= SMS
+    # the float32 single-block form at C <= 160 only (base b0, b1 and
+    # every small branch but b3), one block per 64 rows
+    assert plan["single"] == (C <= 160 and terms == 3)
+    if plan["single"] and -(-M // 64) < SMS:
+        short.add("single")
     rpb = plan["rows_per_block"]
-    assert 8 <= rpb <= 64 and -(-M // rpb) >= SMS
+    assert 8 <= rpb <= 64
+    if -(-M // rpb) < SMS:
+        short.add("rows_per_block")
     tiles = -(-4 * C // fb._ATB_TILE) * -(-C // fb._ATB_TILE)
-    assert all(tiles * s >= SMS for s in plan["atb_splits"])
+    if not all(tiles * s >= SMS for s in plan["atb_splits"]):
+        short.add("atb")
+    assert short == MLP_SHORT.get((branch, ws, batch), set()) - (
+        set() if plan["single"] else {"single"}), (short, plan)
     assert plan["part_rows"] == (-(-M // rpb), 3 * C)
     bm = fb.MLP_TILES[plan["hidden"]][0]
     assert plan["part_hidden"] == (-(-M // bm), 4 * C)
+
+
+@pytest.mark.parametrize("branch,ws,batch", ATTN_CASES,
+                         ids=map(_case_id, ATTN_CASES))
+def test_attn_fwd_plan_fits_and_fills_the_card(branch, ws, batch):
+    """K4's forward plan at the same shapes: 16-byte ln and o rows, stage
+    (b)'s chunks the backward's, a wave of at least 132 (chunk, head)
+    blocks at every shape, and stage (c)'s tile by K5's rule, its grid one
+    full wave except where ATTN_SHORT says."""
+    from infantposeestimation_gaussianbias_tpu_torch.kernels import (
+        window_msa)
+
+    Hm, Wm, C, H = BRANCHES[branch]
+    nW = batch * fb.window_geometry((Hm, Wm, ws))[0]
+    M = nW * ws * ws
+    assert M == _rows(branch, ws, batch)
+    plan = fb.attn_fwd_plan(nW, ws * ws, C, H, SMS)
+    assert plan["width"] % 8 == 0 and 0 <= plan["width"] - C < 8
+    assert plan["wpb"] == window_msa.bwd_windows_per_block(nW, H, SMS)
+    assert -(-nW // plan["wpb"]) * H >= SMS, plan
+    assert plan["proj"] == fb._mlp_tile(M, C, SMS)
+    short = {"proj"} if fb.mlp_blocks(M, C, plan["proj"]) < SMS else set()
+    assert short == ATTN_SHORT.get((branch, ws, batch), set()), plan
 
 
 @pytest.mark.parametrize("M,C,hidden", [(64, 77, 308), (64, 642, 2568),
@@ -229,7 +291,8 @@ NAMES = ["dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("branch", sorted(BRANCHES))
+@pytest.mark.parametrize("branch", sorted(b for b in BRANCHES
+                                          if not b.startswith("b384")))
 def test_tiled_backward_holds_phase7_bounds(branch, dtype):
     """The backward's tiling at the branch's real width on 229 rows (three
     full 64-row tiles and a ragged one, ragged LayerNorm blocks, several

@@ -399,13 +399,19 @@ def test_fusion_head_train_step_runs(tiny):
 
 # -- the default configuration at full width ------------------------------
 
-@pytest.mark.parametrize("head", ["heatmap", "fusion"])
-def test_full_width_names_and_shapes_match_jax(head):
-    """hrnet_w32 + ``head`` at the published widths: the JAX variables
-    (zeros of the init tree's shapes) go through ``state_dict_from_jax``
-    into the port's ``load_state_dict(strict=True)``: every name and shape,
-    and the parameter count."""
+@pytest.mark.parametrize("backbone,head", [
+    pytest.param("hrnet_w32", "heatmap", id="heatmap"),
+    pytest.param("hrnet_w32", "fusion", id="fusion"),
+    pytest.param("hrnet_w48", "heatmap", id="w48-heatmap"),
+    pytest.param("hrnet_w48", "fusion", id="w48-fusion")])
+def test_full_width_names_and_shapes_match_jax(backbone, head):
+    """``backbone`` + ``head`` at the published widths (hrnet_w32, the
+    default config, and hrnet_w48): the JAX variables (zeros of the init
+    tree's shapes) go through ``state_dict_from_jax`` into the port's
+    ``load_state_dict(strict=True)``: every name and shape, and the
+    parameter count."""
     jcfg = jget_config()
+    jcfg.model.backbone = backbone
     jcfg.model.head_type = head
     model = jpe.build_model(jcfg)
     shapes = jax.eval_shape(lambda: model.init(
@@ -414,14 +420,16 @@ def test_full_width_names_and_shapes_match_jax(head):
                                    shapes)
     sd = state_dict_from_jax(zeros["params"], zeros["batch_stats"])
     cfg = Config()
-    cfg.model.head_type = head
     assert cfg.model.backbone == "hrnet_w32"
+    cfg.model.backbone = backbone
+    cfg.model.head_type = head
     port = pose_estimator.build_model(cfg, device="cpu")
     port.load_state_dict(sd, strict=True)
     n_jax = sum(int(np.prod(s.shape))
                 for s in jax.tree_util.tree_leaves(shapes["params"]))
     assert sum(p.numel() for p in port.parameters()) == n_jax
-    assert port.backbone.channels == (32, 64, 128, 256)
+    width = int(backbone[len("hrnet_w"):])
+    assert port.backbone.channels == (width, 2 * width, 4 * width, 8 * width)
     assert [len(getattr(port.backbone, f"stage{s}")) for s in (2, 3, 4)] == [
         1, 4, 3]
 

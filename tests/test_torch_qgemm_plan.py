@@ -94,7 +94,8 @@ def test_shapes_found_per_model():
                                                     "fusion"))
 
 
-@pytest.mark.parametrize("backbone", ["hrnet_w32", "hrnet_w48"])
+@pytest.mark.parametrize("backbone", ["hrnet_w32", "hrnet_w48",
+                                      "hrnet_w48_384"])
 @pytest.mark.parametrize("head", ["heatmap", "fusion"])
 @pytest.mark.parametrize("B", BATCHES)
 def test_conv_plan_is_legal(backbone, head, B):
@@ -133,6 +134,30 @@ def test_conv_plan_is_legal(backbone, head, B):
         assert p.smem >= 64 * p.wg * (p.bn + 8) * 4 + 1024, where
         assert p.smem >= p.stages * (64 * p.wg + p.bn) * qk.SLICE + 1024, where
         assert p.m_tiles < 2 ** 31 and p.n_tiles * p.splits < 65536, where
+
+
+@pytest.mark.parametrize("variant,B,tile,tiles", [
+    ("hrnet_w48_384", 64, 256, 2), ("hrnet_w48", 64, 128, 3),
+    ("hrnet_w48", 32, 64, 6)])
+def test_conv_plan_spans_n_tiles_at_384_channels(variant, B, tile, tiles):
+    """hrnet_w48's 384-channel convs (branch 3's blocks, the transition to
+    it and the fuse's downsampling into it), as phase 30 of chip_smoke.py
+    launches them at b = 64 (32 crops with flip): at 384x288 (12x9 maps)
+    the plan keeps the 256-wide N tile, so each launch spans two N tiles
+    and the last is half empty, its columns 384-511 masked (csrc/qgemm.cuh);
+    at 256x192 (8x6 maps) the tiles would fall short of the SMs and narrow
+    to three full 128-wide ones (six of 64 at b = 32).  hrnet_w48 at b = 64
+    still has ragged multi-tile launches: its 1x1 384 -> 96 fuse conv on two
+    64-wide tiles, the last half empty."""
+    shapes = [s for s in int8_shapes(variant, "heatmap") if s[4] == 384]
+    assert len(shapes) == 6, shapes
+    for _, H, W, C, Co, k, stride, *_ in shapes:
+        p = qk.conv_plan(B, H, W, C, Co, k, stride, SMS)
+        assert (p.bn, p.n_tiles) == (tile, tiles), (H, W, C, k, stride, p)
+        assert p.n_tiles * p.bn - Co == (128 if tile == 256 else 0), p
+    if variant == "hrnet_w48" and B == 64:
+        p = qk.conv_plan(B, 8, 6, 384, 96, 1, 1, SMS)
+        assert (p.bn, p.n_tiles) == (64, 2), p
 
 
 @pytest.mark.parametrize("backbone", ["hrformer_base", "hrformer_small"])

@@ -336,6 +336,32 @@ def test_hrformer_base_state_dict_matches_jax_shapes():
     assert sum(p.numel() for p in port.parameters()) == n_jax
 
 
+@pytest.mark.parametrize("variant", ["hrformer_small"])
+def test_hrformer_full_width_names_and_shapes_match_jax(variant):
+    """``variant`` + fusion at the published widths, from JAX to the port:
+    the JAX variables (zeros of the init tree's shapes) go through
+    ``state_dict_from_jax`` into the port's ``load_state_dict(strict=True)``:
+    every name and shape, and the parameter count."""
+    cfg = get_variant(variant)
+    assert cfg.model.head_type == "fusion"
+    model = jpe.PoseEstimator(backbone_name=cfg.model.backbone,
+                              head_type="fusion", num_keypoints=17,
+                              hidden_dim=cfg.model.hidden_dim)
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 256, 192, 3)), False))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
+                                   shapes)
+    sd = state_dict_from_jax(zeros["params"], zeros["batch_stats"])
+    port = pose_estimator.build_model(cfg, device="cpu")
+    port.load_state_dict(sd, strict=True)
+    n_jax = sum(int(np.prod(s.shape))
+                for s in jax.tree_util.tree_leaves(shapes["params"]))
+    assert sum(p.numel() for p in port.parameters()) == n_jax
+    C = 8 * port.backbone.channels[0]  # branch 3, 8x branch 0
+    assert sd["backbone.stage4.0.branches.3.0.attn.qkv.weight"].shape == (
+        3 * C, C)
+
+
 # -- no jax at run time -------------------------------------------------------
 
 def test_port_runs_without_jax():
